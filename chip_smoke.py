@@ -5,18 +5,24 @@ check it; the quickest proof that the port still builds and starts there.
 Phases, each printing one JSON line:
 
 1. device and build: the card's name and power limit, the ``nvcc`` build of
-   ``lidarcrafter_tpu_torch/csrc/*.cu`` and the loader's ``x·2`` self-check;
+   ``lidarcrafter_tpu_torch/csrc/*.cu`` (four sources, one ``nvcc`` each, in
+   parallel) and the loader's ``x·2`` self-check;
 2. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes, in float32 (TF32 off) and bfloat16, with the kernel's,
+   paths' shapes, in float32 (TF32 off) and bfloat16, with the kernel's,
    the plain version's and one PyTorch library call's times;
-3. one full-width (32x1024) encoder + ``LayoutUnetV1`` forward on the card
-   with the kernels against the same forward on the CPU with the plain
-   versions, shared seeded weights;
-4. the main path: ``CondFrameGenerator`` for ``nuscenes-box-layout-v6``
-   answering two requests of 8 frames (DDIM@50, DPM-Solver++(2M)@15) with
-   seeded random weights, with the kernels' launch counts;
-5. a ``torch.profiler`` trace of one denoiser call of the main path: device
-   time by kernel category and the device's idle share.
+3. full-width forwards on the card with the kernels against the same
+   forwards on the CPU with the plain versions, shared seeded weights: the
+   layout stack (encoder + ``LayoutUnetV1``, 32x1024) and ``EfficientUNet``
+   (``nuscenes-unet-uncond``, 32x1024);
+4. the main paths, each with the launch counters set to 0 just before it
+   and read just after, seeded random weights, 8 frames a request:
+   ``CondFrameGenerator`` for ``nuscenes-box-layout-v6`` and
+   ``UncondFrameGenerator`` for ``nuscenes-unet-uncond`` (DDIM@50 and
+   DPM-Solver++(2M)@15 each), then ``FlowFrameGenerator`` for
+   ``meanflow-nusc`` (one step);
+5. a ``torch.profiler`` trace of one denoiser call of the layout and of the
+   unconditional path: device time by kernel category and the device's idle
+   share.
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -42,7 +48,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 on CUDA cores; bf16 tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel − plain| / max(1, max |plain|)
 FORWARD_RTOL = 1e-3  # card (kernels, cuDNN f32) vs CPU (plain), relative to max |CPU|
-OACA_PER_FORWARD, GN_PER_FORWARD = 11, 101
+OACA_PER_FORWARD, GN_PER_FORWARD = 11, 101  # layout UNet, per denoiser call
+ATTN_PER_UNET, GN_PER_UNET = 2, 50  # EfficientUNet / MFEfficientUNet, per call
 REQUESTS = (("ddim", 50), ("dpmpp_2m", 15))
 BATCH = 8
 
@@ -146,7 +153,7 @@ def check_oaca(label, B, H, L, dtype, gen):
     }
 
 
-def check_groupnorm(label, shape, dtype, scale_shift, silu, gen):
+def check_groupnorm(label, shape, dtype, scale_shift, silu, gen, groups=32, eps=1e-5):
     import torch
     import torch.nn.functional as F
 
@@ -161,7 +168,7 @@ def check_groupnorm(label, shape, dtype, scale_shift, silu, gen):
         s = 0.3 * torch.randn(B, C, generator=gen, device=DEVICE)
         t = 0.3 * torch.randn(B, C, generator=gen, device=DEVICE)
         gamma, beta = w * (1 + s), b * (1 + s) + t
-    args = dict(num_groups=32, eps=1e-5, silu=silu)
+    args = dict(num_groups=groups, eps=eps, silu=silu)
     got = groupnorm.group_norm(x, gamma, beta, **args)
     want = groupnorm.group_norm_plain(
         x, gamma.expand(B, C), beta.expand(B, C), **args
@@ -171,18 +178,58 @@ def check_groupnorm(label, shape, dtype, scale_shift, silu, gen):
     dname = str(dtype).split(".")[-1]
     check(rel <= TOL[dname], f"groupnorm {label} {dname}: relative error {rel:.3g} > {TOL[dname]}")
     x_nchw = x.reshape(B, -1, 1, C).permute(0, 3, 1, 2)
-    library = time_ms(lambda: F.group_norm(x_nchw, 32, w.to(dtype), b.to(dtype), 1e-5))
+    library = time_ms(lambda: F.group_norm(x_nchw, groups, w.to(dtype), b.to(dtype), eps))
     elt = torch.finfo(dtype).bits // 8
     nbytes = 2 * x.numel() * elt + 2 * B * C * 4
     bound, by = bound_ms(nbytes, 10.0 * x.numel(), dname)
     return {
-        "kernel": "groupnorm", "shape": label, "dtype": dname, "scale_shift": scale_shift,
+        "kernel": "groupnorm", "shape": label, "dtype": dname, "groups": groups, "scale_shift": scale_shift,
         "silu": silu, "max_abs_err": err, "rel_err": rel, "tol": TOL[dname],
         "ms": time_ms(lambda: groupnorm.group_norm(x, gamma, beta, **args)),
         "plain_ms": time_ms(lambda: groupnorm.group_norm_plain(
             x, gamma.expand(B, C), beta.expand(B, C), **args)),
         "library_ms": library, "library": "F.group_norm (affine only, no scale-shift or SiLU)",
         "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+    }
+
+
+def check_attention(label, B, H, Lq, Lkv, d, dtype, gen, kv_len=None):
+    """q, k, v as strided per-head views of one (B, L, 3C) projection, as
+    ``SelfAttention2d`` produces them (Lq == Lkv), else separate strips."""
+    import torch
+    import torch.nn.functional as F
+
+    from lidarcrafter_tpu_torch.kernels import attention
+
+    C = H * d
+    heads = lambda t: t.reshape(B, t.shape[1], H, d).transpose(1, 2)  # noqa: E731
+    if Lq == Lkv:
+        qkv = torch.randn(B, Lq, 3 * C, generator=gen, device=DEVICE).to(dtype)
+        q, k, v = (heads(t) for t in qkv.split(C, dim=-1))
+    else:
+        q = heads(torch.randn(B, Lq, C, generator=gen, device=DEVICE).to(dtype))
+        k, v = (heads(torch.randn(B, Lkv, C, generator=gen, device=DEVICE).to(dtype)) for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+    args = dict(scale=scale, kv_len=kv_len)
+    got = attention.attention(q, k, v, **args)
+    want = attention.attention_plain(q, k, v, **args)
+    torch.cuda.synchronize()
+    err, rel = max_err(got, want)
+    dname = str(dtype).split(".")[-1]
+    check(rel <= TOL[dname], f"attention {label} {dname}: relative error {rel:.3g} > {TOL[dname]}")
+    n = Lkv if kv_len is None else kv_len
+    mask = None if kv_len is None else (torch.arange(Lkv, device=DEVICE) < kv_len).expand(Lq, Lkv)
+    library = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = elt * B * H * (2 * Lq * d + 2 * n * d)
+    flops = 4.0 * B * H * Lq * n * d
+    bound, by = bound_ms(nbytes, flops, dname)
+    return {
+        "kernel": "attention", "shape": label, "dtype": dname, "max_abs_err": err, "rel_err": rel,
+        "tol": TOL[dname], "ms": time_ms(lambda: attention.attention(q, k, v, **args)),
+        "plain_ms": time_ms(lambda: attention.attention_plain(q, k, v, **args), iters=5),
+        "library_ms": library, "library": "F.scaled_dot_product_attention",
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
     }
 
 
@@ -199,6 +246,16 @@ def phase_kernels():
         rows.append(check_groupnorm("ds8 (8,4,128,1024) in_norm", (BATCH, 4, 128, 1024),
                                     dtype, False, True, gen))
         rows.append(check_groupnorm("tokens (8,13,64)", (BATCH, 13, 64), dtype, False, False, gen))
+        # the unconditional path: d_block4 at C=512 (dh 64), u_block4 at C=256 (dh 32)
+        rows.append(check_attention("d_block4 B=8 h=8 L=512 d=64", BATCH, 8, 512, 512, 64, dtype, gen))
+        rows.append(check_attention("u_block4 B=8 h=8 L=512 d=32", BATCH, 8, 512, 512, 32, dtype, gen))
+        rows.append(check_attention("masked tail B=8 h=8 L=128 kv_len=77", BATCH, 8, 128, 128, 64,
+                                    dtype, gen, kv_len=77))
+        rows.append(check_attention("ragged B=8 h=8 L=300", BATCH, 8, 300, 300, 64, dtype, gen))
+        rows.append(check_groupnorm("unet level0 (8,32,1024,64) scale-shift+SiLU", (BATCH, 32, 1024, 64),
+                                    dtype, True, True, gen, groups=8, eps=1e-6))
+        rows.append(check_groupnorm("unet ds8 (8,4,128,512) SiLU", (BATCH, 4, 128, 512),
+                                    dtype, False, True, gen, groups=8, eps=1e-6))
     for row in rows:
         emit({"phase": "kernels", **row})
     return rows
@@ -245,56 +302,127 @@ def phase_forward_parity(cfg_name: str):
           "max_abs_err": err, "rel_err": rel, "tol": FORWARD_RTOL, "cpu_seconds": cpu_s})
 
 
-# ------------------------------------------------------------------ phase 4
-
-
-def phase_main_path(cfg_name: str, smi: str):
+def phase_unet_forward_parity(cfg_name: str):
     import torch
 
     from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.training.factory import build_diffusion_training
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    cfg = get_config(cfg_name)
+    model, _, _ = build_diffusion_training(cfg, "cpu")
+    init_random_(model, 13)
+    B, (H, W) = 2, cfg.data.resolution
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn(B, H, W, 2, generator=gen)
+    t = torch.tensor([-3.0, 5.0])  # log-SNR, as the sampler passes it
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = model(x, t)
+        cpu_s = time.perf_counter() - t0
+        got = copy.deepcopy(model).to(DEVICE)(x.to(DEVICE), t.to(DEVICE)).cpu()
+    err, _ = max_err(got, want)
+    scale = float(want.abs().max())
+    rel = err / scale
+    check(bool(torch.isfinite(got).all()), "full-width EfficientUNet forward on the card is not finite")
+    check(scale > 1e-2, "full-width EfficientUNet forward output is (near) zero")
+    check(rel <= FORWARD_RTOL, f"full-width EfficientUNet forward: relative error {rel:.3g} > {FORWARD_RTOL}")
+    emit({"phase": "forward_parity", "config": cfg_name, "shape": list(got.shape),
+          "max_abs_err": err, "rel_err": rel, "tol": FORWARD_RTOL, "cpu_seconds": cpu_s})
+
+
+# ------------------------------------------------------------------ phase 4
+
+
+def check_sample(sample, post, mode, shape):
+    import torch
+
+    B, H, W = shape
+    check(tuple(sample.shape) == (B, H, W, 2), f"{mode} sample shape {tuple(sample.shape)}")
+    check(bool(torch.isfinite(sample).all()), f"{mode} sample is not finite")
+    check(tuple(post["xyz"].shape) == (B, H, W, 3), f"{mode} xyz shape")
+    check(bool(torch.isfinite(post["xyz"]).all()), f"{mode} xyz is not finite")
+    check(float(sample.std()) > 1e-3, f"{mode} sample is constant")
+    if mode == "meanflow":
+        check(float(sample.abs().max()) <= 1.0, "meanflow sample is not clamped to [-1, 1]")
+
+
+def build_generators():
+    """The three main paths' generators on the card, seeded random weights,
+    with their kernel-bearing modules counted."""
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.generate import UncondFrameGenerator
     from lidarcrafter_tpu_torch.generate_cond import CondFrameGenerator
-    from lidarcrafter_tpu_torch.kernels import groupnorm, oaca
-    from lidarcrafter_tpu_torch.models.ops import GroupNorm32
+    from lidarcrafter_tpu_torch.generate_flow import FlowFrameGenerator
+    from lidarcrafter_tpu_torch.models.ops import FusedGN, GroupNorm32, MFSelfAttention2d, SelfAttention2d
 
-    gen = CondFrameGenerator(get_config(cfg_name), device=DEVICE, weights_seed=0)
-    n_gn = sum(isinstance(m, GroupNorm32) for m in gen.models["model"].modules())
-    check(n_gn == GN_PER_FORWARD, f"{n_gn} GroupNorm32 modules, expected {GN_PER_FORWARD}")
-    gen.generate(BATCH, 2, mode="ddim", seed=99)  # warm-up: cuDNN plans, allocator
+    def count(model, cls):
+        return sum(isinstance(m, cls) for m in model.modules())
+
+    gens = {
+        "nuscenes-box-layout-v6": CondFrameGenerator(get_config("nuscenes-box-layout-v6"), DEVICE, 0),
+        "nuscenes-unet-uncond": UncondFrameGenerator(get_config("nuscenes-unet-uncond"), DEVICE, 0),
+        "meanflow-nusc": FlowFrameGenerator(get_config("meanflow-nusc"), DEVICE, 0),
+    }
+    n = count(gens["nuscenes-box-layout-v6"].models["model"], GroupNorm32)
+    check(n == GN_PER_FORWARD, f"{n} GroupNorm32 modules, expected {GN_PER_FORWARD}")
+    for name, attn_cls in (("nuscenes-unet-uncond", SelfAttention2d), ("meanflow-nusc", MFSelfAttention2d)):
+        got = (count(gens[name].model, attn_cls), count(gens[name].model, FusedGN))
+        check(got == (ATTN_PER_UNET, GN_PER_UNET),
+              f"{name}: {got} attention / FusedGN modules, expected {(ATTN_PER_UNET, GN_PER_UNET)}")
+    return gens
+
+
+def phase_main_path(cfg_name: str, gen, per_call: dict, requests, smi: str) -> dict:
+    """Answer ``requests`` ((mode, steps) pairs of 8 frames; mode
+    ``meanflow`` is one step) after one warm-up, with every launch counter
+    set to 0 just before and read just after; each kernel must have launched
+    exactly ``per_call[kernel]`` times per denoiser call (0 if absent).
+    Returns the path's non-zero launch counts."""
+    import torch
+
+    from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
+
+    def request(mode, steps, seed):
+        if mode == "meanflow":
+            return gen.generate(BATCH, seed=seed)
+        return gen.generate(BATCH, steps, mode=mode, seed=seed)
+
+    request(requests[0][0], 2, 99)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
-    oaca.launches.n = groupnorm.launches.n = 0
+    counters = {"oaca": oaca.launches, "groupnorm": groupnorm.launches, "attention": attention.launches}
+    for c in counters.values():
+        c.n = 0
     results = []
-    for i, (mode, steps) in enumerate(REQUESTS):
+    for i, (mode, steps) in enumerate(requests):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sample, post = gen.generate(BATCH, steps, mode=mode, seed=i)
+        sample, post = request(mode, steps, i)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        H, W = gen.cfg.data.resolution
-        check(tuple(sample.shape) == (BATCH, H, W, 2), f"sample shape {tuple(sample.shape)}")
-        check(bool(torch.isfinite(sample).all()), f"{mode} sample is not finite")
-        check(tuple(post["xyz"].shape) == (BATCH, H, W, 3), "xyz shape")
-        check(bool(torch.isfinite(post["xyz"]).all()), "xyz is not finite")
-        check(float(sample.std()) > 1e-3, f"{mode} sample is constant")
+        check_sample(sample, post, mode, (BATCH, *gen.cfg.data.resolution))
         results.append({"mode": mode, "steps": steps, "batch": BATCH, "seconds": seconds,
                         "frames_per_s": BATCH / seconds, "sample_std": float(sample.std()),
                         "valid_depth_share": float((post["depth"] > 0).float().mean())})
-    launches = {"oaca": oaca.launches.n, "groupnorm": groupnorm.launches.n}
-    total_steps = sum(s for _, s in REQUESTS)
-    check(launches["oaca"] == OACA_PER_FORWARD * total_steps,
-          f"oaca launches {launches['oaca']} != {OACA_PER_FORWARD} x {total_steps}")
-    check(launches["groupnorm"] == GN_PER_FORWARD * total_steps,
-          f"groupnorm launches {launches['groupnorm']} != {GN_PER_FORWARD} x {total_steps}")
+    launches = {k: c.n for k, c in counters.items()}
+    total_steps = sum(s for _, s in requests)
+    for k, n in launches.items():
+        want = per_call.get(k, 0) * total_steps
+        check(n == want, f"{cfg_name}: {k} launches {n} != {per_call.get(k, 0)} x {total_steps}")
     emit({"phase": "main_path", "config": cfg_name, "requests": results,
           "launches": launches, "card": smi,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return launches, gen
+    return {k: n for k, n in launches.items() if n}
 
 
 def _category(kernel_name: str) -> str:
     name = kernel_name.lower()
     if "oaca" in name:
         return "oaca kernel"
+    if "attention_fwd" in name:
+        return "attention kernel"
     if "gn_partial" in name or "gn_finalize" in name or "gn_apply" in name:
         return "groupnorm kernel"
     if any(k in name for k in ("conv", "fprop", "winograd", "implicit", "dgrad", "cudnn")):
@@ -304,23 +432,17 @@ def _category(kernel_name: str) -> str:
     return "elementwise, copy, concat, other"
 
 
-def phase_profile(gen, smi: str):
-    """Device time by kernel category over one denoiser call of the main
-    path (B=8), and the device's idle share of that call."""
+def phase_profile(what: str, call, smi: str):
+    """Device time by kernel category over one call of ``call`` (a denoiser
+    call of a main path, B=8), and the device's idle share of that call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from lidarcrafter_tpu_torch.training.factory import layout_condition_batch
-
-    H, W = gen.cfg.data.resolution
-    x = torch.randn(BATCH, H, W, 2, device=DEVICE)
-    t = torch.full((BATCH,), 0.5, device=DEVICE)
     with torch.inference_mode():
-        cond = gen.engine.get_network_condition(layout_condition_batch(gen.cfg, BATCH, device=DEVICE))
-        step_ms = time_ms(lambda: gen.engine.predict_x_0_cond(x, cond, t), iters=10)
+        step_ms = time_ms(call, iters=10)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            gen.engine.predict_x_0_cond(x, cond, t)
+            call()
             torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(len(events) > 0, "the profiler saw no device kernels")
@@ -334,12 +456,29 @@ def phase_profile(gen, smi: str):
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
     busy = sum(v[0] for v in by_cat.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "what": "one denoiser call (predict_x_0_cond), B=8, float32",
-          "card": smi, "step_ms": step_ms, "device_busy_ms": busy,
+    emit({"phase": "profile", "what": what, "card": smi, "step_ms": step_ms, "device_busy_ms": busy,
           "idle_share": max(0.0, 1.0 - busy / step_ms),
           "by_category": {k: {"ms": v[0], "kernels": v[1]} for k, v in
                           sorted(by_cat.items(), key=lambda kv: -kv[1][0])},
           "top_kernels": [{"name": n[:90], "ms": ms} for n, ms in top]})
+
+
+def profile_calls(cond_gen, uncond_gen):
+    """One denoiser call (x̂_0 at t = 0.5, B=8, float32) of each path."""
+    import torch
+
+    from lidarcrafter_tpu_torch.training.factory import layout_condition_batch
+
+    H, W = cond_gen.cfg.data.resolution
+    x = torch.randn(BATCH, H, W, 2, device=DEVICE)
+    t = torch.full((BATCH,), 0.5, device=DEVICE)
+    with torch.inference_mode():
+        cond = cond_gen.engine.get_network_condition(
+            layout_condition_batch(cond_gen.cfg, BATCH, device=DEVICE))
+    return {
+        "layout": lambda: cond_gen.engine.predict_x_0(x, t, cond),
+        "uncond": lambda: uncond_gen.engine.predict_x_0(x, t),
+    }
 
 
 def main() -> int:
@@ -367,23 +506,40 @@ def main() -> int:
 
     rows = phase_kernels()
     phase_forward_parity("nuscenes-box-layout-v6")
-    launches, gen = phase_main_path("nuscenes-box-layout-v6", smi)
-    phase_profile(gen, smi)
+    phase_unet_forward_parity("nuscenes-unet-uncond")
+    gens = build_generators()
+    per_call = {
+        "nuscenes-box-layout-v6": ({"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD}, REQUESTS),
+        "nuscenes-unet-uncond": ({"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET}, REQUESTS),
+        "meanflow-nusc": ({"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET}, (("meanflow", 1),)),
+    }
+    by_path = {name: phase_main_path(name, gens[name], counts, requests, smi)
+               for name, (counts, requests) in per_call.items()}
+    calls = profile_calls(gens["nuscenes-box-layout-v6"], gens["nuscenes-unet-uncond"])
+    phase_profile("one denoiser call (layout, predict_x_0), B=8, float32", calls["layout"], smi)
+    phase_profile("one denoiser call (uncond EfficientUNet, predict_x_0), B=8, float32",
+                  calls["uncond"], smi)
 
-    # the main path runs float32: report each kernel at its largest main-path shape
-    first = {k: next(r for r in rows if r["kernel"] == k and r["dtype"] == "float32") for k in launches}
+    # the main paths run float32: report each kernel at its largest main-path
+    # shape, with its launches summed over the paths that run it
     sources = {
         "oaca": ("lidarcrafter_tpu_torch/csrc/oaca.cu", "lidarcrafter_tpu/ops/pallas_attention.py:183"),
         "groupnorm": ("lidarcrafter_tpu_torch/csrc/groupnorm.cu", "lidarcrafter_tpu/ops/pallas_groupnorm.py:49"),
+        "attention": ("lidarcrafter_tpu_torch/csrc/attention.cu", "lidarcrafter_tpu/ops/pallas_attention.py:40"),
     }
-    emit({"kernels": [
-        {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
-         "launches": launches[k], "max_abs_err": first[k]["max_abs_err"], "tol": first[k]["tol"],
-         "ms": first[k]["ms"], "plain_ms": first[k]["plain_ms"], "bound_ms": first[k]["bound_ms"],
-         "bound_by": first[k]["bound_by"], "library_ms": first[k]["library_ms"],
-         "shape": first[k]["shape"], "dtype": "float32"}
-        for k in ("oaca", "groupnorm")
-    ]})
+    kernels = []
+    for k, (source, replaces) in sources.items():
+        first = next(r for r in rows if r["kernel"] == k and r["dtype"] == "float32")
+        paths = {p: n[k] for p, n in by_path.items() if k in n}
+        check(all(n > 0 for n in paths.values()), f"{k}: a path that runs it did not launch it: {paths}")
+        kernels.append({
+            "name": k, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": first["max_abs_err"], "tol": first["tol"], "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "shape": first["shape"], "dtype": "float32",
+        })
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

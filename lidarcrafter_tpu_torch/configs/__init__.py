@@ -5,6 +5,8 @@ from . import experiments as E
 from .common import ExperimentConfig  # noqa: F401
 
 __all__ = {
+    "nuscenes-unet-uncond": E.nusc_unet_uncond,
+    "meanflow-nusc": E.meanflow_nusc,
     "nuscenes-auto-reg-v2": E.nusc_auto_reg_v2,
     "nuscenes-box-layout-v6": E.nusc_box_layout_v6,
 }

@@ -1,6 +1,5 @@
 """Shared config dataclasses: the port's own copy of the JAX package's
-``configs/common.py`` (same field names and defaults), without the
-MeanFlow block that no ported config uses."""
+``configs/common.py`` (same field names and defaults)."""
 
 from dataclasses import dataclass, field
 from typing import Literal, Tuple
@@ -34,6 +33,21 @@ class DiffusionConfig:
     cond_mode: str | None = None
     w_loss_weight: bool = False
     clip_sample: bool = True
+
+
+@dataclass
+class FlowConfig:
+    """cf. ``option_meanflow_nusc.py`` FlowConfig."""
+
+    flow_type: Literal["mean", "mean_std"] = "mean"
+    channels: int = 2
+    image_size: Tuple[int, int] = (32, 1024)
+    flow_ratio: float = 0.50
+    normalizer: tuple = ("minmax", None, None)
+    time_dist: tuple = ("lognorm", -0.4, 1)
+    cfg_ratio: float = 0.10
+    cfg_scale: float | None = None
+    cfg_unconditional: str = "u"
 
 
 @dataclass
@@ -92,3 +106,4 @@ class ExperimentConfig:
     diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
     condition_model: ConditionModelConfig | None = None
+    flow: FlowConfig | None = None

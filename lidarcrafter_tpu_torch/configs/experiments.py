@@ -1,8 +1,9 @@
-"""The layout-conditioned experiment configs the port runs.
+"""The experiment configs the port runs.
 
 An own copy of the matching builders of the JAX package's
-``configs/experiments.py`` (``nuscenes-box-layout-v6`` for layout-conditioned
-frames and ``nuscenes-auto-reg-v2`` for autoregressive frames); field for
+``configs/experiments.py``: ``nuscenes-unet-uncond`` and ``meanflow-nusc``
+for unconditional frames, ``nuscenes-box-layout-v6`` for layout-conditioned
+frames and ``nuscenes-auto-reg-v2`` for autoregressive frames; field for
 field the same values.
 """
 
@@ -11,9 +12,45 @@ from .common import (
     DataConfig,
     DiffusionConfig,
     ExperimentConfig,
+    FlowConfig,
     ModelConfig,
     TrainingConfig,
 )
+
+
+def _efficient_unet_params():
+    return {
+        "base_channels": 64,
+        "temb_channels": None,
+        "channel_multiplier": (1, 2, 4, 8),
+        "num_residual_blocks": (3, 3, 3, 3),
+        "gn_num_groups": 8,
+        "gn_eps": 1e-6,
+        "attn_num_heads": 8,
+        "coords_encoding": "fourier_features",
+        "ring": True,
+    }
+
+
+def nusc_unet_uncond() -> ExperimentConfig:
+    """cf. ``option_unet_nusc.py`` (nuscenes-unet-uncond)."""
+    return ExperimentConfig(
+        data=DataConfig(),
+        model=ModelConfig("efficient_unet", _efficient_unet_params()),
+        diffusion=DiffusionConfig(),
+        training=TrainingConfig(),
+    )
+
+
+def meanflow_nusc() -> ExperimentConfig:
+    """cf. ``option_meanflow_nusc.py`` (meanflow-nusc)."""
+    return ExperimentConfig(
+        data=DataConfig(),
+        model=ModelConfig("mf_efficient_unet", _efficient_unet_params()),
+        diffusion=DiffusionConfig(),  # unused by the flow engine
+        flow=FlowConfig(),
+        training=TrainingConfig(steps_save_model=50_000),
+    )
 
 
 def _layout_unet_v1_params(out_channels=2):

@@ -1,3 +1,5 @@
-"""Log-SNR schedules and the conditional sampler."""
+"""Log-SNR schedules, the continuous-time samplers and MeanFlow."""
 
 from .conditional import CondContinuousDiffusion  # noqa: F401
+from .continuous import ContinuousDiffusion  # noqa: F401
+from .mean_flow import MeanFlow  # noqa: F401

@@ -2,10 +2,9 @@
 
 Port of the sampling half of the JAX package's ``diffusion/conditional.py``
 (``CondContinuousDiffusion``): the condition encoder runs once per
-``sample`` call, then a Python loop of denoiser calls takes x_T to x_0 with
-DDPM, DDIM or DPM-Solver++(2M).  ``sample`` takes an optional ``x_T`` and a
-``torch.Generator``, so a caller can hand it the same start as the JAX
-sampler draws.
+``sample`` call, then the shared reverse loop of ``continuous.py`` takes x_T
+to x_0 with DDPM, DDIM or DPM-Solver++(2M).  Only the denoiser call differs
+from the unconditional sampler: the model takes a condition dict.
 """
 
 from __future__ import annotations
@@ -16,95 +15,23 @@ from typing import Literal
 import torch
 from torch import nn
 
-from . import schedules
-from .continuous import dpmpp_2m, lambda_spaced_timesteps, linspace_timesteps
+from .continuous import ContinuousDiffusion
 
 
-def _bcast(t: torch.Tensor, ndim: int) -> torch.Tensor:
-    """Broadcast (B,) → (B, 1, 1, ...) for ``ndim`` total dims."""
-    return t.reshape(t.shape + (1,) * (ndim - t.ndim))
-
-
-@dataclasses.dataclass
-class CondContinuousDiffusion:
+@dataclasses.dataclass(kw_only=True)
+class CondContinuousDiffusion(ContinuousDiffusion):
     """``model(x_t, {'time_condition', 'other_condition'})`` predicts eps /
     v / x_0; ``cond_model(batch_dict)`` returns ``other_condition``."""
 
-    model: nn.Module
     cond_model: nn.Module
-    sampling_shape: tuple[int, ...]  # (H, W, C) — without batch
-    prediction_type: Literal["eps", "v", "x_0"] = "eps"
-    noise_schedule: str = "cosine"
-    clip_sample: bool = True
-    clip_sample_range: float = 1.0
-    image_d: float | None = None
-    noise_d_low: float | None = None
-    noise_d_high: float | None = None
-
-    def log_snr(self, t: torch.Tensor) -> torch.Tensor:
-        fn = schedules.get_log_snr_fn(
-            self.noise_schedule, self.image_d, self.noise_d_low, self.noise_d_high
-        )
-        return fn(t)
 
     def get_network_condition(self, batch_dict: dict) -> dict:
         return dict(other_condition=self.cond_model(batch_dict))
 
-    def predict_x_0_cond(
-        self, x_t: torch.Tensor, condition_dict: dict, t: torch.Tensor
-    ) -> torch.Tensor:
-        """Conditioned x̂_0 from one denoiser call (with clipping)."""
-        log_snr_t = self.log_snr(t)
-        alpha_t, sigma_t = schedules.log_snr_to_alpha_sigma(_bcast(log_snr_t, x_t.ndim))
-        cd = dict(condition_dict)
+    def denoise(self, x_t: torch.Tensor, log_snr_t: torch.Tensor, condition=None) -> torch.Tensor:
+        cd = dict(condition)
         cd["time_condition"] = log_snr_t
-        prediction = self.model(x_t, cd)
-        if self.prediction_type == "eps":
-            x_0 = (x_t - sigma_t * prediction) / alpha_t
-        elif self.prediction_type == "v":
-            x_0 = alpha_t * x_t - sigma_t * prediction
-        elif self.prediction_type == "x_0":
-            x_0 = prediction
-        else:
-            raise ValueError(self.prediction_type)
-        if self.clip_sample:
-            x_0 = torch.clamp(x_0, -self.clip_sample_range, self.clip_sample_range)
-        return x_0
-
-    def p_step_cond(
-        self,
-        x_t: torch.Tensor,
-        condition_dict: dict,
-        t: torch.Tensor,
-        s: torch.Tensor,
-        mode: Literal["ddpm", "ddim"] = "ddpm",
-        ddim_eta: float = 0.0,
-        generator: torch.Generator | None = None,
-    ) -> torch.Tensor:
-        """One reverse step p(z_s | z_t)."""
-        log_snr_t = _bcast(self.log_snr(t), x_t.ndim)
-        log_snr_s = _bcast(self.log_snr(s), x_t.ndim)
-        alpha_t, sigma_t = schedules.log_snr_to_alpha_sigma(log_snr_t)
-        alpha_s, sigma_s = schedules.log_snr_to_alpha_sigma(log_snr_s)
-        x_0 = self.predict_x_0_cond(x_t, condition_dict, t)
-
-        def noise():
-            return torch.randn(
-                x_t.shape, generator=generator, device=x_t.device, dtype=x_t.dtype
-            )
-
-        if mode == "ddpm":
-            c = -torch.expm1(log_snr_t - log_snr_s)
-            mean = alpha_s * (x_t * (1 - c) / alpha_t + c * x_0)
-            return mean + sigma_s * torch.sqrt(c) * noise()
-        if mode == "ddim":
-            c_1 = ddim_eta * sigma_s / sigma_t * torch.sqrt(1 - alpha_t**2 / alpha_s**2)
-            c_2 = torch.sqrt(1 - alpha_s**2 - c_1**2)
-            eps = (x_t - alpha_t * x_0) / sigma_t
-            out = alpha_s * x_0 + c_2 * eps
-            # η = 0 is deterministic: no draw, so the generator is untouched
-            return out + c_1 * noise() if ddim_eta else out
-        raise ValueError(mode)
+        return self.model(x_t, cd)
 
     @torch.inference_mode()
     def sample(
@@ -118,33 +45,7 @@ class CondContinuousDiffusion:
         generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """Conditioned sampling from ``x_T`` (drawn from ``generator`` when
-        not given); returns x_0 (B, H, W, C).  DPM-Solver++(2M) runs on the
-        uniform-λ grid, DDPM and DDIM on the uniform t grid."""
-        device = next(self.model.parameters()).device
-        if x_T is None:
-            x = torch.randn(
-                (batch_size, *self.sampling_shape), generator=generator,
-                device=device, dtype=torch.float32,
-            )
-        else:
-            x = x_T.to(device=device, dtype=torch.float32)
-        condition_dict = self.get_network_condition(batch_dict)
-
-        def t_full(v: float) -> torch.Tensor:
-            return torch.full((batch_size,), v, dtype=torch.float32, device=device)
-
-        if mode == "dpmpp_2m":
-            steps = lambda_spaced_timesteps(self.log_snr, num_steps, device=device)
-            grid = steps.tolist()
-            return dpmpp_2m(
-                x, steps, self.log_snr,
-                lambda xi, i: self.predict_x_0_cond(xi, condition_dict, t_full(grid[i])),
-            )
-
-        grid = linspace_timesteps(num_steps).tolist()
-        for i in range(num_steps):
-            x = self.p_step_cond(
-                x, condition_dict, t_full(grid[i]), t_full(grid[i + 1]),
-                mode=mode, ddim_eta=ddim_eta, generator=generator,
-            )
-        return x
+        not given); returns x_0 (B, H, W, C)."""
+        x = self.start(batch_size, x_T, generator)
+        condition = self.get_network_condition(batch_dict)
+        return self.reverse(x, num_steps, mode, ddim_eta, generator, condition)

@@ -1,17 +1,30 @@
-"""Timestep grids and the DPM-Solver++(2M) multistep solver.
+"""Continuous-time Gaussian diffusion: the unconditional sampler, the
+timestep grids and the DPM-Solver++(2M) multistep solver.
 
-Port of ``lambda_spaced_timesteps`` and ``dpmpp_2m_scan`` of the JAX
-package's ``diffusion/continuous.py``; the ``lax.scan`` becomes a Python loop.
+Port of the sampling half of the JAX package's ``diffusion/continuous.py``
+(``ContinuousDiffusion.predict_x_0`` / ``p_step`` / ``sample``,
+``lambda_spaced_timesteps``, ``dpmpp_2m_scan``); the ``lax.scan`` loops
+become Python loops of denoiser calls.  ``sample`` takes an optional ``x_T``
+and a ``torch.Generator``, so a caller can hand it the same start as the JAX
+sampler draws.  The conditional sampler (``conditional.py``) shares all of
+it and only changes how the denoiser is called.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Callable, Literal
 
 import numpy as np
 import torch
+from torch import nn
 
 from . import schedules
+
+
+def _bcast(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Broadcast (B,) → (B, 1, 1, ...) for ``ndim`` total dims."""
+    return t.reshape(t.shape + (1,) * (ndim - t.ndim))
 
 
 def linspace_timesteps(num_steps: int, device=None) -> torch.Tensor:
@@ -68,3 +81,143 @@ def dpmpp_2m(
         x = (sigma[i + 1] / sigma[i]) * x - alpha[i + 1] * float(np.expm1(-h)) * d
         x0_prev = x0
     return x
+
+
+@dataclasses.dataclass
+class ContinuousDiffusion:
+    """Continuous-time Gaussian diffusion (VDM parameterisation);
+    ``model(x_t, log_snr_t)`` predicts eps / v / x_0."""
+
+    model: nn.Module
+    sampling_shape: tuple[int, ...]  # (H, W, C) — without batch
+    prediction_type: Literal["eps", "v", "x_0"] = "eps"
+    noise_schedule: str = "cosine"
+    clip_sample: bool = True
+    clip_sample_range: float = 1.0
+    image_d: float | None = None
+    noise_d_low: float | None = None
+    noise_d_high: float | None = None
+
+    def log_snr(self, t: torch.Tensor) -> torch.Tensor:
+        fn = schedules.get_log_snr_fn(
+            self.noise_schedule, self.image_d, self.noise_d_low, self.noise_d_high
+        )
+        return fn(t)
+
+    def denoise(self, x_t: torch.Tensor, log_snr_t: torch.Tensor, condition=None) -> torch.Tensor:
+        """One denoiser call; the network sees log-SNR(t), not t."""
+        return self.model(x_t, log_snr_t)
+
+    def predict_x_0(self, x_t: torch.Tensor, t: torch.Tensor, condition=None) -> torch.Tensor:
+        """x̂_0 from one denoiser call (with clipping)."""
+        log_snr_t = self.log_snr(t)
+        alpha_t, sigma_t = schedules.log_snr_to_alpha_sigma(_bcast(log_snr_t, x_t.ndim))
+        prediction = self.denoise(x_t, log_snr_t, condition)
+        if self.prediction_type == "eps":
+            x_0 = (x_t - sigma_t * prediction) / alpha_t
+        elif self.prediction_type == "v":
+            x_0 = alpha_t * x_t - sigma_t * prediction
+        elif self.prediction_type == "x_0":
+            x_0 = prediction
+        else:
+            raise ValueError(self.prediction_type)
+        if self.clip_sample:
+            x_0 = torch.clamp(x_0, -self.clip_sample_range, self.clip_sample_range)
+        return x_0
+
+    def p_step(
+        self,
+        x_t: torch.Tensor,
+        t: torch.Tensor,
+        s: torch.Tensor,
+        mode: Literal["ddpm", "ddim"] = "ddpm",
+        ddim_eta: float = 0.0,
+        generator: torch.Generator | None = None,
+        condition=None,
+    ) -> torch.Tensor:
+        """One reverse step p(z_s | z_t)."""
+        log_snr_t = _bcast(self.log_snr(t), x_t.ndim)
+        log_snr_s = _bcast(self.log_snr(s), x_t.ndim)
+        alpha_t, sigma_t = schedules.log_snr_to_alpha_sigma(log_snr_t)
+        alpha_s, sigma_s = schedules.log_snr_to_alpha_sigma(log_snr_s)
+        x_0 = self.predict_x_0(x_t, t, condition)
+
+        def noise():
+            return torch.randn(
+                x_t.shape, generator=generator, device=x_t.device, dtype=x_t.dtype
+            )
+
+        if mode == "ddpm":
+            c = -torch.expm1(log_snr_t - log_snr_s)
+            mean = alpha_s * (x_t * (1 - c) / alpha_t + c * x_0)
+            return mean + sigma_s * torch.sqrt(c) * noise()
+        if mode == "ddim":
+            c_1 = ddim_eta * sigma_s / sigma_t * torch.sqrt(1 - alpha_t**2 / alpha_s**2)
+            c_2 = torch.sqrt(1 - alpha_s**2 - c_1**2)
+            eps = (x_t - alpha_t * x_0) / sigma_t
+            out = alpha_s * x_0 + c_2 * eps
+            # η = 0 is deterministic: no draw, so the generator is untouched
+            return out + c_1 * noise() if ddim_eta else out
+        raise ValueError(mode)
+
+    def reverse(
+        self,
+        x: torch.Tensor,
+        num_steps: int,
+        mode: Literal["ddpm", "ddim", "dpmpp_2m"],
+        ddim_eta: float = 0.0,
+        generator: torch.Generator | None = None,
+        condition=None,
+    ) -> torch.Tensor:
+        """x_T → x_0: DPM-Solver++(2M) on the uniform-λ grid, DDPM and DDIM
+        on the uniform t grid."""
+        B, device = x.shape[0], x.device
+
+        def t_full(v: float) -> torch.Tensor:
+            return torch.full((B,), v, dtype=torch.float32, device=device)
+
+        if mode == "dpmpp_2m":
+            steps = lambda_spaced_timesteps(self.log_snr, num_steps, device=device)
+            grid = steps.tolist()
+            return dpmpp_2m(
+                x, steps, self.log_snr,
+                lambda xi, i: self.predict_x_0(xi, t_full(grid[i]), condition),
+            )
+        grid = linspace_timesteps(num_steps).tolist()
+        for i in range(num_steps):
+            x = self.p_step(
+                x, t_full(grid[i]), t_full(grid[i + 1]), mode=mode, ddim_eta=ddim_eta,
+                generator=generator, condition=condition,
+            )
+        return x
+
+    def start(
+        self,
+        batch_size: int,
+        x_T: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """``x_T``, or a standard normal draw from ``generator``, as float32
+        on the model's device."""
+        device = next(self.model.parameters()).device
+        if x_T is not None:
+            return x_T.to(device=device, dtype=torch.float32)
+        return torch.randn(
+            (batch_size, *self.sampling_shape), generator=generator,
+            device=device, dtype=torch.float32,
+        )
+
+    @torch.inference_mode()
+    def sample(
+        self,
+        batch_size: int,
+        num_steps: int,
+        mode: Literal["ddpm", "ddim", "dpmpp_2m"] = "ddpm",
+        ddim_eta: float = 0.0,
+        x_T: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """Unconditional sampling from ``x_T`` (drawn from ``generator`` when
+        not given); returns x_0 (B, H, W, C)."""
+        x = self.start(batch_size, x_T, generator)
+        return self.reverse(x, num_steps, mode, ddim_eta, generator)

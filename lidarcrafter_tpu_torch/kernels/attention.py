@@ -1,0 +1,90 @@
+"""Softmax attention over (batch, heads, L, d) operands.
+
+Port of the TPU kernel ``_attn_kernel`` of the JAX package
+(``ops/pallas_attention.py``, wrappers ``flash_attention`` /
+``attention_bhld``).  The CUDA kernel is ``csrc/attention.cu``;
+:func:`attention_plain` beside it is the same function in plain PyTorch.
+:func:`attention` takes the plain version for tensors on the CPU and launches
+the kernel for tensors on the card; it never falls back from one to the
+other.
+
+Unlike the TPU kernel, which expected q and k pre-scaled by the caller, the
+scale is applied to the f32 logits, so the blocks pass their projections as
+they come.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import loader
+
+launches = loader.LaunchCounter("attention")
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_HEAD_DIM = 128  # one shared-memory tile of 128 padded columns
+
+
+def attention_plain(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tensor:
+    """softmax(scale · q·kᵀ) · v over the first ``kv_len`` keys, in float32,
+    cast to ``q.dtype``.  Operands are (B, heads, L, d)."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if kv_len is not None and kv_len < k.shape[2]:
+        logits[..., kv_len:] = -torch.inf
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tensor:
+    """Softmax attention of ``q`` over the first ``kv_len`` keys of ``k``/``v``.
+
+    Args (all one dtype, float32 or bfloat16 on the card):
+      q: (B, heads, Lq, dqk).
+      k: (B, heads, Lkv, dqk).
+      v: (B, heads, Lkv, dv).
+      scale: factor on the f32 logits.
+      kv_len: number of real keys (default all Lkv); the rest are masked.
+
+    Any strides are taken as long as the last dimension is contiguous, so
+    per-head views of a fused projection need no copy.  Returns (B, heads,
+    Lq, dv) in q's dtype; on the card its memory is laid out (B, Lq, heads,
+    dv), so that merging the heads back into channels is free.
+    """
+    B, H, Lq, dqk = q.shape
+    Lkv, dv = k.shape[2], v.shape[-1]
+    kv_len = Lkv if kv_len is None else int(kv_len)
+    if not 1 <= kv_len <= Lkv:
+        raise ValueError(f"attention: kv_len {kv_len} outside [1, {Lkv}]")
+    if tuple(k.shape) != (B, H, Lkv, dqk) or tuple(v.shape[:3]) != (B, H, Lkv):
+        raise ValueError(f"attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    ops = (q, k, v)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale=scale, kv_len=kv_len)
+    if any(t.device != q.device for t in ops) or q.device.type != "cuda":
+        raise ValueError("attention: operands must all be on one CUDA device")
+    if any(t.dtype != q.dtype for t in ops) or q.dtype not in _DTYPE_CODES:
+        raise TypeError("attention kernel needs one dtype, float32 or bfloat16")
+    if max(dqk, dv) > _MAX_HEAD_DIM:
+        raise ValueError(f"attention kernel takes head dims <= {_MAX_HEAD_DIM}, got {(dqk, dv)}")
+    if any(t.stride(-1) != 1 for t in ops):
+        raise ValueError("attention kernel needs a contiguous last dimension")
+    if Lq == 0 or B * H > 65535:
+        raise ValueError("attention kernel takes Lq >= 1 and B*heads <= 65535")
+    out = torch.empty((B, Lq, H, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
+    args = loader.AttnArgs(
+        *(t.data_ptr() for t in ops), out.data_ptr(),
+        *((ctypes.c_int64 * 3)(*_strides(t)) for t in (*ops, out)),
+        B, H, Lq, Lkv, kv_len, dqk, dv, float(scale),
+    )
+    err = loader.library("attention").attention_forward(
+        args, _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream
+    )
+    loader.check(err, "attention_forward")
+    launches.n += 1
+    return out

@@ -30,7 +30,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("probe", "groupnorm", "oaca")
+SOURCES = ("probe", "groupnorm", "oaca", "attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,11 +54,27 @@ class OacaArgs(ctypes.Structure):
     ]
 
 
+class AttnArgs(ctypes.Structure):
+    """Mirror of ``struct AttnArgs`` in ``csrc/attention.cu`` (all fields 8 bytes)."""
+
+    _fields_ = [
+        ("q", ctypes.c_void_p), ("k", ctypes.c_void_p), ("v", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("q_s", ctypes.c_int64 * 3), ("k_s", ctypes.c_int64 * 3),
+        ("v_s", ctypes.c_int64 * 3), ("out_s", ctypes.c_int64 * 3),
+        ("B", ctypes.c_int64), ("H", ctypes.c_int64), ("Lq", ctypes.c_int64),
+        ("Lkv", ctypes.c_int64), ("kv_len", ctypes.c_int64),
+        ("dqk", ctypes.c_int64), ("dv", ctypes.c_int64),
+        ("scale", ctypes.c_double),
+    ]
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "probe": {"probe_x2": [_P, _P, _I, _P]},
     "groupnorm": {"gn_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]},
     "oaca": {"oaca_forward": [OacaArgs, _I, _I, _I, _I, _P]},
+    "attention": {"attention_forward": [AttnArgs, _I, _P]},
 }
 
 

@@ -1,9 +1,12 @@
 """The port's models, by the JAX package's registry keys."""
 
+from .efficient_unet import EfficientUNet, MFEfficientUNet
 from .layout_encoder import LayoutTransformerEncoder
 from .layout_unet import LayoutUnetV1
 
 _REGISTRY = {
+    "efficient_unet": EfficientUNet,
+    "mf_efficient_unet": MFEfficientUNet,
     "layout_encoder": LayoutTransformerEncoder,
     "layout_unet_v1": LayoutUnetV1,
 }

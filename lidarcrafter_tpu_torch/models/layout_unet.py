@@ -21,7 +21,7 @@ from ..kernels.oaca import oaca_attention
 from ..utils.lidar import get_linear_ray_angles_np
 from . import encoding as enc
 from .efficient_unet import TimeEmbedding
-from .ops import GroupNorm32, Resample, RingConv
+from .ops import GroupNorm32, Resample, RingConv, merge_heads, split_heads
 
 
 class ResBlockADM(nn.Module):
@@ -72,12 +72,6 @@ class ResBlockADM(nn.Module):
         return x + h
 
 
-def _split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """(B, L, C) → (B, heads, L, C/heads), channel-blocked per head; a view."""
-    B, L, C = t.shape
-    return t.reshape(B, L, num_heads, C // num_heads).transpose(1, 2)
-
-
 class ObjectAwareCrossAttention(nn.Module):
     """Image-patch + layout joint attention.
 
@@ -108,7 +102,7 @@ class ObjectAwareCrossAttention(nn.Module):
         nh = self.num_heads
         tokens = x.reshape(B, H * W, C)
         qkv = self.qkv_projector(self.norm_for_qkv(tokens))
-        q_c, k_c, v_c = (_split_heads(t, nh) for t in qkv.chunk(3, dim=-1))
+        q_c, k_c, v_c = (split_heads(t, nh) for t in qkv.chunk(3, dim=-1))
 
         pos_proj = self.layout_position_embedding_projector
         ipe = self.norm_for_image_patch_positional_embedding(
@@ -118,13 +112,13 @@ class ObjectAwareCrossAttention(nn.Module):
         cls_n = self.norm_for_obj_class_embedding(cond["obj_class_embedding"])
         layout_content = (cond["xf_out"] + cls_n) / 2
         k_lc, v_lc = self.layout_content_embedding_projector(layout_content).chunk(2, dim=-1)
-        k_l = torch.cat([_split_heads(k_lc, nh), _split_heads(lpe, nh)], dim=-1)
+        k_l = torch.cat([split_heads(k_lc, nh), split_heads(lpe, nh)], dim=-1)
 
         out = oaca_attention(
-            q_c, _split_heads(ipe, nh), k_c, k_l, v_c, _split_heads(v_lc, nh),
+            q_c, split_heads(ipe, nh), k_c, k_l, v_c, split_heads(v_lc, nh),
             scale=self.scale,
         )
-        out = self.proj_out(out.transpose(1, 2).reshape(B, H * W, C))
+        out = self.proj_out(merge_heads(out))
         return (tokens + out).reshape(B, H, W, C)
 
 

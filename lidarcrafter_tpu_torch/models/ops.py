@@ -1,6 +1,8 @@
-"""Shared model blocks: ring padding/conv, FIR resampling, GroupNorm32.
+"""Shared model blocks: ring padding/conv, FIR resampling, GroupNorm
+(``FusedGN``, ``GroupNorm32``, ``AdaGN``), the EfficientUNet's residual block
+and its two self-attention blocks.
 
-Port of the layout UNet's blocks in the JAX package's ``models/ops.py``.
+Port of the JAX package's ``models/ops.py``.
 Activations are NHWC at every public boundary, as in the JAX package, and
 stay NHWC in memory: a conv sees ``x.permute(0, 3, 1, 2)``, which PyTorch
 treats as a channels-last NCHW tensor, so the port itself makes no layout
@@ -17,7 +19,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.attention import attention
 from ..kernels.groupnorm import group_norm
+
+_RSQRT2 = 1.0 / math.sqrt(2.0)  # the residual blocks' output scale
 
 
 def ring_pad(x: torch.Tensor, pad: int | tuple[int, int, int, int], ring: bool = True) -> torch.Tensor:
@@ -143,19 +148,31 @@ class Resample(nn.Module):
         return to_nhwc(F.conv2d(xs, k, stride=self.down, groups=C))
 
 
-class GroupNorm32(nn.Module):
+class FusedGN(nn.Module):
     """GroupNorm with direct variance on channels-last input, with the ADM
-    scale-shift conditioning and a trailing SiLU folded into one pass.
+    scale-shift conditioning and a trailing SiLU folded into one pass; the
+    JAX package's ``FusedGN`` (8 groups, eps 1e-6), whose scale and bias are
+    optional.
 
     Every call goes through :func:`kernels.groupnorm.group_norm`: its CUDA
     kernel for a tensor on the card, its plain version on the CPU.
     """
 
-    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
+    def __init__(
+        self,
+        channels: int,
+        num_groups: int = 8,
+        eps: float = 1e-6,
+        use_scale: bool = True,
+        use_bias: bool = True,
+    ):
         super().__init__()
         self.num_groups, self.eps = num_groups, eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        self.weight = nn.Parameter(torch.ones(channels)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(channels)) if use_bias else None
+        if not use_scale or not use_bias:
+            self.register_buffer("ones", torch.ones(channels), persistent=False)
+            self.register_buffer("zeros", torch.zeros(channels), persistent=False)
 
     def forward(
         self,
@@ -163,9 +180,11 @@ class GroupNorm32(nn.Module):
         scale_shift: tuple[torch.Tensor, torch.Tensor] | None = None,
         silu: bool = False,
     ) -> torch.Tensor:
-        """``scale_shift=(s, t)`` (each (B, C)) gives ``GN(x)·(1+s) + t``."""
+        """``scale_shift=(s, t)`` (each with B·C elements) gives
+        ``GN(x)·(1+s) + t``."""
         B, C = x.shape[0], x.shape[-1]
-        gamma, beta = self.weight.float(), self.bias.float()
+        gamma = (self.ones if self.weight is None else self.weight).float()
+        beta = (self.zeros if self.bias is None else self.bias).float()
         if scale_shift is not None:
             s, t = scale_shift
             s1 = 1.0 + s.float().reshape(B, C)
@@ -174,3 +193,145 @@ class GroupNorm32(nn.Module):
         return group_norm(
             x.contiguous(), gamma, beta, num_groups=self.num_groups, eps=self.eps, silu=silu
         )
+
+
+class GroupNorm32(FusedGN):
+    """The layout UNet's GroupNorm: 32 groups, eps 1e-5, scale and bias."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
+        super().__init__(channels, num_groups, eps)
+
+
+class AdaGN(nn.Module):
+    """Adaptive GroupNorm: GN(x)·(1 + scale(emb)) + shift(emb), with the
+    scale and shift from one ``Dense(2C)`` of ``silu(emb)`` and no affine of
+    the norm's own."""
+
+    def __init__(self, channels: int, emb_channels: int, num_groups: int, eps: float = 1e-5):
+        super().__init__()
+        self.dense_0 = nn.Linear(emb_channels, 2 * channels)
+        self.groupnorm_0 = FusedGN(channels, num_groups, eps, use_scale=False, use_bias=False)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        scale, shift = self.dense_0(F.silu(emb)).chunk(2, dim=-1)
+        return self.groupnorm_0(x, scale_shift=(scale, shift), silu=silu)
+
+
+class ResidualBlock(nn.Module):
+    """GN→SiLU→conv, AdaGN(emb)→SiLU→conv, skip, × 1/√2 (EfficientUNet)."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        emb_channels: int,
+        gn_num_groups: int = 8,
+        gn_eps: float = 1e-6,
+        ring: bool = False,
+    ):
+        super().__init__()
+        self.groupnorm_0 = FusedGN(in_features, gn_num_groups, gn_eps)
+        self.conv1 = RingConv(in_features, features, ring=ring)
+        self.norm2 = AdaGN(features, emb_channels, gn_num_groups, gn_eps)
+        self.conv2 = RingConv(features, features, ring=ring)
+        self.skip = (
+            RingConv(in_features, features, kernel_size=(1, 1), padding=0)
+            if in_features != features else None
+        )
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(self.groupnorm_0(x, silu=True))
+        h = self.conv2(self.norm2(h, emb, silu=True))
+        if self.skip is not None:
+            x = self.skip(x)
+        return (x + h) * _RSQRT2
+
+
+def split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, L, heads·d) → (B, heads, L, d), channel-blocked per head; a view."""
+    B, L, C = t.shape
+    return t.reshape(B, L, num_heads, C // num_heads).transpose(1, 2)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, heads, L, d) → (B, L, heads·d); free for the kernel's output."""
+    B, H, L, d = t.shape
+    return t.transpose(1, 2).reshape(B, L, H * d)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax's ``MultiHeadDotProductAttention`` parameters: ``query``,
+    ``key`` and ``value`` project C → heads·dh, ``out`` heads·dh → C."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.query = nn.Linear(channels, channels)
+        self.key = nn.Linear(channels, channels)
+        self.value = nn.Linear(channels, channels)
+        self.out = nn.Linear(channels, channels)
+
+
+class SelfAttention2d(nn.Module):
+    """Full self-attention over H·W tokens: GroupNorm → multi-head attention
+    → residual → × 1/√2.
+
+    The three input projections run as one (B, L, 3C) matmul; the attention
+    kernel reads per-head views of it and applies 1/√dh to the f32 logits.
+    """
+
+    def __init__(self, channels: int, num_heads: int = 8, gn_num_groups: int = 8, gn_eps: float = 1e-6):
+        super().__init__()
+        self.num_heads = num_heads
+        self.groupnorm_0 = FusedGN(channels, gn_num_groups, gn_eps)
+        self.multiheaddotproductattention_0 = MultiHeadDotProductAttention(channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        mha = self.multiheaddotproductattention_0
+        h = self.groupnorm_0(x).reshape(B, H * W, C)
+        qkv = F.linear(
+            h,
+            torch.cat([mha.query.weight, mha.key.weight, mha.value.weight]),
+            torch.cat([mha.query.bias, mha.key.bias, mha.value.bias]),
+        )
+        q, k, v = (split_heads(t, self.num_heads) for t in qkv.split(C, dim=-1))
+        out = attention(q, k, v, scale=1.0 / math.sqrt(C // self.num_heads))
+        out = mha.out(merge_heads(out)).reshape(B, H, W, C)
+        return (x + out) * _RSQRT2
+
+
+class MFSelfAttention2d(nn.Module):
+    """MeanFlow attention block: GroupNorm → timm ``Attention`` with a
+    fused qkv projection and a scalar-gain RMS qk-norm → residual → × 1/√2.
+
+    ``qkv`` splits as (3, heads, dh); the qk-norm is
+    ``t / max(‖t‖, 1e-12) · √dh · g`` over the head dim, and q alone then
+    takes dh^-½, so the kernel runs with scale 1.
+    """
+
+    def __init__(self, channels: int, num_heads: int = 8, gn_num_groups: int = 8, gn_eps: float = 1e-6):
+        super().__init__()
+        self.num_heads = num_heads
+        self.groupnorm_0 = FusedGN(channels, gn_num_groups, gn_eps)
+        self.qkv = nn.Linear(channels, 3 * channels)
+        self.q_norm_g = nn.Parameter(torch.ones(1))
+        self.k_norm_g = nn.Parameter(torch.ones(1))
+        self.proj = nn.Linear(channels, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        nh = self.num_heads
+        dh = C // nh
+        h = self.groupnorm_0(x).reshape(B, H * W, C)
+        qkv = self.qkv(h).view(B, H * W, 3, nh, dh)
+        q, k, v = qkv.unbind(dim=2)  # (B, L, heads, dh) views
+
+        def rms(t, g):
+            n = t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True), min=1e-12)
+            return n * dh**0.5 * g
+
+        q = rms(q, self.q_norm_g) * dh**-0.5
+        k = rms(k, self.k_norm_g)
+        out = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=1.0)
+        out = self.proj(merge_heads(out)).reshape(B, H, W, C)
+        return (x + out) * _RSQRT2

@@ -1,10 +1,11 @@
-"""Model/engine factory for the layout-conditioned stack.
+"""Model/engine factory.
 
-Port of the conditional branch of the JAX package's
-``training/factory.py::build_diffusion_training`` and of
-``layout_condition_batch``, for ``nuscenes-box-layout-v6`` and
-``nuscenes-auto-reg-v2`` (they differ only in the encoder's ``out_channels``
-and in the ``autoregressive_cond`` input).
+Port of the JAX package's ``training/factory.py``: the unconditional and the
+concat-conditioned continuous-time branches of ``build_diffusion_training``
+(``nuscenes-unet-uncond``; ``nuscenes-box-layout-v6`` and
+``nuscenes-auto-reg-v2``, which differ only in the encoder's ``out_channels``
+and in the ``autoregressive_cond`` input), ``build_flow_training``
+(``meanflow-nusc``) and ``layout_condition_batch``.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_device
-from ..diffusion import CondContinuousDiffusion
+from ..diffusion import CondContinuousDiffusion, ContinuousDiffusion, MeanFlow
 from ..models import build_model
 from ..utils.lidar import LiDARUtility
 
@@ -74,39 +75,61 @@ def layout_condition_batch(
     return batch
 
 
-def build_diffusion_training(
-    cfg, device: str | torch.device = "cuda"
-) -> tuple[dict, CondContinuousDiffusion, LiDARUtility]:
-    """Build ``{'model': LayoutUnetV1, 'cond': LayoutTransformerEncoder}`` in
-    ``eval()`` mode on ``device``, the conditional sampler over them and the
-    LiDAR utility.  Only the continuous-time concat-conditioned branch is
-    ported."""
-    device = resolve_device(device)
-    if getattr(cfg, "condition_model", None) is None or cfg.diffusion.timestep_type != "continuous":
-        raise NotImplementedError("the port builds the continuous-time conditional branch only")
-    resolution = tuple(cfg.data.resolution)
-    in_channels = _data_channels(cfg)
-    if cfg.diffusion.cond_mode == "concat":
-        in_channels += cfg.condition_model.params["out_channels"]
+def _build_denoiser(cfg, in_channels: int, device: torch.device, **extra):
+    """``cfg.model`` in ``eval()`` mode on ``device``; the coordinate
+    encoding follows the projection as in the JAX package."""
     model = build_model(
         cfg.model.architecture,
         in_channels=in_channels,
-        resolution=resolution,
-        layout_channels=cfg.condition_model.params["hidden_dim"],
+        resolution=tuple(cfg.data.resolution),
         use_ray_angle_coords="spherical" in cfg.data.projection,
         fov_up=cfg.data.fov_up,
         fov_down=cfg.data.fov_down,
+        **extra,
         **cfg.model.params,
     )
-    cond_model = build_model(cfg.condition_model.architecture, **cfg.condition_model.params)
-    model = model.to(device).eval()
-    cond_model = cond_model.to(device).eval()
-    engine = CondContinuousDiffusion(
-        model=model,
-        cond_model=cond_model,
-        sampling_shape=(*resolution, _data_channels(cfg)),
+    return model.to(device).eval()
+
+
+def build_diffusion_training(cfg, device: str | torch.device = "cuda"):
+    """The continuous-time image-diffusion branches, built on ``device``.
+
+    Unconditional configs give ``(model, ContinuousDiffusion, utils)``;
+    concat-conditioned ones give ``({'model': LayoutUnetV1, 'cond':
+    LayoutTransformerEncoder}, CondContinuousDiffusion, utils)``.  Models
+    are in ``eval()`` mode.
+    """
+    device = resolve_device(device)
+    if cfg.diffusion.timestep_type != "continuous":
+        raise NotImplementedError("the port builds the continuous-time branches only")
+    data_shape = (*cfg.data.resolution, _data_channels(cfg))
+    engine_kw = dict(
+        sampling_shape=data_shape,
         prediction_type=cfg.diffusion.prediction_type,
         noise_schedule=cfg.diffusion.noise_schedule,
         clip_sample=cfg.diffusion.clip_sample,
     )
+    if getattr(cfg, "condition_model", None) is None:
+        model = _build_denoiser(cfg, _data_channels(cfg), device)
+        return model, ContinuousDiffusion(model=model, **engine_kw), make_lidar_utils(cfg, device)
+    if cfg.diffusion.cond_mode != "concat":
+        raise NotImplementedError("the port builds the concat-conditioned branch only")
+    model = _build_denoiser(
+        cfg, _data_channels(cfg) + cfg.condition_model.params["out_channels"], device,
+        layout_channels=cfg.condition_model.params["hidden_dim"],
+    )
+    cond_model = build_model(cfg.condition_model.architecture, **cfg.condition_model.params)
+    cond_model = cond_model.to(device).eval()
+    engine = CondContinuousDiffusion(model=model, cond_model=cond_model, **engine_kw)
     return {"model": model, "cond": cond_model}, engine, make_lidar_utils(cfg, device)
+
+
+def build_flow_training(cfg, device: str | torch.device = "cuda"):
+    """The MeanFlow branch: ``(MFEfficientUNet, MeanFlow, utils)`` on
+    ``device``; the model is in ``eval()`` mode."""
+    device = resolve_device(device)
+    if getattr(cfg, "flow", None) is None:
+        raise ValueError("not a flow config (cfg.flow is None)")
+    model = _build_denoiser(cfg, _data_channels(cfg), device)
+    engine = MeanFlow(model=model, sampling_shape=(*cfg.data.resolution, _data_channels(cfg)))
+    return model, engine, make_lidar_utils(cfg, device)

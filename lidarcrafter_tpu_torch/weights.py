@@ -7,6 +7,9 @@ auto-names such as ``Conv_0`` / ``Dense_1`` lower-cased), so a path maps
 onto a key one to one; the leaves convert as
 
 - Dense ``kernel`` (I, O)      → Linear ``weight`` (O, I)
+- DenseGeneral ``kernel`` of multi-head attention: (C, h, dh) of ``query`` /
+  ``key`` / ``value`` → Linear ``weight`` (h·dh, C); (h, dh, C) of ``out``
+  → Linear ``weight`` (C, h·dh); their ``bias`` (h, dh) → (h·dh,)
 - Conv ``kernel`` (H, W, I, O) → Conv2d ``weight`` (O, I, H, W)
 - ``scale`` of GroupNorm/LayerNorm and ``embedding`` of Embed → ``weight``
 - ``bias`` → ``bias``; any other leaf keeps its name.
@@ -42,10 +45,16 @@ def _convert_leaf(path: tuple[str, ...], value) -> tuple[str, np.ndarray]:
     if leaf == "kernel":
         if arr.ndim == 2:
             arr = arr.T
+        elif arr.ndim == 3 and mods and mods[-1] == "out":
+            arr = arr.reshape(-1, arr.shape[-1]).T
+        elif arr.ndim == 3:
+            arr = arr.reshape(arr.shape[0], -1).T
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
         else:
             raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
+    elif leaf == "bias" and arr.ndim == 2:
+        arr = arr.reshape(-1)
     key = ".".join([m.lower() for m in mods] + [_LEAF_NAMES.get(leaf, leaf)])
     return key, np.ascontiguousarray(arr)
 

@@ -9,12 +9,11 @@ matmuls with O(1) values agree to 1e-5 of their largest output value.
 import ast
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_harness import random_params
+from torch_port_harness import check_block
 
 import lidarcrafter_tpu.models.efficient_unet as jeu
 import lidarcrafter_tpu.models.layout_unet as jlu
@@ -30,27 +29,13 @@ from lidarcrafter_tpu_torch.models import ops as tops
 from lidarcrafter_tpu_torch.training import preprocess as tpre
 from lidarcrafter_tpu_torch.training.factory import build_diffusion_training
 from lidarcrafter_tpu_torch.utils.lidar import LiDARUtility
-from lidarcrafter_tpu_torch.weights import flax_to_state_dict, load_flax_params
+from lidarcrafter_tpu_torch.weights import flax_to_state_dict
 
-RTOL = 1e-5
 PORT_DIR = Path(__file__).resolve().parent.parent / "lidarcrafter_tpu_torch"
 
 
 def _np(*shape, seed=0, scale=1.0):
     return (scale * np.random.RandomState(seed).standard_normal(shape)).astype(np.float32)
-
-
-def _check_block(flax_mod, torch_mod, args, kwargs=None, seed=0):
-    """Random flax weights → both modules; compare outputs on ``args``."""
-    jargs = jax.tree_util.tree_map(jnp.asarray, args)
-    shapes = jax.eval_shape(flax_mod.init, jax.random.PRNGKey(0), *jargs, **(kwargs or {}))
-    params = random_params(shapes, seed)
-    want = np.asarray(flax_mod.apply(params, *jargs, **(kwargs or {})))
-    load_flax_params(torch_mod, params)
-    with torch.no_grad():
-        got = torch_mod(*jax.tree_util.tree_map(torch.as_tensor, args)).numpy()
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=0, atol=RTOL * max(1.0, np.abs(want).max()))
 
 
 @pytest.mark.parametrize(
@@ -59,7 +44,7 @@ def _check_block(flax_mod, torch_mod, args, kwargs=None, seed=0):
 )
 def test_ring_conv(kernel, padding, ring, stride):
     x = _np(2, 8, 16, 6)
-    _check_block(
+    check_block(
         jops.RingConv(5, kernel_size=kernel, padding=padding, ring=ring, stride=stride),
         tops.RingConv(6, 5, kernel_size=kernel, padding=padding, ring=ring, stride=stride),
         (x,),
@@ -69,7 +54,7 @@ def test_ring_conv(kernel, padding, ring, stride):
 @pytest.mark.parametrize("up,down,ring", [(2, 1, True), (1, 2, True), (2, 1, False), (1, 2, False)])
 def test_resample(up, down, ring):
     x = _np(2, 8, 16, 4)
-    _check_block(jops.Resample(up=up, down=down, ring=ring), tops.Resample(up=up, down=down, ring=ring), (x,))
+    check_block(jops.Resample(up=up, down=down, ring=ring), tops.Resample(up=up, down=down, ring=ring), (x,))
 
 
 def test_ring_pad_wraps_width_and_zero_pads_height():
@@ -81,7 +66,7 @@ def test_ring_pad_wraps_width_and_zero_pads_height():
 
 def test_time_embedding():
     t = np.array([-15.0, 0.3, 14.0], np.float32)
-    _check_block(jeu.TimeEmbedding(32, 128), teu.TimeEmbedding(32, 128), (t,))
+    check_block(jeu.TimeEmbedding(32, 128), teu.TimeEmbedding(32, 128), (t,))
 
 
 @pytest.mark.parametrize(
@@ -92,7 +77,7 @@ def test_time_embedding():
 def test_resblock_adm(cin, cout, up, down, scale_shift):
     x = _np(2, 8, 16, cin)
     emb = _np(2, 128, seed=1)
-    _check_block(
+    check_block(
         jlu.ResBlockADM(cout, use_scale_shift_norm=scale_shift, up=up, down=down),
         tlu.ResBlockADM(cin, cout, 128, use_scale_shift_norm=scale_shift, up=up, down=down),
         (x, emb),
@@ -107,7 +92,7 @@ def test_object_aware_cross_attention_block():
         "obj_class_embedding": _np(B, 13, enc, seed=3),
         "xf_out": _np(B, 13, enc, seed=4),
     }
-    _check_block(
+    check_block(
         jlu.ObjectAwareCrossAttention(num_heads=nh, encoder_channels=enc, resolution=4),
         tlu.ObjectAwareCrossAttention(C, nh, enc, resolution=4),
         (_np(B, H, W, C), cond),

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at edge
 shapes the main path does not reach (ragged query tiles, one layout token,
-odd channel counts, tiny groups).  Marked ``cuda``; without a card they
+odd channel counts, tiny groups, masked key tails, head dims 1-128).  Marked ``cuda``; without a card they
 skip.  Run them on the card with ``python -m pytest tests/test_torch_port_cuda.py``.
 
 Tolerances as in ``chip_smoke.py``: float32 to 1e-4 and bfloat16 to 2e-2 of
@@ -12,7 +12,7 @@ import math
 import pytest
 import torch
 
-from lidarcrafter_tpu_torch.kernels import groupnorm, oaca
+from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -73,3 +73,45 @@ def test_groupnorm_kernel_matches_plain(gen, dtype, shape, per_batch, silu):
     want = groupnorm.group_norm_plain(x, gamma.expand(B, C), beta.expand(B, C), **args)
     assert got.shape == want.shape and got.dtype == dtype
     assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,Lq,Lkv,kv_len,dqk,dv",
+    [(2, 8, 512, 512, None, 64, 64), (1, 3, 100, 100, None, 32, 32), (2, 2, 64, 128, 77, 128, 128),
+     (1, 1, 1, 1, None, 1, 1), (3, 2, 130, 65, 65, 48, 24), (1, 2, 200, 256, 1, 16, 128)],
+)
+def test_attention_kernel_matches_plain(gen, dtype, B, H, Lq, Lkv, kv_len, dqk, dv):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = r(B, H, Lq, dqk), r(B, H, Lkv, dqk), r(B, H, Lkv, dv)
+    scale = 1 / math.sqrt(dqk)
+    n = attention.launches.n
+    got = attention.attention(q, k, v, scale=scale, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert attention.launches.n == n + 1
+    want = attention.attention_plain(q, k, v, scale=scale, kv_len=kv_len)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _rel_err(got, want) <= TOL[dtype]
+
+
+def test_attention_kernel_reads_strided_head_views(gen):
+    """Per-head views of one (B, L, 3C) projection, as ``SelfAttention2d``
+    hands them, give the same output as contiguous copies."""
+    B, L, C, nh = 2, 300, 256, 4
+    qkv = torch.randn(B, L, 3 * C, generator=gen, device="cuda")
+    heads = [t.reshape(B, L, nh, C // nh).transpose(1, 2) for t in qkv.split(C, -1)]
+    got = attention.attention(*heads, scale=0.125)
+    want = attention.attention(*(t.contiguous() for t in heads), scale=0.125)
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()  # written in (B, L, heads, dv) order
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_attention_kernel_refuses_head_dims_above_128(gen):
+    q = torch.zeros(1, 1, 8, 129, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        attention.attention(q, q, q, scale=1.0)
+    with pytest.raises(ValueError, match="head dims"):
+        attention.attention(q[..., :64], q[..., :64], q, scale=1.0)

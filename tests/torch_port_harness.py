@@ -10,6 +10,8 @@ the port through its weight bridge.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,12 +19,15 @@ import torch
 
 from lidarcrafter_tpu import configs as jcfgs
 from lidarcrafter_tpu.training.factory import build_diffusion_training as jax_build
+from lidarcrafter_tpu.training.factory import build_flow_training as jax_build_flow
 from lidarcrafter_tpu_torch import configs as tcfgs
 from lidarcrafter_tpu_torch.training.factory import build_diffusion_training as torch_build
+from lidarcrafter_tpu_torch.training.factory import build_flow_training as torch_build_flow
 from lidarcrafter_tpu_torch.weights import load_flax_params
 
 RESOLUTION = (32, 128)
 MODEL_CHANNELS = 32
+UNET_BASE_CHANNELS = 16  # EfficientUNet width at reduced size (production: 64)
 
 
 def shrink(configs, name: str, small: bool):
@@ -42,13 +47,13 @@ def shrink(configs, name: str, small: bool):
 
 
 def random_leaf(path: str, shape: tuple, rnd: np.random.RandomState) -> np.ndarray:
-    """kernel: normal/√fan_in; GN/LN scale: 1 + 0.1·normal; bias and the
-    rest: 0.1·normal (embeddings: normal/√dim)."""
+    """kernel: normal/√fan_in; GN/LN scale and qk-norm gains: 1 + 0.1·normal;
+    bias and the rest: 0.1·normal (embeddings: normal/√dim)."""
     z = rnd.standard_normal(shape).astype(np.float32)
     leaf = path.rsplit("/", 1)[-1]
     if leaf == "kernel":
         return z / np.sqrt(np.prod(shape[:-1]))
-    if leaf == "scale":
+    if leaf == "scale" or leaf.endswith("_norm_g"):
         return 1.0 + 0.1 * z
     if leaf == "embedding":
         return z / np.sqrt(shape[-1])
@@ -87,6 +92,23 @@ def condition_batch(cfg, batch_size: int, seed: int) -> dict:
     return batch
 
 
+def check_block(flax_mod, torch_mod, args, kwargs=None, seed=0, rtol=1e-5):
+    """Random flax weights → both modules; compare outputs on ``args`` (and
+    the non-array ``kwargs``) to ``rtol`` of max(1, the largest output
+    value)."""
+    kwargs = kwargs or {}
+    jargs = jax.tree_util.tree_map(jnp.asarray, args)
+    shapes = jax.eval_shape(functools.partial(flax_mod.init, **kwargs), jax.random.PRNGKey(0), *jargs)
+    params = random_params(shapes, seed)
+    want = np.asarray(flax_mod.apply(params, *jargs, **kwargs))
+    load_flax_params(torch_mod, params)
+    with torch.no_grad():
+        got = torch_mod(*jax.tree_util.tree_map(torch.as_tensor, args), **kwargs).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * max(1.0, np.abs(want).max()))
+    return got, want
+
+
 def to_torch(tree):
     return jax.tree_util.tree_map(lambda a: torch.as_tensor(np.asarray(a)), tree)
 
@@ -112,3 +134,34 @@ class Pair:
         self.params = {"model": model_params, "cond": cond_params}
         load_flax_params(self.tmodels["cond"], cond_params)
         load_flax_params(self.tmodels["model"], model_params)
+
+
+class UncondPair:
+    """An unconditional config (``nuscenes-unet-uncond`` or the flow config
+    ``meanflow-nusc``) built by both packages at reduced size (32x128, 16
+    base channels, one residual block per level) with shared random
+    weights."""
+
+    def __init__(self, name: str, seed: int = 0):
+        self.jcfg, self.tcfg = (
+            self._shrink(configs.apply_reduced_topology(configs.get_config(name), resolution=RESOLUTION))
+            for configs in (jcfgs, tcfgs)
+        )
+        self.flow = self.jcfg.flow is not None
+        if self.flow:
+            self.jmodel, self.jengine, _ = jax_build_flow(self.jcfg)
+            self.tmodel, self.tengine, _ = torch_build_flow(self.tcfg, device="cpu")
+        else:
+            self.jmodel, self.jengine, _ = jax_build(self.jcfg)
+            self.tmodel, self.tengine, _ = torch_build(self.tcfg, device="cpu")
+        times = (jnp.zeros((2,)),) * (2 if self.flow else 1)
+        shapes = jax.eval_shape(
+            self.jmodel.init, jax.random.PRNGKey(0), jnp.zeros((2, *RESOLUTION, 2)), *times
+        )
+        self.params = random_params(shapes, seed)
+        load_flax_params(self.tmodel, self.params)
+
+    @staticmethod
+    def _shrink(cfg):
+        cfg.model.params.update(base_channels=UNET_BASE_CHANNELS, num_residual_blocks=(1, 1, 1, 1))
+        return cfg
