@@ -8,21 +8,27 @@ Phases, each printing one JSON line:
    ``lidarcrafter_tpu_torch/csrc/*.cu`` (four sources, one ``nvcc`` each, in
    parallel) and the loader's ``x·2`` self-check;
 2. every kernel against its plain PyTorch version on the card, at the main
-   paths' shapes, in float32 (TF32 off) and bfloat16, with the kernel's,
-   the plain version's and one PyTorch library call's times;
+   paths' shapes and at ragged / masked edges, in float32 (TF32 off) and
+   bfloat16, held to a limit on the largest error and one on the error's
+   norm, with the kernel's, the plain version's and one PyTorch library
+   call's device times, the least time the card could take (no row may
+   read below it), and the route each runs (``mma 3xTF32`` / ``mma bf16``
+   tensor cores for OACA and attention, ``cuda-core`` GroupNorm);
 3. full-width forwards on the card with the kernels against the same
    forwards on the CPU with the plain versions, shared seeded weights: the
    layout stack (encoder + ``LayoutUnetV1``, 32x1024) and ``EfficientUNet``
-   (``nuscenes-unet-uncond``, 32x1024);
+   (``nuscenes-unet-uncond``, 32x1024), in float32 and served in bfloat16
+   (``to_serving_dtype_`` and the engine's ``dtype``);
 4. the main paths, each with the launch counters set to 0 just before it
    and read just after, seeded random weights, 8 frames a request:
    ``CondFrameGenerator`` for ``nuscenes-box-layout-v6`` and
    ``UncondFrameGenerator`` for ``nuscenes-unet-uncond`` (DDIM@50 and
    DPM-Solver++(2M)@15 each), then ``FlowFrameGenerator`` for
-   ``meanflow-nusc`` (one step);
+   ``meanflow-nusc`` (one step), all in float32; then each path served in
+   bfloat16 answers one request (DPM-Solver++(2M)@15, MeanFlow one step);
 5. a ``torch.profiler`` trace of one denoiser call of the layout and of the
-   unconditional path: device time by kernel category and the device's idle
-   share.
+   unconditional path, in float32 and in bfloat16: device time by kernel
+   category and the device's idle share.
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -35,6 +41,7 @@ Usage: ``python3 chip_smoke.py`` (one card).
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -45,9 +52,21 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 on CUDA cores; bf16 tensor cores
+# peak rate of each route's operations: GroupNorm in f32 on the CUDA cores
+# (bf16 is widened on load); OACA and attention on the tensor cores, f32 as
+# 3xTF32 (three TF32 products each)
+PEAK_FLOPS = {"cuda-core": 67e12, "mma 3xTF32": 495e12 / 3, "mma bf16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel − plain| / max(1, max |plain|)
+# ‖kernel − plain‖₂ / ‖plain‖₂: attention outputs average thousands of keys
+# and are mostly far below 1, where the max-based limit is as large as a
+# typical value; this one catches a fault on a few percent of the keys (a
+# missed key tile, a missed fill).  A correct kernel reads about 2^-9 in
+# bfloat16 (one rounding of the output) and 1e-5 or less in float32.
+NORM_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
 FORWARD_RTOL = 1e-3  # card (kernels, cuDNN f32) vs CPU (plain), relative to max |CPU|
+# card served in bfloat16 vs CPU float32, relative to max |CPU|: bfloat16 keeps
+# 8 mantissa bits (2^-9 relative per rounding) through ~40-60 layers
+BF16_FORWARD_RTOL = 5e-2
 OACA_PER_FORWARD, GN_PER_FORWARD = 11, 101  # layout UNet, per denoiser call
 ATTN_PER_UNET, GN_PER_UNET = 2, 50  # EfficientUNet / MFEfficientUNet, per call
 REQUESTS = (("ddim", 50), ("dpmpp_2m", 15))
@@ -72,7 +91,9 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls.  The
+    card sleeps first while the host queues the calls, so launch-bound
+    calls are timed on the device and not at the host's enqueue rate."""
     import torch
 
     for _ in range(warmup):
@@ -80,6 +101,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(5e7))  # ~30 ms at the H100's clock
     start.record()
     for _ in range(iters):
         fn()
@@ -88,16 +110,33 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: int, flops: float, dtype: str) -> tuple[float, str]:
+def bound_ms(nbytes: int, flops: float, route: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS[route] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mma_route(dname: str) -> str:
+    """The tensor-core route of the OACA and attention kernels."""
+    return "mma 3xTF32" if dname == "float32" else "mma bf16"
 
 
 def max_err(got, want) -> tuple[float, float]:
     """(max |got − want|, that over max(1, max |want|))."""
     err = float((got.float() - want.float()).abs().max())
     return err, err / max(1.0, float(want.float().abs().max()))
+
+
+def kernel_errors(what: str, dname: str, got, want) -> dict:
+    """The kernel's output against its plain version on both measures, each
+    checked against its limit; the row's error fields."""
+    err, rel = max_err(got, want)
+    diff = float((got.float() - want.float()).norm())
+    norm_rel = diff / float(want.float().norm())
+    check(rel <= TOL[dname], f"{what} {dname}: relative error {rel:.3g} > {TOL[dname]}")
+    check(norm_rel <= NORM_TOL[dname], f"{what} {dname}: norm-relative error {norm_rel:.3g} > {NORM_TOL[dname]}")
+    return {"max_abs_err": err, "rel_err": rel, "tol": TOL[dname],
+            "norm_rel_err": norm_rel, "norm_tol": NORM_TOL[dname]}
 
 
 # ------------------------------------------------------------------ phase 2
@@ -132,9 +171,8 @@ def check_oaca(label, B, H, L, dtype, gen):
     got = oaca.oaca_attention(*ops, scale=scale)
     want = oaca.oaca_attention_plain(*ops, scale=scale)
     torch.cuda.synchronize()
-    err, rel = max_err(got, want)
     dname = str(dtype).split(".")[-1]
-    check(rel <= TOL[dname], f"oaca {label} {dname}: relative error {rel:.3g} > {TOL[dname]}")
+    errors = kernel_errors(f"oaca {label}", dname, got, want)
     q_c, ipe, k_c, k_l, v_c, v_l = ops
     q_img = torch.cat([q_c, ipe], -1)
     k_mix = torch.cat([torch.cat([k_c, ipe], -1), k_l], 2)
@@ -143,10 +181,10 @@ def check_oaca(label, B, H, L, dtype, gen):
     elt = torch.finfo(dtype).bits // 8
     nbytes = elt * (4 * B * H * L * 32 + B * H * L2 * 96 + B * H * L * 32)
     flops = 2.0 * B * H * L * (L + L2) * 96
-    bound, by = bound_ms(nbytes, flops, dname)
+    bound, by = bound_ms(nbytes, flops, mma_route(dname))
     return {
-        "kernel": "oaca", "shape": label, "dtype": dname, "max_abs_err": err, "rel_err": rel,
-        "tol": TOL[dname], "ms": time_ms(lambda: oaca.oaca_attention(*ops, scale=scale)),
+        "kernel": "oaca", "shape": label, "dtype": dname, "route": mma_route(dname), **errors,
+        "ms": time_ms(lambda: oaca.oaca_attention(*ops, scale=scale)),
         "plain_ms": time_ms(lambda: oaca.oaca_attention_plain(*ops, scale=scale), iters=5),
         "library_ms": library, "library": "F.scaled_dot_product_attention on the concatenated strips",
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
@@ -174,17 +212,16 @@ def check_groupnorm(label, shape, dtype, scale_shift, silu, gen, groups=32, eps=
         x, gamma.expand(B, C), beta.expand(B, C), **args
     )
     torch.cuda.synchronize()
-    err, rel = max_err(got, want)
     dname = str(dtype).split(".")[-1]
-    check(rel <= TOL[dname], f"groupnorm {label} {dname}: relative error {rel:.3g} > {TOL[dname]}")
+    errors = kernel_errors(f"groupnorm {label}", dname, got, want)
     x_nchw = x.reshape(B, -1, 1, C).permute(0, 3, 1, 2)
     library = time_ms(lambda: F.group_norm(x_nchw, groups, w.to(dtype), b.to(dtype), eps))
     elt = torch.finfo(dtype).bits // 8
     nbytes = 2 * x.numel() * elt + 2 * B * C * 4
-    bound, by = bound_ms(nbytes, 10.0 * x.numel(), dname)
+    bound, by = bound_ms(nbytes, 10.0 * x.numel(), "cuda-core")
     return {
-        "kernel": "groupnorm", "shape": label, "dtype": dname, "groups": groups, "scale_shift": scale_shift,
-        "silu": silu, "max_abs_err": err, "rel_err": rel, "tol": TOL[dname],
+        "kernel": "groupnorm", "shape": label, "dtype": dname, "route": "cuda-core",
+        "groups": groups, "scale_shift": scale_shift, "silu": silu, **errors,
         "ms": time_ms(lambda: groupnorm.group_norm(x, gamma, beta, **args)),
         "plain_ms": time_ms(lambda: groupnorm.group_norm_plain(
             x, gamma.expand(B, C), beta.expand(B, C), **args)),
@@ -214,19 +251,18 @@ def check_attention(label, B, H, Lq, Lkv, d, dtype, gen, kv_len=None):
     got = attention.attention(q, k, v, **args)
     want = attention.attention_plain(q, k, v, **args)
     torch.cuda.synchronize()
-    err, rel = max_err(got, want)
     dname = str(dtype).split(".")[-1]
-    check(rel <= TOL[dname], f"attention {label} {dname}: relative error {rel:.3g} > {TOL[dname]}")
+    errors = kernel_errors(f"attention {label}", dname, got, want)
     n = Lkv if kv_len is None else kv_len
     mask = None if kv_len is None else (torch.arange(Lkv, device=DEVICE) < kv_len).expand(Lq, Lkv)
     library = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
     elt = torch.finfo(dtype).bits // 8
     nbytes = elt * B * H * (2 * Lq * d + 2 * n * d)
     flops = 4.0 * B * H * Lq * n * d
-    bound, by = bound_ms(nbytes, flops, dname)
+    bound, by = bound_ms(nbytes, flops, mma_route(dname))
     return {
-        "kernel": "attention", "shape": label, "dtype": dname, "max_abs_err": err, "rel_err": rel,
-        "tol": TOL[dname], "ms": time_ms(lambda: attention.attention(q, k, v, **args)),
+        "kernel": "attention", "shape": label, "dtype": dname, "route": mma_route(dname), **errors,
+        "ms": time_ms(lambda: attention.attention(q, k, v, **args)),
         "plain_ms": time_ms(lambda: attention.attention_plain(q, k, v, **args), iters=5),
         "library_ms": library, "library": "F.scaled_dot_product_attention",
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
@@ -241,6 +277,7 @@ def phase_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         rows.append(check_oaca("ds4 B=8 h=8 L=2048", BATCH, 8, 2048, dtype, gen))
         rows.append(check_oaca("ds8 B=8 h=16 L=512", BATCH, 16, 512, dtype, gen))
+        rows.append(check_oaca("ragged B=8 h=8 L=1000", BATCH, 8, 1000, dtype, gen))
         rows.append(check_groupnorm("level0 (8,32,1024,64) out_norm", (BATCH, 32, 1024, 64),
                                     dtype, True, True, gen))
         rows.append(check_groupnorm("ds8 (8,4,128,1024) in_norm", (BATCH, 4, 128, 1024),
@@ -252,27 +289,48 @@ def phase_kernels():
         rows.append(check_attention("masked tail B=8 h=8 L=128 kv_len=77", BATCH, 8, 128, 128, 64,
                                     dtype, gen, kv_len=77))
         rows.append(check_attention("ragged B=8 h=8 L=300", BATCH, 8, 300, 300, 64, dtype, gen))
+        rows.append(check_attention("masked head B=8 h=8 L=128 kv_len=9", BATCH, 8, 128, 128, 64,
+                                    dtype, gen, kv_len=9))
         rows.append(check_groupnorm("unet level0 (8,32,1024,64) scale-shift+SiLU", (BATCH, 32, 1024, 64),
                                     dtype, True, True, gen, groups=8, eps=1e-6))
         rows.append(check_groupnorm("unet ds8 (8,4,128,512) SiLU", (BATCH, 4, 128, 512),
                                     dtype, False, True, gen, groups=8, eps=1e-6))
     for row in rows:
         emit({"phase": "kernels", **row})
+        check(row["ms"] >= row["bound_ms"],
+              f"{row['kernel']} {row['shape']} {row['dtype']}: {row['ms']} ms below its bound {row['bound_ms']} ms")
     return rows
 
 
 # ------------------------------------------------------------------ phase 3
 
 
+def check_forward(what: str, got, want, tol: float, **extra) -> None:
+    """``got`` (card) against ``want`` (CPU float32) to ``tol`` of max
+    |want|; emits the forward_parity line."""
+    import torch
+
+    err, _ = max_err(got, want)
+    scale = float(want.abs().max())
+    rel = err / scale
+    check(got.dtype == torch.float32, f"{what}: output dtype {got.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{what}: not finite on the card")
+    check(scale > 1e-2, f"{what}: output is (near) zero")
+    check(rel <= tol, f"{what}: relative error {rel:.3g} > {tol}")
+    emit({"phase": "forward_parity", "what": what, "shape": list(got.shape),
+          "max_abs_err": err, "rel_err": rel, "tol": tol, **extra})
+
+
 def phase_forward_parity(cfg_name: str):
     import torch
 
     from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.precision import to_serving_dtype_
     from lidarcrafter_tpu_torch.training.factory import build_diffusion_training, layout_condition_batch
     from lidarcrafter_tpu_torch.weights import init_random_
 
     cfg = get_config(cfg_name)
-    models, _, _ = build_diffusion_training(cfg, "cpu")
+    models, engine, _ = build_diffusion_training(cfg, "cpu")
     init_random_(models["cond"], 10)
     init_random_(models["model"], 11)
     B, (H, W) = 2, cfg.data.resolution
@@ -292,25 +350,26 @@ def phase_forward_parity(cfg_name: str):
     cpu_s = time.perf_counter() - t0
     gpu = {k: copy.deepcopy(m).to(DEVICE) for k, m in models.items()}
     got = forward(gpu["cond"], gpu["model"], DEVICE).cpu()
-    err, _ = max_err(got, want)
-    scale = float(want.abs().max())
-    rel = err / scale
-    check(bool(torch.isfinite(got).all()), "full-width forward on the card is not finite")
-    check(scale > 1e-2, "full-width forward output is (near) zero")
-    check(rel <= FORWARD_RTOL, f"full-width forward: relative error {rel:.3g} > {FORWARD_RTOL}")
-    emit({"phase": "forward_parity", "config": cfg_name, "shape": list(got.shape),
-          "max_abs_err": err, "rel_err": rel, "tol": FORWARD_RTOL, "cpu_seconds": cpu_s})
+    check_forward(f"{cfg_name} float32", got, want, FORWARD_RTOL, cpu_seconds=cpu_s)
+    # served in bfloat16 through the engine's own cast, against the same CPU forward
+    to_serving_dtype_(gpu["model"], torch.bfloat16, cond_model=gpu["cond"])
+    served = dataclasses.replace(engine, model=gpu["model"], cond_model=gpu["cond"], dtype=torch.bfloat16)
+    with torch.inference_mode():
+        cond = served.get_network_condition({k: v.to(DEVICE) for k, v in batch.items()})
+        got = served.denoise(x.to(DEVICE), t.to(DEVICE), cond).cpu()
+    check_forward(f"{cfg_name} bfloat16", got, want, BF16_FORWARD_RTOL)
 
 
 def phase_unet_forward_parity(cfg_name: str):
     import torch
 
     from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.precision import to_serving_dtype_
     from lidarcrafter_tpu_torch.training.factory import build_diffusion_training
     from lidarcrafter_tpu_torch.weights import init_random_
 
     cfg = get_config(cfg_name)
-    model, _, _ = build_diffusion_training(cfg, "cpu")
+    model, engine, _ = build_diffusion_training(cfg, "cpu")
     init_random_(model, 13)
     B, (H, W) = 2, cfg.data.resolution
     gen = torch.Generator().manual_seed(14)
@@ -320,15 +379,14 @@ def phase_unet_forward_parity(cfg_name: str):
     with torch.inference_mode():
         want = model(x, t)
         cpu_s = time.perf_counter() - t0
-        got = copy.deepcopy(model).to(DEVICE)(x.to(DEVICE), t.to(DEVICE)).cpu()
-    err, _ = max_err(got, want)
-    scale = float(want.abs().max())
-    rel = err / scale
-    check(bool(torch.isfinite(got).all()), "full-width EfficientUNet forward on the card is not finite")
-    check(scale > 1e-2, "full-width EfficientUNet forward output is (near) zero")
-    check(rel <= FORWARD_RTOL, f"full-width EfficientUNet forward: relative error {rel:.3g} > {FORWARD_RTOL}")
-    emit({"phase": "forward_parity", "config": cfg_name, "shape": list(got.shape),
-          "max_abs_err": err, "rel_err": rel, "tol": FORWARD_RTOL, "cpu_seconds": cpu_s})
+        gpu = copy.deepcopy(model).to(DEVICE)
+        got = gpu(x.to(DEVICE), t.to(DEVICE)).cpu()
+        check_forward(f"{cfg_name} float32", got, want, FORWARD_RTOL, cpu_seconds=cpu_s)
+        # served in bfloat16 through the engine's own cast, against the same CPU forward
+        to_serving_dtype_(gpu, torch.bfloat16)
+        served = dataclasses.replace(engine, model=gpu, dtype=torch.bfloat16)
+        got = served.denoise(x.to(DEVICE), t.to(DEVICE)).cpu()
+    check_forward(f"{cfg_name} bfloat16", got, want, BF16_FORWARD_RTOL)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -347,9 +405,9 @@ def check_sample(sample, post, mode, shape):
         check(float(sample.abs().max()) <= 1.0, "meanflow sample is not clamped to [-1, 1]")
 
 
-def build_generators():
+def build_generators(dtype):
     """The three main paths' generators on the card, seeded random weights,
-    with their kernel-bearing modules counted."""
+    served in ``dtype``, with their kernel-bearing modules counted."""
     from lidarcrafter_tpu_torch.configs import get_config
     from lidarcrafter_tpu_torch.generate import UncondFrameGenerator
     from lidarcrafter_tpu_torch.generate_cond import CondFrameGenerator
@@ -360,9 +418,9 @@ def build_generators():
         return sum(isinstance(m, cls) for m in model.modules())
 
     gens = {
-        "nuscenes-box-layout-v6": CondFrameGenerator(get_config("nuscenes-box-layout-v6"), DEVICE, 0),
-        "nuscenes-unet-uncond": UncondFrameGenerator(get_config("nuscenes-unet-uncond"), DEVICE, 0),
-        "meanflow-nusc": FlowFrameGenerator(get_config("meanflow-nusc"), DEVICE, 0),
+        "nuscenes-box-layout-v6": CondFrameGenerator(get_config("nuscenes-box-layout-v6"), DEVICE, 0, dtype),
+        "nuscenes-unet-uncond": UncondFrameGenerator(get_config("nuscenes-unet-uncond"), DEVICE, 0, dtype),
+        "meanflow-nusc": FlowFrameGenerator(get_config("meanflow-nusc"), DEVICE, 0, dtype),
     }
     n = count(gens["nuscenes-box-layout-v6"].models["model"], GroupNorm32)
     check(n == GN_PER_FORWARD, f"{n} GroupNorm32 modules, expected {GN_PER_FORWARD}")
@@ -377,8 +435,8 @@ def phase_main_path(cfg_name: str, gen, per_call: dict, requests, smi: str) -> d
     """Answer ``requests`` ((mode, steps) pairs of 8 frames; mode
     ``meanflow`` is one step) after one warm-up, with every launch counter
     set to 0 just before and read just after; each kernel must have launched
-    exactly ``per_call[kernel]`` times per denoiser call (0 if absent).
-    Returns the path's non-zero launch counts."""
+    exactly ``per_call[kernel]`` times per denoiser call (0 if absent), in
+    either serving dtype.  Returns the path's non-zero launch counts."""
     import torch
 
     from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
@@ -411,8 +469,8 @@ def phase_main_path(cfg_name: str, gen, per_call: dict, requests, smi: str) -> d
     for k, n in launches.items():
         want = per_call.get(k, 0) * total_steps
         check(n == want, f"{cfg_name}: {k} launches {n} != {per_call.get(k, 0)} x {total_steps}")
-    emit({"phase": "main_path", "config": cfg_name, "requests": results,
-          "launches": launches, "card": smi,
+    emit({"phase": "main_path", "config": cfg_name, "dtype": str(gen.engine.dtype).split(".")[-1],
+          "requests": results, "launches": launches, "card": smi,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     return {k: n for k, n in launches.items() if n}
 
@@ -464,7 +522,8 @@ def phase_profile(what: str, call, smi: str):
 
 
 def profile_calls(cond_gen, uncond_gen):
-    """One denoiser call (x̂_0 at t = 0.5, B=8, float32) of each path."""
+    """One denoiser call (x̂_0 at t = 0.5, B=8, float32 in and out; the
+    call itself in the generators' serving dtype) of each path."""
     import torch
 
     from lidarcrafter_tpu_torch.training.factory import layout_condition_batch
@@ -507,21 +566,34 @@ def main() -> int:
     rows = phase_kernels()
     phase_forward_parity("nuscenes-box-layout-v6")
     phase_unet_forward_parity("nuscenes-unet-uncond")
-    gens = build_generators()
-    per_call = {
-        "nuscenes-box-layout-v6": ({"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD}, REQUESTS),
-        "nuscenes-unet-uncond": ({"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET}, REQUESTS),
-        "meanflow-nusc": ({"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET}, (("meanflow", 1),)),
+    counts = {
+        "nuscenes-box-layout-v6": {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD},
+        "nuscenes-unet-uncond": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
+        "meanflow-nusc": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
     }
-    by_path = {name: phase_main_path(name, gens[name], counts, requests, smi)
-               for name, (counts, requests) in per_call.items()}
-    calls = profile_calls(gens["nuscenes-box-layout-v6"], gens["nuscenes-unet-uncond"])
-    phase_profile("one denoiser call (layout, predict_x_0), B=8, float32", calls["layout"], smi)
-    phase_profile("one denoiser call (uncond EfficientUNet, predict_x_0), B=8, float32",
-                  calls["uncond"], smi)
+    # float32: DDIM@50 + DPM++@15 (MeanFlow one step); bfloat16: one DPM++@15
+    # request (MeanFlow one step) per path, served by its own generators
+    requests = {
+        "float32": {name: (("meanflow", 1),) if name == "meanflow-nusc" else REQUESTS for name in counts},
+        "bfloat16": {name: (("meanflow", 1),) if name == "meanflow-nusc" else (("dpmpp_2m", 15),)
+                     for name in counts},
+    }
+    by_path = {}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        gens = build_generators(dtype)
+        for name in counts:
+            by_path[f"{name} {dname}"] = phase_main_path(name, gens[name], counts[name],
+                                                         requests[dname][name], smi)
+        calls = profile_calls(gens["nuscenes-box-layout-v6"], gens["nuscenes-unet-uncond"])
+        phase_profile(f"one denoiser call (layout, predict_x_0), B=8, {dname}", calls["layout"], smi)
+        phase_profile(f"one denoiser call (uncond EfficientUNet, predict_x_0), B=8, {dname}",
+                      calls["uncond"], smi)
+        del gens, calls
+        torch.cuda.empty_cache()
 
-    # the main paths run float32: report each kernel at its largest main-path
-    # shape, with its launches summed over the paths that run it
+    # each kernel at its largest main-path shape, float32 (the default serving
+    # dtype) with its bfloat16 numbers beside, and its launches summed over
+    # the paths and dtypes that run it
     sources = {
         "oaca": ("lidarcrafter_tpu_torch/csrc/oaca.cu", "lidarcrafter_tpu/ops/pallas_attention.py:183"),
         "groupnorm": ("lidarcrafter_tpu_torch/csrc/groupnorm.cu", "lidarcrafter_tpu/ops/pallas_groupnorm.py:49"),
@@ -530,14 +602,20 @@ def main() -> int:
     kernels = []
     for k, (source, replaces) in sources.items():
         first = next(r for r in rows if r["kernel"] == k and r["dtype"] == "float32")
+        bf16 = next(r for r in rows if r["kernel"] == k and r["dtype"] == "bfloat16"
+                    and r["shape"] == first["shape"])
         paths = {p: n[k] for p, n in by_path.items() if k in n}
         check(all(n > 0 for n in paths.values()), f"{k}: a path that runs it did not launch it: {paths}")
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "launches_by_path": paths,
-            "max_abs_err": first["max_abs_err"], "tol": first["tol"], "ms": first["ms"],
+            "max_abs_err": first["max_abs_err"], "tol": first["tol"], "norm_rel_err": first["norm_rel_err"],
+            "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "shape": first["shape"], "dtype": "float32",
+            "core_route": first["route"],
+            "bf16": {key: bf16[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                "max_abs_err", "tol", "norm_rel_err", "route")},
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

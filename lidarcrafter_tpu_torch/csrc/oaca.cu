@@ -1,7 +1,7 @@
 // ObjectAwareCrossAttention forward: one softmax over an image strip and a
 // layout strip.
 //
-// Replaces the TPU kernel `_oaca_kernel` (lidarcrafter_tpu/ops/pallas_attention.py,
+// Replaces the TPU kernel `_oaca_kernel` (lidarcrafter_tpu/ops/pallas_attention.py:183,
 // called through `oaca_attention` / `_oaca_call`).  For each (batch, head):
 //
 //   q     = [q_c | ipe]                       (Lq, DC+DP)   image queries
@@ -10,35 +10,43 @@
 //   s     = scale^2 * q . [k_img ; k_l]^T     f32 logits
 //   out   = softmax(s) . [v_c ; v_l]          (Lq, DV)
 //
-// The TPU kernel kept the whole K/V strip in VMEM and took one plain softmax.
-// On Hopper the strip does not fit a block's shared memory (at ds=4 it is
-// 2048 x 96 values per head), so this kernel is a flash-style online softmax:
+// The TPU kernel kept the whole K/V strip in VMEM and took one plain
+// softmax.  On Hopper the strip does not fit a block's shared memory (at
+// ds=4 it is 2048 x 96 values per head), so this kernel is a thin loader
+// around the tensor-core flash core of flash_mma.cuh: one block of 4 warps
+// per (batch*head, 128-query tile),
 //
-//   * one block of 64 threads per (batch*head, 64-query tile); each thread
-//     owns one query row in registers (the [q_c | ipe] concat happens in the
-//     load) and its f32 output accumulator;
-//   * a loop over 64-key tiles of [k_c | ipe] and v_c staged in shared memory
-//     as f32, scored 16 keys at a time, with a running max and sum;
-//   * then one masked tile holding the L2 <= 64 layout keys k_l / v_l, folded
-//     into the same running max and sum;
-//   * one divide and one write of the (Lq, DV) output.
+//   * the q tile is assembled while it is staged: q_c goes to columns 0-31
+//     and ipe to columns 32-63 of each shared row, by two cp.async sources;
+//   * 64-key image tiles are assembled the same way from k_c and ipe, with
+//     v_c beside them, in two stages filled with cp.async so that the next
+//     tile loads while the products of this one run;
+//   * the L2 <= 64 layout keys k_l (64 wide) and values v_l (32 wide) are
+//     staged once at block start into their own buffer, rounded up to 16
+//     rows, and folded in after the image tiles, 16 keys at a time, masked
+//     past L2 (L2 = 0 skips them);
+//   * the scale^2 goes onto the f32 logits.
 //
 // No concatenation, padding or scale pre-multiply is materialised in device
 // memory: operands are read and the output written through their (batch,
-// head, row) strides, so the per-head views of the fused qkv projection need
-// no copy and the output can land directly in (batch, row, head) order.
+// head, row) strides, so the per-head views of the fused qkv projection
+// need no copy and the output can land directly in (batch, row, head)
+// order.  Every pointer and stride is 16-byte aligned (the wrapper checks
+// it), as cp.async needs.
 //
-// Bound on the H100: operations.  At ds=4, B=8 the call does about
-// 2 * 64 heads * 2048 * 2061 * 96 = 52 GFLOP against 84 MB of f32 operands
-// and output (0.77 ms of FMAs at the 67 TFLOP/s f32 peak, 25 us of HBM
-// traffic).  This first version runs the products as f32 FMAs on the CUDA
-// cores, which keeps f32 inputs exact; bf16 inputs are widened to f32 on
-// load.  Tensor-core products (mma / wgmma) and TMA staging are later work.
+// Bound on the H100 at ds=4, B=8 (64 heads, 2048 queries, 2048 + 13 keys,
+// 2 * 64 * 2048 * 2061 * 96 = 52 GFLOP):
+//   * bf16 (mma.sync bf16): operations, 0.052 ms at 989 TFLOP/s, against
+//     42 MB of operands and output (0.013 ms);
+//   * f32 (3xTF32): operations, three TF32 products per product, 0.31 ms at
+//     495 / 3 TFLOP/s, against 84 MB (0.025 ms).
+// Every product runs on the tensor cores with P kept in registers; the
+// exponentials of the online softmax (one per logit, on the special
+// function units) are what the design leaves beside them.
 
-#include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "flash_mma.cuh"
 
 // All fields are 8 bytes wide so the ctypes mirror has no padding to match.
 struct OacaArgs {
@@ -63,81 +71,35 @@ struct OacaArgs {
 
 namespace {
 
-constexpr int BQ = 64;     // queries per block (one per thread)
-constexpr int BK = 64;     // keys per shared-memory tile
-constexpr int CHUNK = 16;  // keys scored together between softmax updates
+using namespace flash;
 
-template <int DQK, int DV>
-__device__ __forceinline__ void attend_tile(const float (*ks)[DQK], const float (*vs)[DV],
-                                            int nk, const float* q, float scale2,
-                                            float* o, float& m, float& l) {
-  for (int j0 = 0; j0 < nk; j0 += CHUNK) {
-    float s[CHUNK];
-#pragma unroll
-    for (int j = 0; j < CHUNK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(ks[j0 + j]);
-      float acc = 0.0f;
-#pragma unroll
-      for (int d = 0; d < DQK / 4; ++d) {
-        float4 kv = kr[d];
-        acc = fmaf(q[4 * d + 0], kv.x, acc);
-        acc = fmaf(q[4 * d + 1], kv.y, acc);
-        acc = fmaf(q[4 * d + 2], kv.z, acc);
-        acc = fmaf(q[4 * d + 3], kv.w, acc);
-      }
-      s[j] = (j0 + j < nk) ? acc * scale2 : -INFINITY;
-    }
-    float cm = s[0];
-#pragma unroll
-    for (int j = 1; j < CHUNK; ++j) cm = fmaxf(cm, s[j]);
-    const float m_new = fmaxf(m, cm);
-    const float corr = expf(m - m_new);  // 0 on the first chunk (m = -inf)
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < DV; ++d) o[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < CHUNK; ++j) {
-      const float p = expf(s[j] - m_new);
-      l += p;
-      const float4* vr = reinterpret_cast<const float4*>(vs[j0 + j]);
-#pragma unroll
-      for (int d = 0; d < DV / 4; ++d) {
-        float4 vv = vr[d];
-        o[4 * d + 0] = fmaf(p, vv.x, o[4 * d + 0]);
-        o[4 * d + 1] = fmaf(p, vv.y, o[4 * d + 1]);
-        o[4 * d + 2] = fmaf(p, vv.z, o[4 * d + 2]);
-        o[4 * d + 3] = fmaf(p, vv.w, o[4 * d + 3]);
-      }
-    }
-    m = m_new;
-  }
-}
+constexpr int DC = 32, DP = 32, DQK = DC + DP, DV = 32;  // head dims
+constexpr int LSLICE = 16;                                // layout keys per fold
 
-// Stage rows [r0, r0 + n) of a (rows, D) operand into dst[..][col0 : col0 + D]
-// as f32, zero-filling rows n..BK-1.  Consecutive threads read consecutive
-// columns of one row, so global reads coalesce and shared writes do not
-// conflict.
-template <typename T, int D, int W>
-__device__ __forceinline__ void stage(float (*dst)[W], int col0, const T* src,
-                                      int64_t row_stride, int r0, int n) {
-  for (int e = threadIdx.x; e < BK * D; e += BQ) {
-    const int r = e / D, c = e % D;
-    dst[r][col0 + c] = r < n ? to_f<T>(src[(int64_t)(r0 + r) * row_stride + c]) : 0.0f;
-  }
-}
+template <typename T>
+struct Smem {
+  static constexpr int LDQ = ld_qk<DQK>(), LDV = ld_v<T, DV>(), BQ = block_rows<DQK>();
+  // K stages 0 and 1, V stages 0 and 1, the q tile, then the layout strip
+  // of l2p rows
+  static constexpr int kV = 2 * BK * LDQ, kQ = kV + 2 * BK * LDV, kL = kQ + BQ * LDQ;
+  static size_t bytes(int l2p) { return sizeof(T) * (kL + l2p * (LDQ + LDV)); }
+};
 
-template <typename T, int DC, int DP, int DV>
-__global__ void __launch_bounds__(BQ) oaca_fwd_kernel(const OacaArgs a) {
-  constexpr int DQK = DC + DP;
-  __shared__ __align__(16) float ks[BK][DQK];
-  __shared__ __align__(16) float vs[BK][DV];
+template <typename T>
+__global__ void __launch_bounds__(NT) oaca_fwd_kernel(const OacaArgs a) {
+  using S = Smem<T>;
+  constexpr int LDQ = S::LDQ, LDV = S::LDV, BQ = S::BQ;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + S::kV;
+  T* sQ = sK + S::kQ;
+  T* sKl = sK + S::kL;
+  const int L2 = (int)a.L2, l2p = (L2 + LSLICE - 1) / LSLICE * LSLICE;
+  T* sVl = sKl + l2p * LDQ;
 
-  const int bh = blockIdx.y;
-  const int64_t b = bh / a.H, h = bh % a.H;
-  const int Lq = (int)a.Lq, L2 = (int)a.L2;
-  const int qi = blockIdx.x * BQ + threadIdx.x;
-  const float scale2 = (float)a.scale2;
-
+  const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * BQ;
+  const int Lq = (int)a.Lq;
   const T* qc = (const T*)a.qc + b * a.qc_s[0] + h * a.qc_s[1];
   const T* ipe = (const T*)a.ipe + b * a.ipe_s[0] + h * a.ipe_s[1];
   const T* kc = (const T*)a.kc + b * a.kc_s[0] + h * a.kc_s[1];
@@ -145,66 +107,71 @@ __global__ void __launch_bounds__(BQ) oaca_fwd_kernel(const OacaArgs a) {
   const T* vc = (const T*)a.vc + b * a.vc_s[0] + h * a.vc_s[1];
   const T* vl = (const T*)a.vl + b * a.vl_s[0] + h * a.vl_s[1];
 
-  // this thread's query row [q_c | ipe], kept in registers
-  float q[DQK];
-  if (qi < Lq) {
-#pragma unroll
-    for (int d = 0; d < DC; ++d) q[d] = to_f<T>(qc[(int64_t)qi * a.qc_s[2] + d]);
-#pragma unroll
-    for (int d = 0; d < DP; ++d) q[DC + d] = to_f<T>(ipe[(int64_t)qi * a.ipe_s[2] + d]);
-  } else {
-#pragma unroll
-    for (int d = 0; d < DQK; ++d) q[d] = 0.0f;
-  }
-
-  float o[DV];
-#pragma unroll
-  for (int d = 0; d < DV; ++d) o[d] = 0.0f;
-  float m = -INFINITY, l = 0.0f;
-
-  // image strip: keys [k_c | ipe], values v_c
-  for (int k0 = 0; k0 < Lq; k0 += BK) {
-    const int nk = min(BK, Lq - k0);
-    __syncthreads();  // the previous tile is consumed
-    stage<T, DC, DQK>(ks, 0, kc, a.kc_s[2], k0, nk);
-    stage<T, DP, DQK>(ks, DC, ipe, a.ipe_s[2], k0, nk);
-    stage<T, DV, DV>(vs, 0, vc, a.vc_s[2], k0, nk);
-    __syncthreads();
-    attend_tile<DQK, DV>(ks, vs, nk, q, scale2, o, m, l);
-  }
-
+  // image tile t: keys [k_c | ipe], values v_c
+  auto stage_image = [&](int t) {
+    const int k0 = t * BK, n = min(BK, Lq - k0);
+    T* dk = sK + (t & 1) * BK * LDQ;
+    stage_rows<T, DC, BK>(dk, LDQ, kc, a.kc_s[2], k0, n, DC);
+    stage_rows<T, DP, BK>(dk + DC, LDQ, ipe, a.ipe_s[2], k0, n, DP);
+    stage_rows<T, DV, BK>(sV + (t & 1) * BK * LDV, LDV, vc, a.vc_s[2], k0, n, DV);
+    cp_async_commit();
+  };
+  // queries [q_c | ipe]
+  stage_rows<T, DC, BQ>(sQ, LDQ, qc, a.qc_s[2], q0, Lq - q0, DC);
+  stage_rows<T, DP, BQ>(sQ + DC, LDQ, ipe, a.ipe_s[2], q0, Lq - q0, DP);
   // layout strip: keys k_l (already [k_lc | lpe]), values v_l
-  if (L2 > 0) {
-    __syncthreads();
-    stage<T, DQK, DQK>(ks, 0, kl, a.kl_s[2], 0, L2);
-    stage<T, DV, DV>(vs, 0, vl, a.vl_s[2], 0, L2);
-    __syncthreads();
-    attend_tile<DQK, DV>(ks, vs, L2, q, scale2, o, m, l);
-  }
+  stage_rows_n<T, DQK>(sKl, LDQ, l2p, kl, a.kl_s[2], 0, L2, DQK);
+  stage_rows_n<T, DV>(sVl, LDV, l2p, vl, a.vl_s[2], 0, L2, DV);
+  stage_image(0);
 
-  if (qi < Lq) {
-    const float inv = 1.0f / l;
-    T* out = (T*)a.out + b * a.out_s[0] + h * a.out_s[1] + (int64_t)qi * a.out_s[2];
-#pragma unroll
-    for (int d = 0; d < DV; ++d) out[d] = from_f<T>(o[d] * inv);
+  using Warp = FlashWarp<T, DQK, DV>;
+  Warp::fill_ones(sV, 2 * BK);
+  Warp::fill_ones(sVl, l2p);
+  Warp w;
+  w.init((float)a.scale2);
+  const int n_tiles = (Lq + BK - 1) / BK;
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t has landed; every warp is done with tile t-1
+    if (t == 0) w.load_q(sQ);
+    if (t + 1 < n_tiles) stage_image(t + 1);  // overlaps the products of tile t
+    const T* k_t = sK + (t & 1) * BK * LDQ;
+    const T* v_t = sV + (t & 1) * BK * LDV;
+    if (Lq - t * BK < BK)
+      w.template attend<BK, true>(k_t, v_t, Lq - t * BK);
+    else
+      w.template attend<BK, false>(k_t, v_t, BK);
   }
+  for (int j0 = 0; j0 < L2; j0 += LSLICE)
+    w.template attend<LSLICE, true>(sKl + j0 * LDQ, sVl + j0 * LDV, L2 - j0);
+
+  T* out = (T*)a.out + b * a.out_s[0] + h * a.out_s[1];
+  w.store(out, a.out_s[2], q0, Lq, DV);
+}
+
+template <typename T>
+int launch(const OacaArgs& a, cudaStream_t s) {
+  const size_t bytes = Smem<T>::bytes((int)((a.L2 + LSLICE - 1) / LSLICE * LSLICE));
+  constexpr int BQ = Smem<T>::BQ;
+  const dim3 grid((unsigned)((a.Lq + BQ - 1) / BQ), (unsigned)(a.B * a.H));
+  cudaError_t err = cudaFuncSetAttribute(oaca_fwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  oaca_fwd_kernel<T><<<grid, NT, bytes, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t code; cudaErrorInvalidValue for head dims or a layout
-// length this build does not cover.
+// length this build does not cover, or a scale that is not positive.
 extern "C" int oaca_forward(OacaArgs a, int dtype, int dc, int dp, int dv, void* stream) {
-  if (dc != 32 || dp != 32 || dv != 32) return (int)cudaErrorInvalidValue;
-  if (a.L2 < 0 || a.L2 > BK || a.Lq <= 0 || a.B <= 0 || a.H <= 0 || a.B * a.H > 65535)
+  if (dc != DC || dp != DP || dv != DV) return (int)cudaErrorInvalidValue;
+  if (a.L2 < 0 || a.L2 > BK || a.Lq <= 0 || a.B <= 0 || a.H <= 0 || a.B * a.H > 65535 ||
+      !(a.scale2 > 0))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((a.Lq + BQ - 1) / BQ), (unsigned)(a.B * a.H));
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kFloat32)
-    oaca_fwd_kernel<float, 32, 32, 32><<<grid, BQ, 0, s>>>(a);
-  else if (dtype == kBFloat16)
-    oaca_fwd_kernel<__nv_bfloat16, 32, 32, 32><<<grid, BQ, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == kFloat32) return launch<float>(a, s);
+  if (dtype == kBFloat16) return launch<__nv_bfloat16>(a, s);
+  return (int)cudaErrorInvalidValue;
 }

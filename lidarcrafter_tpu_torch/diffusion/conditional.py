@@ -15,6 +15,7 @@ from typing import Literal
 import torch
 from torch import nn
 
+from ..precision import cast_tree
 from .continuous import ContinuousDiffusion
 
 
@@ -29,9 +30,11 @@ class CondContinuousDiffusion(ContinuousDiffusion):
         return dict(other_condition=self.cond_model(batch_dict))
 
     def denoise(self, x_t: torch.Tensor, log_snr_t: torch.Tensor, condition=None) -> torch.Tensor:
-        cd = dict(condition)
-        cd["time_condition"] = log_snr_t
-        return self.model(x_t, cd)
+        """Image, time and the condition tree go in as ``dtype``; the
+        prediction comes back float32."""
+        cd = cast_tree(dict(condition), self.dtype)
+        cd["time_condition"] = log_snr_t.to(self.dtype)
+        return self.model(x_t.to(self.dtype), cd).float()
 
     @torch.inference_mode()
     def sample(

@@ -8,6 +8,11 @@ become Python loops of denoiser calls.  ``sample`` takes an optional ``x_T``
 and a ``torch.Generator``, so a caller can hand it the same start as the JAX
 sampler draws.  The conditional sampler (``conditional.py``) shares all of
 it and only changes how the denoiser is called.
+
+``dtype`` is the serving precision of the denoiser call, as the JAX
+package's ``build_sampler_fn`` sets it: the image and the time input go in
+as ``dtype`` and the prediction comes back float32, so the schedules, the
+sampler's carry and the clipping stay float32.
 """
 
 from __future__ import annotations
@@ -97,6 +102,7 @@ class ContinuousDiffusion:
     image_d: float | None = None
     noise_d_low: float | None = None
     noise_d_high: float | None = None
+    dtype: torch.dtype = torch.float32  # of the denoiser call (parameters cast by the caller)
 
     def log_snr(self, t: torch.Tensor) -> torch.Tensor:
         fn = schedules.get_log_snr_fn(
@@ -105,8 +111,9 @@ class ContinuousDiffusion:
         return fn(t)
 
     def denoise(self, x_t: torch.Tensor, log_snr_t: torch.Tensor, condition=None) -> torch.Tensor:
-        """One denoiser call; the network sees log-SNR(t), not t."""
-        return self.model(x_t, log_snr_t)
+        """One denoiser call; the network sees log-SNR(t), not t.  Image and
+        time go in as ``dtype``; the prediction comes back float32."""
+        return self.model(x_t.to(self.dtype), log_snr_t.to(self.dtype)).float()
 
     def predict_x_0(self, x_t: torch.Tensor, t: torch.Tensor, condition=None) -> torch.Tensor:
         """x̂_0 from one denoiser call (with clipping)."""

@@ -3,7 +3,9 @@
 Port of ``MeanFlow.sample`` of the JAX package's ``diffusion/mean_flow.py``:
 x = z − u(z, t=1, r=0).  ``sample`` takes an optional ``z`` and a
 ``torch.Generator``, so a caller can hand it the same noise as the JAX
-sampler draws.  The training loss (a JVP through the model) is not ported.
+sampler draws.  ``dtype`` is the serving precision of the model call: z, t
+and r go in as ``dtype``, u comes back float32.  The training loss (a JVP
+through the model) is not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ class MeanFlow:
 
     model: nn.Module
     sampling_shape: tuple[int, ...]  # (H, W, C) — without batch
+    dtype: torch.dtype = torch.float32  # of the model call (parameters cast by the caller)
 
     @torch.inference_mode()
     def sample(
@@ -38,6 +41,6 @@ class MeanFlow:
             )
         else:
             z = z.to(device=device, dtype=torch.float32)
-        t = torch.ones(z.shape[0], device=device)
-        r = torch.zeros(z.shape[0], device=device)
-        return z - self.model(z, t, r)
+        t = torch.ones(z.shape[0], device=device, dtype=self.dtype)
+        r = torch.zeros(z.shape[0], device=device, dtype=self.dtype)
+        return z - self.model(z.to(self.dtype), t, r).float()

@@ -5,12 +5,14 @@ Mirrors the JAX package's ``tools/generate.py``: unconditional sampling
 (DDPM, DDIM or DPM-Solver++(2M)) and ``postprocess_sample``; writes one
 ``sample_NNNN.txt`` point cloud (x, y, z, reflectance) per frame and
 ``samples.npy``.  There is no checkpoint in the repository yet, so the model
-runs with seeded random weights.
+runs with seeded random weights.  ``--dtype bfloat16`` serves the model in
+bf16, as the JAX package's ``build_sampler_fn`` does (the sampler stays
+float32); the default is float32.
 
 Usage::
 
   python -m lidarcrafter_tpu_torch.generate -c nuscenes-unet-uncond -n 8 \\
-      --num-steps 50 --mode ddim
+      --num-steps 50 --mode ddim [--dtype bfloat16]
 
 :class:`UncondFrameGenerator` holds a built model and answers requests;
 :func:`generate` builds one and answers a single request.
@@ -19,6 +21,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +29,7 @@ import torch
 
 from . import resolve_device
 from .configs import apply_reduced_topology, get_config
+from .precision import DTYPES, to_serving_dtype_
 from .training.factory import build_diffusion_training
 from .training.preprocess import postprocess_sample
 from .weights import init_random_
@@ -33,13 +37,18 @@ from .weights import init_random_
 
 class UncondFrameGenerator:
     """The unconditional model of one config, built once on ``device`` with
-    random weights drawn from ``weights_seed``."""
+    random weights drawn from ``weights_seed`` and served in ``dtype``."""
 
-    def __init__(self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0):
+    def __init__(
+        self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.model, self.engine, self.lidar_utils = build_diffusion_training(cfg, self.device)
+        self.model, engine, self.lidar_utils = build_diffusion_training(cfg, self.device)
         init_random_(self.model, weights_seed)
+        to_serving_dtype_(self.model, dtype)
+        self.engine = dataclasses.replace(engine, dtype=dtype)
 
     def generate(
         self,
@@ -63,11 +72,12 @@ def generate(
     seed: int = 0,
     device: str | torch.device = "cuda",
     resolution: tuple[int, int] | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> dict:
     """Build the model of ``cfg_name`` and sample ``num_samples`` frames;
     returns ``{'sample', 'depth', 'xyz', 'reflectance'}``."""
     cfg = apply_reduced_topology(get_config(cfg_name), resolution=resolution)
-    gen = UncondFrameGenerator(cfg, device=device, weights_seed=seed)
+    gen = UncondFrameGenerator(cfg, device=device, weights_seed=seed, dtype=dtype)
     sample, post = gen.generate(num_samples, num_steps, mode=mode, seed=seed)
     return {"sample": sample, **post}
 
@@ -80,13 +90,15 @@ def main(argv=None) -> None:
     parser.add_argument("--mode", choices=["ddpm", "ddim", "dpmpp_2m"], default="ddpm")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dtype", choices=list(DTYPES), default="float32",
+                        help="precision of the model forward (the sampler stays float32)")
     parser.add_argument("-o", "--output", default="generated")
     parser.add_argument("--resolution", type=int, nargs=2, default=None,
                         help="override H W (smoke runs)")
     args = parser.parse_args(argv)
     out = generate(
         args.cfg, args.num_samples, args.num_steps, args.mode, args.seed,
-        args.device, args.resolution,
+        args.device, args.resolution, DTYPES[args.dtype],
     )
     out_dir = Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)

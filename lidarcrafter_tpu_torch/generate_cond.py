@@ -4,11 +4,14 @@ Mirrors the JAX package's ``tools/generate_cond.py`` in its ``--synthetic``
 branch: zero layout conditions, conditional sampling (DDPM, DDIM or
 DPM-Solver++(2M)) and ``postprocess_sample``.  There is no checkpoint in the
 repository yet, so the stack runs with seeded random weights.
+``--dtype bfloat16`` serves the stack in bf16, as the JAX package's
+``build_sampler_fn`` does (the sampler stays float32); the default is
+float32.
 
 Usage::
 
   python -m lidarcrafter_tpu_torch.generate_cond -c nuscenes-box-layout-v6 \\
-      --synthetic -n 8 --num-steps 50 --mode ddim
+      --synthetic -n 8 --num-steps 50 --mode ddim [--dtype bfloat16]
 
 :class:`CondFrameGenerator` holds a built stack and answers requests;
 :func:`generate_cond` builds one and answers a single request.
@@ -17,6 +20,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +28,7 @@ import torch
 
 from . import resolve_device
 from .configs import apply_reduced_topology, get_config
+from .precision import DTYPES, to_serving_dtype_
 from .training.factory import build_diffusion_training, layout_condition_batch
 from .training.preprocess import postprocess_sample
 from .weights import init_random_
@@ -31,15 +36,21 @@ from .weights import init_random_
 
 class CondFrameGenerator:
     """The layout-conditioned stack of one config, built once on ``device``
-    with random weights drawn from ``weights_seed``."""
+    with random weights drawn from ``weights_seed`` and served in
+    ``dtype``."""
 
-    def __init__(self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0):
+    def __init__(
+        self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ):
         self.device = resolve_device(device)
         self.cfg = cfg
-        models, self.engine, self.lidar_utils = build_diffusion_training(cfg, self.device)
+        models, engine, self.lidar_utils = build_diffusion_training(cfg, self.device)
         init_random_(models["cond"], weights_seed)
         init_random_(models["model"], weights_seed + 1)
+        to_serving_dtype_(models["model"], dtype, cond_model=models["cond"])
         self.models = models
+        self.engine = dataclasses.replace(engine, dtype=dtype)
 
     def generate(
         self,
@@ -67,11 +78,12 @@ def generate_cond(
     seed: int = 0,
     device: str | torch.device = "cuda",
     resolution: tuple[int, int] | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> dict:
     """Build the stack of ``cfg_name`` and sample ``num_samples`` frames from
     synthetic conditions; returns ``{'sample', 'depth', 'xyz', ...}``."""
     cfg = apply_reduced_topology(get_config(cfg_name), resolution=resolution)
-    gen = CondFrameGenerator(cfg, device=device, weights_seed=seed)
+    gen = CondFrameGenerator(cfg, device=device, weights_seed=seed, dtype=dtype)
     sample, post = gen.generate(num_samples, num_steps, mode=mode, seed=seed)
     return {"sample": sample, **post}
 
@@ -86,6 +98,8 @@ def main(argv=None) -> None:
     parser.add_argument("--mode", choices=["ddpm", "ddim", "dpmpp_2m"], default="ddpm")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dtype", choices=list(DTYPES), default="float32",
+                        help="precision of the model forward (the sampler stays float32)")
     parser.add_argument("-o", "--output", default="generated_cond")
     parser.add_argument("--resolution", type=int, nargs=2, default=None,
                         help="override H W (smoke runs)")
@@ -94,7 +108,7 @@ def main(argv=None) -> None:
         raise SystemExit("only --synthetic conditions are ported so far")
     out = generate_cond(
         args.cfg, args.num_samples, args.num_steps, args.mode, args.seed,
-        args.device, args.resolution,
+        args.device, args.resolution, DTYPES[args.dtype],
     )
     out_dir = Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)

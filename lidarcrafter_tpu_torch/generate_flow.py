@@ -4,11 +4,12 @@ Mirrors the JAX package's ``tools/generate_flow.py``: one MeanFlow step from
 noise, clamped to [-1, 1] as the reference does, then ``postprocess_sample``;
 writes ``flow_sample_NNNN.txt`` (x, y, z) and ``flow_sample_NNNN_depth.npy``
 per frame.  There is no checkpoint in the repository yet, so the model runs
-with seeded random weights.
+with seeded random weights.  ``--dtype bfloat16`` serves the model in bf16
+(the step itself stays float32); the default is float32.
 
 Usage::
 
-  python -m lidarcrafter_tpu_torch.generate_flow -c meanflow-nusc -n 8
+  python -m lidarcrafter_tpu_torch.generate_flow -c meanflow-nusc -n 8 [--dtype bfloat16]
 
 :class:`FlowFrameGenerator` holds a built model and answers requests;
 :func:`generate_flow` builds one and answers a single request.
@@ -17,6 +18,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +26,7 @@ import torch
 
 from . import resolve_device
 from .configs import apply_reduced_topology, get_config
+from .precision import DTYPES, to_serving_dtype_
 from .training.factory import build_flow_training
 from .training.preprocess import postprocess_sample
 from .weights import init_random_
@@ -31,13 +34,18 @@ from .weights import init_random_
 
 class FlowFrameGenerator:
     """The MeanFlow model of one config, built once on ``device`` with random
-    weights drawn from ``weights_seed``."""
+    weights drawn from ``weights_seed`` and served in ``dtype``."""
 
-    def __init__(self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0):
+    def __init__(
+        self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.model, self.engine, self.lidar_utils = build_flow_training(cfg, self.device)
+        self.model, engine, self.lidar_utils = build_flow_training(cfg, self.device)
         init_random_(self.model, weights_seed)
+        to_serving_dtype_(self.model, dtype)
+        self.engine = dataclasses.replace(engine, dtype=dtype)
 
     def generate(self, batch_size: int, seed: int = 0) -> tuple[torch.Tensor, dict]:
         """One-step sample of ``batch_size`` frames, clamped to [-1, 1], and
@@ -53,11 +61,12 @@ def generate_flow(
     seed: int = 0,
     device: str | torch.device = "cuda",
     resolution: tuple[int, int] | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> dict:
     """Build the model of ``cfg_name`` and sample ``num_samples`` frames;
     returns ``{'sample', 'depth', 'xyz', 'reflectance'}``."""
     cfg = apply_reduced_topology(get_config(cfg_name), resolution=resolution)
-    gen = FlowFrameGenerator(cfg, device=device, weights_seed=seed)
+    gen = FlowFrameGenerator(cfg, device=device, weights_seed=seed, dtype=dtype)
     sample, post = gen.generate(num_samples, seed=seed)
     return {"sample": sample, **post}
 
@@ -68,11 +77,14 @@ def main(argv=None) -> None:
     parser.add_argument("-n", "--num-samples", type=int, default=8)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dtype", choices=list(DTYPES), default="float32",
+                        help="precision of the model forward (the step stays float32)")
     parser.add_argument("-o", "--output", default="generated_flow")
     parser.add_argument("--resolution", type=int, nargs=2, default=None,
                         help="override H W (smoke runs)")
     args = parser.parse_args(argv)
-    out = generate_flow(args.cfg, args.num_samples, args.seed, args.device, args.resolution)
+    out = generate_flow(args.cfg, args.num_samples, args.seed, args.device, args.resolution,
+                        DTYPES[args.dtype])
     out_dir = Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)
     for i in range(args.num_samples):

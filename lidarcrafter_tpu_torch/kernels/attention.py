@@ -51,10 +51,13 @@ def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tens
       scale: factor on the f32 logits.
       kv_len: number of real keys (default all Lkv); the rest are masked.
 
-    Any strides are taken as long as the last dimension is contiguous, so
-    per-head views of a fused projection need no copy.  Returns (B, heads,
-    Lq, dv) in q's dtype; on the card its memory is laid out (B, Lq, heads,
-    dv), so that merging the heads back into channels is free.
+    Any strides are taken as long as the last dimension is contiguous and
+    the pointers, strides and head dims are whole 16-byte pieces (else
+    ``ValueError``), so per-head views of a fused projection need no copy.
+    The kernel runs its products on the tensor cores: bf16 ``mma.sync``, or
+    3xTF32 for float32.  Returns (B, heads, Lq, dv) in q's dtype; on the
+    card its memory is laid out (B, Lq, heads, dv), so that merging the
+    heads back into channels is free.
     """
     B, H, Lq, dqk = q.shape
     Lkv, dv = k.shape[2], v.shape[-1]
@@ -76,6 +79,9 @@ def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tens
         raise ValueError("attention kernel needs a contiguous last dimension")
     if Lq == 0 or B * H > 65535:
         raise ValueError("attention kernel takes Lq >= 1 and B*heads <= 65535")
+    loader.check_aligned("attention", *ops)
+    if not scale > 0:
+        raise ValueError(f"attention kernel takes a positive scale, got {scale}")
     out = torch.empty((B, Lq, H, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     args = loader.AttnArgs(
         *(t.data_ptr() for t in ops), out.data_ptr(),

@@ -180,3 +180,17 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def check_aligned(what: str, *ops: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless every operand's pointer, (batch, head,
+    row) strides and head dim are whole multiples of 16 bytes: the kernels
+    copy rows to shared memory in 16-byte ``cp.async`` pieces."""
+    for t in ops:
+        elt = t.element_size()
+        if t.data_ptr() % 16 or any(n * elt % 16 for n in (*t.stride()[:3], t.shape[-1])):
+            raise ValueError(
+                f"{what} kernel needs 16-byte aligned operands: pointer, (batch, head, row) "
+                f"strides and head dim in whole 16-byte pieces; got strides {tuple(t.stride())}, "
+                f"shape {tuple(t.shape)}, {elt}-byte elements, pointer {t.data_ptr():#x}"
+            )

@@ -50,10 +50,12 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
       k_l, v_l: layout strip, L2 tokens; k_l is already [k_content | pe].
       scale: the per-operand 1/√√d factor (applied as scale² to the logits).
 
-    Any strides are taken as long as the last dimension is contiguous.
-    Returns (B, heads, Lq, dv) in the operands' dtype; on the card its
-    memory is laid out (B, Lq, heads, dv), so that merging the heads back
-    into channels is free.
+    Any strides are taken as long as the last dimension is contiguous and
+    the pointers and strides are whole 16-byte pieces (else ``ValueError``).
+    The kernel runs its products on the tensor cores: bf16 ``mma.sync``, or
+    3xTF32 for float32.  Returns (B, heads, Lq, dv) in the operands' dtype;
+    on the card its memory is laid out (B, Lq, heads, dv), so that merging
+    the heads back into channels is free.
     """
     B, H, Lq, dc = q_c.shape
     dp, L2, dv = ipe.shape[-1], k_l.shape[2], v_c.shape[-1]
@@ -78,6 +80,9 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
         raise ValueError("oaca_attention kernel needs a contiguous last dimension")
     if L2 > _MAX_L2 or B * H > 65535:
         raise ValueError(f"oaca_attention kernel takes L2 <= {_MAX_L2} and B*heads <= 65535")
+    loader.check_aligned("oaca_attention", *ops)
+    if not scale > 0:
+        raise ValueError(f"oaca_attention kernel takes a positive scale, got {scale}")
     out = torch.empty((B, Lq, H, dv), dtype=q_c.dtype, device=q_c.device).transpose(1, 2)
     args = loader.OacaArgs(
         *(t.data_ptr() for t in ops), out.data_ptr(),

@@ -33,8 +33,11 @@ class TimeEmbedding(nn.Module):
         self.dense_1 = nn.Linear(temb_channels, temb_channels)
 
     def forward(self, timesteps: torch.Tensor) -> torch.Tensor:
+        # the sinusoid is float32, and as flax promotes it against bfloat16
+        # parameters, both dense layers run in float32 at any serving dtype
         h = sinusoidal_embedding(timesteps, self.base_channels)
-        return self.dense_1(F.silu(self.dense_0(h)))
+        h = F.linear(h, self.dense_0.weight.float(), self.dense_0.bias.float())
+        return F.linear(F.silu(h), self.dense_1.weight.float(), self.dense_1.bias.float())
 
 
 def _n_tuple(x, n: int) -> tuple:

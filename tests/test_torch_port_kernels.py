@@ -20,7 +20,7 @@ import torch
 from lidarcrafter_tpu.models.ops import GroupNorm32 as JaxGroupNorm32
 from lidarcrafter_tpu.ops.pallas_attention import _oaca_unfused, oaca_attention as jax_oaca
 from lidarcrafter_tpu.ops.pallas_groupnorm import _gn_ref, fused_group_norm
-from lidarcrafter_tpu_torch.kernels import groupnorm, oaca
+from lidarcrafter_tpu_torch.kernels import groupnorm, loader, oaca
 from lidarcrafter_tpu_torch.models.ops import GroupNorm32
 
 ATOL = 1e-5
@@ -146,3 +146,19 @@ def test_wrappers_refuse_devices_they_were_not_built_for():
     v_l = torch.zeros(1, 1, 13, 32, device="meta")
     with pytest.raises(ValueError):
         oaca.oaca_attention(ops[0], ops[1], ops[2], k_l, ops[0], v_l, scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_alignment_check_refuses_operands_that_cp_async_cannot_copy(dtype):
+    """The attention kernels copy rows in 16-byte pieces: a view one element
+    in (pointer and row stride off 16 bytes) or a head dim that is no whole
+    piece is refused before any launch; per-head views of a fused projection
+    and stride-0 broadcasts pass."""
+    wide = torch.zeros(1, 2, 64, 65, dtype=dtype)
+    with pytest.raises(ValueError, match="16-byte"):
+        loader.check_aligned("attention", wide[..., 1:])
+    with pytest.raises(ValueError, match="16-byte"):
+        loader.check_aligned("attention", torch.zeros(1, 2, 64, 4, dtype=dtype)[..., :2])
+    qkv = torch.zeros(2, 100, 3 * 256, dtype=dtype)
+    heads = [t.reshape(2, 100, 8, 32).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+    loader.check_aligned("attention", *heads, torch.zeros(1, 100, 32, dtype=dtype).expand(2, 8, 100, 32))
