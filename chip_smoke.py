@@ -13,7 +13,10 @@ Phases, each printing one JSON line:
    norm, with the kernel's, the plain version's and one PyTorch library
    call's device times, the least time the card could take (no row may
    read below it), and the route each runs (``mma 3xTF32`` / ``mma bf16``
-   tensor cores for OACA and attention, ``cuda-core`` GroupNorm);
+   tensor cores for OACA and attention; GroupNorm on the CUDA cores as
+   ``one-launch grid-sync``: one launch per norm, at most one block per SM
+   with a grid sync, fed the modules' raw operands: weight, bias and the
+   strided scale/shift halves of the conditioning projection);
 3. full-width forwards on the card with the kernels against the same
    forwards on the CPU with the plain versions, shared seeded weights: the
    layout stack (encoder + ``LayoutUnetV1``, 32x1024) and ``EfficientUNet``
@@ -28,7 +31,9 @@ Phases, each printing one JSON line:
    bfloat16 answers one request (DPM-Solver++(2M)@15, MeanFlow one step);
 5. a ``torch.profiler`` trace of one denoiser call of the layout and of the
    unconditional path, in float32 and in bfloat16: device time by kernel
-   category and the device's idle share.
+   category, the device kernels launched per call and the device's idle
+   share; the ``groupnorm kernel`` category must hold exactly one device
+   kernel per norm (101 a layout call, 50 an uncond call).
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -52,10 +57,11 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-# peak rate of each route's operations: GroupNorm in f32 on the CUDA cores
-# (bf16 is widened on load); OACA and attention on the tensor cores, f32 as
-# 3xTF32 (three TF32 products each)
-PEAK_FLOPS = {"cuda-core": 67e12, "mma 3xTF32": 495e12 / 3, "mma bf16": 989e12}
+# peak rate of each route's operations: GroupNorm ("one-launch grid-sync") in
+# f32 on the CUDA cores (bf16 is widened on load); OACA and attention on the
+# tensor cores, f32 as 3xTF32 (three TF32 products each)
+GN_ROUTE = "one-launch grid-sync"
+PEAK_FLOPS = {GN_ROUTE: 67e12, "mma 3xTF32": 495e12 / 3, "mma bf16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel − plain| / max(1, max |plain|)
 # ‖kernel − plain‖₂ / ‖plain‖₂: attention outputs average thousands of keys
 # and are mostly far below 1, where the max-based limit is as large as a
@@ -191,7 +197,10 @@ def check_oaca(label, B, H, L, dtype, gen):
     }
 
 
-def check_groupnorm(label, shape, dtype, scale_shift, silu, gen, groups=32, eps=1e-5):
+def check_groupnorm(label, shape, dtype, scale_shift, silu, gen, groups=32, eps=1e-5, affine=True):
+    """The operands as the modules pass them: the norm's (C,) weight and bias
+    (none for AdaGN) and the ``chunk`` halves of a (B, 2C) projection as
+    scale and shift, all in the serving dtype."""
     import torch
     import torch.nn.functional as F
 
@@ -199,34 +208,35 @@ def check_groupnorm(label, shape, dtype, scale_shift, silu, gen, groups=32, eps=
 
     B, C = shape[0], shape[-1]
     x = (torch.randn(shape, generator=gen, device=DEVICE) * 2 + 1).to(dtype)
-    w = 1 + 0.1 * torch.randn(C, generator=gen, device=DEVICE)
-    b = 0.1 * torch.randn(C, generator=gen, device=DEVICE)
-    gamma, beta = w, b
+    w = b = s = t = None
+    if affine:
+        w = (1 + 0.1 * torch.randn(C, generator=gen, device=DEVICE)).to(dtype)
+        b = (0.1 * torch.randn(C, generator=gen, device=DEVICE)).to(dtype)
     if scale_shift:
-        s = 0.3 * torch.randn(B, C, generator=gen, device=DEVICE)
-        t = 0.3 * torch.randn(B, C, generator=gen, device=DEVICE)
-        gamma, beta = w * (1 + s), b * (1 + s) + t
-    args = dict(num_groups=groups, eps=eps, silu=silu)
-    got = groupnorm.group_norm(x, gamma, beta, **args)
-    want = groupnorm.group_norm_plain(
-        x, gamma.expand(B, C), beta.expand(B, C), **args
-    )
+        s, t = (0.3 * torch.randn(B, 2 * C, generator=gen, device=DEVICE)).to(dtype).chunk(2, dim=-1)
+    args = dict(num_groups=groups, eps=eps, scale=s, shift=t, silu=silu)
+    got = groupnorm.group_norm(x, w, b, **args)
+    want = groupnorm.group_norm_plain(x, w, b, **args)
     torch.cuda.synchronize()
     dname = str(dtype).split(".")[-1]
     errors = kernel_errors(f"groupnorm {label}", dname, got, want)
     x_nchw = x.reshape(B, -1, 1, C).permute(0, 3, 1, 2)
-    library = time_ms(lambda: F.group_norm(x_nchw, groups, w.to(dtype), b.to(dtype), eps))
+    library = time_ms(lambda: F.group_norm(x_nchw, groups, w, b, eps))
     elt = torch.finfo(dtype).bits // 8
-    nbytes = 2 * x.numel() * elt + 2 * B * C * 4
-    bound, by = bound_ms(nbytes, 10.0 * x.numel(), "cuda-core")
+    # x read and y written once; weight and bias (C,), scale and shift (B, C)
+    nbytes = elt * (2 * x.numel() + 2 * C * affine + 2 * B * C * scale_shift)
+    bound, by = bound_ms(nbytes, 10.0 * x.numel(), GN_ROUTE)
+    HW = x.numel() // (B * C)
+    plan = groupnorm.plan(B, HW, C, groups, elt, torch.cuda.get_device_properties(0).multi_processor_count)
     return {
-        "kernel": "groupnorm", "shape": label, "dtype": dname, "route": "cuda-core",
-        "groups": groups, "scale_shift": scale_shift, "silu": silu, **errors,
-        "ms": time_ms(lambda: groupnorm.group_norm(x, gamma, beta, **args)),
-        "plain_ms": time_ms(lambda: groupnorm.group_norm_plain(
-            x, gamma.expand(B, C), beta.expand(B, C), **args)),
+        "kernel": "groupnorm", "shape": label, "dtype": dname, "route": GN_ROUTE,
+        "groups": groups, "scale_shift": scale_shift, "silu": silu, "affine": affine, **errors,
+        "ms": time_ms(lambda: groupnorm.group_norm(x, w, b, **args)),
+        "plain_ms": time_ms(lambda: groupnorm.group_norm_plain(x, w, b, **args)),
         "library_ms": library, "library": "F.group_norm (affine only, no scale-shift or SiLU)",
         "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+        "blocks_per_image": plan.k, "grid_sync": plan.k > 1,
+        "staged_rows_share": plan.stage_rows / plan.rows_per_block,
     }
 
 
@@ -280,6 +290,10 @@ def phase_kernels():
         rows.append(check_oaca("ragged B=8 h=8 L=1000", BATCH, 8, 1000, dtype, gen))
         rows.append(check_groupnorm("level0 (8,32,1024,64) out_norm", (BATCH, 32, 1024, 64),
                                     dtype, True, True, gen))
+        # the largest slab of the main paths: the layout decoder's first
+        # level-0 block (out_0_0_res), whose in_norm sees the 192-channel concat
+        rows.append(check_groupnorm("level0 (8,32,1024,192) in_norm out_0_0_res", (BATCH, 32, 1024, 192),
+                                    dtype, False, True, gen))
         rows.append(check_groupnorm("ds8 (8,4,128,1024) in_norm", (BATCH, 4, 128, 1024),
                                     dtype, False, True, gen))
         rows.append(check_groupnorm("tokens (8,13,64)", (BATCH, 13, 64), dtype, False, False, gen))
@@ -291,8 +305,8 @@ def phase_kernels():
         rows.append(check_attention("ragged B=8 h=8 L=300", BATCH, 8, 300, 300, 64, dtype, gen))
         rows.append(check_attention("masked head B=8 h=8 L=128 kv_len=9", BATCH, 8, 128, 128, 64,
                                     dtype, gen, kv_len=9))
-        rows.append(check_groupnorm("unet level0 (8,32,1024,64) scale-shift+SiLU", (BATCH, 32, 1024, 64),
-                                    dtype, True, True, gen, groups=8, eps=1e-6))
+        rows.append(check_groupnorm("unet level0 (8,32,1024,64) AdaGN scale-shift+SiLU", (BATCH, 32, 1024, 64),
+                                    dtype, True, True, gen, groups=8, eps=1e-6, affine=False))
         rows.append(check_groupnorm("unet ds8 (8,4,128,512) SiLU", (BATCH, 4, 128, 512),
                                     dtype, False, True, gen, groups=8, eps=1e-6))
     for row in rows:
@@ -481,7 +495,7 @@ def _category(kernel_name: str) -> str:
         return "oaca kernel"
     if "attention_fwd" in name:
         return "attention kernel"
-    if "gn_partial" in name or "gn_finalize" in name or "gn_apply" in name:
+    if "gn_fused" in name:
         return "groupnorm kernel"
     if any(k in name for k in ("conv", "fprop", "winograd", "implicit", "dgrad", "cudnn")):
         return "convolution (cuDNN)"
@@ -490,9 +504,10 @@ def _category(kernel_name: str) -> str:
     return "elementwise, copy, concat, other"
 
 
-def phase_profile(what: str, call, smi: str):
-    """Device time by kernel category over one call of ``call`` (a denoiser
-    call of a main path, B=8), and the device's idle share of that call."""
+def phase_profile(what: str, call, smi: str) -> dict:
+    """Device time and kernels by category over one call of ``call`` (a
+    denoiser call of a main path, B=8), the device kernels of that call and
+    the device's idle share; returns the kernels by category."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -515,10 +530,11 @@ def phase_profile(what: str, call, smi: str):
     busy = sum(v[0] for v in by_cat.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "profile", "what": what, "card": smi, "step_ms": step_ms, "device_busy_ms": busy,
-          "idle_share": max(0.0, 1.0 - busy / step_ms),
+          "idle_share": max(0.0, 1.0 - busy / step_ms), "device_kernels": len(events),
           "by_category": {k: {"ms": v[0], "kernels": v[1]} for k, v in
                           sorted(by_cat.items(), key=lambda kv: -kv[1][0])},
           "top_kernels": [{"name": n[:90], "ms": ms} for n, ms in top]})
+    return {k: v[1] for k, v in by_cat.items()}
 
 
 def profile_calls(cond_gen, uncond_gen):
@@ -585,9 +601,10 @@ def main() -> int:
             by_path[f"{name} {dname}"] = phase_main_path(name, gens[name], counts[name],
                                                          requests[dname][name], smi)
         calls = profile_calls(gens["nuscenes-box-layout-v6"], gens["nuscenes-unet-uncond"])
-        phase_profile(f"one denoiser call (layout, predict_x_0), B=8, {dname}", calls["layout"], smi)
-        phase_profile(f"one denoiser call (uncond EfficientUNet, predict_x_0), B=8, {dname}",
-                      calls["uncond"], smi)
+        for path, norms in (("layout", GN_PER_FORWARD), ("uncond", GN_PER_UNET)):
+            cats = phase_profile(f"one denoiser call ({path}, predict_x_0), B=8, {dname}", calls[path], smi)
+            n = cats.get("groupnorm kernel", 0)
+            check(n == norms, f"{path} {dname}: {n} GroupNorm device kernels in one call, expected {norms}")
         del gens, calls
         torch.cuda.empty_cache()
 

@@ -1,21 +1,27 @@
-"""GroupNorm + per-batch affine + optional SiLU over channels-last tensors.
+"""GroupNorm + per-batch affine (scale-shift folded) + optional SiLU over
+channels-last tensors, in one launch.
 
 Port of the TPU kernel ``_gn_kernel`` of the JAX package
 (``ops/pallas_groupnorm.py``, wrapper ``fused_group_norm``).  The CUDA kernel
-is ``csrc/groupnorm.cu``; :func:`group_norm_plain` beside it is the same
-function in plain PyTorch.  :func:`group_norm` takes the plain version for a
-tensor on the CPU and launches the kernel for a tensor on the card; it never
-falls back from one to the other.
+is ``csrc/groupnorm.cu``: one launch, each image split into blocks of
+contiguous rows (at most one block per SM), the blocks' statistics merged
+after a grid sync, the rows that fit normalised from shared memory.  :func:`group_norm_plain` beside it is the
+same function in plain PyTorch.  :func:`group_norm` takes the plain version
+for a tensor on the CPU and launches the kernel for a tensor on the card; it
+never falls back from one to the other.
 
-Unlike the TPU kernel the statistics are direct-variance (Welford / Chan
-merges, never ``E[x^2] - mean^2``), so every ``GroupNorm32`` of the port goes
-through it, the 26-element groups of the attention blocks' token norms
-included.
+Both take the raw operands of the modules: the norm's own ``weight`` and
+``bias`` and the conditioning's ``scale`` and ``shift``, and fold them in
+float32 as ``GN(x)·w(1+s) + b(1+s) + t``.  Unlike the TPU kernel the
+statistics are direct-variance (Chan merges, never ``E[x^2] - mean^2``), so
+every ``GroupNorm32`` of the port goes through it, the 26-element groups of
+the attention blocks' token norms included.
 """
 
 from __future__ import annotations
 
-import math
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -25,88 +31,169 @@ from . import loader
 launches = loader.LaunchCounter("groupnorm")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_C = 1024  # one thread per channel in the finalize pass
-_TARGET_BLOCKS = 4 * 132  # stats blocks in flight: four per H100 SM
+_THREADS = 256  # threads a block aims for
+_MAX_THREADS = 512  # the kernel's launch bound
+_MIN_BLOCK_BYTES = 32 * 1024  # an image is split only into blocks of at least this
+_SMEM_MAX = 232_448  # dynamic shared memory an H100 block may use
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernel covers a (B, HW, C) tensor: each image in ``k`` blocks
+    of ``threads`` threads and ``rows_per_block`` rows, of which the first
+    ``stage_rows`` are kept in shared memory.  One block an image (k = 1)
+    needs no grid sync."""
+
+    k: int
+    rows_per_block: int
+    rows_par: int
+    threads: int
+    stage_rows: int
+    smem: int
+
+    @property
+    def read_once(self) -> bool:
+        """Every row is normalised from shared memory (one HBM read)."""
+        return self.stage_rows == self.rows_per_block
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, HW: int, C: int, G: int, itemsize: int, num_sms: int = 132) -> Plan:
+    """The launch ``csrc/groupnorm.cu`` runs for these shapes: an image in
+    as many blocks of at least 32 KB as the SMs hold with every image split
+    alike (k = 1 for the token norms); the staged rows fill the shared memory
+    the scratch leaves (its size is ``scratch_bytes`` in the CUDA source)."""
+    vec = 8 if itemsize == 2 and C % 8 == 0 else 4
+    cpr = C // vec
+    k = max(1, min(num_sms // B, HW * C * itemsize // _MIN_BLOCK_BYTES, HW))
+    rows = -(-HW // k)
+    k = -(-HW // rows)  # no block left empty
+    rows_par = max(1, min(_THREADS // cpr, rows))
+    threads = -(-(rows_par * cpr) // 32) * 32
+    scratch = 16 + 4 * (threads * (2 * vec + 1) + 2 * C + 2 * G)
+    stage_rows = min(rows, max(0, _SMEM_MAX - scratch) // (C * itemsize))
+    return Plan(k, rows, rows_par, threads, stage_rows, stage_rows * C * itemsize + scratch)
+
+
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _rows(t: torch.Tensor | None, C: int) -> torch.Tensor | None:
+    """An affine operand as (B or 1, C) float32, for the plain version."""
+    return None if t is None else t.float().reshape(-1, C)
 
 
 def group_norm_plain(
     x: torch.Tensor,
-    gamma: torch.Tensor,
-    beta: torch.Tensor,
+    weight: torch.Tensor | None,
+    bias: torch.Tensor | None,
     *,
     num_groups: int,
     eps: float,
+    scale: torch.Tensor | None = None,
+    shift: torch.Tensor | None = None,
     silu: bool = False,
 ) -> torch.Tensor:
-    """Direct two-pass GroupNorm in f32, then ``y * gamma[b] + beta[b]`` and
-    an optional SiLU, cast back to ``x.dtype``.  ``x`` is (B, ..., C);
-    ``gamma``/``beta`` are (B, C) float32."""
+    """Direct two-pass GroupNorm in f32, then ``y·γ + β`` with
+    ``γ = w(1+s)`` and ``β = b(1+s) + t`` folded in f32, and an optional
+    SiLU, cast back to ``x.dtype``.  ``x`` is (B, ..., C); ``weight`` and
+    ``bias`` are (C,) or (B, C), ``scale`` and ``shift`` hold B·C values
+    ((B, C), (B, 1, 1, C), ...), any of them None."""
     B, C = x.shape[0], x.shape[-1]
     g = x.reshape(B, -1, num_groups, C // num_groups).float()
     mean = g.mean(dim=(1, 3), keepdim=True)
     var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
     y = ((g - mean) * torch.rsqrt(var + eps)).reshape(B, -1, C)
+    gamma, beta = _rows(weight, C), _rows(bias, C)
+    gamma = torch.ones(1, C, device=x.device) if gamma is None else gamma
+    beta = torch.zeros(1, C, device=x.device) if beta is None else beta
+    if scale is not None:
+        s1 = 1.0 + _rows(scale, C)
+        gamma, beta = gamma * s1, beta * s1
+    if shift is not None:
+        beta = beta + _rows(shift, C)
     y = y * gamma[:, None, :] + beta[:, None, :]
     if silu:
         y = F.silu(y)
     return y.to(x.dtype).reshape(x.shape)
 
 
-def _num_splits(B: int, HW: int) -> int:
-    """Row splits per image for the stats pass: enough blocks to fill the
-    card, at least 32 rows each."""
-    return max(1, min(HW // 32, math.ceil(_TARGET_BLOCKS / B)))
+def _operand(t: torch.Tensor | None, x: torch.Tensor, B: int, C: int, what: str) -> tuple[int, int, int]:
+    """(pointer, batch stride, dtype code) of an affine operand for the
+    kernel, read in place: (C,), (1, C), (B, C) or (B, 1, ..., 1, C) with
+    unit channel stride (a ``chunk`` half of a projection passes)."""
+    if t is None:
+        return 0, 0, 0
+    shape, stride = t.shape, t.stride()
+    rows = shape[0] if len(shape) > 1 else 1
+    code = _DTYPE_CODES.get(t.dtype)
+    if (shape[-1] != C or rows not in (1, B) or t.numel() != rows * C or (C > 1 and stride[-1] != 1)
+            or code is None or t.device != x.device):
+        raise ValueError(f"group_norm {what}: expected (C,) or (B, C) float32/bfloat16 values with unit "
+                         f"channel stride on {x.device}, got shape {tuple(shape)}, strides {stride}, "
+                         f"{t.dtype} on {t.device} for B={B}, C={C}")
+    return t.data_ptr(), stride[0] if rows > 1 else 0, code
+
+
+def _args(x, y, weight, bias, scale, shift, work, num_groups, eps, silu, p: Plan) -> loader.GnArgs:
+    B, C = x.shape[0], x.shape[-1]
+    ops = [_operand(t, x, B, C, what) for t, what in
+           ((weight, "weight"), (bias, "bias"), (scale, "scale"), (shift, "shift"))]
+    (w, w_bs, w_dt), (b, b_bs, b_dt), (s, s_bs, s_dt), (t, t_bs, t_dt) = ops
+    return loader.GnArgs(
+        x.data_ptr(), y.data_ptr(), w, b, s, t, w_bs, b_bs, s_bs, t_bs, w_dt, b_dt, s_dt, t_dt,
+        0 if work is None else work.data_ptr(), _DTYPE_CODES[x.dtype], B, x.numel() // (B * C), C, num_groups,
+        p.k, p.rows_par, p.stage_rows, int(silu), float(eps),
+    )
 
 
 def group_norm(
     x: torch.Tensor,
-    gamma: torch.Tensor,
-    beta: torch.Tensor,
+    weight: torch.Tensor | None,
+    bias: torch.Tensor | None,
     *,
     num_groups: int,
     eps: float,
+    scale: torch.Tensor | None = None,
+    shift: torch.Tensor | None = None,
     silu: bool = False,
 ) -> torch.Tensor:
     """GroupNorm(+per-batch affine)(+SiLU) of a channels-last tensor.
 
     Args:
-      x: (B, ..., C) contiguous, float32 or bfloat16.
-      gamma, beta: (C,) or (B, C); callers fold the ADM scale-shift
-        conditioning ``GN(x)·γ(1+s) + β(1+s) + t`` into them, in float32.
+      x: (B, ..., C), float32 or bfloat16.
+      weight, bias: the norm's affine, (C,) or (B, C), float32 or bfloat16,
+        or None (ones, zeros).
+      scale, shift: the ADM scale-shift conditioning, B·C values each with
+        unit channel stride (the ``chunk`` halves of a projection pass as
+        they are), or None; the output is ``GN(x)·w(1+s) + b(1+s) + t``.
       num_groups, eps: the GroupNorm's groups and epsilon.
       silu: apply SiLU before the single write.
 
     Returns a tensor of ``x``'s shape and dtype.
     """
     B, C = x.shape[0], x.shape[-1]
-    gamma = gamma.float().reshape(-1, C).expand(B, C).contiguous()
-    beta = beta.float().reshape(-1, C).expand(B, C).contiguous()
     if C % num_groups:
         raise ValueError(f"{C} channels do not split into {num_groups} groups")
     if x.device.type == "cpu":
-        return group_norm_plain(
-            x, gamma, beta, num_groups=num_groups, eps=eps, silu=silu
-        )
+        return group_norm_plain(x, weight, bias, num_groups=num_groups, eps=eps,
+                                scale=scale, shift=shift, silu=silu)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm: unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"group_norm kernel is built for float32/bfloat16, got {x.dtype}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("group_norm kernel needs a contiguous, 16-byte aligned x")
-    if C % 4 or C > _MAX_C:
-        raise ValueError(f"group_norm kernel needs C % 4 == 0 and C <= {_MAX_C}, got {C}")
-    if gamma.device != x.device or beta.device != x.device:
-        raise ValueError("gamma/beta must be on x's device")
-    HW = x.numel() // (B * C)
-    S = _num_splits(B, HW)
-    G = num_groups
-    work = torch.empty(B * S * G * 3 + 2 * B * C, dtype=torch.float32, device=x.device)
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("group_norm kernel needs a 16-byte aligned x")
+    p = plan(B, x.numel() // (B * C), C, num_groups, x.element_size(), _num_sms(x.device.index))
+    if C % 4 or p.threads > _MAX_THREADS or p.smem > _SMEM_MAX:
+        raise ValueError(f"group_norm kernel needs C % 4 == 0 and C <= {_MAX_THREADS * 4}, got {C}")
     y = torch.empty_like(x)
-    err = loader.library("groupnorm").gn_forward(
-        x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        work.data_ptr(), _DTYPE_CODES[x.dtype], B, HW, C, G, S, float(eps),
-        int(silu), torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    work = torch.empty(B * p.k * 3 * num_groups, device=x.device) if p.k > 1 else None
+    args = _args(x, y, weight, bias, scale, shift, work, num_groups, eps, silu, p)
+    err = loader.library("groupnorm").gn_forward(args, torch.cuda.current_stream(x.device).cuda_stream)
     loader.check(err, "gn_forward")
     launches.n += 1
     return y

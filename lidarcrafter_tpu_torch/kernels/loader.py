@@ -69,10 +69,30 @@ class AttnArgs(ctypes.Structure):
     ]
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+class GnArgs(ctypes.Structure):
+    """Mirror of ``struct GnArgs`` in ``csrc/groupnorm.cu`` (all fields 8 bytes)."""
+
+    _fields_ = [
+        ("x", ctypes.c_void_p), ("y", ctypes.c_void_p),
+        ("w", ctypes.c_void_p), ("b", ctypes.c_void_p),
+        ("s", ctypes.c_void_p), ("t", ctypes.c_void_p),
+        ("w_bs", ctypes.c_int64), ("b_bs", ctypes.c_int64),
+        ("s_bs", ctypes.c_int64), ("t_bs", ctypes.c_int64),
+        ("w_dt", ctypes.c_int64), ("b_dt", ctypes.c_int64),
+        ("s_dt", ctypes.c_int64), ("t_dt", ctypes.c_int64),
+        ("work", ctypes.c_void_p),
+        ("dtype", ctypes.c_int64), ("B", ctypes.c_int64), ("HW", ctypes.c_int64),
+        ("C", ctypes.c_int64), ("G", ctypes.c_int64),
+        ("k", ctypes.c_int64), ("rows_par", ctypes.c_int64),
+        ("stage_rows", ctypes.c_int64), ("silu", ctypes.c_int64),
+        ("eps", ctypes.c_double),
+    ]
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "probe": {"probe_x2": [_P, _P, _I, _P]},
-    "groupnorm": {"gn_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]},
+    "groupnorm": {"gn_forward": [GnArgs, _P]},
     "oaca": {"oaca_forward": [OacaArgs, _I, _I, _I, _I, _P]},
     "attention": {"attention_forward": [AttnArgs, _I, _P]},
 }

@@ -154,8 +154,9 @@ class FusedGN(nn.Module):
     JAX package's ``FusedGN`` (8 groups, eps 1e-6), whose scale and bias are
     optional.
 
-    Every call goes through :func:`kernels.groupnorm.group_norm`: its CUDA
-    kernel for a tensor on the card, its plain version on the CPU.
+    Every call is one :func:`kernels.groupnorm.group_norm`, which takes the
+    parameters and the conditioning as they are and folds them itself: its
+    CUDA kernel for a tensor on the card, its plain version on the CPU.
     """
 
     def __init__(
@@ -170,9 +171,6 @@ class FusedGN(nn.Module):
         self.num_groups, self.eps = num_groups, eps
         self.weight = nn.Parameter(torch.ones(channels)) if use_scale else None
         self.bias = nn.Parameter(torch.zeros(channels)) if use_bias else None
-        if not use_scale or not use_bias:
-            self.register_buffer("ones", torch.ones(channels), persistent=False)
-            self.register_buffer("zeros", torch.zeros(channels), persistent=False)
 
     def forward(
         self,
@@ -180,19 +178,11 @@ class FusedGN(nn.Module):
         scale_shift: tuple[torch.Tensor, torch.Tensor] | None = None,
         silu: bool = False,
     ) -> torch.Tensor:
-        """``scale_shift=(s, t)`` (each with B·C elements) gives
-        ``GN(x)·(1+s) + t``."""
-        B, C = x.shape[0], x.shape[-1]
-        gamma = (self.ones if self.weight is None else self.weight).float()
-        beta = (self.zeros if self.bias is None else self.bias).float()
-        if scale_shift is not None:
-            s, t = scale_shift
-            s1 = 1.0 + s.float().reshape(B, C)
-            beta = beta * s1 + t.float().reshape(B, C)
-            gamma = gamma * s1
-        return group_norm(
-            x.contiguous(), gamma, beta, num_groups=self.num_groups, eps=self.eps, silu=silu
-        )
+        """``scale_shift=(s, t)`` (each with B·C values, unit channel
+        stride) gives ``GN(x)·(1+s) + t``."""
+        s, t = (None, None) if scale_shift is None else scale_shift
+        return group_norm(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps,
+                          scale=s, shift=t, silu=silu)
 
 
 class GroupNorm32(FusedGN):

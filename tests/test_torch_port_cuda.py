@@ -12,6 +12,7 @@ max(1, max |plain|), and the error's norm to 1e-3 (float32) and 1e-2
 percent of the keys where most outputs are far below 1.
 """
 
+import itertools
 import math
 
 import pytest
@@ -66,26 +67,96 @@ def test_oaca_kernel_refuses_head_dims_it_was_not_built_for(gen):
                             ops[0], torch.zeros(1, 1, 2, 16, device="cuda"), scale=1.0)
 
 
+def _gn_edge_hw(edge: str, side: str, C: int, G: int, dtype) -> int:
+    """HW of a (2, HW, C) norm just below / above one of the kernel's
+    thresholds: ``grid`` (one block an image -> blocks merged after a grid
+    sync) or ``staged`` (every row of a block in shared memory -> one row a
+    block re-read from L2)."""
+    elt = torch.finfo(dtype).bits // 8
+    sms = groupnorm._num_sms(0)
+
+    def plan(hw):
+        return groupnorm.plan(2, hw, C, G, elt, sms)
+
+    if edge == "grid":
+        hw = next(hw for hw in itertools.count(1) if plan(hw).k > 1)
+        return hw - 1 if side == "below" else hw
+    k = sms // 2
+    cap = plan(1 << 20).stage_rows
+    hw = k * (cap if side == "below" else cap + 1)
+    assert plan(hw).k == k and plan(hw).read_once == (side == "below")
+    return hw
+
+
+# ops: "folded" is the call form of the earlier wrapper, gamma and beta in
+# f32, (1, C) or (B, C) per ``per_batch``; "raw" is the modules' form, the
+# norm's (C,) weight and bias with the strided ``chunk`` halves of a (B, 2C)
+# projection as scale and shift, all in x's dtype; "raw-none" has no weight
+# and no bias (AdaGN).  A ``shape[1]`` of ("grid" | "staged", side) is an edge.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "shape,per_batch,silu",
-    [((2, 13, 64), False, False), ((1, 1, 32), False, True), ((3, 7, 9, 96), True, True),
-     ((2, 5, 1024), True, False), ((2, 4000, 192), False, True)],
+    "shape,per_batch,silu,ops,groups",
+    [((2, 13, 64), False, False, "folded", 32), ((1, 1, 32), False, True, "folded", 32),
+     ((3, 7, 9, 96), True, True, "folded", 32), ((2, 5, 1024), True, False, "folded", 32),
+     ((2, 4000, 192), False, True, "folded", 32),
+     ((2, 64, 128, 64), False, True, "raw", 32), ((3, 7, 9, 96), False, True, "raw-none", 32),
+     ((8, 13, 64), False, False, "raw", 32), ((1, 4, 128, 1024), False, True, "raw", 512),
+     ((2, 8, 128, 512), False, True, "raw-none", 8),
+     ((2, 300, 100), False, True, "raw", 20),  # bf16 C % 8 == 4: 8-byte pieces, cp.async staging
+     ((2, 1000, 100), False, False, "raw-none", 4),
+     ((2, ("grid", "below"), 64), False, True, "raw", 32),
+     ((2, ("grid", "above"), 64), False, True, "raw", 32),
+     ((2, ("staged", "below"), 64), False, True, "raw", 32),
+     ((2, ("staged", "above"), 64), False, True, "raw", 32)],
 )
-def test_groupnorm_kernel_matches_plain(gen, dtype, shape, per_batch, silu):
+def test_groupnorm_kernel_matches_plain(gen, dtype, shape, per_batch, silu, ops, groups):
+    if isinstance(shape[1], tuple):
+        shape = (shape[0], _gn_edge_hw(*shape[1], shape[-1], groups, dtype), shape[-1])
     B, C = shape[0], shape[-1]
     x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 5).to(dtype)
-    rows = B if per_batch else 1
-    gamma = 1 + 0.1 * torch.randn(rows, C, generator=gen, device="cuda")
-    beta = 0.1 * torch.randn(rows, C, generator=gen, device="cuda")
-    args = dict(num_groups=32, eps=1e-5, silu=silu)
+    if ops == "folded":
+        rows = B if per_batch else 1
+        weight = 1 + 0.1 * torch.randn(rows, C, generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(rows, C, generator=gen, device="cuda")
+        scale = shift = None
+    else:
+        weight = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+        bias = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+        if ops == "raw-none":
+            weight = bias = None
+        scale, shift = (0.3 * torch.randn(B, 2 * C, generator=gen, device="cuda")).to(dtype).chunk(2, dim=-1)
+    args = dict(num_groups=groups, eps=1e-5, silu=silu, scale=scale, shift=shift)
     n = groupnorm.launches.n
-    got = groupnorm.group_norm(x, gamma, beta, **args)
+    got = groupnorm.group_norm(x, weight, bias, **args)
     torch.cuda.synchronize()
     assert groupnorm.launches.n == n + 1
-    want = groupnorm.group_norm_plain(x, gamma.expand(B, C), beta.expand(B, C), **args)
+    want = groupnorm.group_norm_plain(x, weight, bias, **args)
     assert got.shape == want.shape and got.dtype == dtype
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 32, 1024, 64), (8, 13, 64), (8, 4, 128, 1024)])
+def test_groupnorm_kernel_is_deterministic_and_one_launch(gen, dtype, shape):
+    """Two calls on one input are bit-identical (the blocks' partials merge
+    in a fixed order, no float atomics), and a profiler trace of one call
+    shows exactly one device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    C = shape[-1]
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    w, b = torch.randn(C, generator=gen, device="cuda"), torch.randn(C, generator=gen, device="cuda")
+    s, t = torch.randn(shape[0], 2 * C, generator=gen, device="cuda").chunk(2, dim=-1)
+    args = dict(num_groups=32, eps=1e-5, scale=s, shift=t, silu=True)
+    first = groupnorm.group_norm(x, w, b, **args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = groupnorm.group_norm(x, w, b, **args)
+        torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "gn_fused_kernel" in kernels[0], kernels
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
