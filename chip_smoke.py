@@ -6,7 +6,8 @@ Phases, each printing one JSON line:
 
 1. device and build: the card's name and power limit, the ``nvcc`` build of
    ``lidarcrafter_tpu_torch/csrc/*.cu`` (four sources, one ``nvcc`` each, in
-   parallel) and the loader's ``x·2`` self-check;
+   parallel) and the loader's ``x·2`` self-check, with the probe kernel's
+   device time beside its bound and ``torch.mul(x, 2)``;
 2. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at ragged / masked edges, in float32 (TF32 off) and
    bfloat16, held to a limit on the largest error and one on the error's
@@ -33,7 +34,18 @@ Phases, each printing one JSON line:
    unconditional path, in float32 and in bfloat16: device time by kernel
    category, the device kernels launched per call and the device's idle
    share; the ``groupnorm kernel`` category must hold exactly one device
-   kernel per norm (101 a layout call, 50 an uncond call).
+   kernel per norm (101 a layout call, 50 an uncond call);
+6. the 4D rollout, in float32 and then served in bfloat16:
+   ``RolloutGenerator`` (``nuscenes-box-layout-v6`` frame 0,
+   ``nuscenes-auto-reg-v2`` after it) rolls 8 synthetic scenes of 4 boxes
+   1 + 15 frames with DPM-Solver++(2M)@15, after one short warm-up, with
+   the launch counters set to 0 just before and read just after: rollout
+   seconds and frames/s, the geometry step's device time per frame and the
+   denoiser calls' (CUDA events around each), peak memory; checks 16 finite,
+   non-constant (8, 32, 1024, 2) frames, exactly 11·15·16 OACA and
+   101·15·16 GroupNorm launches, and one frame's geometry step on the card
+   against the CPU from the same frame (condition maps equal to 1e-5 on at
+   least 99.9% of the pixels; the rest are bin-edge flips).
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -53,6 +65,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
@@ -77,6 +91,8 @@ OACA_PER_FORWARD, GN_PER_FORWARD = 11, 101  # layout UNet, per denoiser call
 ATTN_PER_UNET, GN_PER_UNET = 2, 50  # EfficientUNet / MFEfficientUNet, per call
 REQUESTS = (("ddim", 50), ("dpmpp_2m", 15))
 BATCH = 8
+ROLLOUT_SCENES, ROLLOUT_FRAMES, ROLLOUT_STEPS = 8, 15, 15  # 1 + 15 frames, DPM++(2M)@15
+GEOMETRY_RTOL, GEOMETRY_PIXEL_SHARE = 1e-5, 0.999  # card vs CPU condition maps
 
 
 def emit(obj) -> None:
@@ -96,10 +112,11 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, sleep_cycles: int = int(5e7)) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls.  The
-    card sleeps first while the host queues the calls, so launch-bound
-    calls are timed on the device and not at the host's enqueue rate."""
+    card sleeps first (5e7 cycles, ~30 ms at the H100's clock) while the
+    host queues the calls, so launch-bound calls are timed on the device
+    and not at the host's enqueue rate."""
     import torch
 
     for _ in range(warmup):
@@ -107,7 +124,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(5e7))  # ~30 ms at the H100's clock
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -556,6 +573,155 @@ def profile_calls(cond_gen, uncond_gen):
     }
 
 
+# ------------------------------------------------------------------ phase 6
+
+
+def event_spans(fn, spans: list):
+    """``fn`` with a pair of CUDA events recorded around each call into
+    ``spans``."""
+    import torch
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    return timed
+
+
+def geometry_on_card_and_cpu(gen, frame0) -> dict:
+    """The first autoregressive frame's geometry step from the card's frame
+    0, run on the card and on the CPU with the same boxes and transform;
+    counts the condition pixels that differ by more than GEOMETRY_RTOL of
+    max(1, max |CPU|).  Also times the step on the card: its device time
+    (one step, a few hundred launches, queued while the card sleeps ~50 ms; more
+    steps would fill the card's launch queue and block the host) and the
+    host's time to queue one step (mean of 3)."""
+    import torch
+
+    from lidarcrafter_tpu_torch.pipeline.temporal import frame_conditions, image_points_carry, scene_tracks
+    from lidarcrafter_tpu_torch.sample_temporal import synthetic_scenes
+    from lidarcrafter_tpu_torch.training.factory import make_lidar_utils
+
+    out = {}
+    for dev, lu in ((DEVICE, gen.lidar_utils), ("cpu", make_lidar_utils(gen.autoreg.cfg, "cpu"))):
+        tracks = scene_tracks(*synthetic_scenes(ROLLOUT_SCENES, seed=1), ROLLOUT_FRAMES, 16, torch.device(dev))
+        with torch.inference_mode():
+            carry = image_points_carry(torch.as_tensor(frame0, device=dev), lu)
+            def step():
+                return frame_conditions(*carry, tracks.boxes[:, 0], tracks.next_boxes[:, 0],
+                                        tracks.transforms[:, 0], tracks.classes_col, tracks.box_mask, lu)
+
+            out[dev] = step()
+            if dev == DEVICE:
+                device_ms = time_ms(step, iters=1, sleep_cycles=int(1e8))
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    step()
+                enqueue_ms = (time.perf_counter() - t0) * 1e3 / 3
+                torch.cuda.synchronize()
+    result = {"step_device_ms": device_ms, "step_enqueue_ms": enqueue_ms}
+    for name, got, want in zip(("concat_cond", "autoregressive_cond"), out[DEVICE], out["cpu"]):
+        tol = GEOMETRY_RTOL * max(1.0, float(want.abs().max()))
+        diff = (got.cpu() - want).abs()
+        flipped = int((diff > tol).any(-1).sum())
+        pixels = want[..., 0].numel()
+        check(flipped <= (1 - GEOMETRY_PIXEL_SHARE) * pixels,
+              f"rollout geometry card vs CPU, {name}: {flipped} of {pixels} pixels differ")
+        result[name] = {"pixels_differing": flipped, "pixels": pixels, "max_abs_err": float(diff.max()),
+                        "tol": tol}
+    return result
+
+
+def phase_rollout(dtype, smi: str) -> dict:
+    """The 4D rollout on the card (phase 6); returns its launch counts."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
+    from lidarcrafter_tpu_torch.sample_temporal import RolloutGenerator
+
+    dname = str(dtype).split(".")[-1]
+    t0 = time.perf_counter()
+    gen = RolloutGenerator(get_config("nuscenes-box-layout-v6"), get_config("nuscenes-auto-reg-v2"),
+                           DEVICE, 0, dtype, num_steps=2, mode="dpmpp_2m")
+    pipe = gen.pipeline
+    gen.generate(ROLLOUT_SCENES, num_frames=1, seed=99)  # warm-up: 1 + 1 frames, 2 steps
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pipe.num_sampling_steps = ROLLOUT_STEPS
+
+    geometry, denoise = [], []
+    pipe.frame_conditions = event_spans(pipe.frame_conditions, geometry)
+    for engine in (pipe.cond_engine, pipe.autoreg_engine):
+        engine.denoise = event_spans(engine.denoise, denoise)
+    counters = {"oaca": oaca.launches, "groupnorm": groupnorm.launches, "attention": attention.launches}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    frames = gen.generate(ROLLOUT_SCENES, num_frames=ROLLOUT_FRAMES, seed=1, stream_chunks=2)
+    seconds = time.perf_counter() - t0
+    launches = {k: c.n for k, c in counters.items()}
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_frames, calls = ROLLOUT_FRAMES + 1, (ROLLOUT_FRAMES + 1) * ROLLOUT_STEPS
+    check(len(frames) == n_frames, f"rollout {dname}: {len(frames)} frames, expected {n_frames}")
+    for i, f in enumerate(frames):
+        check(f.shape == (ROLLOUT_SCENES, *pipe.lidar_utils.resolution, 2), f"rollout {dname} frame {i}: shape {f.shape}")
+        check(bool(np.isfinite(f).all()), f"rollout {dname} frame {i} is not finite")
+        check(float(f.std()) > 1e-3, f"rollout {dname} frame {i} is constant")
+    per_call = {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD}
+    for k, n in launches.items():
+        want = per_call.get(k, 0) * calls
+        check(n == want, f"rollout {dname}: {k} launches {n} != {per_call.get(k, 0)} x {calls}")
+    check(len(geometry) == ROLLOUT_FRAMES and len(denoise) == calls,
+          f"rollout {dname}: {len(geometry)} geometry steps, {len(denoise)} denoiser calls")
+    geometry_ms = [a.elapsed_time(b) for a, b in geometry]
+    denoise_ms = [a.elapsed_time(b) for a, b in denoise]
+    card_vs_cpu = geometry_on_card_and_cpu(gen, frames[0])
+    emit({"phase": "rollout", "dtype": dname, "card": smi, "scenes": ROLLOUT_SCENES, "frames": n_frames,
+          "mode": "dpmpp_2m", "steps": ROLLOUT_STEPS, "denoiser_calls": calls, "seconds": seconds,
+          "frames_per_s": n_frames * ROLLOUT_SCENES / seconds,
+          "geometry_ms_per_frame": sum(geometry_ms) / len(geometry_ms), "geometry_ms_max": max(geometry_ms),
+          "geometry_share": sum(geometry_ms) / 1e3 / seconds,
+          "denoiser_ms_per_call": sum(denoise_ms) / len(denoise_ms),
+          "outside_denoiser_share": 1.0 - sum(denoise_ms) / 1e3 / seconds,
+          "peak_memory_gb": peak_gb, "launches": launches, "setup_and_warmup_seconds": setup_s,
+          "frame_std": [float(f.std()) for f in frames], "card_vs_cpu_geometry": card_vs_cpu})
+    return {k: n for k, n in launches.items() if n}
+
+
+def probe_times(kernels) -> dict:
+    """Device times of the loader's ``x·2`` probe kernel on its (8, 128)
+    float32 input, of ``x * 2`` and of ``torch.mul(x, 2)``, and its bound
+    (x read and y written once)."""
+    import torch
+
+    from lidarcrafter_tpu_torch.kernels import loader
+
+    lib = kernels.libs["probe"]
+    x = torch.arange(8 * 128, dtype=torch.float32, device=DEVICE).reshape(8, 128)
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        loader.check(lib.probe_x2(x.data_ptr(), y.data_ptr(), x.numel(), stream), "probe_x2")
+
+    ms = time_ms(launch)
+    check(torch.equal(y, x * 2), "probe_x2 returned wrong values")
+    nbytes = 2 * x.numel() * x.element_size()
+    bound, by = bound_ms(nbytes, x.numel(), GN_ROUTE)
+    return {"probe_ms": ms, "probe_plain_ms": time_ms(lambda: x * 2),
+            "probe_library_ms": time_ms(lambda: torch.mul(x, 2)), "probe_bound_ms": bound,
+            "probe_bound_by": by, "probe_bytes": nbytes}
+
+
 def main() -> int:
     import torch
 
@@ -577,7 +743,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in kernels.ptxas_log.splitlines() if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc_seconds": kernels.build_seconds, "load_and_probe_seconds": load_s,
-          "probe": "x*2 ok", "ptxas": ptxas})
+          "probe": "x*2 ok", **probe_times(kernels), "ptxas": ptxas})
 
     rows = phase_kernels()
     phase_forward_parity("nuscenes-box-layout-v6")
@@ -606,6 +772,8 @@ def main() -> int:
             n = cats.get("groupnorm kernel", 0)
             check(n == norms, f"{path} {dname}: {n} GroupNorm device kernels in one call, expected {norms}")
         del gens, calls
+        torch.cuda.empty_cache()
+        by_path[f"rollout {dname}"] = phase_rollout(dtype, smi)
         torch.cuda.empty_cache()
 
     # each kernel at its largest main-path shape, float32 (the default serving

@@ -184,7 +184,9 @@ class ContinuousDiffusion:
             return torch.full((B,), v, dtype=torch.float32, device=device)
 
         if mode == "dpmpp_2m":
-            steps = lambda_spaced_timesteps(self.log_snr, num_steps, device=device)
+            # the grid and its coefficients stay on the host: reading them
+            # back from the card would wait for the work queued before
+            steps = lambda_spaced_timesteps(self.log_snr, num_steps)
             grid = steps.tolist()
             return dpmpp_2m(
                 x, steps, self.log_snr,

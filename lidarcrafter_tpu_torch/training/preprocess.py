@@ -20,10 +20,10 @@ def preprocess_condition_mask(
     """condition_mask (B,H,W,2) [semantic, depth] → (B,H,W,num_classes+2)."""
     cm = batch["condition_mask"]
     labels = cm[..., 0].to(torch.int64)
-    # out-of-range labels give an all-zero row, as jax.nn.one_hot does
-    valid = (labels >= 0) & (labels <= num_classes)
-    one_hot = F.one_hot(labels.clamp(0, num_classes), num_classes + 1)
-    one_hot = one_hot.to(cm.dtype) * valid[..., None].to(cm.dtype)
+    # out-of-range labels give an all-zero row, as jax.nn.one_hot does; a
+    # comparison, since F.one_hot reads its indices back to check them
+    classes = torch.arange(num_classes + 1, device=cm.device)
+    one_hot = (labels[..., None] == classes).to(cm.dtype)
     depth = lidar_utils.convert_depth(cm[..., 1:2])
     return torch.cat([one_hot, depth], dim=-1)
 

@@ -246,3 +246,129 @@ def test_attention_kernel_refuses_head_dims_above_128(gen):
         attention.attention(q, q, q, scale=1.0)
     with pytest.raises(ValueError, match="head dims"):
         attention.attention(q[..., :64], q[..., :64], q, scale=1.0)
+
+
+# ------------------------------------------------------ the rollout geometry
+#
+# The projection, the split and the refine on the card against the same
+# functions on the CPU, at the rollout's size (8 scenes of 32·1024 + 13·512
+# = 39,424 points, 13 boxes).  Points sit at random pixel centres (at most
+# 0.4 px off) and away from box faces, so that an ulp of arcsin / atan2 /
+# cos between the CPU and the card moves none across an edge: integer and
+# bool outputs must match exactly, floats to 1e-5 of max(1, max |CPU|).
+
+ROLLOUT_S, ROLLOUT_N, ROLLOUT_K = 8, 32 * 1024 + 13 * 512, 13
+GEOM_RTOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    rnd = np.random.RandomState(0)
+    S, N, K, Hh, Ww = ROLLOUT_S, ROLLOUT_N, ROLLOUT_K, 32, 1024
+    up, down = math.radians(10.0), math.radians(-30.0)
+    h = rnd.randint(0, Hh, (S, N)) + 0.5 + rnd.uniform(-0.4, 0.4, (S, N))
+    w = rnd.randint(0, Ww, (S, N)) + 0.5 + rnd.uniform(-0.4, 0.4, (S, N))
+    elev = (1.0 - h / Hh) * (up - down) - abs(down)
+    azim = (2.0 * w / Ww - 1.0) * np.pi
+    r = rnd.uniform(2.0, 40.0, (S, N))
+    xyz = np.stack([r * np.cos(elev) * np.cos(-azim), r * np.cos(elev) * np.sin(-azim), r * np.sin(elev)], -1)
+    boxes = np.concatenate([
+        rnd.uniform(-20, 20, (S, K, 2)), rnd.uniform(-1, 1, (S, K, 1)), rnd.uniform(1, 5, (S, K, 3)),
+        rnd.uniform(-np.pi, np.pi, (S, K, 1)), rnd.randint(1, 9, (S, K, 1)),
+    ], -1)
+    # box-local coordinates in float64: drop points within 1e-3 m of a face
+    shift = xyz[:, None] - boxes[:, :, None, :3]
+    c, s = np.cos(-boxes[..., 6:7]), np.sin(-boxes[..., 6:7])
+    local = np.stack([shift[..., 0] * c - shift[..., 1] * s, shift[..., 0] * s + shift[..., 1] * c, shift[..., 2]], -1)
+    near_face = (np.abs(np.abs(local) - boxes[:, :, None, 3:6] / 2) < 1e-3).any(-1).any(1)
+    mask = (rnd.rand(S, N) > 0.05) & ~near_face
+    pts = np.concatenate([xyz, rnd.uniform(0, 200, (S, N, 1))], -1).astype(np.float32)
+    return {k: torch.as_tensor(v) for k, v in
+            dict(pts=pts, mask=mask, boxes=boxes.astype(np.float32), box_mask=rnd.rand(S, K) > 0.1).items()}
+
+
+def _on(device, scenes):
+    return {k: v.to(device) for k, v in scenes.items()}
+
+
+def _geom_close(got, want):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if want.is_floating_point():
+        tol = GEOM_RTOL * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol
+    else:
+        assert torch.equal(got, want)
+
+
+def test_projection_on_the_card_matches_the_cpu(scenes):
+    from lidarcrafter_tpu_torch.ops import projection as X
+
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        d = _on(dev, scenes)
+        gh, gw, depth = X.spherical_grid_coords(d["pts"][..., :3], 32, 1024)
+        pixel = torch.where(d["mask"], gh.long() * 1024 + gw, 32 * 1024)
+        outs[dev] = (pixel, *X.range_image_winners(pixel, depth, 32 * 1024),
+                     X.points_to_range_image(d["pts"], d["mask"]),
+                     *X.convert_boxes_to_2d(d["boxes"], d["box_mask"]))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        _geom_close(got, want)
+    assert int(outs["cpu"][2].sum()) > 0.5 * 32 * 1024 * ROLLOUT_S  # most pixels hit
+
+
+def test_split_and_refine_on_the_card_match_the_cpu(scenes):
+    from lidarcrafter_tpu_torch.datasets import rollout as R
+
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        d = _on(dev, scenes)
+        member = R.points_in_boxes(d["pts"][..., :3], d["boxes"][..., :7]) & d["mask"][:, None]
+        outs[dev] = (member, R.first_member_indices(member, 512),
+                     *R.split_foreground_background(d["pts"], d["mask"], d["boxes"][..., :7], d["box_mask"], 512),
+                     *R.refine_points_via_condition_mask(d["pts"], d["mask"], d["boxes"], d["box_mask"]))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        _geom_close(got, want)
+    assert int(outs["cpu"][4].sum()) > 0  # some objects hold points
+
+
+def test_frame_step_on_the_card_matches_the_cpu_but_for_bin_edge_flips(scenes):
+    """One frame's geometry step from a generated-like frame (points on the
+    ray grid, not at pixel centres once warped): at least 99.9% of the
+    condition pixels agree to 1e-5."""
+    from lidarcrafter_tpu_torch.pipeline.temporal import frame_conditions, image_points_carry, scene_tracks
+    from lidarcrafter_tpu_torch.sample_temporal import synthetic_scenes
+    from lidarcrafter_tpu_torch.utils.lidar import LiDARUtility
+
+    frame = torch.rand(ROLLOUT_S, 32, 1024, 2, generator=torch.Generator().manual_seed(1)) * 1.6 - 0.9
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        lu = LiDARUtility.create((32, 1024), "log_depth", 1.45, 80.0, device=dev)
+        tracks = scene_tracks(*synthetic_scenes(ROLLOUT_S), 15, 16, torch.device(dev))
+        carry = image_points_carry(frame.to(dev), lu)
+        outs[dev] = frame_conditions(*carry, tracks.boxes[:, 3], tracks.next_boxes[:, 3], tracks.transforms[:, 3],
+                                     tracks.classes_col, tracks.box_mask, lu)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        tol = GEOM_RTOL * max(1.0, float(want.abs().max()))
+        flipped = int(((got.cpu() - want).abs() > tol).any(-1).sum())
+        assert flipped <= 1e-3 * want[..., 0].numel(), flipped
+
+
+def test_range_projection_is_deterministic_on_the_card(scenes):
+    """Crowded pixels (several points each, depth ties among them): two
+    calls give bit-identical images, since every scatter index is unique."""
+    from lidarcrafter_tpu_torch.ops.projection import points_to_range_image
+
+    d = _on("cuda", scenes)
+    crowded = d["pts"].clone()
+    crowded[:, 1::2, :3] = crowded[:, 0::2, :3]  # every odd point repeats its neighbour's xyz
+    crowded[..., :3] *= 0.25  # and ~16 points share a pixel's ray
+    a = points_to_range_image(crowded, d["mask"], H=8, W=256)
+    b = points_to_range_image(crowded, d["mask"], H=8, W=256)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _geom_close(a, points_to_range_image(crowded.cpu(), d["mask"].cpu(), H=8, W=256))
