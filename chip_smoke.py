@@ -31,7 +31,8 @@ Phases, each printing one JSON line:
    ``meanflow-nusc`` (one step), all in float32; then each path served in
    bfloat16 answers one request (DPM-Solver++(2M)@15, MeanFlow one step);
 5. a ``torch.profiler`` trace of one denoiser call of the layout and of the
-   unconditional path, in float32 and in bfloat16: device time by kernel
+   unconditional path (after one warm-up cycle of the trace, which can miss
+   the first kernels of a call), in float32 and in bfloat16: device time by kernel
    category, the device kernels launched per call and the device's idle
    share; the ``groupnorm kernel`` category must hold exactly one device
    kernel per norm (101 a layout call, 50 an uncond call);
@@ -45,7 +46,25 @@ Phases, each printing one JSON line:
    non-constant (8, 32, 1024, 2) frames, exactly 11·15·16 OACA and
    101·15·16 GroupNorm launches, and one frame's geometry step on the card
    against the CPU from the same frame (condition maps equal to 1e-5 on at
-   least 99.9% of the pixels; the rest are bin-edge flips).
+   least 99.9% of the pixels; the rest are bin-edge flips);
+7. training ("train"): (a) each kernel route's backward (the float32
+   recompute of its plain version) on the card against autograd through the
+   plain version, float32 and bfloat16, at the largest main-path shapes, to
+   the forward rows' limits, timed beside the library's forward + backward
+   (SDPA with the layout strip concatenated; ``F.group_norm`` with affine
+   only); (b) one full-width ``nuscenes-box-layout-v6`` step at B=1 in
+   float32, card (kernels) against CPU (plain), same weights, x_0, t, noise
+   and conditions: loss to 1e-4 relative, every gradient to 1e-3 relative
+   L2; (c) ``Trainer`` on ``nuscenes-box-layout-v6`` and
+   ``nuscenes-unet-uncond`` at B=8, float32 and bf16 AMP, 3 warm-up and 10
+   timed steps: steps/s, frames/s, peak memory, and exactly 11 OACA + 101
+   GroupNorm launches a layout step, 2 attention + 50 GroupNorm an uncond
+   step; (d) ``nuscenes-auto-reg-v2`` at full width, B=2, float32, 100
+   steps on banded synthetic range images (lr 1e-4, warm-up 20): the mean
+   of the last 10 losses must lie below that of the first 10; (e) its
+   checkpoint read back through ``sample_temporal``'s ``--autoreg-ckpt``
+   loader, EMA weights equal bit for bit, and one DPM-Solver++(2M)@15 frame
+   sampled from them, finite.
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -63,6 +82,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -75,7 +95,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # f32 on the CUDA cores (bf16 is widened on load); OACA and attention on the
 # tensor cores, f32 as 3xTF32 (three TF32 products each)
 GN_ROUTE = "one-launch grid-sync"
-PEAK_FLOPS = {GN_ROUTE: 67e12, "mma 3xTF32": 495e12 / 3, "mma bf16": 989e12}
+# the routes' backward: the plain version recomputed in float32 (TF32 off)
+PLAIN_ROUTE = "plain f32 recompute"
+PEAK_FLOPS = {GN_ROUTE: 67e12, "mma 3xTF32": 495e12 / 3, "mma bf16": 989e12, PLAIN_ROUTE: 67e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel − plain| / max(1, max |plain|)
 # ‖kernel − plain‖₂ / ‖plain‖₂: attention outputs average thousands of keys
 # and are mostly far below 1, where the max-based limit is as large as a
@@ -93,6 +115,9 @@ REQUESTS = (("ddim", 50), ("dpmpp_2m", 15))
 BATCH = 8
 ROLLOUT_SCENES, ROLLOUT_FRAMES, ROLLOUT_STEPS = 8, 15, 15  # 1 + 15 frames, DPM++(2M)@15
 GEOMETRY_RTOL, GEOMETRY_PIXEL_SHARE = 1e-5, 0.999  # card vs CPU condition maps
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3  # one v6 step, card vs CPU
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10  # steps of the B=8 training runs
+GATE_STEPS, GATE_BATCH = 100, 2  # nuscenes-auto-reg-v2 on banded range images
 
 
 def emit(obj) -> None:
@@ -521,20 +546,29 @@ def _category(kernel_name: str) -> str:
     return "elementwise, copy, concat, other"
 
 
-def phase_profile(what: str, call, smi: str) -> dict:
+def phase_profile(what: str, call, smi: str, inference: bool = True) -> dict:
     """Device time and kernels by category over one call of ``call`` (a
-    denoiser call of a main path, B=8), the device kernels of that call and
-    the device's idle share; returns the kernels by category."""
+    denoiser call of a main path, B=8, under ``inference_mode``; or a train
+    step), the second of two traced calls (the first is the trace's
+    warm-up cycle), the device kernels of that call and the device's idle
+    share; returns the kernels by category."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with torch.inference_mode():
+    with torch.inference_mode(inference):
         step_ms = time_ms(call, iters=10)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # one warm-up cycle first: the trace's first cycle can miss the
+        # kernels that start before the device tracing is running
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                call()
+                torch.cuda.synchronize()
+                prof.step()
+    # the schedule's "ProfilerStep*" span is recorded on the device timeline
+    # too, as one event that covers the whole call: not a kernel
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
     check(len(events) > 0, "the profiler saw no device kernels")
     by_cat: dict[str, list] = {}
     by_name: dict[str, float] = {}
@@ -697,6 +731,332 @@ def phase_rollout(dtype, smi: str) -> dict:
     return {k: n for k, n in launches.items() if n}
 
 
+# ------------------------------------------------------------------ phase 7
+
+
+BACKWARD_LIBRARY = {
+    "oaca": "F.scaled_dot_product_attention forward + backward on the concatenated strips",
+    "attention": "F.scaled_dot_product_attention forward + backward",
+    "groupnorm": "F.group_norm forward + backward (affine only)",
+}
+
+
+def _backward_case(kernel, dtype, gen):
+    """The operands of one route at its largest main-path shape (B=8), as
+    leaves that require grad, laid out as the blocks pass them; returns
+    (label, leaves, ops(), kernel call, plain call, backward call(g),
+    library forward + backward call(g), bytes, flops)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
+
+    def leaf(t):
+        return t.to(dtype).requires_grad_()
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+
+    elt = torch.finfo(dtype).bits // 8
+    if kernel == "oaca":
+        B, H, L, L2 = BATCH, 8, 2048, 13
+        C = H * 32
+        qkv, ipe, k_l, v_l = leaf(r(B, L, 3 * C)), leaf(r(B, L, C)), leaf(r(B, H, L2, 64)), leaf(r(B, L2, C))
+        heads = lambda t: t.reshape(B, t.shape[1], H, -1).transpose(1, 2)  # noqa: E731
+        scale = 1.0 / math.sqrt(math.sqrt(64))
+
+        def ops():
+            q_c, k_c, v_c = (heads(t) for t in qkv.chunk(3, dim=-1))
+            return q_c, heads(ipe), k_c, k_l, v_c, heads(v_l)
+
+        saved = [t.detach() for t in ops()]
+        q_img = torch.cat([saved[0], saved[1]], -1).detach().requires_grad_()
+        k_mix = torch.cat([torch.cat([saved[2], saved[1]], -1), saved[3]], 2).detach().requires_grad_()
+        v_mix = torch.cat([saved[4], saved[5]], 2).detach().requires_grad_()
+
+        def library(g):
+            out = F.scaled_dot_product_attention(q_img, k_mix, v_mix, scale=scale**2)
+            return torch.autograd.grad(out, (q_img, k_mix, v_mix), g)
+
+        n_ops = 4 * B * H * L * 32 + B * H * L2 * 96  # q_c, ipe, k_c, v_c; k_l, v_l
+        return ("ds4 B=8 h=8 L=2048+13", [qkv, ipe, k_l, v_l],
+                lambda: oaca.oaca_attention(*ops(), scale=scale),
+                lambda: oaca.oaca_attention_plain(*ops(), scale=scale),
+                lambda g: oaca.oaca_attention_backward(saved, g, scale=scale), library,
+                elt * (2 * n_ops + 2 * B * H * L * 32), 2.0 * B * H * L * (L + L2) * (3 * 64 + 2 * 32))
+    if kernel == "attention":
+        B, H, L, d = BATCH, 8, 512, 64
+        qkv = leaf(r(B, L, 3 * H * d))
+
+        def ops():
+            return [t.reshape(B, L, H, d).transpose(1, 2) for t in qkv.split(H * d, dim=-1)]
+
+        saved = [t.detach() for t in ops()]
+        lib_ops = [t.clone().requires_grad_() for t in saved]
+
+        def library(g):
+            out = F.scaled_dot_product_attention(*lib_ops, scale=d**-0.5)
+            return torch.autograd.grad(out, lib_ops, g)
+
+        return ("d_block4 B=8 h=8 L=512 d=64", [qkv],
+                lambda: attention.attention(*ops(), scale=d**-0.5),
+                lambda: attention.attention_plain(*ops(), scale=d**-0.5),
+                lambda g: attention.attention_backward(*saved, g, scale=d**-0.5), library,
+                elt * B * H * L * d * 8, 2.0 * B * H * L * L * 5 * d)
+    label, shape, ss = {
+        "groupnorm 192": ("level0 (8,32,1024,192) in_norm out_0_0_res + SiLU", (BATCH, 32, 1024, 192), False),
+        "groupnorm 64": ("level0 (8,32,1024,64) out_norm scale-shift + SiLU", (BATCH, 32, 1024, 64), True),
+    }[kernel]
+    C = shape[-1]
+    x, w, b = leaf(r(*shape) * 2 + 1), leaf(1 + 0.1 * r(C)), leaf(0.1 * r(C))
+    proj = leaf(0.3 * r(BATCH, 2 * C)) if ss else None
+
+    def args():
+        s, t = proj.chunk(2, dim=-1) if ss else (None, None)
+        return dict(num_groups=32, eps=1e-5, scale=s, shift=t, silu=True)
+
+    a = args()
+    saved = [t if t is None else t.detach() for t in (x, w, b, a["scale"], a["shift"])]
+    lib_ops = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+
+    def library(g):
+        x_nchw = lib_ops[0].reshape(BATCH, -1, 1, C).permute(0, 3, 1, 2)
+        out = F.group_norm(x_nchw, 32, lib_ops[1], lib_ops[2], 1e-5)
+        return torch.autograd.grad(out, lib_ops, g.reshape(BATCH, -1, 1, C).permute(0, 3, 1, 2))
+
+    n = x.numel()
+    return (label, [t for t in (x, w, b, proj) if t is not None],
+            lambda: groupnorm.group_norm(x, w, b, **args()), lambda: groupnorm.group_norm_plain(x, w, b, **args()),
+            lambda g: groupnorm.group_norm_backward(saved, g, num_groups=32, eps=1e-5, silu=True), library,
+            elt * 4 * n, 30.0 * n)
+
+
+def check_backward(kernel: str, dtype, gen) -> dict:
+    """Phase 7 (a): one route's gradients through the kernel (forward
+    kernel, backward recompute) against autograd through the plain version,
+    both limits per operand; device times of the backward, of autograd's
+    backward through the plain version, and of the library's forward +
+    backward."""
+    import torch
+
+    label, leaves, through_kernel, plain, backward, library, nbytes, flops = _backward_case(kernel, dtype, gen)
+    out = through_kernel()
+    check(out.grad_fn is not None, f"{kernel} backward: the kernel route has no grad_fn")
+    g = torch.randn(out.shape, generator=gen, device=DEVICE).to(dtype)
+    got = torch.autograd.grad(out, leaves, g)
+    want_out = plain()
+    want = torch.autograd.grad(want_out, leaves, g, retain_graph=True)
+    dname = str(dtype).split(".")[-1]
+    errs = [kernel_errors(f"{kernel} backward operand {i}", dname, a, b) for i, (a, b) in enumerate(zip(got, want))]
+    worst = {k: max(e[k] for e in errs) for k in ("max_abs_err", "rel_err", "norm_rel_err")}
+    del got, want, out
+    bound, by = bound_ms(nbytes, flops, PLAIN_ROUTE)
+    row = {
+        "kernel": kernel, "pass": "backward", "shape": label, "dtype": dname, "route": PLAIN_ROUTE,
+        **worst, "tol": TOL[dname], "norm_tol": NORM_TOL[dname],
+        "ms": time_ms(lambda: backward(g), iters=5, warmup=1),
+        "plain_ms": time_ms(lambda: torch.autograd.grad(want_out, leaves, g, retain_graph=True), iters=5, warmup=1),
+        "library_ms": time_ms(lambda: library(g), iters=5, warmup=1), "library": BACKWARD_LIBRARY[kernel.split()[0]],
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
+    }
+    check(row["ms"] >= bound, f"{kernel} backward {dname}: {row['ms']} ms below its bound {bound} ms")
+    del want_out
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_backward() -> list:
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel in ("oaca", "attention", "groupnorm 192", "groupnorm 64"):
+            rows.append(check_backward(kernel, dtype, gen))
+            emit({"phase": "train", "check": "backward", **rows[-1]})
+    return rows
+
+
+def phase_train_parity(smi: str) -> None:
+    """Phase 7 (b): one full-width ``nuscenes-box-layout-v6`` step at B=1,
+    float32: the card (kernels) against the CPU (plain versions)."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.training.factory import build_diffusion_training, layout_condition_batch
+    from lidarcrafter_tpu_torch.training.state import module_params
+    from lidarcrafter_tpu_torch.training.train_step import loss_and_grads
+    from lidarcrafter_tpu_torch.utils.synthetic import banded_range_image_batch
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    cfg = get_config("nuscenes-box-layout-v6")
+    H, W = cfg.data.resolution
+    models, engine, _ = build_diffusion_training(cfg, "cpu")
+    init_random_(models["cond"], 20)
+    init_random_(models["model"], 21)
+    gen = torch.Generator().manual_seed(22)
+    batch = layout_condition_batch(cfg, 1, generator=gen)
+    batch["x_0"] = banded_range_image_batch(1, H, W, generator=gen)
+    t, noise = torch.tensor([0.37]), torch.randn(1, H, W, 2, generator=gen)
+    names = [f"{k}.{n}" for k in sorted(models) for n, _ in models[k].named_parameters()]
+
+    t0 = time.perf_counter()
+    want_loss, want = loss_and_grads(engine, module_params(models), batch, t=t, noise=noise)
+    cpu_s = time.perf_counter() - t0
+    gpu = {k: copy.deepcopy(m).to(DEVICE) for k, m in models.items()}
+    card = dataclasses.replace(engine, model=gpu["model"], cond_model=gpu["cond"])
+    on_card = {k: v.to(DEVICE) for k, v in batch.items()}
+    loss, got = loss_and_grads(card, module_params(gpu), on_card, t=t.to(DEVICE), noise=noise.to(DEVICE))
+    loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    total = math.sqrt(sum(float(w.norm()) ** 2 for w in want))
+    rows = []
+    for name, a, b in zip(names, got, want):
+        diff, ref = float((a.cpu() - b).norm()), float(b.norm())
+        rows.append((diff / max(ref, 1e-30), name, ref, diff))
+    rows.sort(reverse=True)
+    overall = math.sqrt(sum(r[3] ** 2 for r in rows)) / total
+    emit({"phase": "train", "check": "step parity", "config": "nuscenes-box-layout-v6", "batch": 1,
+          "dtype": "float32", "card": smi, "loss_card": float(loss), "loss_cpu": float(want_loss),
+          "loss_rel_err": loss_rel, "loss_tol": TRAIN_LOSS_RTOL, "grad_tol": TRAIN_GRAD_RTOL,
+          "grad_overall_rel_l2": overall, "tensors": len(rows), "cpu_seconds": cpu_s,
+          "worst_tensors": [{"name": n, "rel_l2": e, "norm": ref} for e, n, ref, _ in rows[:5]]})
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train step parity: loss relative error {loss_rel:.3g}")
+    for e, name, ref, diff in rows:
+        check(e <= TRAIN_GRAD_RTOL, f"train step parity: {name} gradient relative L2 {e:.3g} (norm {ref:.3g})")
+    del gpu, card, got
+    torch.cuda.empty_cache()
+
+
+def _trainer(cfg_name: str, batch: int, amp: bool, out_dir: str, **training):
+    """A ``Trainer`` on the card over the train CLI's synthetic source for
+    ``cfg_name``, with the training config's fields overridden."""
+    from lidarcrafter_tpu_torch import train as train_cli
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.training.loop import Trainer
+
+    cfg = get_config(cfg_name)
+    cfg.training.batch_size_train = batch
+    cfg.training.mixed_precision = "bf16" if amp else "no"
+    for k, v in training.items():
+        setattr(cfg.training, k, v)
+    if cfg.condition_model is None:
+        data = train_cli.synthetic_batches(cfg, seed=5)
+    else:
+        data = train_cli.synthetic_layout_batches(cfg, seed=5, device=DEVICE)
+    logs = []
+    return Trainer(cfg, data, output_dir=out_dir, log_fn=logs.append, device=DEVICE), logs
+
+
+def phase_train_speed(cfg_name: str, amp: bool, per_step: dict, smi: str, out_dir: str) -> dict:
+    """Phase 7 (c): ``TRAIN_WARMUP`` then ``TRAIN_TIMED`` steps at B=8 with
+    the launch counters set to 0 just before the timed steps and read just
+    after (exact counts per step); returns the non-zero counts."""
+    import torch
+
+    from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
+
+    trainer, logs = _trainer(cfg_name, BATCH, amp, out_dir)
+    total = TRAIN_WARMUP + TRAIN_TIMED
+    state = trainer.train(num_steps=TRAIN_WARMUP, seed=0, checkpoint_every=10**9, log_every=10**9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"oaca": oaca.launches, "groupnorm": groupnorm.launches, "attention": attention.launches}
+    for c in counters.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    state = trainer.train(num_steps=total, state=state, checkpoint_every=10**9, log_every=total)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: c.n for k, c in counters.items()}
+    dname = "bfloat16 AMP" if amp else "float32"
+    for k, n in launches.items():
+        want = per_step.get(k, 0) * TRAIN_TIMED
+        check(n == want, f"train {cfg_name} {dname}: {k} launches {n} != {per_step.get(k, 0)} x {TRAIN_TIMED}")
+    loss = logs[-1]["loss"]
+    check(logs[-1]["step"] == total and math.isfinite(loss), f"train {cfg_name} {dname}: loss {loss}")
+    emit({"phase": "train", "check": "speed", "config": cfg_name, "dtype": dname, "batch": BATCH,
+          "card": smi, "timed_steps": TRAIN_TIMED, "seconds": seconds, "steps_per_s": TRAIN_TIMED / seconds,
+          "frames_per_s": TRAIN_TIMED * BATCH / seconds, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "loss": loss})
+    # where a step's device time goes; its forward holds every GroupNorm kernel
+    batch = trainer.prepare_batch(next(trainer.data_iter))
+    cats = phase_profile(f"one train step ({cfg_name}), B=8, {dname}",
+                         lambda: trainer.step_fn(state, batch, 0), smi, inference=False)
+    n = cats.get("groupnorm kernel", 0)
+    check(n == per_step["groupnorm"], f"train {cfg_name} {dname}: {n} GroupNorm device kernels in a step")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {k: n for k, n in launches.items() if n}
+
+
+def phase_train_gate(smi: str, out_dir: str) -> dict:
+    """Phase 7 (d) and (e): ``nuscenes-auto-reg-v2`` trained ``GATE_STEPS``
+    steps, its checkpoint served through ``sample_temporal``'s loader;
+    returns the launch counts of the training run."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
+    from lidarcrafter_tpu_torch.sample_temporal import RolloutGenerator
+    from lidarcrafter_tpu_torch.training.checkpoint import latest_checkpoint
+
+    trainer, logs = _trainer("nuscenes-auto-reg-v2", GATE_BATCH, False, out_dir, lr=1e-4, lr_warmup_steps=20,
+                             num_steps=GATE_STEPS)
+    counters = {"oaca": oaca.launches, "groupnorm": groupnorm.launches, "attention": attention.launches}
+    for c in counters.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    state = trainer.train(num_steps=GATE_STEPS, seed=0, checkpoint_every=GATE_STEPS, log_every=1)
+    seconds = time.perf_counter() - t0
+    launches = {k: c.n for k, c in counters.items()}
+    per_step = {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD}
+    for k, n in launches.items():
+        check(n == per_step.get(k, 0) * GATE_STEPS, f"train gate: {k} launches {n}")
+    losses = [r["loss"] for r in logs]
+    check(len(losses) == GATE_STEPS and all(math.isfinite(v) for v in losses), "train gate: losses")
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    emit({"phase": "train", "check": "loss falls", "config": "nuscenes-auto-reg-v2", "batch": GATE_BATCH,
+          "dtype": "float32", "steps": GATE_STEPS, "lr": 1e-4, "warmup": 20, "card": smi, "seconds": seconds,
+          "first10_mean": first, "last10_mean": last, "ratio": last / first, "launches": launches,
+          "losses_every_10": losses[::10]})
+    check(last < first, f"train gate: mean of the last 10 losses {last:.4g} >= the first 10 {first:.4g}")
+
+    path = latest_checkpoint(out_dir)
+    check(path is not None and path.endswith(f"ckpt_{GATE_STEPS:010d}"), f"train gate: checkpoint {path}")
+    gen = RolloutGenerator(get_config("nuscenes-box-layout-v6"), get_config("nuscenes-auto-reg-v2"), DEVICE, 0,
+                           torch.float32, num_steps=15, mode="dpmpp_2m", autoreg_ckpt=path)
+    for key, module in gen.autoreg.models.items():
+        mine = module.state_dict()
+        for name, value in state.ema[key].state_dict().items():
+            check(torch.equal(mine[name], value), f"checkpoint round trip: {key}.{name} differs")
+    sample, post = gen.autoreg.generate(1, 15, mode="dpmpp_2m", seed=0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(sample).all()) and bool(torch.isfinite(post["xyz"]).all()),
+          "a frame sampled from the trained checkpoint is not finite")
+    emit({"phase": "train", "check": "checkpoint serves", "checkpoint": Path(path).name,
+          "ema_weights_equal": True, "sample_shape": list(sample.shape), "sample_std": float(sample.std()),
+          "valid_depth_share": float((post["depth"] > 0).float().mean())})
+    del trainer, state, gen
+    torch.cuda.empty_cache()
+    return {k: n for k, n in launches.items() if n}
+
+
+def phase_train(smi: str) -> tuple[list, dict]:
+    """Phase 7; returns the backward rows and the train paths' launches."""
+    rows = phase_backward()
+    phase_train_parity(smi)
+    by_path = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for amp in (False, True):
+            dname = "bfloat16 AMP" if amp else "float32"
+            by_path[f"train nuscenes-box-layout-v6 {dname}"] = phase_train_speed(
+                "nuscenes-box-layout-v6", amp, {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD}, smi, out_dir)
+            by_path[f"train nuscenes-unet-uncond {dname}"] = phase_train_speed(
+                "nuscenes-unet-uncond", amp, {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET}, smi, out_dir)
+        by_path["train nuscenes-auto-reg-v2 float32 (loss gate)"] = phase_train_gate(smi, out_dir)
+    return rows, by_path
+
+
 def probe_times(kernels) -> dict:
     """Device times of the loader's ``x·2`` probe kernel on its (8, 128)
     float32 input, of ``x * 2`` and of ``torch.mul(x, 2)``, and its bound
@@ -775,6 +1135,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         by_path[f"rollout {dname}"] = phase_rollout(dtype, smi)
         torch.cuda.empty_cache()
+    backward_rows, train_paths = phase_train(smi)
+    by_path.update(train_paths)
 
     # each kernel at its largest main-path shape, float32 (the default serving
     # dtype) with its bfloat16 numbers beside, and its launches summed over
@@ -785,10 +1147,14 @@ def main() -> int:
         "attention": ("lidarcrafter_tpu_torch/csrc/attention.cu", "lidarcrafter_tpu/ops/pallas_attention.py:40"),
     }
     kernels = []
+    backward_keys = ("ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by", "max_abs_err", "rel_err",
+                     "norm_rel_err", "shape", "route")
     for k, (source, replaces) in sources.items():
         first = next(r for r in rows if r["kernel"] == k and r["dtype"] == "float32")
         bf16 = next(r for r in rows if r["kernel"] == k and r["dtype"] == "bfloat16"
                     and r["shape"] == first["shape"])
+        bwd = {d: next(r for r in backward_rows if r["kernel"].split()[0] == k and r["dtype"] == d)
+               for d in ("float32", "bfloat16")}
         paths = {p: n[k] for p, n in by_path.items() if k in n}
         check(all(n > 0 for n in paths.values()), f"{k}: a path that runs it did not launch it: {paths}")
         kernels.append({
@@ -801,6 +1167,8 @@ def main() -> int:
             "core_route": first["route"],
             "bf16": {key: bf16[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                 "max_abs_err", "tol", "norm_rel_err", "route")},
+            "backward": {key: bwd["float32"][key] for key in backward_keys}
+            | {"bf16": {key: bwd["bfloat16"][key] for key in backward_keys}},
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

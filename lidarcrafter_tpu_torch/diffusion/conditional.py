@@ -1,10 +1,16 @@
-"""Conditional continuous-time diffusion sampler.
+"""Conditional continuous-time diffusion: the training loss and the
+sampler.
 
-Port of the sampling half of the JAX package's ``diffusion/conditional.py``
-(``CondContinuousDiffusion``): the condition encoder runs once per
-``sample`` call, then the shared reverse loop of ``continuous.py`` takes x_T
-to x_0 with DDPM, DDIM or DPM-Solver++(2M).  Only the denoiser call differs
-from the unconditional sampler: the model takes a condition dict.
+Port of the JAX package's ``diffusion/conditional.py``
+(``CondContinuousDiffusion``) for ``cond_mode='concat'`` with the layout
+stack, whose encoder output is a dict that ``LayoutUnetV1`` concatenates
+itself.  ``p_loss`` / ``loss`` run the condition encoder under autograd, so
+its parameters train with the denoiser's, and ``w_loss_weight`` takes the
+``scene_loss_weight_map`` as the loss mask.  For sampling the encoder runs
+once per ``sample`` call, then the shared reverse loop of ``continuous.py``
+takes x_T to x_0 with DDPM, DDIM or DPM-Solver++(2M).  Only the denoiser
+call differs from the unconditional engine: the model takes a condition
+dict.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ class CondContinuousDiffusion(ContinuousDiffusion):
     v / x_0; ``cond_model(batch_dict)`` returns ``other_condition``."""
 
     cond_model: nn.Module
+    w_loss_weight: bool = False
 
     def get_network_condition(self, batch_dict: dict) -> dict:
         return dict(other_condition=self.cond_model(batch_dict))
@@ -35,6 +42,40 @@ class CondContinuousDiffusion(ContinuousDiffusion):
         cd = cast_tree(dict(condition), self.dtype)
         cd["time_condition"] = log_snr_t.to(self.dtype)
         return self.model(x_t.to(self.dtype), cd).float()
+
+    def p_loss(
+        self,
+        input_dict: dict,
+        t: torch.Tensor,
+        noise: torch.Tensor | None = None,
+        loss_mask: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """The loss of ``input_dict['x_0']`` at timesteps ``t`` (B,), the
+        encoder run on ``input_dict``; the noise is drawn from ``generator``
+        unless given."""
+        condition = self.get_network_condition(input_dict)
+        return self.weighted_loss(input_dict["x_0"], t, noise, loss_mask, condition, generator)
+
+    def loss(
+        self,
+        input_dict: dict,
+        generator: torch.Generator | None = None,
+        loss_mask: torch.Tensor | None = None,
+        t: torch.Tensor | None = None,
+        noise: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """Training loss with uniform continuous timesteps (``t``, then the
+        noise, drawn from ``generator`` unless given); with
+        ``w_loss_weight`` the (B, H, W) ``scene_loss_weight_map``, when the
+        batch has one, is the loss mask."""
+        x_0 = input_dict["x_0"]
+        t = self.draw_t(x_0, generator) if t is None else t
+        if self.w_loss_weight and loss_mask is None:
+            w = input_dict.get("scene_loss_weight_map")
+            if w is not None:
+                loss_mask = w[..., None].expand(x_0.shape)
+        return self.p_loss(input_dict, t, noise, loss_mask, generator)
 
     @torch.inference_mode()
     def sample(

@@ -1,10 +1,16 @@
-"""Continuous-time Gaussian diffusion: the unconditional sampler, the
-timestep grids and the DPM-Solver++(2M) multistep solver.
+"""Continuous-time Gaussian diffusion: the training losses, the
+unconditional sampler, the timestep grids and the DPM-Solver++(2M)
+multistep solver.
 
-Port of the sampling half of the JAX package's ``diffusion/continuous.py``
-(``ContinuousDiffusion.predict_x_0`` / ``p_step`` / ``sample``,
-``lambda_spaced_timesteps``, ``dpmpp_2m_scan``); the ``lax.scan`` loops
-become Python loops of denoiser calls.  ``sample`` takes an optional ``x_T``
+Port of the JAX package's ``diffusion/continuous.py``: the losses
+(``criterion``, ``get_target``, ``get_loss_weight`` with min-SNR-γ,
+``q_step_from_x_0``, ``q_step``, ``p_loss``, ``loss``) line for line, and
+the sampling half (``predict_x_0`` / ``p_step`` / ``sample``,
+``lambda_spaced_timesteps``, ``dpmpp_2m_scan``), whose ``lax.scan`` loops
+become Python loops of denoiser calls.  ``p_loss`` takes ``t`` and the
+noise as optional inputs and ``loss`` draws them from a ``torch.Generator``
+(the JAX package draws them from its key), so a caller can inject the JAX
+key chain's draws.  ``sample`` takes an optional ``x_T``
 and a ``torch.Generator``, so a caller can hand it the same start as the JAX
 sampler draws.  The conditional sampler (``conditional.py``) shares all of
 it and only changes how the denoiser is called.
@@ -96,7 +102,10 @@ class ContinuousDiffusion:
     model: nn.Module
     sampling_shape: tuple[int, ...]  # (H, W, C) — without batch
     prediction_type: Literal["eps", "v", "x_0"] = "eps"
+    loss_type: Literal["l2", "l1", "huber"] = "l2"
     noise_schedule: str = "cosine"
+    min_snr_loss_weight: bool = True
+    min_snr_gamma: float = 5.0
     clip_sample: bool = True
     clip_sample_range: float = 1.0
     image_d: float | None = None
@@ -114,6 +123,113 @@ class ContinuousDiffusion:
         """One denoiser call; the network sees log-SNR(t), not t.  Image and
         time go in as ``dtype``; the prediction comes back float32."""
         return self.model(x_t.to(self.dtype), log_snr_t.to(self.dtype)).float()
+
+    # ------------------------------------------------------------------ losses
+
+    def criterion(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """Unreduced loss."""
+        if self.loss_type == "l2":
+            return (pred - target) ** 2
+        if self.loss_type == "l1":
+            return torch.abs(pred - target)
+        if self.loss_type == "huber":  # SmoothL1 with beta=1
+            diff = torch.abs(pred - target)
+            return torch.where(diff < 1.0, 0.5 * diff**2, diff - 0.5)
+        raise ValueError(self.loss_type)
+
+    def get_target(self, x_0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        if self.prediction_type == "eps":
+            return noise
+        if self.prediction_type == "x_0":
+            return x_0
+        if self.prediction_type == "v":
+            alpha, sigma = schedules.log_snr_to_alpha_sigma(_bcast(self.log_snr(t), x_0.ndim))
+            return alpha * noise - sigma * x_0
+        raise ValueError(self.prediction_type)
+
+    def get_loss_weight(self, t: torch.Tensor) -> torch.Tensor:
+        """min-SNR-γ weighting."""
+        snr = torch.exp(self.log_snr(t))
+        clipped = torch.clamp(snr, max=self.min_snr_gamma) if self.min_snr_loss_weight else snr
+        if self.prediction_type == "eps":
+            return clipped / snr
+        if self.prediction_type == "x_0":
+            return clipped
+        if self.prediction_type == "v":
+            return clipped / (snr + 1)
+        raise ValueError(self.prediction_type)
+
+    def q_step_from_x_0(
+        self,
+        x_0: torch.Tensor,
+        t: torch.Tensor,
+        noise: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Forward process q(z_t | x_0); the noise is drawn from
+        ``generator`` unless given.  Returns (z_t, noise)."""
+        if noise is None:
+            noise = torch.randn(x_0.shape, generator=generator, device=x_0.device, dtype=x_0.dtype)
+        alpha, sigma = schedules.log_snr_to_alpha_sigma(_bcast(self.log_snr(t), x_0.ndim))
+        return x_0 * alpha + noise * sigma, noise
+
+    def q_step(
+        self,
+        x_s: torch.Tensor,
+        t: torch.Tensor,
+        s: torch.Tensor,
+        noise: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """q(z_t | z_s), 0 < s < t < 1."""
+        alpha_t, sigma_t = schedules.log_snr_to_alpha_sigma(_bcast(self.log_snr(t), x_s.ndim))
+        alpha_s, sigma_s = schedules.log_snr_to_alpha_sigma(_bcast(self.log_snr(s), x_s.ndim))
+        alpha_ts = alpha_t / alpha_s
+        if noise is None:
+            noise = torch.randn(x_s.shape, generator=generator, device=x_s.device, dtype=x_s.dtype)
+        var = sigma_t**2 - alpha_ts**2 * sigma_s**2
+        return x_s * alpha_ts + torch.sqrt(var) * noise
+
+    def weighted_loss(self, x_0, t, noise, loss_mask, condition=None, generator=None) -> torch.Tensor:
+        """The per-sample masked loss with the min-SNR weight, averaged over
+        the batch, of one denoiser call on q(z_t | x_0); the shared body of
+        both engines' ``p_loss``."""
+        loss_mask = torch.ones_like(x_0) if loss_mask is None else loss_mask
+        x_t, noise = self.q_step_from_x_0(x_0, t, noise, generator)
+        prediction = self.denoise(x_t, self.log_snr(t), condition)
+        loss = self.criterion(prediction, self.get_target(x_0, t, noise))
+        axes = tuple(range(1, x_0.ndim))
+        loss = torch.sum(loss * loss_mask, dim=axes) / (torch.sum(loss_mask, dim=axes) + 1e-8)
+        return torch.mean(loss * self.get_loss_weight(t))
+
+    def p_loss(
+        self,
+        x_0: torch.Tensor,
+        t: torch.Tensor,
+        noise: torch.Tensor | None = None,
+        loss_mask: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """The loss at timesteps ``t`` (B,); the noise is drawn from
+        ``generator`` unless given."""
+        return self.weighted_loss(x_0, t, noise, loss_mask, generator=generator)
+
+    def draw_t(self, x_0: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        """Uniform continuous timesteps (B,), float32."""
+        return torch.rand((x_0.shape[0],), generator=generator, device=x_0.device, dtype=torch.float32)
+
+    def loss(
+        self,
+        x_0: torch.Tensor,
+        generator: torch.Generator | None = None,
+        loss_mask: torch.Tensor | None = None,
+        t: torch.Tensor | None = None,
+        noise: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """Training loss with uniform continuous timesteps: ``t``, then the
+        noise, drawn from ``generator`` unless given."""
+        t = self.draw_t(x_0, generator) if t is None else t
+        return self.p_loss(x_0, t, noise, loss_mask, generator)
 
     def predict_x_0(self, x_t: torch.Tensor, t: torch.Tensor, condition=None) -> torch.Tensor:
         """x̂_0 from one denoiser call (with clipping)."""

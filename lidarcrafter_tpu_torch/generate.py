@@ -4,8 +4,9 @@
 Mirrors the JAX package's ``tools/generate.py``: unconditional sampling
 (DDPM, DDIM or DPM-Solver++(2M)) and ``postprocess_sample``; writes one
 ``sample_NNNN.txt`` point cloud (x, y, z, reflectance) per frame and
-``samples.npy``.  There is no checkpoint in the repository yet, so the model
-runs with seeded random weights.  ``--dtype bfloat16`` serves the model in
+``samples.npy``.  ``--ckpt`` samples with the EMA weights of one of the
+port's training checkpoints (``train.py``); without it the model runs with
+seeded random weights.  ``--dtype bfloat16`` serves the model in
 bf16, as the JAX package's ``build_sampler_fn`` does (the sampler stays
 float32); the default is float32.
 
@@ -30,6 +31,7 @@ import torch
 from . import resolve_device
 from .configs import apply_reduced_topology, get_config
 from .precision import DTYPES, to_serving_dtype_
+from .training.checkpoint import load_ema_weights
 from .training.factory import build_diffusion_training
 from .training.preprocess import postprocess_sample
 from .weights import init_random_
@@ -37,16 +39,20 @@ from .weights import init_random_
 
 class UncondFrameGenerator:
     """The unconditional model of one config, built once on ``device`` with
-    random weights drawn from ``weights_seed`` and served in ``dtype``."""
+    the EMA weights of the checkpoint ``ckpt`` (else random weights drawn
+    from ``weights_seed``) and served in ``dtype``."""
 
     def __init__(
         self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0,
-        dtype: torch.dtype = torch.float32,
+        dtype: torch.dtype = torch.float32, ckpt: str | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model, engine, self.lidar_utils = build_diffusion_training(cfg, self.device)
-        init_random_(self.model, weights_seed)
+        if ckpt:
+            load_ema_weights(ckpt, {"model": self.model})
+        else:
+            init_random_(self.model, weights_seed)
         to_serving_dtype_(self.model, dtype)
         self.engine = dataclasses.replace(engine, dtype=dtype)
 
@@ -73,11 +79,12 @@ def generate(
     device: str | torch.device = "cuda",
     resolution: tuple[int, int] | None = None,
     dtype: torch.dtype = torch.float32,
+    ckpt: str | None = None,
 ) -> dict:
     """Build the model of ``cfg_name`` and sample ``num_samples`` frames;
     returns ``{'sample', 'depth', 'xyz', 'reflectance'}``."""
     cfg = apply_reduced_topology(get_config(cfg_name), resolution=resolution)
-    gen = UncondFrameGenerator(cfg, device=device, weights_seed=seed, dtype=dtype)
+    gen = UncondFrameGenerator(cfg, device=device, weights_seed=seed, dtype=dtype, ckpt=ckpt)
     sample, post = gen.generate(num_samples, num_steps, mode=mode, seed=seed)
     return {"sample": sample, **post}
 
@@ -85,6 +92,7 @@ def generate(
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("-c", "--cfg", default="nuscenes-unet-uncond")
+    parser.add_argument("--ckpt", default=None, help="training checkpoint dir (its EMA weights)")
     parser.add_argument("-n", "--num-samples", type=int, default=8)
     parser.add_argument("--num-steps", type=int, default=256)
     parser.add_argument("--mode", choices=["ddpm", "ddim", "dpmpp_2m"], default="ddpm")
@@ -98,7 +106,7 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     out = generate(
         args.cfg, args.num_samples, args.num_steps, args.mode, args.seed,
-        args.device, args.resolution, DTYPES[args.dtype],
+        args.device, args.resolution, DTYPES[args.dtype], args.ckpt,
     )
     out_dir = Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)

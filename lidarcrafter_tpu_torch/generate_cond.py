@@ -2,11 +2,12 @@
 
 Mirrors the JAX package's ``tools/generate_cond.py`` in its ``--synthetic``
 branch: zero layout conditions, conditional sampling (DDPM, DDIM or
-DPM-Solver++(2M)) and ``postprocess_sample``.  There is no checkpoint in the
-repository yet, so the stack runs with seeded random weights.
+DPM-Solver++(2M)) and ``postprocess_sample``.  Without ``--ckpt`` the stack
+runs with seeded random weights.
 ``--dtype bfloat16`` serves the stack in bf16, as the JAX package's
 ``build_sampler_fn`` does (the sampler stays float32); the default is
-float32.
+float32.  ``--ckpt`` samples with the EMA weights of one of the port's
+training checkpoints (``train.py``).
 
 Usage::
 
@@ -29,6 +30,7 @@ import torch
 from . import resolve_device
 from .configs import apply_reduced_topology, get_config
 from .precision import DTYPES, to_serving_dtype_
+from .training.checkpoint import load_ema_weights
 from .training.factory import build_diffusion_training, layout_condition_batch
 from .training.preprocess import postprocess_sample
 from .weights import init_random_
@@ -36,18 +38,21 @@ from .weights import init_random_
 
 class CondFrameGenerator:
     """The layout-conditioned stack of one config, built once on ``device``
-    with random weights drawn from ``weights_seed`` and served in
-    ``dtype``."""
+    with the EMA weights of the checkpoint ``ckpt`` (else random weights
+    drawn from ``weights_seed``) and served in ``dtype``."""
 
     def __init__(
         self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0,
-        dtype: torch.dtype = torch.float32,
+        dtype: torch.dtype = torch.float32, ckpt: str | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
         models, engine, self.lidar_utils = build_diffusion_training(cfg, self.device)
-        init_random_(models["cond"], weights_seed)
-        init_random_(models["model"], weights_seed + 1)
+        if ckpt:
+            load_ema_weights(ckpt, models)
+        else:
+            init_random_(models["cond"], weights_seed)
+            init_random_(models["model"], weights_seed + 1)
         to_serving_dtype_(models["model"], dtype, cond_model=models["cond"])
         self.models = models
         self.engine = dataclasses.replace(engine, dtype=dtype)
@@ -79,11 +84,12 @@ def generate_cond(
     device: str | torch.device = "cuda",
     resolution: tuple[int, int] | None = None,
     dtype: torch.dtype = torch.float32,
+    ckpt: str | None = None,
 ) -> dict:
     """Build the stack of ``cfg_name`` and sample ``num_samples`` frames from
     synthetic conditions; returns ``{'sample', 'depth', 'xyz', ...}``."""
     cfg = apply_reduced_topology(get_config(cfg_name), resolution=resolution)
-    gen = CondFrameGenerator(cfg, device=device, weights_seed=seed, dtype=dtype)
+    gen = CondFrameGenerator(cfg, device=device, weights_seed=seed, dtype=dtype, ckpt=ckpt)
     sample, post = gen.generate(num_samples, num_steps, mode=mode, seed=seed)
     return {"sample": sample, **post}
 
@@ -93,6 +99,7 @@ def main(argv=None) -> None:
     parser.add_argument("-c", "--cfg", default="nuscenes-box-layout-v6")
     parser.add_argument("--synthetic", action="store_true",
                         help="zero layout conditions (the only source ported so far)")
+    parser.add_argument("--ckpt", default=None, help="training checkpoint dir (its EMA weights)")
     parser.add_argument("-n", "--num-samples", type=int, default=1)
     parser.add_argument("--num-steps", type=int, default=256)
     parser.add_argument("--mode", choices=["ddpm", "ddim", "dpmpp_2m"], default="ddpm")
@@ -108,7 +115,7 @@ def main(argv=None) -> None:
         raise SystemExit("only --synthetic conditions are ported so far")
     out = generate_cond(
         args.cfg, args.num_samples, args.num_steps, args.mode, args.seed,
-        args.device, args.resolution, DTYPES[args.dtype],
+        args.device, args.resolution, DTYPES[args.dtype], args.ckpt,
     )
     out_dir = Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)

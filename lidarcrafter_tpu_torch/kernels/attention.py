@@ -11,6 +11,12 @@ other.
 Unlike the TPU kernel, which expected q and k pre-scaled by the caller, the
 scale is applied to the f32 logits, so the blocks pass their projections as
 they come.
+
+On the card the kernel is differentiable through :class:`Attention`: the
+forward launches the kernel and keeps only q, k and v, the backward is
+:func:`attention_backward`, the JAX package's ``_flash_attention_bwd``
+(float32 einsums that recompute the softmax; ``pallas_call`` has no
+transpose rule).
 """
 
 from __future__ import annotations
@@ -37,8 +43,64 @@ def attention_plain(q, k, v, *, scale: float, kv_len: int | None = None) -> torc
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
 
 
+def attention_backward(q, k, v, g, *, scale: float, kv_len: int | None = None):
+    """Gradients (dq, dk, dv) of :func:`attention` for the output gradient
+    ``g`` (any strides), in float32 from a recomputed softmax, each cast to
+    its operand's dtype.  The JAX package's ``_flash_attention_bwd`` with
+    the scale on the logits: dq and dk carry it, as the chain rule through
+    its caller's pre-scaled q and k gives."""
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * scale
+    if kv_len is not None and kv_len < k.shape[2]:
+        logits[..., kv_len:] = -torch.inf
+    w = torch.softmax(logits, dim=-1)
+    del logits
+    dv = torch.einsum("bhqk,bhqd->bhkd", w, g32)
+    dw = torch.einsum("bhqd,bhkd->bhqk", g32, v32)
+    dlogits = (dw - (dw * w).sum(dim=-1, keepdim=True)).mul_(w).mul_(scale)
+    del dw, w
+    dq = torch.einsum("bhqk,bhkd->bhqd", dlogits, k32)
+    dk = torch.einsum("bhqk,bhqd->bhkd", dlogits, q32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def launch(q, k, v, *, scale: float, kv_len: int) -> torch.Tensor:
+    """One launch of the kernel on checked operands (no autograd)."""
+    B, H, Lq, dqk = q.shape
+    Lkv, dv = k.shape[2], v.shape[-1]
+    ops = (q, k, v)
+    out = torch.empty((B, Lq, H, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
+    args = loader.AttnArgs(
+        *(t.data_ptr() for t in ops), out.data_ptr(),
+        *((ctypes.c_int64 * 3)(*_strides(t)) for t in (*ops, out)),
+        B, H, Lq, Lkv, kv_len, dqk, dv, float(scale),
+    )
+    err = loader.library("attention").attention_forward(
+        args, _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream
+    )
+    loader.check(err, "attention_forward")
+    launches.n += 1
+    return out
+
+
+class Attention(torch.autograd.Function):
+    """The kernel's forward with :func:`attention_backward` as its
+    backward; ``apply(scale, kv_len, q, k, v)``."""
+
+    @staticmethod
+    def forward(ctx, scale, kv_len, q, k, v):
+        ctx.scale, ctx.kv_len = scale, kv_len
+        ctx.save_for_backward(q, k, v)
+        return launch(q, k, v, scale=scale, kv_len=kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = attention_backward(*ctx.saved_tensors, g, scale=ctx.scale, kv_len=ctx.kv_len)
+        return (None, None, *grads)
 
 
 def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tensor:
@@ -57,7 +119,9 @@ def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tens
     The kernel runs its products on the tensor cores: bf16 ``mma.sync``, or
     3xTF32 for float32.  Returns (B, heads, Lq, dv) in q's dtype; on the
     card its memory is laid out (B, Lq, heads, dv), so that merging the
-    heads back into channels is free.
+    heads back into channels is free.  With grad enabled and an operand
+    that requires grad, the result carries :class:`Attention`'s backward;
+    otherwise the kernel is launched directly.
     """
     B, H, Lq, dqk = q.shape
     Lkv, dv = k.shape[2], v.shape[-1]
@@ -82,15 +146,6 @@ def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tens
     loader.check_aligned("attention", *ops)
     if not scale > 0:
         raise ValueError(f"attention kernel takes a positive scale, got {scale}")
-    out = torch.empty((B, Lq, H, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
-    args = loader.AttnArgs(
-        *(t.data_ptr() for t in ops), out.data_ptr(),
-        *((ctypes.c_int64 * 3)(*_strides(t)) for t in (*ops, out)),
-        B, H, Lq, Lkv, kv_len, dqk, dv, float(scale),
-    )
-    err = loader.library("attention").attention_forward(
-        args, _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream
-    )
-    loader.check(err, "attention_forward")
-    launches.n += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        return Attention.apply(float(scale), kv_len, q, k, v)
+    return launch(q, k, v, scale=scale, kv_len=kv_len)

@@ -16,6 +16,13 @@ float32 as ``GN(x)·w(1+s) + b(1+s) + t``.  Unlike the TPU kernel the
 statistics are direct-variance (Chan merges, never ``E[x^2] - mean^2``), so
 every ``GroupNorm32`` of the port goes through it, the 26-element groups of
 the attention blocks' token norms included.
+
+On the card the kernel is differentiable through :class:`GroupNorm`: the
+forward launches the kernel and keeps only its operands, the backward is
+:func:`group_norm_backward`, autograd of the plain version recomputed in
+float32 (the JAX package's ``_gn_ad_bwd``, the vjp of its ``_gn_ref``).  The
+gradients reach ``weight``, ``bias``, ``scale`` and ``shift`` as they are
+passed, strided views of the conditioning projection included.
 """
 
 from __future__ import annotations
@@ -120,6 +127,21 @@ def group_norm_plain(
     return y.to(x.dtype).reshape(x.shape)
 
 
+def group_norm_backward(saved, g: torch.Tensor, *, num_groups: int, eps: float, silu: bool = False):
+    """Gradients of :func:`group_norm` with respect to ``saved`` = (x,
+    weight, bias, scale, shift), any of the last four None, for the output
+    gradient ``g``: autograd of the plain version recomputed in float32, each
+    gradient cast to its operand's dtype and shaped as it (None for a None
+    operand)."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().float().requires_grad_() for t in saved]
+        x, weight, bias, scale, shift = ins
+        y = group_norm_plain(x, weight, bias, num_groups=num_groups, eps=eps,
+                             scale=scale, shift=shift, silu=silu)
+        grads = iter(torch.autograd.grad(y, [t for t in ins if t is not None], g.float()))
+    return tuple(None if t is None else next(grads).to(t.dtype) for t in saved)
+
+
 def _operand(t: torch.Tensor | None, x: torch.Tensor, B: int, C: int, what: str) -> tuple[int, int, int]:
     """(pointer, batch stride, dtype code) of an affine operand for the
     kernel, read in place: (C,), (1, C), (B, C) or (B, 1, ..., 1, C) with
@@ -172,7 +194,9 @@ def group_norm(
       num_groups, eps: the GroupNorm's groups and epsilon.
       silu: apply SiLU before the single write.
 
-    Returns a tensor of ``x``'s shape and dtype.
+    Returns a tensor of ``x``'s shape and dtype.  With grad enabled and an
+    operand that requires grad, it carries :class:`GroupNorm`'s backward;
+    otherwise the kernel is launched directly.
     """
     B, C = x.shape[0], x.shape[-1]
     if C % num_groups:
@@ -184,6 +208,15 @@ def group_norm(
         raise ValueError(f"group_norm: unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"group_norm kernel is built for float32/bfloat16, got {x.dtype}")
+    ops = (x, weight, bias, scale, shift)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ops):
+        return GroupNorm.apply(num_groups, float(eps), bool(silu), x, weight, bias, scale, shift)
+    return launch(x, weight, bias, scale, shift, num_groups=num_groups, eps=eps, silu=silu)
+
+
+def launch(x, weight, bias, scale, shift, *, num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+    """One launch of the kernel (no autograd)."""
+    B, C = x.shape[0], x.shape[-1]
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("group_norm kernel needs a 16-byte aligned x")
@@ -197,3 +230,19 @@ def group_norm(
     loader.check(err, "gn_forward")
     launches.n += 1
     return y
+
+
+class GroupNorm(torch.autograd.Function):
+    """The kernel's forward with :func:`group_norm_backward` as its
+    backward; ``apply(num_groups, eps, silu, x, weight, bias, scale,
+    shift)``."""
+
+    @staticmethod
+    def forward(ctx, num_groups, eps, silu, *ops):
+        ctx.norm = dict(num_groups=num_groups, eps=eps, silu=silu)
+        ctx.save_for_backward(*ops)
+        return launch(*ops, **ctx.norm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, None, *group_norm_backward(ctx.saved_tensors, g, **ctx.norm))

@@ -7,6 +7,12 @@ the same function in plain PyTorch (the JAX package's ``_oaca_unfused``).
 :func:`oaca_attention` takes the plain version for tensors on the CPU and
 launches the kernel for tensors on the card; it never falls back from one to
 the other.
+
+On the card the kernel is differentiable through :class:`OacaAttention`:
+the forward launches the kernel and keeps only its operands, the backward
+is :func:`oaca_attention_backward`, autograd of the plain version recomputed
+in float32 (the JAX package's ``_oaca_bwd``: ``pallas_call`` has no
+transpose rule, so its backward is the XLA recompute too).
 """
 
 from __future__ import annotations
@@ -36,8 +42,56 @@ def oaca_attention_plain(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch
     return torch.einsum("bhts,bhsc->bhtc", w, v_mix).to(q_c.dtype)
 
 
+def oaca_attention_backward(ops, g: torch.Tensor, *, scale: float) -> tuple[torch.Tensor, ...]:
+    """Gradients of :func:`oaca_attention` with respect to its six operands
+    ``ops`` = (q_c, ipe, k_c, k_l, v_c, v_l) for the output gradient ``g``
+    (any strides): autograd of the plain version recomputed in float32 from
+    the operands, each gradient cast to its operand's dtype.  Nothing of
+    the recompute outlives the call."""
+    with torch.enable_grad():
+        xs = [t.detach().float().requires_grad_() for t in ops]
+        out = oaca_attention_plain(*xs, scale=scale)
+        grads = torch.autograd.grad(out, xs, g.float())
+    return tuple(d.to(t.dtype) for d, t in zip(grads, ops))
+
+
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def launch(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tensor:
+    """One launch of the kernel on checked operands (no autograd)."""
+    B, H, Lq, dc = q_c.shape
+    dp, L2, dv = ipe.shape[-1], k_l.shape[2], v_c.shape[-1]
+    ops = (q_c, ipe, k_c, k_l, v_c, v_l)
+    out = torch.empty((B, Lq, H, dv), dtype=q_c.dtype, device=q_c.device).transpose(1, 2)
+    args = loader.OacaArgs(
+        *(t.data_ptr() for t in ops), out.data_ptr(),
+        *((ctypes.c_int64 * 3)(*_strides(t)) for t in (*ops, out)),
+        B, H, Lq, L2, float(scale) ** 2,
+    )
+    err = loader.library("oaca").oaca_forward(
+        args, _DTYPE_CODES[q_c.dtype], dc, dp, dv,
+        torch.cuda.current_stream(q_c.device).cuda_stream,
+    )
+    loader.check(err, "oaca_forward")
+    launches.n += 1
+    return out
+
+
+class OacaAttention(torch.autograd.Function):
+    """The kernel's forward with :func:`oaca_attention_backward` as its
+    backward; ``apply(scale, q_c, ipe, k_c, k_l, v_c, v_l)``."""
+
+    @staticmethod
+    def forward(ctx, scale, *ops):
+        ctx.scale = scale
+        ctx.save_for_backward(*ops)
+        return launch(*ops, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *oaca_attention_backward(ctx.saved_tensors, g, scale=ctx.scale))
 
 
 def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tensor:
@@ -55,7 +109,9 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
     The kernel runs its products on the tensor cores: bf16 ``mma.sync``, or
     3xTF32 for float32.  Returns (B, heads, Lq, dv) in the operands' dtype;
     on the card its memory is laid out (B, Lq, heads, dv), so that merging
-    the heads back into channels is free.
+    the heads back into channels is free.  With grad enabled and an operand
+    that requires grad, the result carries :class:`OacaAttention`'s
+    backward; otherwise the kernel is launched directly.
     """
     B, H, Lq, dc = q_c.shape
     dp, L2, dv = ipe.shape[-1], k_l.shape[2], v_c.shape[-1]
@@ -83,16 +139,6 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
     loader.check_aligned("oaca_attention", *ops)
     if not scale > 0:
         raise ValueError(f"oaca_attention kernel takes a positive scale, got {scale}")
-    out = torch.empty((B, Lq, H, dv), dtype=q_c.dtype, device=q_c.device).transpose(1, 2)
-    args = loader.OacaArgs(
-        *(t.data_ptr() for t in ops), out.data_ptr(),
-        *((ctypes.c_int64 * 3)(*_strides(t)) for t in (*ops, out)),
-        B, H, Lq, L2, float(scale) ** 2,
-    )
-    err = loader.library("oaca").oaca_forward(
-        args, _DTYPE_CODES[q_c.dtype], dc, dp, dv,
-        torch.cuda.current_stream(q_c.device).cuda_stream,
-    )
-    loader.check(err, "oaca_forward")
-    launches.n += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        return OacaAttention.apply(float(scale), *ops)
+    return launch(*ops, scale=scale)

@@ -149,7 +149,10 @@ class LayoutTransformerEncoder(nn.Module):
             xf_in = emb3d + emb2d if xf_in is None else xf_in + emb3d + emb2d
             outputs["obj_bbox_embedding"] = emb2d
             for r in self.patch_keys:
-                emb = self.obj_bbox_2d_embedding(getattr(self, f"patch_bboxes_{r}"))
+                # the patch boxes are a float32 buffer; under bf16 AMP the
+                # projection's weight is bf16
+                boxes = getattr(self, f"patch_bboxes_{r}").to(emb2d.dtype)
+                emb = self.obj_bbox_2d_embedding(boxes)
                 outputs[f"image_patch_bbox_embedding_for_resolution{r}"] = emb[None].expand(B, -1, -1)
         if "is_valid_obj" in self.used_condition_types:
             outputs["key_padding_mask"] = (1 - is_valid_obj).to(torch.bool)

@@ -2,8 +2,9 @@
 ``tools/sample_temporal.py``.
 
 Builds the layout-conditioned stack (frame 0) and the autoregressive stack
-(the frames after it) with seeded random weights (no checkpoint is in the
-repository, so ``--cond-ckpt`` / ``--autoreg-ckpt`` are not offered), rolls
+(the frames after it) with the EMA weights of the port's training
+checkpoints (``--cond-ckpt`` / ``--autoreg-ckpt``, from ``train.py``) or,
+for a stack without one, seeded random weights, rolls
 each scene 1 + N frames with :class:`~.pipeline.TemporalRollout` and writes
 each frame's points as ``seq_XXXX/frame_XXX.txt``.  Scenes come from a
 pickle (``--scenes``: a list of dicts with ``batch``, ``gt_fut_trajs``,
@@ -54,7 +55,8 @@ def synthetic_scenes(num_scenes: int, num_boxes: int = 4, seed: int = 0):
 
 
 class RolloutGenerator:
-    """Both stacks built once on ``device`` with random weights from
+    """Both stacks built once on ``device`` with the EMA weights of
+    ``cond_ckpt`` / ``autoreg_ckpt`` or, without one, random weights from
     ``weights_seed`` (frame-0 stack: seeds w, w+1; autoregressive: w+2,
     w+3), served in ``dtype``, behind one :class:`TemporalRollout`."""
 
@@ -67,10 +69,12 @@ class RolloutGenerator:
         dtype: torch.dtype = torch.float32,
         num_steps: int = 256,
         mode: str = "ddpm",
+        cond_ckpt: str | None = None,
+        autoreg_ckpt: str | None = None,
     ):
         self.device = resolve_device(device)
-        self.cond = CondFrameGenerator(cond_cfg, self.device, weights_seed, dtype)
-        self.autoreg = CondFrameGenerator(autoreg_cfg, self.device, weights_seed + 2, dtype)
+        self.cond = CondFrameGenerator(cond_cfg, self.device, weights_seed, dtype, ckpt=cond_ckpt)
+        self.autoreg = CondFrameGenerator(autoreg_cfg, self.device, weights_seed + 2, dtype, ckpt=autoreg_ckpt)
         self.pipeline = TemporalRollout(
             cond_engine=self.cond.engine, autoreg_engine=self.autoreg.engine,
             lidar_utils=self.autoreg.lidar_utils, num_sampling_steps=num_steps,
@@ -116,6 +120,9 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cond-cfg", default="nuscenes-box-layout-v6")
     parser.add_argument("--autoreg-cfg", default="nuscenes-auto-reg-v2")
+    parser.add_argument("--cond-ckpt", default=None, help="frame-0 stack's training checkpoint (EMA weights)")
+    parser.add_argument("--autoreg-ckpt", default=None,
+                        help="autoregressive stack's training checkpoint (EMA weights)")
     scenes = parser.add_mutually_exclusive_group(required=True)
     scenes.add_argument("--scenes", help="pickle: list of first-frame batches with gt_fut_trajs/boxes")
     scenes.add_argument("--synthetic", type=int, metavar="S",
@@ -144,6 +151,7 @@ def main(argv=None) -> None:
     gen = RolloutGenerator(
         config(args.cond_cfg), config(args.autoreg_cfg), device=args.device,
         weights_seed=args.seed, dtype=DTYPES[args.dtype], num_steps=args.num_steps, mode=args.mode,
+        cond_ckpt=args.cond_ckpt, autoreg_ckpt=args.autoreg_ckpt,
     )
     rollout = dict(num_frames=args.num_frames, interp_M=args.interp, stream_chunks=args.stream_chunks)
     out_root = Path(args.output)

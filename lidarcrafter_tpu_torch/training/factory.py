@@ -77,7 +77,12 @@ def layout_condition_batch(
 
 def _build_denoiser(cfg, in_channels: int, device: torch.device, **extra):
     """``cfg.model`` in ``eval()`` mode on ``device``; the coordinate
-    encoding follows the projection as in the JAX package."""
+    encoding follows the projection as in the JAX package.
+
+    Training keeps ``eval()`` too: the layout configs set ``dropout: 0.1``,
+    but the JAX trainer never passes ``deterministic=False`` (its train step
+    applies the models without it), so the JAX package trains with dropout
+    off, and so does the port."""
     model = build_model(
         cfg.model.architecture,
         in_channels=in_channels,
@@ -97,7 +102,8 @@ def build_diffusion_training(cfg, device: str | torch.device = "cuda"):
     Unconditional configs give ``(model, ContinuousDiffusion, utils)``;
     concat-conditioned ones give ``({'model': LayoutUnetV1, 'cond':
     LayoutTransformerEncoder}, CondContinuousDiffusion, utils)``.  Models
-    are in ``eval()`` mode.
+    are in ``eval()`` mode (dropout off, as the JAX trainer runs them) with
+    float32 parameters that require grad: the same build serves and trains.
     """
     device = resolve_device(device)
     if cfg.diffusion.timestep_type != "continuous":
@@ -106,6 +112,7 @@ def build_diffusion_training(cfg, device: str | torch.device = "cuda"):
     engine_kw = dict(
         sampling_shape=data_shape,
         prediction_type=cfg.diffusion.prediction_type,
+        loss_type=cfg.diffusion.loss_type,
         noise_schedule=cfg.diffusion.noise_schedule,
         clip_sample=cfg.diffusion.clip_sample,
     )
@@ -120,7 +127,9 @@ def build_diffusion_training(cfg, device: str | torch.device = "cuda"):
     )
     cond_model = build_model(cfg.condition_model.architecture, **cfg.condition_model.params)
     cond_model = cond_model.to(device).eval()
-    engine = CondContinuousDiffusion(model=model, cond_model=cond_model, **engine_kw)
+    engine = CondContinuousDiffusion(
+        model=model, cond_model=cond_model, w_loss_weight=cfg.diffusion.w_loss_weight, **engine_kw
+    )
     return {"model": model, "cond": cond_model}, engine, make_lidar_utils(cfg, device)
 
 

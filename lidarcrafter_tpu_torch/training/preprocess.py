@@ -1,9 +1,9 @@
 """Condition pre-processing and sample post-processing on NHWC tensors.
 
-Port of the JAX package's ``training/preprocess.py``: one-hot semantic +
-normalized depth for the concat condition, normalized previous-frame depth
-for the autoregressive condition, and [-1, 1] sample → depth / xyz /
-reflectance.
+Port of the JAX package's ``training/preprocess.py``: depth codec + [-1, 1]
+normalization of the denoised channels, one-hot semantic + normalized depth
+for the concat condition, normalized previous-frame depth for the
+autoregressive condition, and [-1, 1] sample → depth / xyz / reflectance.
 """
 
 from __future__ import annotations
@@ -12,6 +12,21 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.lidar import LiDARUtility
+
+
+def preprocess_x0(
+    batch: dict,
+    lidar_utils: LiDARUtility,
+    train_depth: bool = True,
+    train_reflectance: bool = True,
+) -> torch.Tensor:
+    """depth / reflectance (B,H,W,1) each → normalized x_0 (B,H,W,C)."""
+    x = []
+    if train_depth:
+        x.append(lidar_utils.convert_depth(batch["depth"]))
+    if train_reflectance:
+        x.append(batch["reflectance"])
+    return lidar_utils.normalize(torch.cat(x, dim=-1))
 
 
 def preprocess_condition_mask(
