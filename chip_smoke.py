@@ -17,7 +17,9 @@ Phases, each printing one JSON line:
    tensor cores for OACA and attention; GroupNorm on the CUDA cores as
    ``one-launch grid-sync``: one launch per norm, at most one block per SM
    with a grid sync, fed the modules' raw operands: weight, bias and the
-   strided scale/shift halves of the conditioning projection);
+   strided scale/shift halves of the conditioning projection), and
+   GroupNorm at the layout branch's UNet1D token shapes, (104, 1, 512) and
+   (104, 1, 1024) with eps 1e-5 and (104, 1, 512) with eps 1e-6, float32;
 3. full-width forwards on the card with the kernels against the same
    forwards on the CPU with the plain versions, shared seeded weights: the
    layout stack (encoder + ``LayoutUnetV1``, 32x1024) and ``EfficientUNet``
@@ -64,7 +66,22 @@ Phases, each printing one JSON line:
    of the last 10 losses must lie below that of the first 10; (e) its
    checkpoint read back through ``sample_temporal``'s ``--autoreg-ckpt``
    loader, EMA weights equal bit for bit, and one DPM-Solver++(2M)@15 frame
-   sampled from them, finite.
+   sampled from them, finite;
+8. the layout and object branches, float32 at their published widths:
+   (a) ``LayoutGenerator`` (``nuscenes-layout``) on 8 synthetic scene
+   graphs of ego + 12 objects (N = 104 nodes): the ``SceneGraph`` latent
+   and one denoiser call (``SceneGraph`` + ``UNet1DModel``) on the card
+   against the CPU to 1e-3, exactly 56 GroupNorm launches in that call and
+   56 GroupNorm device kernels in a profiled one (device busy, idle
+   share), then a DDPM@256 and a DDIM@50 request with the counters set to
+   0 just before and read just after (56 a denoiser call): seconds, ms a
+   call, finite samples, and finite centres, yaw and trajectories after
+   ``unscale_boxes_3d`` (the share of finite sizes is reported: an
+   untrained denoiser's unclipped x̂_0 can overflow exp(log size));
+   (b) ``ObjectGenerator`` (``nuscenes-object``) on the 96 objects of those
+   scenes × 1024 points: one call card vs CPU to 1e-3, a profile, both
+   requests, finite clouds; no kernel of the port runs there, and every
+   launch counter must stay at 0.
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -118,6 +135,11 @@ GEOMETRY_RTOL, GEOMETRY_PIXEL_SHARE = 1e-5, 0.999  # card vs CPU condition maps
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3  # one v6 step, card vs CPU
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10  # steps of the B=8 training runs
 GATE_STEPS, GATE_BATCH = 100, 2  # nuscenes-auto-reg-v2 on banded range images
+# the layout and object branches: 8 scenes of ego + 12 objects (13 nodes, the
+# frame stack's layout_length; N = 104), and the 96 objects of those scenes
+LAYOUT_SCENES, LAYOUT_OBJECTS = 8, 12
+BRANCH_REQUESTS = (("ddpm", 256), ("ddim", 50))  # DDPM@256 is the JAX tools' default
+GN_PER_UNET1D = 56  # 22 ResBlock1D x 2, 11 SpatialTransformer1Token, the output norm
 
 
 def emit(obj) -> None:
@@ -185,6 +207,16 @@ def kernel_errors(what: str, dname: str, got, want) -> dict:
     check(norm_rel <= NORM_TOL[dname], f"{what} {dname}: norm-relative error {norm_rel:.3g} > {NORM_TOL[dname]}")
     return {"max_abs_err": err, "rel_err": rel, "tol": TOL[dname],
             "norm_rel_err": norm_rel, "norm_tol": NORM_TOL[dname]}
+
+
+def reset_counters() -> dict:
+    """Every kernel's launch counter, set to 0."""
+    from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
+
+    counters = {"oaca": oaca.launches, "groupnorm": groupnorm.launches, "attention": attention.launches}
+    for c in counters.values():
+        c.n = 0
+    return counters
 
 
 # ------------------------------------------------------------------ phase 2
@@ -351,6 +383,13 @@ def phase_kernels():
                                     dtype, True, True, gen, groups=8, eps=1e-6, affine=False))
         rows.append(check_groupnorm("unet ds8 (8,4,128,512) SiLU", (BATCH, 4, 128, 512),
                                     dtype, False, True, gen, groups=8, eps=1e-6))
+    # the layout branch's UNet1D norms: N = 104 one-row images, float32 only
+    # (the branch serves in float32)
+    N = LAYOUT_SCENES * (LAYOUT_OBJECTS + 1)
+    for label, C, eps, silu in ((f"tokens ({N},1,512) UNet1D res-block norm + SiLU", 512, 1e-5, True),
+                                (f"tokens ({N},1,1024) UNet1D skip-concat norm + SiLU", 1024, 1e-5, True),
+                                (f"tokens ({N},1,512) UNet1D transformer norm eps 1e-6", 512, 1e-6, False)):
+        rows.append(check_groupnorm(label, (N, 1, C), torch.float32, False, silu, gen, eps=eps))
     for row in rows:
         emit({"phase": "kernels", **row})
         check(row["ms"] >= row["bound_ms"],
@@ -495,8 +534,6 @@ def phase_main_path(cfg_name: str, gen, per_call: dict, requests, smi: str) -> d
     either serving dtype.  Returns the path's non-zero launch counts."""
     import torch
 
-    from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
-
     def request(mode, steps, seed):
         if mode == "meanflow":
             return gen.generate(BATCH, seed=seed)
@@ -506,9 +543,7 @@ def phase_main_path(cfg_name: str, gen, per_call: dict, requests, smi: str) -> d
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    counters = {"oaca": oaca.launches, "groupnorm": groupnorm.launches, "attention": attention.launches}
-    for c in counters.values():
-        c.n = 0
+    counters = reset_counters()
     results = []
     for i, (mode, steps) in enumerate(requests):
         torch.cuda.synchronize()
@@ -675,7 +710,6 @@ def phase_rollout(dtype, smi: str) -> dict:
     import torch
 
     from lidarcrafter_tpu_torch.configs import get_config
-    from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
     from lidarcrafter_tpu_torch.sample_temporal import RolloutGenerator
 
     dname = str(dtype).split(".")[-1]
@@ -692,11 +726,9 @@ def phase_rollout(dtype, smi: str) -> dict:
     pipe.frame_conditions = event_spans(pipe.frame_conditions, geometry)
     for engine in (pipe.cond_engine, pipe.autoreg_engine):
         engine.denoise = event_spans(engine.denoise, denoise)
-    counters = {"oaca": oaca.launches, "groupnorm": groupnorm.launches, "attention": attention.launches}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.n = 0
+    counters = reset_counters()
     t0 = time.perf_counter()
     frames = gen.generate(ROLLOUT_SCENES, num_frames=ROLLOUT_FRAMES, seed=1, stream_chunks=2)
     seconds = time.perf_counter() - t0
@@ -953,16 +985,12 @@ def phase_train_speed(cfg_name: str, amp: bool, per_step: dict, smi: str, out_di
     after (exact counts per step); returns the non-zero counts."""
     import torch
 
-    from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
-
     trainer, logs = _trainer(cfg_name, BATCH, amp, out_dir)
     total = TRAIN_WARMUP + TRAIN_TIMED
     state = trainer.train(num_steps=TRAIN_WARMUP, seed=0, checkpoint_every=10**9, log_every=10**9)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = {"oaca": oaca.launches, "groupnorm": groupnorm.launches, "attention": attention.launches}
-    for c in counters.values():
-        c.n = 0
+    counters = reset_counters()
     t0 = time.perf_counter()
     state = trainer.train(num_steps=total, state=state, checkpoint_every=10**9, log_every=total)
     torch.cuda.synchronize()
@@ -996,15 +1024,12 @@ def phase_train_gate(smi: str, out_dir: str) -> dict:
     import torch
 
     from lidarcrafter_tpu_torch.configs import get_config
-    from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
     from lidarcrafter_tpu_torch.sample_temporal import RolloutGenerator
     from lidarcrafter_tpu_torch.training.checkpoint import latest_checkpoint
 
     trainer, logs = _trainer("nuscenes-auto-reg-v2", GATE_BATCH, False, out_dir, lr=1e-4, lr_warmup_steps=20,
                              num_steps=GATE_STEPS)
-    counters = {"oaca": oaca.launches, "groupnorm": groupnorm.launches, "attention": attention.launches}
-    for c in counters.values():
-        c.n = 0
+    counters = reset_counters()
     t0 = time.perf_counter()
     state = trainer.train(num_steps=GATE_STEPS, seed=0, checkpoint_every=GATE_STEPS, log_every=1)
     seconds = time.perf_counter() - t0
@@ -1055,6 +1080,183 @@ def phase_train(smi: str) -> tuple[list, dict]:
                 "nuscenes-unet-uncond", amp, {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET}, smi, out_dir)
         by_path["train nuscenes-auto-reg-v2 float32 (loss gate)"] = phase_train_gate(smi, out_dir)
     return rows, by_path
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+def _branch_call(gen, request_fn, x, t):
+    """One denoiser call of a branch's generator (its encoder, then the
+    denoiser at log-SNR ``t``) on ``x``, on the generator's device; returns
+    (condition, prediction)."""
+    import torch
+
+    with torch.inference_mode():
+        cond = gen.engine.get_network_condition(request_fn(gen.device))
+        return cond, gen.engine.denoise(x.to(gen.device), t.to(gen.device), cond)
+
+
+def _on_cpu(gen):
+    """A copy of ``gen`` whose models and engine live on the CPU."""
+    import torch
+
+    cpu = copy.copy(gen)
+    cpu.models = {k: copy.deepcopy(m).cpu() for k, m in gen.models.items()}
+    cpu.engine = dataclasses.replace(gen.engine, model=cpu.models["model"], cond_model=cpu.models["cond"])
+    cpu.device = torch.device("cpu")
+    return cpu
+
+
+def _branch_requests(name: str, generate, check_out, per_call: dict, smi: str) -> tuple[list, dict]:
+    """``BRANCH_REQUESTS`` through ``generate(steps, mode, seed)`` after one
+    warm-up, the launch counters set to 0 just before and read just after;
+    each kernel must have launched ``per_call[kernel]`` times a denoiser
+    call (0 if absent).  Returns the requests' lines and the counts."""
+    import torch
+
+    generate(2, "ddim", 99)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    results = []
+    for i, (mode, steps) in enumerate(BRANCH_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(steps, mode, i)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        results.append({"mode": mode, "steps": steps, "denoiser_calls": steps, "seconds": seconds,
+                        "ms_per_call": seconds * 1e3 / steps, **check_out(out, mode)})
+    launches = {k: c.n for k, c in counters.items()}
+    calls = sum(s for _, s in BRANCH_REQUESTS)
+    for k, n in launches.items():
+        check(n == per_call.get(k, 0) * calls, f"{name}: {k} launches {n} != {per_call.get(k, 0)} x {calls}")
+    return results, launches
+
+
+def phase_layout(smi: str) -> dict:
+    """Phase 8a: scene graph → 4D layout (``nuscenes-layout`` at its
+    published widths, float32) through ``LayoutGenerator``; returns the
+    launch counts of its requests."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.datasets.transforms import unscale_boxes_3d
+    from lidarcrafter_tpu_torch.generate_layout import LayoutGenerator, layout_request
+    from lidarcrafter_tpu_torch.models.ops import GroupNorm32
+    from lidarcrafter_tpu_torch.utils.synthetic import synthetic_scene_graphs
+
+    t0 = time.perf_counter()
+    gen = LayoutGenerator(get_config("nuscenes-layout"), DEVICE, 0)
+    build_s = time.perf_counter() - t0
+    n = sum(isinstance(m, GroupNorm32) for m in gen.models["model"].modules())
+    check(n == GN_PER_UNET1D, f"nuscenes-layout: {n} GroupNorm32 modules, expected {GN_PER_UNET1D}")
+    batch = synthetic_scene_graphs(LAYOUT_SCENES, LAYOUT_OBJECTS, seed=0)
+    N, T = len(batch["decoder"]["objs"]), len(batch["decoder"]["tripltes"])
+    x = torch.randn(N, 20, generator=torch.Generator().manual_seed(30))
+    t = torch.linspace(-5.0, 5.0, N)  # log-SNR, a spread of noise levels across the nodes
+
+    counters = reset_counters()
+    cond, got = _branch_call(gen, lambda d: layout_request(batch, d), x, t)
+    torch.cuda.synchronize()
+    launches = {k: c.n for k, c in counters.items()}
+    check(launches == {"oaca": 0, "groupnorm": GN_PER_UNET1D, "attention": 0},
+          f"nuscenes-layout: one denoiser call launched {launches}")
+    cpu = _on_cpu(gen)
+    t0 = time.perf_counter()
+    want_cond, want = _branch_call(cpu, lambda d: layout_request(batch, d), x, t)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    check_forward("nuscenes-layout SceneGraph latent (c_b) float32", cond["other_condition"]["c_b"].cpu(),
+                  want_cond["other_condition"]["c_b"], FORWARD_RTOL, nodes=N, triples=T)
+    check_forward("nuscenes-layout denoiser call (SceneGraph + UNet1DModel) float32", got.cpu(), want,
+                  FORWARD_RTOL, nodes=N, triples=T, cpu_seconds=cpu_s, launches=launches)
+
+    t_full = torch.full((N,), 0.5, device=DEVICE)
+    x_card = x.to(DEVICE)
+    cats = phase_profile(f"one denoiser call (nuscenes-layout, predict_x_0), N={N}, float32",
+                         lambda: gen.engine.predict_x_0(x_card, t_full, cond), smi)
+    check(cats.get("groupnorm kernel", 0) == GN_PER_UNET1D,
+          f"nuscenes-layout: {cats.get('groupnorm kernel', 0)} GroupNorm device kernels in one call")
+
+    def check_out(raw, mode):
+        raw = raw.cpu().numpy()
+        check(raw.shape == (N, 20), f"layout {mode}: shape {raw.shape}")
+        check(bool(np.isfinite(raw).all()), f"layout {mode}: sample is not finite")
+        check(float(raw.std()) > 1e-3, f"layout {mode}: sample is constant")
+        with np.errstate(over="ignore"):
+            boxes, trajs = unscale_boxes_3d(raw)
+        # centre, yaw and trajectories are finite functions of the sample;
+        # the sizes are exp(log size), which an untrained denoiser's
+        # unclipped x̂_0 may overflow: counted, not held
+        check(bool(np.isfinite(boxes[:, [0, 1, 2, 6]]).all()) and bool(np.isfinite(trajs).all()),
+              f"layout {mode}: unscale_boxes_3d centres, yaw or trajectories not finite")
+        return {"sample_abs_mean": float(np.abs(raw).mean()), "sample_abs_max": float(np.abs(raw).max()),
+                "finite_sizes_share": float(np.isfinite(boxes[:, 3:6]).mean())}
+
+    results, launches = _branch_requests(
+        "nuscenes-layout", lambda steps, mode, seed: gen.generate(batch, steps, mode=mode, seed=seed),
+        check_out, {"groupnorm": GN_PER_UNET1D}, smi)
+    emit({"phase": "layout", "config": "nuscenes-layout", "dtype": "float32", "card": smi, "scenes": LAYOUT_SCENES,
+          "nodes": N, "triples": T, "requests": results, "launches": launches,
+          "groupnorm_per_call": GN_PER_UNET1D, "build_seconds": build_s,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del gen
+    torch.cuda.empty_cache()
+    return {k: n for k, n in launches.items() if n}
+
+
+def phase_object(smi: str) -> None:
+    """Phase 8b: box + class → object points (``nuscenes-object``, float32)
+    through ``ObjectGenerator``, for the 96 objects of the layout phase's
+    scenes.  No kernel of the port runs on this path (Linears and pointwise
+    ops); the launch counters must stay at 0."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.generate_object import ObjectGenerator
+    from lidarcrafter_tpu_torch.utils.synthetic import synthetic_object_boxes
+
+    gen = ObjectGenerator(get_config("nuscenes-object"), DEVICE, 0)
+    boxes = synthetic_object_boxes(LAYOUT_SCENES, LAYOUT_OBJECTS, seed=0)
+    B, P = len(boxes["fg_class"]), gen.cfg.data.num_samples
+
+    def request(device):
+        return {k: torch.as_tensor(v, device=device) for k, v in boxes.items()}
+
+    x = torch.randn(B, P, 4, generator=torch.Generator().manual_seed(31))
+    t = torch.linspace(-5.0, 5.0, B)
+    counters = reset_counters()
+    _, got = _branch_call(gen, request, x, t)
+    torch.cuda.synchronize()
+    check(all(c.n == 0 for c in counters.values()), "nuscenes-object: a kernel launched in a denoiser call")
+    cpu = _on_cpu(gen)
+    t0 = time.perf_counter()
+    _, want = _branch_call(cpu, request, x, t)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    check_forward("nuscenes-object denoiser call (ObjectGenEncoder + PointUNet) float32", got.cpu(), want,
+                  FORWARD_RTOL, objects=B, points=P, cpu_seconds=cpu_s)
+    with torch.inference_mode():
+        cond = gen.engine.get_network_condition(request(DEVICE))
+    x_card, t_half = x.to(DEVICE), torch.full((B,), 0.5, device=DEVICE)
+    phase_profile(f"one denoiser call (nuscenes-object, predict_x_0), B={B}, {P} points, float32",
+                  lambda: gen.engine.predict_x_0(x_card, t_half, cond), smi)
+
+    def check_out(out, mode):
+        check(tuple(out.shape) == (B, P, 4), f"object {mode}: shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"object {mode}: sample is not finite")
+        check(float(out.std()) > 1e-3, f"object {mode}: sample is constant")
+        return {"sample_abs_mean": float(out.abs().mean()), "sample_abs_max": float(out.abs().max())}
+
+    results, launches = _branch_requests(
+        "nuscenes-object", lambda steps, mode, seed: gen.generate(boxes, steps, mode=mode, seed=seed),
+        check_out, {}, smi)
+    emit({"phase": "object", "config": "nuscenes-object", "dtype": "float32", "card": smi, "objects": B,
+          "points": P, "requests": results, "launches": launches, "kernels": "none on this path",
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del gen
+    torch.cuda.empty_cache()
 
 
 def probe_times(kernels) -> dict:
@@ -1137,6 +1339,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     backward_rows, train_paths = phase_train(smi)
     by_path.update(train_paths)
+    by_path["layout nuscenes-layout float32"] = phase_layout(smi)
+    phase_object(smi)
 
     # each kernel at its largest main-path shape, float32 (the default serving
     # dtype) with its bfloat16 numbers beside, and its launches summed over

@@ -9,6 +9,8 @@ __all__ = {
     "meanflow-nusc": E.meanflow_nusc,
     "nuscenes-auto-reg-v2": E.nusc_auto_reg_v2,
     "nuscenes-box-layout-v6": E.nusc_box_layout_v6,
+    "nuscenes-layout": E.nusc_layout,
+    "nuscenes-object": E.nusc_object,
 }
 
 

@@ -3,8 +3,9 @@
 An own copy of the matching builders of the JAX package's
 ``configs/experiments.py``: ``nuscenes-unet-uncond`` and ``meanflow-nusc``
 for unconditional frames, ``nuscenes-box-layout-v6`` for layout-conditioned
-frames and ``nuscenes-auto-reg-v2`` for autoregressive frames; field for
-field the same values.
+frames and ``nuscenes-auto-reg-v2`` for autoregressive frames, ``nuscenes-layout``
+for scene graph → 4D layout and ``nuscenes-object`` for per-object points;
+field for field the same values.
 """
 
 from .common import (
@@ -121,3 +122,63 @@ def nusc_auto_reg_v2() -> ExperimentConfig:
     cfg = _box_layout_base(out_channels=11, num_steps=500_000)
     cfg.data.task = "autoregressive_generation"
     return cfg
+
+
+# ------------------------------------------------------------- layout (1D) / object
+
+
+def nusc_layout() -> ExperimentConfig:
+    """cf. ``option_nusc_layout.py`` (nuscenes-layout): UNet1D + SceneGraph."""
+    return ExperimentConfig(
+        data=DataConfig(task="layout_generation", custom_collate_fn=True,
+                        pkl_path="../data/infos/nuscenes_infos_lidargen_train.pkl"),
+        model=ModelConfig(
+            "unet_1d",
+            {
+                "in_channels": 20,
+                "out_channels": 20,
+                "model_channels": 512,
+                "channel_mult": (1, 1, 1, 1),
+                "num_res_blocks": 2,
+                "attention_resolutions": (4, 2),
+                "num_heads": 8,
+                "use_spatial_transformer": True,
+                "transformer_depth": 1,
+                "conditioning_key": "crossattn",
+                "concat_dim": 1280,
+                "crossattn_dim": 1280,
+                "enable_t_emb": True,
+            },
+        ),
+        condition_model=ConditionModelConfig(
+            "scene_graph",
+            {
+                "embedding_dim": 64,
+                "gconv_pooling": "avg",
+                "gconv_num_layers": 5,
+                "mlp_normalization": "batch",
+                "separated": True,
+                "replace_latent": True,
+                "residual": True,
+                "use_angles": True,
+                "use_clip": True,
+            },
+        ),
+        diffusion=DiffusionConfig(clip_sample=False),
+        training=TrainingConfig(steps_save_model=50_000),
+    )
+
+
+def nusc_object() -> ExperimentConfig:
+    """cf. ``option_nusc_object.py`` (nuscenes-object): per-object point diffusion."""
+    return ExperimentConfig(
+        data=DataConfig(
+            task="object_generation", dataset="nuscenes-object",
+            custom_collate_fn=True, num_samples=1024,
+            pkl_path="../data/infos/nuscenes_dbinfos_10sweeps_withvelo.pkl",
+        ),
+        model=ModelConfig("point_unet", {"point_dim": 4, "cond_dims": 768}),
+        condition_model=ConditionModelConfig("object_gen_encoder", {"num_class": 8}),
+        diffusion=DiffusionConfig(clip_sample=False),
+        training=TrainingConfig(num_steps=1_000_000, steps_save_model=100_000),
+    )

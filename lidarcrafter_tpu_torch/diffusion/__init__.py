@@ -2,4 +2,5 @@
 
 from .conditional import CondContinuousDiffusion  # noqa: F401
 from .continuous import ContinuousDiffusion  # noqa: F401
+from .layout import CondLayoutDiffusion  # noqa: F401
 from .mean_flow import MeanFlow  # noqa: F401

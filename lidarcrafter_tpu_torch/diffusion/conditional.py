@@ -4,7 +4,8 @@ sampler.
 Port of the JAX package's ``diffusion/conditional.py``
 (``CondContinuousDiffusion``) for ``cond_mode='concat'`` with the layout
 stack, whose encoder output is a dict that ``LayoutUnetV1`` concatenates
-itself.  ``p_loss`` / ``loss`` run the condition encoder under autograd, so
+itself, and for the object branch (``ObjectGenEncoder`` feeding
+``PointUNet`` its (B, 768) condition, over (B, 1024, 4) clouds).  ``p_loss`` / ``loss`` run the condition encoder under autograd, so
 its parameters train with the denoiser's, and ``w_loss_weight`` takes the
 ``scene_loss_weight_map`` as the loss mask.  For sampling the encoder runs
 once per ``sample`` call, then the shared reverse loop of ``continuous.py``
@@ -89,7 +90,8 @@ class CondContinuousDiffusion(ContinuousDiffusion):
         generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """Conditioned sampling from ``x_T`` (drawn from ``generator`` when
-        not given); returns x_0 (B, H, W, C)."""
+        not given); returns x_0 (B, *sampling_shape): (B, H, W, C) frames,
+        or (B, num_points, point_dim) object clouds."""
         x = self.start(batch_size, x_T, generator)
         condition = self.get_network_condition(batch_dict)
         return self.reverse(x, num_steps, mode, ddim_eta, generator, condition)

@@ -100,7 +100,9 @@ class ContinuousDiffusion:
     ``model(x_t, log_snr_t)`` predicts eps / v / x_0."""
 
     model: nn.Module
-    sampling_shape: tuple[int, ...]  # (H, W, C) — without batch
+    # one sample's shape, without the batch axis: (H, W, C) for a range
+    # image, (num_points, point_dim) for an object cloud, (C,) for a layout node
+    sampling_shape: tuple[int, ...]
     prediction_type: Literal["eps", "v", "x_0"] = "eps"
     loss_type: Literal["l2", "l1", "huber"] = "l2"
     noise_schedule: str = "cosine"
@@ -257,15 +259,19 @@ class ContinuousDiffusion:
         ddim_eta: float = 0.0,
         generator: torch.Generator | None = None,
         condition=None,
+        noise: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        """One reverse step p(z_s | z_t)."""
+        """One reverse step p(z_s | z_t); its noise is drawn from
+        ``generator`` unless given."""
         log_snr_t = _bcast(self.log_snr(t), x_t.ndim)
         log_snr_s = _bcast(self.log_snr(s), x_t.ndim)
         alpha_t, sigma_t = schedules.log_snr_to_alpha_sigma(log_snr_t)
         alpha_s, sigma_s = schedules.log_snr_to_alpha_sigma(log_snr_s)
         x_0 = self.predict_x_0(x_t, t, condition)
 
-        def noise():
+        def draw():
+            if noise is not None:
+                return noise
             return torch.randn(
                 x_t.shape, generator=generator, device=x_t.device, dtype=x_t.dtype
             )
@@ -273,14 +279,14 @@ class ContinuousDiffusion:
         if mode == "ddpm":
             c = -torch.expm1(log_snr_t - log_snr_s)
             mean = alpha_s * (x_t * (1 - c) / alpha_t + c * x_0)
-            return mean + sigma_s * torch.sqrt(c) * noise()
+            return mean + sigma_s * torch.sqrt(c) * draw()
         if mode == "ddim":
             c_1 = ddim_eta * sigma_s / sigma_t * torch.sqrt(1 - alpha_t**2 / alpha_s**2)
             c_2 = torch.sqrt(1 - alpha_s**2 - c_1**2)
             eps = (x_t - alpha_t * x_0) / sigma_t
             out = alpha_s * x_0 + c_2 * eps
             # η = 0 is deterministic: no draw, so the generator is untouched
-            return out + c_1 * noise() if ddim_eta else out
+            return out + c_1 * draw() if ddim_eta else out
         raise ValueError(mode)
 
     def reverse(
@@ -343,6 +349,6 @@ class ContinuousDiffusion:
         generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """Unconditional sampling from ``x_T`` (drawn from ``generator`` when
-        not given); returns x_0 (B, H, W, C)."""
+        not given); returns x_0 (B, *sampling_shape)."""
         x = self.start(batch_size, x_T, generator)
         return self.reverse(x, num_steps, mode, ddim_eta, generator)

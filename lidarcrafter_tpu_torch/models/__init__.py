@@ -3,12 +3,19 @@
 from .efficient_unet import EfficientUNet, MFEfficientUNet
 from .layout_encoder import LayoutTransformerEncoder
 from .layout_unet import LayoutUnetV1
+from .point_unet import ObjectGenEncoder, PointUNet
+from .scene_graph import SceneGraph
+from .unet_1d import UNet1DModel
 
 _REGISTRY = {
     "efficient_unet": EfficientUNet,
     "mf_efficient_unet": MFEfficientUNet,
     "layout_encoder": LayoutTransformerEncoder,
     "layout_unet_v1": LayoutUnetV1,
+    "unet_1d": UNet1DModel,
+    "scene_graph": SceneGraph,
+    "object_gen_encoder": ObjectGenEncoder,
+    "point_unet": PointUNet,
 }
 
 

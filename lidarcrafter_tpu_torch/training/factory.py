@@ -5,7 +5,9 @@ concat-conditioned continuous-time branches of ``build_diffusion_training``
 (``nuscenes-unet-uncond``; ``nuscenes-box-layout-v6`` and
 ``nuscenes-auto-reg-v2``, which differ only in the encoder's ``out_channels``
 and in the ``autoregressive_cond`` input), ``build_flow_training``
-(``meanflow-nusc``) and ``layout_condition_batch``.
+(``meanflow-nusc``), ``build_layout_training`` (``nuscenes-layout``: scene
+graph → 4D layout), ``build_object_training`` (``nuscenes-object``: box +
+class → object points) and ``layout_condition_batch``.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_device
-from ..diffusion import CondContinuousDiffusion, ContinuousDiffusion, MeanFlow
+from ..diffusion import CondContinuousDiffusion, CondLayoutDiffusion, ContinuousDiffusion, MeanFlow
 from ..models import build_model
 from ..utils.lidar import LiDARUtility
 
@@ -108,14 +110,7 @@ def build_diffusion_training(cfg, device: str | torch.device = "cuda"):
     device = resolve_device(device)
     if cfg.diffusion.timestep_type != "continuous":
         raise NotImplementedError("the port builds the continuous-time branches only")
-    data_shape = (*cfg.data.resolution, _data_channels(cfg))
-    engine_kw = dict(
-        sampling_shape=data_shape,
-        prediction_type=cfg.diffusion.prediction_type,
-        loss_type=cfg.diffusion.loss_type,
-        noise_schedule=cfg.diffusion.noise_schedule,
-        clip_sample=cfg.diffusion.clip_sample,
-    )
+    engine_kw = _engine_kw(cfg, (*cfg.data.resolution, _data_channels(cfg)))
     if getattr(cfg, "condition_model", None) is None:
         model = _build_denoiser(cfg, _data_channels(cfg), device)
         return model, ContinuousDiffusion(model=model, **engine_kw), make_lidar_utils(cfg, device)
@@ -142,3 +137,44 @@ def build_flow_training(cfg, device: str | torch.device = "cuda"):
     model = _build_denoiser(cfg, _data_channels(cfg), device)
     engine = MeanFlow(model=model, sampling_shape=(*cfg.data.resolution, _data_channels(cfg)))
     return model, engine, make_lidar_utils(cfg, device)
+
+
+def _engine_kw(cfg, sampling_shape) -> dict:
+    return dict(
+        sampling_shape=sampling_shape,
+        prediction_type=cfg.diffusion.prediction_type,
+        loss_type=cfg.diffusion.loss_type,
+        noise_schedule=cfg.diffusion.noise_schedule,
+        clip_sample=cfg.diffusion.clip_sample,
+    )
+
+
+def build_layout_training(cfg, device: str | torch.device = "cuda", num_objs: int = 9, num_preds: int = 16):
+    """The 1D layout branch on ``device``: ``({'model': UNet1DModel, 'cond':
+    SceneGraph}, CondLayoutDiffusion, utils)``, models in ``eval()`` mode.
+    The scene graph's vocabulary sizes come from the dataset in the
+    reference and are passed here, as in the JAX package."""
+    device = resolve_device(device)
+    model = build_model(cfg.model.architecture, **cfg.model.params).to(device).eval()
+    cond_model = build_model(
+        cfg.condition_model.architecture, num_objs=num_objs, num_preds=num_preds, **cfg.condition_model.params
+    ).to(device).eval()
+    engine = CondLayoutDiffusion(
+        model=model, cond_model=cond_model,
+        **_engine_kw(cfg, (cfg.model.params.get("in_channels", 20),)),
+    )
+    return {"model": model, "cond": cond_model}, engine, make_lidar_utils(cfg, device)
+
+
+def build_object_training(cfg, device: str | torch.device = "cuda"):
+    """The per-object point branch on ``device``: ``({'model': PointUNet,
+    'cond': ObjectGenEncoder}, CondContinuousDiffusion, utils)`` over
+    (num_samples, point_dim) clouds, models in ``eval()`` mode."""
+    device = resolve_device(device)
+    model = build_model(cfg.model.architecture, **cfg.model.params).to(device).eval()
+    cond_model = build_model(cfg.condition_model.architecture, **cfg.condition_model.params).to(device).eval()
+    engine = CondContinuousDiffusion(
+        model=model, cond_model=cond_model,
+        **_engine_kw(cfg, (cfg.data.num_samples, cfg.model.params["point_dim"])),
+    )
+    return {"model": model, "cond": cond_model}, engine, make_lidar_utils(cfg, device)

@@ -14,10 +14,15 @@ onto a key one to one; the leaves convert as
 - ``scale`` of GroupNorm/LayerNorm and ``embedding`` of Embed → ``weight``
 - ``bias`` → ``bias``; any other leaf keeps its name.
 
+A flax variable dict ``{'params': ..., 'batch_stats': ...}`` carries its
+``batch_stats`` collection too: the BatchNorm statistics ``mean`` and
+``var`` become the buffers ``running_mean`` and ``running_var``.
+
 It raises on a leaf left over, a key missing, or a shape mismatch.
 
 :func:`init_random_` fills a module with seeded random weights (no layer
-zero-initialised), for serving and measuring without a checkpoint.
+zero-initialised) and running statistics, for serving and measuring without
+a checkpoint.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import torch
 from torch import nn
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}  # flax batch_stats → buffers
+_COLLECTIONS = {"params", "batch_stats"}
 
 
 def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
@@ -39,10 +46,14 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
             yield prefix + (str(k),), v
 
 
-def _convert_leaf(path: tuple[str, ...], value) -> tuple[str, np.ndarray]:
+def _convert_leaf(path: tuple[str, ...], value, stats: bool = False) -> tuple[str, np.ndarray]:
     *mods, leaf = path
     arr = np.asarray(value)
-    if leaf == "kernel":
+    if stats:
+        if leaf not in _STAT_NAMES:
+            raise KeyError(f"batch_stats/{'/'.join(path)}: not a BatchNorm statistic")
+        leaf = _STAT_NAMES[leaf]
+    elif leaf == "kernel":
         if arr.ndim == 2:
             arr = arr.T
         elif arr.ndim == 3 and mods and mods[-1] == "out":
@@ -55,20 +66,23 @@ def _convert_leaf(path: tuple[str, ...], value) -> tuple[str, np.ndarray]:
             raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
     elif leaf == "bias" and arr.ndim == 2:
         arr = arr.reshape(-1)
-    key = ".".join([m.lower() for m in mods] + [_LEAF_NAMES.get(leaf, leaf)])
+    key = ".".join([m.lower() for m in mods] + [leaf if stats else _LEAF_NAMES.get(leaf, leaf)])
     return key, np.ascontiguousarray(arr)
 
 
 def flax_to_state_dict(params: Mapping, module: nn.Module) -> dict[str, torch.Tensor]:
-    """Convert ``params`` (optionally under a top-level ``'params'``) into a
-    full ``state_dict`` for ``module``."""
-    if set(params) == {"params"}:
-        params = params["params"]
+    """Convert ``params`` (a bare parameter tree, or a flax variable dict
+    with ``'params'`` and optionally ``'batch_stats'``) into a full
+    ``state_dict`` for ``module``."""
+    if "params" in params and set(params) <= _COLLECTIONS:
+        leaves = [(p, v, c == "batch_stats") for c in sorted(params) for p, v in _flatten(params[c])]
+    else:
+        leaves = [(p, v, False) for p, v in _flatten(params)]
     expected = module.state_dict()
     out: dict[str, torch.Tensor] = {}
     extra = []
-    for path, value in _flatten(params):
-        key, arr = _convert_leaf(path, value)
+    for path, value, stats in leaves:
+        key, arr = _convert_leaf(path, value, stats)
         if key not in expected:
             extra.append("/".join(path))
             continue
@@ -93,7 +107,9 @@ def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
 def init_random_(module: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from ``numpy.random.default_rng(seed)`` in
     ``state_dict`` order: matrices and conv filters normal/√fan_in, norm
-    scales 1 + 0.1·normal, biases and other vectors 0.1·normal."""
+    scales 1 + 0.1·normal, biases and other vectors 0.1·normal; then the
+    BatchNorm statistics: running means 0.1·normal, running variances
+    1 + 0.1·|normal| (positive)."""
     rng = np.random.default_rng(seed)
     for name, p in module.named_parameters():
         shape = tuple(p.shape)
@@ -105,4 +121,9 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
         else:
             value = 0.1 * z
         p.copy_(torch.as_tensor(value))
+    for name, b in module.named_buffers():
+        stat = name.rsplit(".", 1)[-1]
+        if stat in _STAT_NAMES.values():
+            z = rng.standard_normal(tuple(b.shape), dtype=np.float32)
+            b.copy_(torch.as_tensor(1.0 + 0.1 * np.abs(z) if stat == "running_var" else 0.1 * z))
     return module

@@ -43,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 from flax import traverse_util
-from torch_port_harness import Pair, UncondPair, to_torch
+from torch_port_harness import Pair, UncondPair, one_torch_thread, to_torch  # noqa: F401 (one_torch_thread: autouse)
 
 from lidarcrafter_tpu.models.efficient_unet import TimeEmbedding as JTimeEmbedding
 from lidarcrafter_tpu.serving.export import _cast_tree

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_harness import check_block
+from torch_port_harness import check_block, one_torch_thread  # noqa: F401 (one_torch_thread: autouse)
 
 import lidarcrafter_tpu.models.efficient_unet as jeu
 import lidarcrafter_tpu.models.layout_unet as jlu

@@ -508,3 +508,56 @@ def test_a_layout_train_forward_launches_what_serving_does():
     _, trained = counts(lambda: torch.autograd.grad(
         engine.loss(batch, t=torch.full((1,), 0.5, device="cuda")), params))
     assert served == trained == (11, 101, 0)
+
+
+# ------------------------------------------------------------------ layout branch
+
+
+@pytest.mark.parametrize("C,eps,silu", [(512, 1e-5, True), (1024, 1e-5, True), (512, 1e-6, False)])
+def test_groupnorm_kernel_at_the_layout_unets_token_shapes(gen, C, eps, silu):
+    """``UNet1DModel``'s norms: 104 one-row images (8 scenes of 13 nodes),
+    32 groups of 16 or 32 channels, float32, the module's own (C,) weight
+    and bias."""
+    x = (torch.randn(104, 1, C, generator=gen, device="cuda") * 3 + 5)
+    w = 1 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(C, generator=gen, device="cuda")
+    args = dict(num_groups=32, eps=eps, silu=silu)
+    n = groupnorm.launches.n
+    got = groupnorm.group_norm(x, w, b, **args)
+    torch.cuda.synchronize()
+    assert groupnorm.launches.n == n + 1
+    _assert_close(got, groupnorm.group_norm_plain(x, w, b, **args), torch.float32)
+
+
+def test_a_full_width_unet1d_call_launches_56_group_norms():
+    """``nuscenes-layout`` at its published widths: one denoiser call on 8
+    synthetic scenes of 13 nodes launches the GroupNorm kernel once per
+    norm (22 residual blocks × 2, 11 transformers, the output norm) and no
+    other kernel, and matches the same call on the CPU to 1e-3."""
+    import copy
+    import dataclasses
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.generate_layout import LayoutGenerator, layout_request
+    from lidarcrafter_tpu_torch.utils.synthetic import synthetic_scene_graphs
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = LayoutGenerator(get_config("nuscenes-layout"), "cuda")
+    batch = synthetic_scene_graphs(8, 12, seed=0)
+    x = torch.randn(104, 20, generator=torch.Generator().manual_seed(1))
+    t = torch.linspace(-5, 5, 104)
+
+    def call(engine, device):
+        with torch.inference_mode():
+            cond = engine.get_network_condition(layout_request(batch, device))
+            return engine.denoise(x.to(device), t.to(device), cond)
+
+    for c in (oaca.launches, groupnorm.launches, attention.launches):
+        c.n = 0
+    got = call(gen.engine, "cuda").cpu()
+    torch.cuda.synchronize()
+    assert (oaca.launches.n, groupnorm.launches.n, attention.launches.n) == (0, 56, 0)
+    cpu = {k: copy.deepcopy(m).cpu() for k, m in gen.models.items()}
+    want = call(dataclasses.replace(gen.engine, model=cpu["model"], cond_model=cpu["cond"]), "cpu")
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_harness import Pair, to_torch
+from torch_port_harness import Pair, one_torch_thread, to_torch  # noqa: F401 (one_torch_thread: autouse)
 
 STACK_RTOL = 1e-4
 

@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch_port_harness import RESOLUTION, Pair, to_torch
+from torch_port_harness import RESOLUTION, Pair, one_torch_thread, to_torch  # noqa: F401 (one_torch_thread: autouse)
 
 from lidarcrafter_tpu.datasets import rollout as JR
 from lidarcrafter_tpu.ops.projection import convert_boxes_to_2d as j_boxes2d
@@ -53,19 +53,6 @@ H, W = RESOLUTION
 COND_RTOL, PIXEL_SHARE = 1e-5, 0.999
 FRAME0_L2, FRAME_L2 = 1e-4, 1e-3
 KEY = jax.random.PRNGKey(5)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's rollouts here are thousands of small ops.  With torch's
-    default thread per core, each op waits at a barrier for threads that
-    the other test workers' load keeps off the cores: a rollout that takes
-    5 s alone took ~230 s beside seven busy processes, and 9 s on one
-    thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

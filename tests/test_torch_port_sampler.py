@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_harness import Pair, to_torch
+from torch_port_harness import Pair, one_torch_thread, to_torch  # noqa: F401 (one_torch_thread: autouse)
 
 from lidarcrafter_tpu_torch.diffusion.continuous import lambda_spaced_timesteps
 from lidarcrafter_tpu_torch.diffusion.schedules import get_log_snr_fn

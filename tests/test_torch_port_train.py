@@ -44,7 +44,7 @@ import optax
 import pytest
 import torch
 from torch import nn
-from torch_port_harness import Pair, UncondPair, shrink
+from torch_port_harness import Pair, UncondPair, one_torch_thread, shrink  # noqa: F401 (one_torch_thread: autouse)
 
 from lidarcrafter_tpu.diffusion import CondContinuousDiffusion as JCond
 from lidarcrafter_tpu.diffusion import ContinuousDiffusion as JUncond
@@ -68,14 +68,6 @@ from lidarcrafter_tpu_torch.weights import flax_to_state_dict
 
 LR, WARMUP, NUM_STEPS = 1e-3, 2, 10
 H, W = 32, 128
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def jax_draws(key, step: int, x_shape):

@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_harness import RESOLUTION, UncondPair
+from torch_port_harness import RESOLUTION, UncondPair, one_torch_thread  # noqa: F401 (one_torch_thread: autouse)
 
 from lidarcrafter_tpu_torch import configs as tcfgs
 from lidarcrafter_tpu_torch.generate import UncondFrameGenerator

@@ -15,6 +15,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from lidarcrafter_tpu import configs as jcfgs
@@ -24,6 +25,19 @@ from lidarcrafter_tpu_torch import configs as tcfgs
 from lidarcrafter_tpu_torch.training.factory import build_diffusion_training as torch_build
 from lidarcrafter_tpu_torch.training.factory import build_flow_training as torch_build_flow
 from lidarcrafter_tpu_torch.weights import load_flax_params
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread for the module that imports this fixture.  The
+    port's CPU paths are many small ops; beside the other test workers a
+    thread per core leaves each op waiting for threads that the load keeps
+    off the cores (a rollout that takes 5 s alone took ~230 s beside seven
+    busy processes, and 9 s on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 RESOLUTION = (32, 128)
 MODEL_CHANNELS = 32
@@ -47,12 +61,15 @@ def shrink(configs, name: str, small: bool):
 
 
 def random_leaf(path: str, shape: tuple, rnd: np.random.RandomState) -> np.ndarray:
-    """kernel: normal/√fan_in; GN/LN scale and qk-norm gains: 1 + 0.1·normal;
-    bias and the rest: 0.1·normal (embeddings: normal/√dim)."""
+    """kernel: normal/√fan_in; GN/LN/BN scale and qk-norm gains: 1 + 0.1·normal;
+    BatchNorm running variance (``batch_stats`` ``var``): 1 + 0.1·|normal|;
+    bias, running mean and the rest: 0.1·normal (embeddings: normal/√dim)."""
     z = rnd.standard_normal(shape).astype(np.float32)
     leaf = path.rsplit("/", 1)[-1]
     if leaf == "kernel":
         return z / np.sqrt(np.prod(shape[:-1]))
+    if leaf == "var":
+        return 1.0 + 0.1 * np.abs(z)
     if leaf == "scale" or leaf.endswith("_norm_g"):
         return 1.0 + 0.1 * z
     if leaf == "embedding":
