@@ -19,7 +19,8 @@ Phases, each printing one JSON line:
    with a grid sync, fed the modules' raw operands: weight, bias and the
    strided scale/shift halves of the conditioning projection), and
    GroupNorm at the layout branch's UNet1D token shapes, (104, 1, 512) and
-   (104, 1, 1024) with eps 1e-5 and (104, 1, 512) with eps 1e-6, float32;
+   (104, 1, 1024) with eps 1e-5 and (104, 1, 512) with eps 1e-6, float32
+   (as the branch serves) and bfloat16 (as it trains under AMP);
 3. full-width forwards on the card with the kernels against the same
    forwards on the CPU with the plain versions, shared seeded weights: the
    layout stack (encoder + ``LayoutUnetV1``, 32x1024) and ``EfficientUNet``
@@ -33,11 +34,14 @@ Phases, each printing one JSON line:
    ``meanflow-nusc`` (one step), all in float32; then each path served in
    bfloat16 answers one request (DPM-Solver++(2M)@15, MeanFlow one step);
 5. a ``torch.profiler`` trace of one denoiser call of the layout and of the
-   unconditional path (after one warm-up cycle of the trace, which can miss
-   the first kernels of a call), in float32 and in bfloat16: device time by kernel
+   unconditional path (after one warm-up cycle of the trace, and queued
+   behind a ~20 ms sleep: the trace drops the kernels of its first
+   milliseconds), in float32 and in bfloat16: device time by kernel
    category, the device kernels launched per call and the device's idle
    share; the ``groupnorm kernel`` category must hold exactly one device
-   kernel per norm (101 a layout call, 50 an uncond call);
+   kernel per norm (101 a layout call, 50 an uncond call): a trace with
+   more fails, one with fewer is taken again, up to three traces, each
+   reported;
 6. the 4D rollout, in float32 and then served in bfloat16:
    ``RolloutGenerator`` (``nuscenes-box-layout-v6`` frame 0,
    ``nuscenes-auto-reg-v2`` after it) rolls 8 synthetic scenes of 4 boxes
@@ -81,7 +85,26 @@ Phases, each printing one JSON line:
    (b) ``ObjectGenerator`` (``nuscenes-object``) on the 96 objects of those
    scenes × 1024 points: one call card vs CPU to 1e-3, a profile, both
    requests, finite clouds; no kernel of the port runs there, and every
-   launch counter must stay at 0.
+   launch counter must stay at 0;
+9. branch training ("branch_train"): (a) the forward-mode routes of the
+   attention (``d_block4``, ``u_block4``) and GroupNorm (the uncond level-0
+   AdaGN, ds8) kernels under ``torch.func.jvp`` and ``forward_ad``, float32
+   and bfloat16, one kernel launch a call, primal and tangent against
+   ``torch.func.jvp`` through the plain version to the forward rows'
+   limits, timed beside that plain jvp and the least time the card could
+   take; (b) one full-width float32 step of ``LayoutTrainer``
+   (``nuscenes-layout``, 8 scenes of ego + 12, budgets 112 / 3,536),
+   ``ObjectTrainer`` (``nuscenes-object``, 96 objects × 1024 points) and
+   ``FlowTrainer`` (``meanflow-nusc``, the MeanFlow JVP loss, B=2), card
+   against CPU on the same weights, batch and draws: loss to 1e-4
+   relative, every gradient to 1e-3 relative L2; (c) each trainer at B=8 (8
+   scenes for the layout), float32 and bf16 AMP, as phase 7 (c), with
+   exactly 56 GroupNorm launches a layout step, 2 attention + 50 GroupNorm
+   a MeanFlow step and none an object step; (d) a 100-step loss gate of
+   each (lr 1e-4, warm-up 20; 8 scenes, 96 objects, MeanFlow at B=2) and
+   its checkpoint served
+   through the branch's generator (EMA weights and running statistics bit
+   for bit, finite samples).
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -112,9 +135,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # f32 on the CUDA cores (bf16 is widened on load); OACA and attention on the
 # tensor cores, f32 as 3xTF32 (three TF32 products each)
 GN_ROUTE = "one-launch grid-sync"
-# the routes' backward: the plain version recomputed in float32 (TF32 off)
+# the routes' backward and tangent: the plain version recomputed in float32
+# (TF32 off); their bound is the same work at the peak of the operands' type
+# (work_route), not that of the recompute
 PLAIN_ROUTE = "plain f32 recompute"
-PEAK_FLOPS = {GN_ROUTE: 67e12, "mma 3xTF32": 495e12 / 3, "mma bf16": 989e12, PLAIN_ROUTE: 67e12}
+PEAK_FLOPS = {GN_ROUTE: 67e12, "mma 3xTF32": 495e12 / 3, "mma bf16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel − plain| / max(1, max |plain|)
 # ‖kernel − plain‖₂ / ‖plain‖₂: attention outputs average thousands of keys
 # and are mostly far below 1, where the max-based limit is as large as a
@@ -140,6 +165,9 @@ GATE_STEPS, GATE_BATCH = 100, 2  # nuscenes-auto-reg-v2 on banded range images
 LAYOUT_SCENES, LAYOUT_OBJECTS = 8, 12
 BRANCH_REQUESTS = (("ddpm", 256), ("ddim", 50))  # DDPM@256 is the JAX tools' default
 GN_PER_UNET1D = 56  # 22 ResBlock1D x 2, 11 SpatialTransformer1Token, the output norm
+# a profiled call is queued behind a sleep of ~20 ms (4e7 cycles) and traced
+# again while a category holds fewer kernels than expected (see phase_profile)
+TRACE_SLEEP_CYCLES, TRACE_ATTEMPTS = int(4e7), 3
 
 
 def emit(obj) -> None:
@@ -159,11 +187,19 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3, sleep_cycles: int = int(5e7)) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, sleep_cycles: int = int(5e7), gc_off: bool = True) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls.  The
     card sleeps first (5e7 cycles, ~30 ms at the H100's clock) while the
     host queues the calls, so launch-bound calls are timed on the device
-    and not at the host's enqueue rate."""
+    and not at the host's enqueue rate.  With ``gc_off`` (the kernel rows)
+    Python's garbage collector runs once before and is off while the host
+    queues, since a collection pause there longer than the sleep would read
+    as the kernel's device time (late in a whole run a 0.8 ms jvp row read
+    20–38 ms with it on).  End-to-end times (a denoiser call, a train step,
+    a geometry step) pass ``gc_off=False``: a real call pays for its
+    collections."""
+    import gc
+
     import torch
 
     for _ in range(warmup):
@@ -171,11 +207,18 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, sleep_cycles: int = int(5e7)) 
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(sleep_cycles)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    if gc_off:
+        gc.collect()
+        gc.disable()
+    try:
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+    finally:
+        if gc_off:
+            gc.enable()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -189,6 +232,14 @@ def bound_ms(nbytes: int, flops: float, route: str) -> tuple[float, str]:
 def mma_route(dname: str) -> str:
     """The tensor-core route of the OACA and attention kernels."""
     return "mma 3xTF32" if dname == "float32" else "mma bf16"
+
+
+def work_route(kernel: str, dname: str) -> str:
+    """The route whose peak bounds a kernel's work on ``dname`` operands,
+    forward, backward or tangent: the tensor cores for OACA and attention
+    (their backward and tangent are matrix products too), the CUDA cores
+    for GroupNorm."""
+    return GN_ROUTE if kernel.startswith("groupnorm") else mma_route(dname)
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -383,13 +434,14 @@ def phase_kernels():
                                     dtype, True, True, gen, groups=8, eps=1e-6, affine=False))
         rows.append(check_groupnorm("unet ds8 (8,4,128,512) SiLU", (BATCH, 4, 128, 512),
                                     dtype, False, True, gen, groups=8, eps=1e-6))
-    # the layout branch's UNet1D norms: N = 104 one-row images, float32 only
-    # (the branch serves in float32)
+    # the layout branch's UNet1D norms: N = 104 one-row images; float32 as the
+    # branch serves, bfloat16 as it trains under AMP
     N = LAYOUT_SCENES * (LAYOUT_OBJECTS + 1)
-    for label, C, eps, silu in ((f"tokens ({N},1,512) UNet1D res-block norm + SiLU", 512, 1e-5, True),
-                                (f"tokens ({N},1,1024) UNet1D skip-concat norm + SiLU", 1024, 1e-5, True),
-                                (f"tokens ({N},1,512) UNet1D transformer norm eps 1e-6", 512, 1e-6, False)):
-        rows.append(check_groupnorm(label, (N, 1, C), torch.float32, False, silu, gen, eps=eps))
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, C, eps, silu in ((f"tokens ({N},1,512) UNet1D res-block norm + SiLU", 512, 1e-5, True),
+                                    (f"tokens ({N},1,1024) UNet1D skip-concat norm + SiLU", 1024, 1e-5, True),
+                                    (f"tokens ({N},1,512) UNet1D transformer norm eps 1e-6", 512, 1e-6, False)):
+            rows.append(check_groupnorm(label, (N, 1, C), dtype, False, silu, gen, eps=eps))
     for row in rows:
         emit({"phase": "kernels", **row})
         check(row["ms"] >= row["bound_ms"],
@@ -581,30 +633,86 @@ def _category(kernel_name: str) -> str:
     return "elementwise, copy, concat, other"
 
 
-def phase_profile(what: str, call, smi: str, inference: bool = True) -> dict:
-    """Device time and kernels by category over one call of ``call`` (a
-    denoiser call of a main path, B=8, under ``inference_mode``; or a train
-    step), the second of two traced calls (the first is the trace's
-    warm-up cycle), the device kernels of that call and the device's idle
-    share; returns the kernels by category."""
+def _trace(call, sleep_cycles: int) -> tuple[list, dict]:
+    """The device kernels of the second of two traced calls of ``call``
+    (the first is the trace's warm-up cycle: it can miss the kernels that
+    start before the device tracing is running), each call queued between
+    two sleeps of ``sleep_cycles`` (none if 0), and what the trace saw of
+    the lead sleep: whether its kernel was recorded, and the ms from the
+    traced step's start on the host to the first kernel of the call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with torch.inference_mode(inference):
-        step_ms = time_ms(call, iters=10)
-        # one warm-up cycle first: the trace's first cycle can miss the
-        # kernels that start before the device tracing is running
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                call()
-                torch.cuda.synchronize()
-                prof.step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            if sleep_cycles:
+                torch.cuda._sleep(sleep_cycles)
+            call()
+            if sleep_cycles:
+                torch.cuda._sleep(sleep_cycles)
+            torch.cuda.synchronize()
+            prof.step()
+    events = prof.events()
     # the schedule's "ProfilerStep*" span is recorded on the device timeline
-    # too, as one event that covers the whole call: not a kernel
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
+    # too, as one event that covers the whole call: not a kernel; nor are
+    # the sleeps ("spin_kernel")
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep") and "spin_kernel" not in e.name]
+    steps = [e.time_range.start for e in events if e.device_type == DeviceType.CPU
+             and e.name.startswith("ProfilerStep")]
+    seen = {"lead_sleep_seen": sleep_cycles > 0 and any("spin_kernel" in e.name and e.device_type == DeviceType.CUDA
+                                                          for e in events),
+            "first_kernel_after_step_start_ms": (min(e.time_range.start for e in kernels) - min(steps)) / 1e3
+            if kernels and steps else None}
+    return kernels, seen
+
+
+def phase_profile(what: str, call, smi: str, inference: bool = True, expect: dict | None = None) -> dict:
+    """Device time and kernels by category over one call of ``call`` (a
+    denoiser call of a main path, B=8, under ``inference_mode``; or a train
+    step): the device kernels of one traced call and the device's idle
+    share against the call's time with Python's collector on, as a real
+    call runs; returns the kernels by category.
+
+    ``expect`` (category -> kernels) is checked exactly: a trace that holds
+    more kernels of a category than expected fails at once.  One that holds
+    fewer is traced again, up to ``TRACE_ATTEMPTS`` traces, each reported:
+    the profiler drops the records of the kernels that run in the first
+    milliseconds after the traced step starts (a whole run's trace of a
+    train step held 47 of its 50 GroupNorm kernels behind a 1 ms lead
+    sleep), so each traced call is queued behind a ~20 ms sleep, and a trace
+    that still misses some shows whether the sleep itself was recorded.
+    Also reported, not checked: the call's time with the collector off
+    (timed in turns with it on, on / off / on / off) and the kernels a trace
+    sees when the call is not queued behind a sleep."""
+    import torch
+
+    expect = expect or {}
+    attempts = []
+    with torch.inference_mode(inference):
+        on, off = [], []
+        for _ in range(2):
+            on.append(time_ms(call, iters=5, warmup=1, gc_off=False))
+            off.append(time_ms(call, iters=5, warmup=1, gc_off=True))
+        step_ms, step_ms_gc_off = sum(on) / 2, sum(off) / 2
+        for _ in range(TRACE_ATTEMPTS):
+            events, seen = _trace(call, TRACE_SLEEP_CYCLES)
+            counts = {}
+            for e in events:
+                counts[_category(e.name)] = counts.get(_category(e.name), 0) + 1
+            attempts.append({"device_kernels": len(events), **seen,
+                             **{c: counts.get(c, 0) for c in expect}})
+            for c, n in expect.items():
+                check(counts.get(c, 0) <= n, f"{what}: {counts.get(c, 0)} {c}s traced, more than {n}")
+            if all(counts.get(c, 0) == n for c, n in expect.items()):
+                break
+        unslept, unslept_seen = _trace(call, 0)
     check(len(events) > 0, "the profiler saw no device kernels")
+    for c, n in expect.items():
+        check(counts.get(c, 0) == n, f"{what}: {counts.get(c, 0)} {c}s traced in each of {TRACE_ATTEMPTS} traces "
+                                     f"{[a[c] for a in attempts]}, expected {n}")
     by_cat: dict[str, list] = {}
     by_name: dict[str, float] = {}
     for e in events:
@@ -613,13 +721,20 @@ def phase_profile(what: str, call, smi: str, inference: bool = True) -> dict:
         cat[0] += us / 1e3
         cat[1] += 1
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    unslept_cats: dict[str, int] = {}
+    for e in unslept:
+        unslept_cats[_category(e.name)] = unslept_cats.get(_category(e.name), 0) + 1
     busy = sum(v[0] for v in by_cat.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "what": what, "card": smi, "step_ms": step_ms, "device_busy_ms": busy,
-          "idle_share": max(0.0, 1.0 - busy / step_ms), "device_kernels": len(events),
+    emit({"phase": "profile", "what": what, "card": smi, "step_ms": step_ms, "step_ms_runs": on,
+          "step_ms_gc_off": step_ms_gc_off, "step_ms_gc_off_runs": off, "device_busy_ms": busy,
+          "idle_share": max(0.0, 1.0 - busy / step_ms), "idle_share_gc_off": max(0.0, 1.0 - busy / step_ms_gc_off),
+          "device_kernels": len(events), "trace_attempts": attempts,
           "by_category": {k: {"ms": v[0], "kernels": v[1]} for k, v in
                           sorted(by_cat.items(), key=lambda kv: -kv[1][0])},
-          "top_kernels": [{"name": n[:90], "ms": ms} for n, ms in top]})
+          "top_kernels": [{"name": n[:90], "ms": ms} for n, ms in top],
+          "trace_without_lead_sleep": {"device_kernels": len(unslept), "by_category": unslept_cats,
+                                       **unslept_seen}})
     return {k: v[1] for k, v in by_cat.items()}
 
 
@@ -686,7 +801,7 @@ def geometry_on_card_and_cpu(gen, frame0) -> dict:
 
             out[dev] = step()
             if dev == DEVICE:
-                device_ms = time_ms(step, iters=1, sleep_cycles=int(1e8))
+                device_ms = time_ms(step, iters=1, sleep_cycles=int(1e8), gc_off=False)
                 t0 = time.perf_counter()
                 for _ in range(3):
                     step()
@@ -882,7 +997,7 @@ def check_backward(kernel: str, dtype, gen) -> dict:
     errs = [kernel_errors(f"{kernel} backward operand {i}", dname, a, b) for i, (a, b) in enumerate(zip(got, want))]
     worst = {k: max(e[k] for e in errs) for k in ("max_abs_err", "rel_err", "norm_rel_err")}
     del got, want, out
-    bound, by = bound_ms(nbytes, flops, PLAIN_ROUTE)
+    bound, by = bound_ms(nbytes, flops, work_route(kernel, dname))
     row = {
         "kernel": kernel, "pass": "backward", "shape": label, "dtype": dname, "route": PLAIN_ROUTE,
         **worst, "tol": TOL[dname], "norm_tol": NORM_TOL[dname],
@@ -909,74 +1024,28 @@ def phase_backward() -> list:
     return rows
 
 
-def phase_train_parity(smi: str) -> None:
-    """Phase 7 (b): one full-width ``nuscenes-box-layout-v6`` step at B=1,
-    float32: the card (kernels) against the CPU (plain versions)."""
-    import torch
-
+def _train_cfg(cfg_name: str, batch: int, amp: bool, **training):
+    """``cfg_name`` with its training fields overridden."""
     from lidarcrafter_tpu_torch.configs import get_config
-    from lidarcrafter_tpu_torch.training.factory import build_diffusion_training, layout_condition_batch
-    from lidarcrafter_tpu_torch.training.state import module_params
-    from lidarcrafter_tpu_torch.training.train_step import loss_and_grads
-    from lidarcrafter_tpu_torch.utils.synthetic import banded_range_image_batch
-    from lidarcrafter_tpu_torch.weights import init_random_
-
-    cfg = get_config("nuscenes-box-layout-v6")
-    H, W = cfg.data.resolution
-    models, engine, _ = build_diffusion_training(cfg, "cpu")
-    init_random_(models["cond"], 20)
-    init_random_(models["model"], 21)
-    gen = torch.Generator().manual_seed(22)
-    batch = layout_condition_batch(cfg, 1, generator=gen)
-    batch["x_0"] = banded_range_image_batch(1, H, W, generator=gen)
-    t, noise = torch.tensor([0.37]), torch.randn(1, H, W, 2, generator=gen)
-    names = [f"{k}.{n}" for k in sorted(models) for n, _ in models[k].named_parameters()]
-
-    t0 = time.perf_counter()
-    want_loss, want = loss_and_grads(engine, module_params(models), batch, t=t, noise=noise)
-    cpu_s = time.perf_counter() - t0
-    gpu = {k: copy.deepcopy(m).to(DEVICE) for k, m in models.items()}
-    card = dataclasses.replace(engine, model=gpu["model"], cond_model=gpu["cond"])
-    on_card = {k: v.to(DEVICE) for k, v in batch.items()}
-    loss, got = loss_and_grads(card, module_params(gpu), on_card, t=t.to(DEVICE), noise=noise.to(DEVICE))
-    loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
-    total = math.sqrt(sum(float(w.norm()) ** 2 for w in want))
-    rows = []
-    for name, a, b in zip(names, got, want):
-        diff, ref = float((a.cpu() - b).norm()), float(b.norm())
-        rows.append((diff / max(ref, 1e-30), name, ref, diff))
-    rows.sort(reverse=True)
-    overall = math.sqrt(sum(r[3] ** 2 for r in rows)) / total
-    emit({"phase": "train", "check": "step parity", "config": "nuscenes-box-layout-v6", "batch": 1,
-          "dtype": "float32", "card": smi, "loss_card": float(loss), "loss_cpu": float(want_loss),
-          "loss_rel_err": loss_rel, "loss_tol": TRAIN_LOSS_RTOL, "grad_tol": TRAIN_GRAD_RTOL,
-          "grad_overall_rel_l2": overall, "tensors": len(rows), "cpu_seconds": cpu_s,
-          "worst_tensors": [{"name": n, "rel_l2": e, "norm": ref} for e, n, ref, _ in rows[:5]]})
-    check(loss_rel <= TRAIN_LOSS_RTOL, f"train step parity: loss relative error {loss_rel:.3g}")
-    for e, name, ref, diff in rows:
-        check(e <= TRAIN_GRAD_RTOL, f"train step parity: {name} gradient relative L2 {e:.3g} (norm {ref:.3g})")
-    del gpu, card, got
-    torch.cuda.empty_cache()
-
-
-def _trainer(cfg_name: str, batch: int, amp: bool, out_dir: str, **training):
-    """A ``Trainer`` on the card over the train CLI's synthetic source for
-    ``cfg_name``, with the training config's fields overridden."""
-    from lidarcrafter_tpu_torch import train as train_cli
-    from lidarcrafter_tpu_torch.configs import get_config
-    from lidarcrafter_tpu_torch.training.loop import Trainer
 
     cfg = get_config(cfg_name)
     cfg.training.batch_size_train = batch
     cfg.training.mixed_precision = "bf16" if amp else "no"
     for k, v in training.items():
         setattr(cfg.training, k, v)
-    if cfg.condition_model is None:
-        data = train_cli.synthetic_batches(cfg, seed=5)
-    else:
-        data = train_cli.synthetic_layout_batches(cfg, seed=5, device=DEVICE)
+    return cfg
+
+
+def _trainer(cfg_name: str, batch: int, amp: bool, out_dir: str, **training):
+    """The train CLI's trainer for ``cfg_name`` (``Trainer``, ``FlowTrainer``,
+    ``LayoutTrainer`` or ``ObjectTrainer``) over its synthetic source, with
+    the training config's fields overridden; returns it and its log."""
+    from lidarcrafter_tpu_torch import train as train_cli
+
     logs = []
-    return Trainer(cfg, data, output_dir=out_dir, log_fn=logs.append, device=DEVICE), logs
+    trainer = train_cli.build_trainer(_train_cfg(cfg_name, batch, amp, **training), 5, DEVICE, output_dir=out_dir,
+                                      log_fn=logs.append)
+    return trainer, logs
 
 
 def phase_train_speed(cfg_name: str, amp: bool, per_step: dict, smi: str, out_dir: str) -> dict:
@@ -1008,13 +1077,53 @@ def phase_train_speed(cfg_name: str, amp: bool, per_step: dict, smi: str, out_di
           "launches": launches, "loss": loss})
     # where a step's device time goes; its forward holds every GroupNorm kernel
     batch = trainer.prepare_batch(next(trainer.data_iter))
-    cats = phase_profile(f"one train step ({cfg_name}), B=8, {dname}",
-                         lambda: trainer.step_fn(state, batch, 0), smi, inference=False)
-    n = cats.get("groupnorm kernel", 0)
-    check(n == per_step["groupnorm"], f"train {cfg_name} {dname}: {n} GroupNorm device kernels in a step")
+    phase_profile(f"one train step ({cfg_name}), B=8, {dname}", lambda: trainer.step_fn(state, batch, 0), smi,
+                  inference=False, expect={f"{k} kernel": per_step.get(k, 0) for k in ("groupnorm", "attention", "oaca")})
     del trainer, state
     torch.cuda.empty_cache()
     return {k: n for k, n in launches.items() if n}
+
+
+def _loss_gate(cfg_name: str, batch: int, per_step: dict, smi: str, out_dir: str):
+    """``cfg_name``'s trainer for ``GATE_STEPS`` steps at ``batch``, float32,
+    lr 1e-4 with 20 warm-up steps, the launch counters set to 0 just before
+    and read just after (``per_step`` launches a step, 0 if absent): the
+    mean of the last 10 losses must lie below that of the first 10.
+    Returns the final state, its checkpoint and the launch counts."""
+    from lidarcrafter_tpu_torch.training.checkpoint import latest_checkpoint
+
+    out_dir = str(Path(out_dir) / cfg_name)
+    trainer, logs = _trainer(cfg_name, batch, False, out_dir, lr=1e-4, lr_warmup_steps=20, num_steps=GATE_STEPS)
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    state = trainer.train(num_steps=GATE_STEPS, seed=0, checkpoint_every=GATE_STEPS, log_every=1)
+    seconds = time.perf_counter() - t0
+    launches = {k: c.n for k, c in counters.items()}
+    for k, n in launches.items():
+        check(n == per_step.get(k, 0) * GATE_STEPS, f"{cfg_name} loss gate: {k} launches {n}")
+    losses = [r["loss"] for r in logs if "loss" in r]
+    check(len(losses) == GATE_STEPS and all(math.isfinite(v) for v in losses), f"{cfg_name} loss gate: losses")
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    emit({"phase": "train", "check": "loss falls", "config": cfg_name, "batch": batch, "dtype": "float32",
+          "steps": GATE_STEPS, "lr": 1e-4, "warmup": 20, "card": smi, "seconds": seconds,
+          "first10_mean": first, "last10_mean": last, "ratio": last / first, "launches": launches,
+          "losses_every_10": losses[::10]})
+    check(last < first, f"{cfg_name} loss gate: mean of the last 10 losses {last:.4g} >= the first 10 {first:.4g}")
+    path = latest_checkpoint(out_dir)
+    check(path is not None and path.endswith(f"ckpt_{GATE_STEPS:010d}"), f"{cfg_name} loss gate: checkpoint {path}")
+    del trainer
+    return state, path, {k: n for k, n in launches.items() if n}
+
+
+def _check_ema_served(what: str, models: dict, state) -> None:
+    """The served ``models`` hold the EMA tensors of ``state``, running
+    statistics included, bit for bit."""
+    import torch
+
+    for key, module in models.items():
+        mine = module.state_dict()
+        for name, value in state.ema[key].state_dict().items():
+            check(torch.equal(mine[name], value), f"{what} checkpoint round trip: {key}.{name} differs")
 
 
 def phase_train_gate(smi: str, out_dir: str) -> dict:
@@ -1025,35 +1134,12 @@ def phase_train_gate(smi: str, out_dir: str) -> dict:
 
     from lidarcrafter_tpu_torch.configs import get_config
     from lidarcrafter_tpu_torch.sample_temporal import RolloutGenerator
-    from lidarcrafter_tpu_torch.training.checkpoint import latest_checkpoint
 
-    trainer, logs = _trainer("nuscenes-auto-reg-v2", GATE_BATCH, False, out_dir, lr=1e-4, lr_warmup_steps=20,
-                             num_steps=GATE_STEPS)
-    counters = reset_counters()
-    t0 = time.perf_counter()
-    state = trainer.train(num_steps=GATE_STEPS, seed=0, checkpoint_every=GATE_STEPS, log_every=1)
-    seconds = time.perf_counter() - t0
-    launches = {k: c.n for k, c in counters.items()}
-    per_step = {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD}
-    for k, n in launches.items():
-        check(n == per_step.get(k, 0) * GATE_STEPS, f"train gate: {k} launches {n}")
-    losses = [r["loss"] for r in logs]
-    check(len(losses) == GATE_STEPS and all(math.isfinite(v) for v in losses), "train gate: losses")
-    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
-    emit({"phase": "train", "check": "loss falls", "config": "nuscenes-auto-reg-v2", "batch": GATE_BATCH,
-          "dtype": "float32", "steps": GATE_STEPS, "lr": 1e-4, "warmup": 20, "card": smi, "seconds": seconds,
-          "first10_mean": first, "last10_mean": last, "ratio": last / first, "launches": launches,
-          "losses_every_10": losses[::10]})
-    check(last < first, f"train gate: mean of the last 10 losses {last:.4g} >= the first 10 {first:.4g}")
-
-    path = latest_checkpoint(out_dir)
-    check(path is not None and path.endswith(f"ckpt_{GATE_STEPS:010d}"), f"train gate: checkpoint {path}")
+    state, path, launches = _loss_gate("nuscenes-auto-reg-v2", GATE_BATCH,
+                                       {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD}, smi, out_dir)
     gen = RolloutGenerator(get_config("nuscenes-box-layout-v6"), get_config("nuscenes-auto-reg-v2"), DEVICE, 0,
                            torch.float32, num_steps=15, mode="dpmpp_2m", autoreg_ckpt=path)
-    for key, module in gen.autoreg.models.items():
-        mine = module.state_dict()
-        for name, value in state.ema[key].state_dict().items():
-            check(torch.equal(mine[name], value), f"checkpoint round trip: {key}.{name} differs")
+    _check_ema_served("nuscenes-auto-reg-v2", gen.autoreg.models, state)
     sample, post = gen.autoreg.generate(1, 15, mode="dpmpp_2m", seed=0)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(sample).all()) and bool(torch.isfinite(post["xyz"]).all()),
@@ -1061,15 +1147,15 @@ def phase_train_gate(smi: str, out_dir: str) -> dict:
     emit({"phase": "train", "check": "checkpoint serves", "checkpoint": Path(path).name,
           "ema_weights_equal": True, "sample_shape": list(sample.shape), "sample_std": float(sample.std()),
           "valid_depth_share": float((post["depth"] > 0).float().mean())})
-    del trainer, state, gen
+    del state, gen
     torch.cuda.empty_cache()
-    return {k: n for k, n in launches.items() if n}
+    return launches
 
 
 def phase_train(smi: str) -> tuple[list, dict]:
     """Phase 7; returns the backward rows and the train paths' launches."""
     rows = phase_backward()
-    phase_train_parity(smi)
+    phase_step_parity("nuscenes-box-layout-v6", smi, "train")
     by_path = {}
     with tempfile.TemporaryDirectory() as out_dir:
         for amp in (False, True):
@@ -1174,10 +1260,8 @@ def phase_layout(smi: str) -> dict:
 
     t_full = torch.full((N,), 0.5, device=DEVICE)
     x_card = x.to(DEVICE)
-    cats = phase_profile(f"one denoiser call (nuscenes-layout, predict_x_0), N={N}, float32",
-                         lambda: gen.engine.predict_x_0(x_card, t_full, cond), smi)
-    check(cats.get("groupnorm kernel", 0) == GN_PER_UNET1D,
-          f"nuscenes-layout: {cats.get('groupnorm kernel', 0)} GroupNorm device kernels in one call")
+    phase_profile(f"one denoiser call (nuscenes-layout, predict_x_0), N={N}, float32",
+                  lambda: gen.engine.predict_x_0(x_card, t_full, cond), smi, expect={"groupnorm kernel": GN_PER_UNET1D})
 
     def check_out(raw, mode):
         raw = raw.cpu().numpy()
@@ -1241,7 +1325,8 @@ def phase_object(smi: str) -> None:
         cond = gen.engine.get_network_condition(request(DEVICE))
     x_card, t_half = x.to(DEVICE), torch.full((B,), 0.5, device=DEVICE)
     phase_profile(f"one denoiser call (nuscenes-object, predict_x_0), B={B}, {P} points, float32",
-                  lambda: gen.engine.predict_x_0(x_card, t_half, cond), smi)
+                  lambda: gen.engine.predict_x_0(x_card, t_half, cond), smi,
+                  expect={"groupnorm kernel": 0, "attention kernel": 0, "oaca kernel": 0})
 
     def check_out(out, mode):
         check(tuple(out.shape) == (B, P, 4), f"object {mode}: shape {tuple(out.shape)}")
@@ -1257,6 +1342,246 @@ def phase_object(smi: str) -> None:
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     del gen
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 9
+
+
+# the tangent of a forward-mode route: the plain version's, in float32 from a recompute
+JVP_ROUTE = "kernel forward + plain f32 tangent"
+BRANCH_PER_STEP = {  # kernel launches a train step of each branch
+    "nuscenes-layout": {"groupnorm": GN_PER_UNET1D},
+    "nuscenes-object": {},
+    "meanflow-nusc": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
+}
+# card-vs-CPU step batches: 8 scenes of ego + 12 (budgets 112 / 3,536), the
+# 96 objects of those scenes, 2 frames (MeanFlow), 1 frame (v6)
+PARITY_BATCH = {"nuscenes-layout": LAYOUT_SCENES, "nuscenes-object": LAYOUT_SCENES * LAYOUT_OBJECTS,
+                "meanflow-nusc": 2, "nuscenes-box-layout-v6": 1}
+# the loss gates: 8 scenes; 96 objects (at 8, a step's loss spreads as far as
+# 100 steps move its mean); 2 frames
+GATE_BATCH_BRANCH = {"nuscenes-layout": LAYOUT_SCENES, "nuscenes-object": LAYOUT_SCENES * LAYOUT_OBJECTS,
+                     "meanflow-nusc": 2}
+
+
+def _jvp_case(kernel: str, label: str, dtype, gen):
+    """(wrapper call, plain call, primals, tangents, bytes, forward flops,
+    tangent flops) of one route at a MeanFlow UNet shape,
+    the operands laid out as the blocks pass them: attention on per-head
+    views of one (B, L, 3C) projection, GroupNorm on x with the AdaGN
+    scale-shift halves of one (B, 2C) projection or the norm's own affine."""
+    import torch
+
+    from lidarcrafter_tpu_torch.kernels import attention, groupnorm
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=DEVICE)).to(dtype)
+
+    elt = torch.finfo(dtype).bits // 8
+    if kernel == "attention":
+        B, H, L, d = BATCH, 8, 512, int(label.rsplit("d=", 1)[1])
+        C = H * d
+
+        def heads(qkv):
+            return [t.reshape(B, L, H, d).transpose(1, 2) for t in qkv.split(C, dim=-1)]
+
+        primals, tangents = (r(B, L, 3 * C),), (r(B, L, 3 * C),)
+        return (lambda qkv: attention.attention(*heads(qkv), scale=d**-0.5),
+                lambda qkv: attention.attention_plain(*heads(qkv), scale=d**-0.5), primals, tangents,
+                elt * 8 * B * L * C, 4.0 * B * H * L * L * d, 8.0 * B * H * L * L * d)
+    if "AdaGN" in label:
+        shape, C = (BATCH, 32, 1024, 64), 64
+
+        def args(proj):
+            s, t = proj.chunk(2, dim=-1)
+            return dict(num_groups=8, eps=1e-6, scale=s, shift=t, silu=True)
+
+        primals = (r(*shape, scale=2.0) + 1, r(BATCH, 2 * C, scale=0.3))
+        tangents = (r(*shape), r(BATCH, 2 * C))
+        call = lambda x, proj: groupnorm.group_norm(x, None, None, **args(proj))  # noqa: E731
+        plain = lambda x, proj: groupnorm.group_norm_plain(x, None, None, **args(proj))  # noqa: E731
+        small = 4 * BATCH * C
+    else:
+        shape, C = (BATCH, 4, 128, 512), 512
+        args = dict(num_groups=8, eps=1e-6, silu=True)
+        primals = (r(*shape, scale=2.0) + 1, 1 + r(C, scale=0.1), r(C, scale=0.1))
+        tangents = (r(*shape), r(C, scale=0.1), r(C, scale=0.1))
+        call = lambda x, w, b: groupnorm.group_norm(x, w, b, **args)  # noqa: E731
+        plain = lambda x, w, b: groupnorm.group_norm_plain(x, w, b, **args)  # noqa: E731
+        small = 4 * C
+    n = math.prod(shape)
+    # x and its tangent read, y and its tangent written, the affine operands and theirs read
+    return call, plain, primals, tangents, elt * (4 * n + small), 10.0 * n, 20.0 * n
+
+
+def check_jvp(kernel: str, label: str, dtype, gen) -> dict:
+    """Phase 9 (a): one route under ``torch.func.jvp`` through the wrapper
+    (one kernel launch, the tangent from the route's forward-mode rule) and
+    under ``forward_ad``, against ``torch.func.jvp`` through the plain
+    version, primal and tangent to the forward rows' limits; device times
+    of the jvp through the route and through the plain version."""
+    import torch
+    from torch.autograd import forward_ad
+
+    from lidarcrafter_tpu_torch.kernels import attention, groupnorm
+
+    call, plain, primals, tangents, nbytes, fwd_flops, tan_flops = _jvp_case(kernel, label, dtype, gen)
+    counter = {"attention": attention.launches, "groupnorm": groupnorm.launches}[kernel]
+    dname = str(dtype).split(".")[-1]
+    n = counter.n
+    out, tan = torch.func.jvp(call, primals, tangents)
+    with forward_ad.dual_level():
+        dual_out, dual_tan = forward_ad.unpack_dual(call(*(forward_ad.make_dual(a, t)
+                                                           for a, t in zip(primals, tangents))))
+    torch.cuda.synchronize()
+    check(counter.n == n + 2, f"{kernel} jvp {label} {dname}: {counter.n - n} launches for 2 calls")
+    want_out, want_tan = torch.func.jvp(plain, primals, tangents)
+    kernel_errors(f"{kernel} jvp {label} primal", dname, out, want_out)
+    kernel_errors(f"{kernel} jvp {label} forward_ad tangent", dname, dual_tan, want_tan)
+    errors = kernel_errors(f"{kernel} jvp {label} tangent", dname, tan, want_tan)
+    del out, tan, dual_out, dual_tan, want_out, want_tan
+    bound, by = bound_ms(nbytes, fwd_flops + tan_flops, work_route(kernel, dname))
+    row = {
+        "kernel": kernel, "pass": "jvp", "shape": label, "dtype": dname, "route": JVP_ROUTE, **errors,
+        "ms": time_ms(lambda: torch.func.jvp(call, primals, tangents), iters=5, warmup=1),
+        "plain_ms": time_ms(lambda: torch.func.jvp(plain, primals, tangents), iters=5, warmup=1),
+        "library_ms": None, "library": "none: no one PyTorch call computes a tangent",
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": fwd_flops + tan_flops,
+    }
+    check(row["ms"] >= bound, f"{kernel} jvp {label} {dname}: {row['ms']} ms below its bound {bound} ms")
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_jvp() -> list:
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel, label in (("attention", "d_block4 B=8 h=8 L=512 d=64"), ("attention", "u_block4 B=8 h=8 L=512 d=32"),
+                              ("groupnorm", "unet level0 (8,32,1024,64) AdaGN scale-shift+SiLU"),
+                              ("groupnorm", "unet ds8 (8,4,128,512) SiLU")):
+            rows.append(check_jvp(kernel, label, dtype, gen))
+            emit({"phase": "branch_train", "check": "jvp", **rows[-1]})
+    return rows
+
+
+def _step_draws(cfg_name: str, trainer, batch) -> dict:
+    """A step's draws, made on the CPU from a seed, so that the card and the
+    CPU take the same step."""
+    import torch
+
+    gen = torch.Generator().manual_seed(23)
+    if cfg_name == "nuscenes-layout":
+        return {"t_scene": torch.rand(trainer.cfg.training.batch_size_train, generator=gen),
+                "noise": torch.randn(trainer.max_nodes, 20, generator=gen)}
+    x_0 = batch["x_0"] if isinstance(batch, dict) else batch
+    draws = {}
+    if cfg_name == "meanflow-nusc":
+        draws["t"], draws["r"] = trainer.engine.sample_t_r(x_0.shape[0], gen)
+    else:
+        draws["t"] = torch.rand(x_0.shape[0], generator=gen)
+    draws["noise"] = torch.randn(x_0.shape, generator=gen)
+    return draws
+
+
+def phase_step_parity(cfg_name: str, smi: str, phase: str) -> None:
+    """Phase 7 (b), phase 9 (b): one full-width float32 step of
+    ``cfg_name``'s trainer at ``PARITY_BATCH``, the card (kernels) against
+    the CPU (plain versions) on the same weights, batch and draws: the loss
+    to ``TRAIN_LOSS_RTOL``, every trained tensor's gradient to
+    ``TRAIN_GRAD_RTOL`` relative L2."""
+    import torch
+
+    from lidarcrafter_tpu_torch import train as train_cli
+    from lidarcrafter_tpu_torch.training.state import named_module_params
+    from lidarcrafter_tpu_torch.training.train_step import loss_and_grads
+
+    cfg = _train_cfg(cfg_name, PARITY_BATCH[cfg_name], False)
+    cpu = train_cli.build_trainer(cfg, 5, "cpu", log_fn=None)
+    cpu.init_state(21)
+    card = train_cli.build_trainer(cfg, 5, DEVICE, log_fn=None)
+    for k, m in card.models.items():
+        m.load_state_dict(cpu.models[k].state_dict())
+    raw = next(cpu.data_iter)
+    want_batch, batch = cpu.prepare_batch(raw), card.prepare_batch(raw)
+    draws = _step_draws(cfg_name, cpu, want_batch)
+    names, want_params = zip(*named_module_params(cpu.models))
+    kw = cpu._loss_kwargs()
+    t0 = time.perf_counter()
+    want_loss, want = loss_and_grads(cpu.engine, list(want_params), want_batch, cpu.loss_has_aux, **draws, **kw)
+    cpu_s = time.perf_counter() - t0
+    loss, got = loss_and_grads(card.engine, [t for _, t in named_module_params(card.models)], batch,
+                               card.loss_has_aux, **{k: v.to(DEVICE) for k, v in draws.items()}, **kw)
+    loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    total = math.sqrt(sum(float(w.norm()) ** 2 for w in want))
+    rows = []
+    for name, a, b in zip(names, got, want):
+        diff, ref = float((a.cpu() - b).norm()), float(b.norm())
+        rows.append((diff / max(ref, 1e-30), name, ref, diff))
+    rows.sort(reverse=True)
+    overall = math.sqrt(sum(r[3] ** 2 for r in rows)) / total
+    emit({"phase": phase, "check": "step parity", "config": cfg_name, "batch": PARITY_BATCH[cfg_name],
+          "dtype": "float32", "card": smi, "loss_card": float(loss), "loss_cpu": float(want_loss),
+          "loss_rel_err": loss_rel, "loss_tol": TRAIN_LOSS_RTOL, "grad_tol": TRAIN_GRAD_RTOL,
+          "grad_overall_rel_l2": overall, "tensors": len(rows), "zero_gradients": sum(r[2] == 0 for r in rows),
+          "cpu_seconds": cpu_s, "worst_tensors": [{"name": n, "rel_l2": e, "norm": ref} for e, n, ref, _ in rows[:5]]})
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"{cfg_name} step parity: loss relative error {loss_rel:.3g}")
+    for e, name, ref, diff in rows:
+        check(e <= TRAIN_GRAD_RTOL, f"{cfg_name} step parity: {name} gradient relative L2 {e:.3g} (norm {ref:.3g})")
+    del cpu, card, got
+    torch.cuda.empty_cache()
+
+
+def phase_branch_gate(cfg_name: str, smi: str, out_dir: str) -> dict:
+    """Phase 9 (e) and (f): ``cfg_name``'s loss gate, then its checkpoint
+    served through the branch's generator (EMA weights and running
+    statistics bit for bit, finite output); returns the gate's launches."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.generate_flow import FlowFrameGenerator
+    from lidarcrafter_tpu_torch.generate_layout import LayoutGenerator
+    from lidarcrafter_tpu_torch.generate_object import ObjectGenerator
+    from lidarcrafter_tpu_torch.utils.synthetic import synthetic_object_boxes, synthetic_scene_graphs
+
+    state, path, launches = _loss_gate(cfg_name, GATE_BATCH_BRANCH[cfg_name], BRANCH_PER_STEP[cfg_name], smi,
+                                       out_dir)
+    cfg = get_config(cfg_name)
+    if cfg_name == "nuscenes-layout":
+        gen = LayoutGenerator(cfg, DEVICE, ckpt=path)
+        out = gen.generate(synthetic_scene_graphs(2, LAYOUT_OBJECTS, seed=1), 10, mode="ddim")
+    elif cfg_name == "nuscenes-object":
+        gen = ObjectGenerator(cfg, DEVICE, ckpt=path)
+        out = gen.generate(synthetic_object_boxes(1, BATCH, seed=1), 10, mode="ddim")
+    else:
+        gen = FlowFrameGenerator(cfg, DEVICE, ckpt=path, ema=True)
+        gen.models = {"model": gen.model}  # the one module the flow generator holds
+        out, _ = gen.generate(2)
+    _check_ema_served(cfg_name, gen.models, state)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"{cfg_name}: a sample from the trained checkpoint is not finite")
+    emit({"phase": "branch_train", "check": "checkpoint serves", "config": cfg_name, "checkpoint": Path(path).name,
+          "ema_weights_equal": True, "sample_shape": list(out.shape), "sample_std": float(out.std())})
+    del state, gen
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_branch_train(smi: str) -> tuple[list, dict]:
+    """Phase 9; returns the jvp rows and the branch training paths' launches."""
+    rows = phase_jvp()
+    for cfg_name in BRANCH_PER_STEP:
+        phase_step_parity(cfg_name, smi, "branch_train")
+    by_path = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for cfg_name, per_step in BRANCH_PER_STEP.items():
+            for amp in (False, True):
+                dname = "bfloat16 AMP" if amp else "float32"
+                by_path[f"train {cfg_name} {dname}"] = phase_train_speed(cfg_name, amp, per_step, smi, out_dir)
+            by_path[f"train {cfg_name} float32 (loss gate)"] = phase_branch_gate(cfg_name, smi, out_dir)
+    return rows, by_path
 
 
 def probe_times(kernels) -> dict:
@@ -1330,9 +1655,8 @@ def main() -> int:
                                                          requests[dname][name], smi)
         calls = profile_calls(gens["nuscenes-box-layout-v6"], gens["nuscenes-unet-uncond"])
         for path, norms in (("layout", GN_PER_FORWARD), ("uncond", GN_PER_UNET)):
-            cats = phase_profile(f"one denoiser call ({path}, predict_x_0), B=8, {dname}", calls[path], smi)
-            n = cats.get("groupnorm kernel", 0)
-            check(n == norms, f"{path} {dname}: {n} GroupNorm device kernels in one call, expected {norms}")
+            phase_profile(f"one denoiser call ({path}, predict_x_0), B=8, {dname}", calls[path], smi,
+                          expect={"groupnorm kernel": norms})
         del gens, calls
         torch.cuda.empty_cache()
         by_path[f"rollout {dname}"] = phase_rollout(dtype, smi)
@@ -1341,6 +1665,8 @@ def main() -> int:
     by_path.update(train_paths)
     by_path["layout nuscenes-layout float32"] = phase_layout(smi)
     phase_object(smi)
+    jvp_rows, branch_paths = phase_branch_train(smi)
+    by_path.update(branch_paths)
 
     # each kernel at its largest main-path shape, float32 (the default serving
     # dtype) with its bfloat16 numbers beside, and its launches summed over
@@ -1361,6 +1687,8 @@ def main() -> int:
                for d in ("float32", "bfloat16")}
         paths = {p: n[k] for p, n in by_path.items() if k in n}
         check(all(n > 0 for n in paths.values()), f"{k}: a path that runs it did not launch it: {paths}")
+        jvp = {d: next((r for r in jvp_rows if r["kernel"] == k and r["dtype"] == d), None)
+               for d in ("float32", "bfloat16")}
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "launches_by_path": paths,
@@ -1373,6 +1701,9 @@ def main() -> int:
                                                 "max_abs_err", "tol", "norm_rel_err", "route")},
             "backward": {key: bwd["float32"][key] for key in backward_keys}
             | {"bf16": {key: bwd["bfloat16"][key] for key in backward_keys}},
+            # the forward-mode route, where a path takes one (OACA has none)
+            "jvp": None if jvp["float32"] is None else {key: jvp["float32"][key] for key in backward_keys}
+            | {"bf16": {key: jvp["bfloat16"][key] for key in backward_keys}},
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

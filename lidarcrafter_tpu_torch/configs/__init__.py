@@ -24,6 +24,7 @@ def apply_reduced_topology(cfg, resolution=None, model_channels=None):
 
     ``resolution`` propagates to the condition encoder's ``feature_map_size``;
     ``model_channels`` overrides the UNet model/encoder/head channel widths
+    (``EfficientUNet``'s ``base_channels`` in the uncond and flow configs)
     and the layout encoder's ``output_dim`` (its pooled ``xf_proj`` adds onto
     the UNet's 4x-channels time embedding).
     """
@@ -32,7 +33,7 @@ def apply_reduced_topology(cfg, resolution=None, model_channels=None):
         if getattr(cfg, "condition_model", None) is not None:
             cfg.condition_model.params["feature_map_size"] = tuple(resolution)
     if model_channels:
-        for key in ("model_channels", "encoder_channels", "num_head_channels"):
+        for key in ("model_channels", "encoder_channels", "num_head_channels", "base_channels"):
             if key in cfg.model.params:
                 cfg.model.params[key] = model_channels
         if (

@@ -4,8 +4,8 @@
 :func:`rotate_points_along_z` is the device path (torch, the JAX
 ``rotate_points_along_z_jnp``); the box codecs of the layout and object
 branches (``scale_boxes_3d``, ``unscale_boxes_3d``,
-``object_encoding_boxes_3d``, ``unnorm_fg_points``) are host code in numpy,
-as in the JAX package.
+``object_encoding_boxes_3d``, ``norm_fg_points``, ``unnorm_fg_points``) are
+host code in numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -82,6 +82,18 @@ def object_encoding_boxes_3d(box_3d: np.ndarray, points_range=POINTS_RANGE) -> n
     out[1] = (z - z_min) / (z_max - z_min)
     out[2:5] = np.log(np.array([w, h, l]) + 1e-6)
     out[5] = yaw - np.arctan2(y, x)
+    return out
+
+
+def norm_fg_points(fg_points: np.ndarray, box3d: np.ndarray) -> np.ndarray:
+    """Centre-relative (N, 4) object points → the box frame: rotated by
+    the box's −yaw, divided by its half sizes, intensity from [0, 255] to
+    [−1, 1]; the inverse of :func:`unnorm_fg_points`."""
+    out = _rotate_points_along_z_np(fg_points[np.newaxis], -np.asarray([box3d[6]], np.float64))[0]
+    out[:, 0] = 2 * out[:, 0] / box3d[3]
+    out[:, 1] = 2 * out[:, 1] / box3d[4]
+    out[:, 2] = 2 * out[:, 2] / box3d[5]
+    out[:, 3] = 2 * (out[:, 3] / 255.0) - 1
     return out
 
 

@@ -31,7 +31,7 @@ import torch
 from . import resolve_device
 from .configs import apply_reduced_topology, get_config
 from .precision import DTYPES, to_serving_dtype_
-from .training.checkpoint import load_ema_weights
+from .training.checkpoint import load_weights
 from .training.factory import build_diffusion_training
 from .training.preprocess import postprocess_sample
 from .weights import init_random_
@@ -50,7 +50,7 @@ class UncondFrameGenerator:
         self.cfg = cfg
         self.model, engine, self.lidar_utils = build_diffusion_training(cfg, self.device)
         if ckpt:
-            load_ema_weights(ckpt, {"model": self.model})
+            load_weights(ckpt, {"model": self.model})
         else:
             init_random_(self.model, weights_seed)
         to_serving_dtype_(self.model, dtype)

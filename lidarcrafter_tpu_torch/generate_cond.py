@@ -30,7 +30,7 @@ import torch
 from . import resolve_device
 from .configs import apply_reduced_topology, get_config
 from .precision import DTYPES, to_serving_dtype_
-from .training.checkpoint import load_ema_weights
+from .training.checkpoint import load_weights
 from .training.factory import build_diffusion_training, layout_condition_batch
 from .training.preprocess import postprocess_sample
 from .weights import init_random_
@@ -49,7 +49,7 @@ class CondFrameGenerator:
         self.cfg = cfg
         models, engine, self.lidar_utils = build_diffusion_training(cfg, self.device)
         if ckpt:
-            load_ema_weights(ckpt, models)
+            load_weights(ckpt, models)
         else:
             init_random_(models["cond"], weights_seed)
             init_random_(models["model"], weights_seed + 1)

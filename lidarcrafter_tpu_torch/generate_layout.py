@@ -9,8 +9,8 @@ a collated scene-graph batch (``--graphs``, a pickle of
 node batch with DDPM (the JAX tool's sampler) or DDIM.  Writes the JAX
 tool's pickle: ``{'boxes', 'trajs'}`` from ``unscale_boxes_3d`` of the flat
 batch (which zeroes its first row only) and the ``raw`` (N, 20) sample.
-The stack runs in float32 with seeded random weights; ``--ckpt`` waits for
-the layout trainer.
+The stack runs in float32, with the EMA weights of a ``train.py`` checkpoint
+(``--ckpt``, running statistics included) or seeded random weights.
 
 Usage::
 
@@ -31,6 +31,7 @@ import torch
 from . import resolve_device
 from .configs import apply_reduced_topology, get_config
 from .datasets.transforms import unscale_boxes_3d
+from .training.checkpoint import load_weights
 from .training.factory import build_layout_training
 from .utils.synthetic import synthetic_scene_graphs
 from .weights import init_random_
@@ -54,15 +55,17 @@ def layout_request(batch: dict, device: str | torch.device) -> dict:
 
 class LayoutGenerator:
     """The ``SceneGraph`` + ``UNet1DModel`` stack of one config, built once
-    on ``device`` with random weights drawn from ``weights_seed``, in
-    float32."""
+    on ``device`` in float32, with the EMA weights of the checkpoint
+    ``ckpt`` (else random weights drawn from ``weights_seed``)."""
 
-    def __init__(self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0):
+    def __init__(self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0, ckpt: str | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.models, self.engine, _ = build_layout_training(cfg, self.device)
         init_random_(self.models["cond"], weights_seed)
         init_random_(self.models["model"], weights_seed + 1)
+        if ckpt:
+            load_weights(ckpt, self.models)
 
     def generate(self, batch: dict, num_steps: int, mode: str = "ddpm", seed: int = 0) -> torch.Tensor:
         """Sample the (N, 20) scaled boxes + trajectories of the collated
@@ -74,7 +77,7 @@ class LayoutGenerator:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("-c", "--cfg", default="nuscenes-layout")
-    parser.add_argument("--ckpt", default=None, help="layout training checkpoint (not ported yet)")
+    parser.add_argument("--ckpt", default=None, help="layout training checkpoint dir (its EMA weights)")
     graphs = parser.add_mutually_exclusive_group(required=True)
     graphs.add_argument("--graphs", help="pickled collated scene-graph batch (decoder side is sampled)")
     graphs.add_argument("--synthetic", type=int, metavar="S", help="S synthetic scene graphs")
@@ -86,10 +89,8 @@ def main(argv=None) -> None:
     parser.add_argument("--model-channels", type=int, default=None, help="override the UNet width (smoke runs)")
     parser.add_argument("-o", "--output", default="generated_layouts.pkl")
     args = parser.parse_args(argv)
-    if args.ckpt:
-        raise SystemExit("--ckpt needs the layout trainer, which is not ported yet")
     cfg = apply_reduced_topology(get_config(args.cfg), model_channels=args.model_channels)
-    gen = LayoutGenerator(cfg, device=args.device, weights_seed=args.seed)
+    gen = LayoutGenerator(cfg, device=args.device, weights_seed=args.seed, ckpt=args.ckpt)
     if args.synthetic:
         batch = synthetic_scene_graphs(args.synthetic, args.objects, seed=args.seed)
     else:

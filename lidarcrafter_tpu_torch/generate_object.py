@@ -8,8 +8,8 @@ scenes of ``--objects`` objects, ``utils/synthetic.py``) goes through
 ``ObjectGenEncoder`` once, then ``PointUNet`` samples one (1024, 4)
 box-frame cloud per object with DDPM (the JAX tool's sampler), DDIM or
 DPM-Solver++(2M).  Writes the JAX tool's pickle: the raw (B, 1024, 4)
-clouds.  The stack runs in float32 with seeded random weights; ``--ckpt``
-waits for the object trainer.  No kernel of the port runs on this path:
+clouds.  The stack runs in float32, with the EMA weights of a ``train.py``
+checkpoint (``--ckpt``) or seeded random weights.  No kernel of the port runs on this path:
 it is Linears and pointwise ops.
 
 Usage::
@@ -30,6 +30,7 @@ import torch
 
 from . import resolve_device
 from .configs import get_config
+from .training.checkpoint import load_weights
 from .training.factory import build_object_training
 from .utils.synthetic import synthetic_object_boxes
 from .weights import init_random_
@@ -37,15 +38,17 @@ from .weights import init_random_
 
 class ObjectGenerator:
     """The ``ObjectGenEncoder`` + ``PointUNet`` stack of one config, built
-    once on ``device`` with random weights drawn from ``weights_seed``, in
-    float32."""
+    once on ``device`` in float32, with the EMA weights of the checkpoint
+    ``ckpt`` (else random weights drawn from ``weights_seed``)."""
 
-    def __init__(self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0):
+    def __init__(self, cfg, device: str | torch.device = "cuda", weights_seed: int = 0, ckpt: str | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.models, self.engine, _ = build_object_training(cfg, self.device)
         init_random_(self.models["cond"], weights_seed)
         init_random_(self.models["model"], weights_seed + 1)
+        if ckpt:
+            load_weights(ckpt, self.models)
 
     def generate(self, boxes: dict, num_steps: int, mode: str = "ddpm", seed: int = 0) -> torch.Tensor:
         """Sample one (num_samples, point_dim) cloud per object of ``boxes``
@@ -60,7 +63,7 @@ class ObjectGenerator:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("-c", "--cfg", default="nuscenes-object")
-    parser.add_argument("--ckpt", default=None, help="object training checkpoint (not ported yet)")
+    parser.add_argument("--ckpt", default=None, help="object training checkpoint dir (its EMA weights)")
     source = parser.add_mutually_exclusive_group(required=True)
     source.add_argument("--boxes", help="pickle with {'fg_encoding_box', 'fg_class', 'fg_text_features'}")
     source.add_argument("--synthetic", type=int, metavar="S", help="the objects of S synthetic scenes")
@@ -71,9 +74,7 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("-o", "--output", default="generated_objects.pkl")
     args = parser.parse_args(argv)
-    if args.ckpt:
-        raise SystemExit("--ckpt needs the object trainer, which is not ported yet")
-    gen = ObjectGenerator(get_config(args.cfg), device=args.device, weights_seed=args.seed)
+    gen = ObjectGenerator(get_config(args.cfg), device=args.device, weights_seed=args.seed, ckpt=args.ckpt)
     if args.synthetic:
         boxes = synthetic_object_boxes(args.synthetic, args.objects, seed=args.seed)
     else:

@@ -16,7 +16,11 @@ On the card the kernel is differentiable through :class:`Attention`: the
 forward launches the kernel and keeps only q, k and v, the backward is
 :func:`attention_backward`, the JAX package's ``_flash_attention_bwd``
 (float32 einsums that recompute the softmax; ``pallas_call`` has no
-transpose rule).
+transpose rule), and the forward-mode rule is :func:`attention_jvp`, the
+plain version's tangent in float32 from the same recompute.  The MeanFlow
+loss takes ``torch.func.jvp`` through the attention blocks; an operand that
+carries a tangent always goes through the Function, so no tangent reaches a
+bare launch.
 """
 
 from __future__ import annotations
@@ -64,15 +68,43 @@ def attention_backward(q, k, v, g, *, scale: float, kv_len: int | None = None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_jvp(q, k, v, dq, dk, dv, *, scale: float, kv_len: int | None = None):
+    """Tangent of :func:`attention` at (q, k, v) along (dq, dk, dv), each
+    None for a zero tangent, in float32 from a recomputed softmax P and cast
+    to q's dtype: dS = scale·(dq·kᵀ + q·dkᵀ), dP = P ⊙ (dS − Σ P ⊙ dS), and
+    the tangent is dP·v + P·dv.  It is laid out (B, Lq, heads, dv) in
+    memory, as the kernel's output is.  Closed form rather than a nested
+    ``torch.func.jvp``: forward-mode AD does not nest inside a
+    ``forward_ad`` rule."""
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * scale
+    if kv_len is not None and kv_len < k.shape[2]:
+        logits[..., kv_len:] = -torch.inf
+    w = torch.softmax(logits, dim=-1)
+    del logits
+    out = q32.new_zeros((q.shape[0], q.shape[2], q.shape[1], v.shape[-1]))
+    if dq is not None or dk is not None:
+        ds = torch.einsum("bhqd,bhkd->bhqk", dq.float(), k32) if dq is not None else 0.0
+        if dk is not None:
+            ds = ds + torch.einsum("bhqd,bhkd->bhqk", q32, dk.float())
+        dw = (ds - (ds * w).sum(dim=-1, keepdim=True)).mul_(w).mul_(scale)
+        out += torch.einsum("bhqk,bhkd->bqhd", dw, v32)
+    if dv is not None:
+        out += torch.einsum("bhqk,bhkd->bqhd", w, dv.float())
+    return out.to(q.dtype).transpose(1, 2)
+
+
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
 def launch(q, k, v, *, scale: float, kv_len: int) -> torch.Tensor:
-    """One launch of the kernel on checked operands (no autograd)."""
+    """One launch of the kernel on checked plain operands (no autograd, no
+    tangent); checks their alignment, which reads their pointers."""
     B, H, Lq, dqk = q.shape
     Lkv, dv = k.shape[2], v.shape[-1]
     ops = (q, k, v)
+    loader.check_aligned("attention", *ops)
     out = torch.empty((B, Lq, H, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     args = loader.AttnArgs(
         *(t.data_ptr() for t in ops), out.data_ptr(),
@@ -88,19 +120,30 @@ def launch(q, k, v, *, scale: float, kv_len: int) -> torch.Tensor:
 
 
 class Attention(torch.autograd.Function):
-    """The kernel's forward with :func:`attention_backward` as its
-    backward; ``apply(scale, kv_len, q, k, v)``."""
+    """The kernel's forward with :func:`attention_backward` as its backward
+    and :func:`attention_jvp` as its forward-mode rule; ``apply(scale,
+    kv_len, q, k, v)``.  The forward takes no ctx, so ``torch.func``
+    transforms hand it the plain operands."""
 
     @staticmethod
-    def forward(ctx, scale, kv_len, q, k, v):
+    def forward(scale, kv_len, q, k, v):
+        return launch(q, k, v, scale=scale, kv_len=kv_len)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        scale, kv_len, q, k, v = inputs
         ctx.scale, ctx.kv_len = scale, kv_len
         ctx.save_for_backward(q, k, v)
-        return launch(q, k, v, scale=scale, kv_len=kv_len)
+        ctx.save_for_forward(q, k, v)
 
     @staticmethod
     def backward(ctx, g):
         grads = attention_backward(*ctx.saved_tensors, g, scale=ctx.scale, kv_len=ctx.kv_len)
         return (None, None, *grads)
+
+    @staticmethod
+    def jvp(ctx, _scale, _kv_len, dq, dk, dv):
+        return attention_jvp(*ctx.saved_tensors, dq, dk, dv, scale=ctx.scale, kv_len=ctx.kv_len)
 
 
 def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tensor:
@@ -119,9 +162,10 @@ def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tens
     The kernel runs its products on the tensor cores: bf16 ``mma.sync``, or
     3xTF32 for float32.  Returns (B, heads, Lq, dv) in q's dtype; on the
     card its memory is laid out (B, Lq, heads, dv), so that merging the
-    heads back into channels is free.  With grad enabled and an operand
-    that requires grad, the result carries :class:`Attention`'s backward;
-    otherwise the kernel is launched directly.
+    heads back into channels is free.  An operand that carries a
+    forward-mode tangent (``torch.func.jvp``, ``forward_ad``), or, with grad
+    enabled, one that requires grad, sends the call through
+    :class:`Attention`; otherwise the kernel is launched directly.
     """
     B, H, Lq, dqk = q.shape
     Lkv, dv = k.shape[2], v.shape[-1]
@@ -143,9 +187,8 @@ def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tens
         raise ValueError("attention kernel needs a contiguous last dimension")
     if Lq == 0 or B * H > 65535:
         raise ValueError("attention kernel takes Lq >= 1 and B*heads <= 65535")
-    loader.check_aligned("attention", *ops)
     if not scale > 0:
         raise ValueError(f"attention kernel takes a positive scale, got {scale}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+    if loader.has_tangent(*ops) or (torch.is_grad_enabled() and any(t.requires_grad for t in ops)):
         return Attention.apply(float(scale), kv_len, q, k, v)
     return launch(q, k, v, scale=scale, kv_len=kv_len)

@@ -22,7 +22,10 @@ forward launches the kernel and keeps only its operands, the backward is
 :func:`group_norm_backward`, autograd of the plain version recomputed in
 float32 (the JAX package's ``_gn_ad_bwd``, the vjp of its ``_gn_ref``).  The
 gradients reach ``weight``, ``bias``, ``scale`` and ``shift`` as they are
-passed, strided views of the conditioning projection included.
+passed, strided views of the conditioning projection included.  The
+forward-mode rule is :func:`group_norm_jvp`, the plain version's tangent in
+float32 from recomputed statistics; an operand that carries a tangent always
+goes through the Function, so no tangent reaches a bare launch.
 """
 
 from __future__ import annotations
@@ -92,6 +95,31 @@ def _rows(t: torch.Tensor | None, C: int) -> torch.Tensor | None:
     return None if t is None else t.float().reshape(-1, C)
 
 
+def _fold(weight, bias, scale, shift, C: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(γ, β) = (w(1+s), b(1+s) + t) in float32, (B or 1, C) each; a None
+    weight is ones, the other None operands zeros."""
+    gamma, beta = _rows(weight, C), _rows(bias, C)
+    gamma = torch.ones(1, C, device=device) if gamma is None else gamma
+    beta = torch.zeros(1, C, device=device) if beta is None else beta
+    if scale is not None:
+        s1 = 1.0 + _rows(scale, C)
+        gamma, beta = gamma * s1, beta * s1
+    if shift is not None:
+        beta = beta + _rows(shift, C)
+    return gamma, beta
+
+
+def _normalized(x: torch.Tensor, num_groups: int, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Direct two-pass statistics in float32: x̂ (B, HW, G, C/G) and
+    1/σ (B, 1, G, 1)."""
+    B, C = x.shape[0], x.shape[-1]
+    g = x.reshape(B, -1, num_groups, C // num_groups).float()
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    return (g - mean) * rstd, rstd
+
+
 def group_norm_plain(
     x: torch.Tensor,
     weight: torch.Tensor | None,
@@ -109,18 +137,8 @@ def group_norm_plain(
     ``bias`` are (C,) or (B, C), ``scale`` and ``shift`` hold B·C values
     ((B, C), (B, 1, 1, C), ...), any of them None."""
     B, C = x.shape[0], x.shape[-1]
-    g = x.reshape(B, -1, num_groups, C // num_groups).float()
-    mean = g.mean(dim=(1, 3), keepdim=True)
-    var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
-    y = ((g - mean) * torch.rsqrt(var + eps)).reshape(B, -1, C)
-    gamma, beta = _rows(weight, C), _rows(bias, C)
-    gamma = torch.ones(1, C, device=x.device) if gamma is None else gamma
-    beta = torch.zeros(1, C, device=x.device) if beta is None else beta
-    if scale is not None:
-        s1 = 1.0 + _rows(scale, C)
-        gamma, beta = gamma * s1, beta * s1
-    if shift is not None:
-        beta = beta + _rows(shift, C)
+    y = _normalized(x, num_groups, eps)[0].reshape(B, -1, C)
+    gamma, beta = _fold(weight, bias, scale, shift, C, x.device)
     y = y * gamma[:, None, :] + beta[:, None, :]
     if silu:
         y = F.silu(y)
@@ -140,6 +158,46 @@ def group_norm_backward(saved, g: torch.Tensor, *, num_groups: int, eps: float, 
                              scale=scale, shift=shift, silu=silu)
         grads = iter(torch.autograd.grad(y, [t for t in ins if t is not None], g.float()))
     return tuple(None if t is None else next(grads).to(t.dtype) for t in saved)
+
+
+def group_norm_jvp(saved, tangents, *, num_groups: int, eps: float, silu: bool = False) -> torch.Tensor:
+    """Tangent of :func:`group_norm` at ``saved`` = (x, weight, bias,
+    scale, shift) along ``tangents`` (the same five; None for an absent
+    operand or a zero tangent), in float32 from recomputed statistics, cast
+    to x's dtype and shaped as x.  Written out: dx̂ = (dx_c − x̂·mean(x̂·dx_c))/σ
+    with dx_c = dx − mean(dx) over each group, dγ = dw(1+s) + w·ds,
+    dβ = db(1+s) + b·ds + dt, and dy = dx̂·γ + x̂·dγ + dβ, times SiLU's
+    derivative at y.  Closed form rather than a nested ``torch.func.jvp``:
+    forward-mode AD does not nest inside a ``forward_ad`` rule."""
+    x, weight, bias, scale, shift = saved
+    dx, dweight, dbias, dscale, dshift = tangents
+    B, C = x.shape[0], x.shape[-1]
+    xhat, rstd = _normalized(x, num_groups, eps)
+    gamma, beta = _fold(weight, bias, scale, shift, C, x.device)
+    dy = xhat.new_zeros((B, xhat.shape[1], C))
+    if dx is not None:
+        dg = dx.reshape(xhat.shape).float()
+        dg = dg - dg.mean(dim=(1, 3), keepdim=True)
+        dxhat = (dg - xhat * (xhat * dg).mean(dim=(1, 3), keepdim=True)) * rstd
+        dy += dxhat.reshape(dy.shape) * gamma[:, None, :]
+    zero = torch.zeros(1, C, device=x.device)
+    dgamma = zero if dweight is None else _rows(dweight, C)
+    dbeta = zero if dbias is None else _rows(dbias, C)
+    if scale is not None:
+        s1 = 1.0 + _rows(scale, C)
+        dgamma, dbeta = dgamma * s1, dbeta * s1
+        if dscale is not None:
+            ds = _rows(dscale, C)
+            dgamma = dgamma + (1.0 if weight is None else _rows(weight, C)) * ds
+            dbeta = dbeta + (0.0 if bias is None else _rows(bias, C)) * ds
+    if dshift is not None:
+        dbeta = dbeta + _rows(dshift, C)
+    dy += xhat.reshape(dy.shape) * dgamma[:, None, :] + dbeta[:, None, :]
+    if silu:
+        z = xhat.reshape(dy.shape) * gamma[:, None, :] + beta[:, None, :]
+        sig = torch.sigmoid(z)
+        dy = dy * sig * (1.0 + z * (1.0 - sig))
+    return dy.to(x.dtype).reshape(x.shape)
 
 
 def _operand(t: torch.Tensor | None, x: torch.Tensor, B: int, C: int, what: str) -> tuple[int, int, int]:
@@ -194,9 +252,10 @@ def group_norm(
       num_groups, eps: the GroupNorm's groups and epsilon.
       silu: apply SiLU before the single write.
 
-    Returns a tensor of ``x``'s shape and dtype.  With grad enabled and an
-    operand that requires grad, it carries :class:`GroupNorm`'s backward;
-    otherwise the kernel is launched directly.
+    Returns a tensor of ``x``'s shape and dtype.  An operand that carries a
+    forward-mode tangent (``torch.func.jvp``, ``forward_ad``), or, with grad
+    enabled, one that requires grad, sends the call through
+    :class:`GroupNorm`; otherwise the kernel is launched directly.
     """
     B, C = x.shape[0], x.shape[-1]
     if C % num_groups:
@@ -209,13 +268,14 @@ def group_norm(
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"group_norm kernel is built for float32/bfloat16, got {x.dtype}")
     ops = (x, weight, bias, scale, shift)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ops):
+    if loader.has_tangent(*ops) or (
+            torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ops)):
         return GroupNorm.apply(num_groups, float(eps), bool(silu), x, weight, bias, scale, shift)
     return launch(x, weight, bias, scale, shift, num_groups=num_groups, eps=eps, silu=silu)
 
 
 def launch(x, weight, bias, scale, shift, *, num_groups: int, eps: float, silu: bool) -> torch.Tensor:
-    """One launch of the kernel (no autograd)."""
+    """One launch of the kernel on plain operands (no autograd, no tangent)."""
     B, C = x.shape[0], x.shape[-1]
     x = x.contiguous()
     if x.data_ptr() % 16:
@@ -233,16 +293,26 @@ def launch(x, weight, bias, scale, shift, *, num_groups: int, eps: float, silu: 
 
 
 class GroupNorm(torch.autograd.Function):
-    """The kernel's forward with :func:`group_norm_backward` as its
-    backward; ``apply(num_groups, eps, silu, x, weight, bias, scale,
-    shift)``."""
+    """The kernel's forward with :func:`group_norm_backward` as its backward
+    and :func:`group_norm_jvp` as its forward-mode rule; ``apply(num_groups,
+    eps, silu, x, weight, bias, scale, shift)``.  The forward takes no ctx,
+    so ``torch.func`` transforms hand it the plain operands."""
 
     @staticmethod
-    def forward(ctx, num_groups, eps, silu, *ops):
+    def forward(num_groups, eps, silu, *ops):
+        return launch(*ops, num_groups=num_groups, eps=eps, silu=silu)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        num_groups, eps, silu, *ops = inputs
         ctx.norm = dict(num_groups=num_groups, eps=eps, silu=silu)
         ctx.save_for_backward(*ops)
-        return launch(*ops, **ctx.norm)
+        ctx.save_for_forward(*ops)
 
     @staticmethod
     def backward(ctx, g):
         return (None, None, None, *group_norm_backward(ctx.saved_tensors, g, **ctx.norm))
+
+    @staticmethod
+    def jvp(ctx, _num_groups, _eps, _silu, *tangents):
+        return group_norm_jvp(ctx.saved_tensors, tangents, **ctx.norm)

@@ -26,6 +26,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.autograd import forward_ad
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -202,10 +203,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
+def has_tangent(*ops: torch.Tensor | None) -> bool:
+    """Whether an operand carries a forward-mode tangent: a tensor wrapped
+    by a ``torch.func`` transform (``jvp``, or any other) or a
+    ``forward_ad`` dual.  Such an operand has no storage of its own to hand
+    a kernel, and a launch on its primal would drop the tangent."""
+    return any(
+        t is not None and (torch._C._functorch.is_functorch_wrapped_tensor(t)
+                           or forward_ad.unpack_dual(t).tangent is not None)
+        for t in ops
+    )
+
+
 def check_aligned(what: str, *ops: torch.Tensor) -> None:
     """Raise ``ValueError`` unless every operand's pointer, (batch, head,
     row) strides and head dim are whole multiples of 16 bytes: the kernels
-    copy rows to shared memory in 16-byte ``cp.async`` pieces."""
+    copy rows to shared memory in 16-byte ``cp.async`` pieces.  The
+    operands must be plain tensors (no tangent): the check reads pointers."""
     for t in ops:
         elt = t.element_size()
         if t.data_ptr() % 16 or any(n * elt % 16 for n in (*t.stride()[:3], t.shape[-1])):

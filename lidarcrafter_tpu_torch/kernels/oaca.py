@@ -12,7 +12,9 @@ On the card the kernel is differentiable through :class:`OacaAttention`:
 the forward launches the kernel and keeps only its operands, the backward
 is :func:`oaca_attention_backward`, autograd of the plain version recomputed
 in float32 (the JAX package's ``_oaca_bwd``: ``pallas_call`` has no
-transpose rule, so its backward is the XLA recompute too).
+transpose rule, so its backward is the XLA recompute too).  No path of the
+JAX package takes OACA's forward-mode derivative, so it has no forward-mode
+rule here: an operand that carries a tangent raises.
 """
 
 from __future__ import annotations
@@ -60,10 +62,12 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
 
 
 def launch(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tensor:
-    """One launch of the kernel on checked operands (no autograd)."""
+    """One launch of the kernel on checked plain operands (no autograd, no
+    tangent); checks their alignment, which reads their pointers."""
     B, H, Lq, dc = q_c.shape
     dp, L2, dv = ipe.shape[-1], k_l.shape[2], v_c.shape[-1]
     ops = (q_c, ipe, k_c, k_l, v_c, v_l)
+    loader.check_aligned("oaca_attention", *ops)
     out = torch.empty((B, Lq, H, dv), dtype=q_c.dtype, device=q_c.device).transpose(1, 2)
     args = loader.OacaArgs(
         *(t.data_ptr() for t in ops), out.data_ptr(),
@@ -111,7 +115,9 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
     on the card its memory is laid out (B, Lq, heads, dv), so that merging
     the heads back into channels is free.  With grad enabled and an operand
     that requires grad, the result carries :class:`OacaAttention`'s
-    backward; otherwise the kernel is launched directly.
+    backward; otherwise the kernel is launched directly.  An operand that
+    carries a forward-mode tangent (``torch.func.jvp``, ``forward_ad``)
+    raises ``NotImplementedError`` on the card.
     """
     B, H, Lq, dc = q_c.shape
     dp, L2, dv = ipe.shape[-1], k_l.shape[2], v_c.shape[-1]
@@ -120,6 +126,9 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
         return oaca_attention_plain(*ops, scale=scale)
     if any(t.device != q_c.device for t in ops) or q_c.device.type != "cuda":
         raise ValueError("oaca_attention: operands must all be on one CUDA device")
+    if loader.has_tangent(*ops):
+        raise NotImplementedError("oaca_attention has no forward-mode rule: an operand carries a tangent "
+                                  "(torch.func.jvp / forward_ad), which the kernel would drop")
     if any(t.dtype != q_c.dtype for t in ops) or q_c.dtype not in _DTYPE_CODES:
         raise TypeError("oaca_attention kernel needs one dtype, float32 or bfloat16")
     if (dc, dp, dv) != _HEAD_DIMS:
@@ -136,7 +145,6 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
         raise ValueError("oaca_attention kernel needs a contiguous last dimension")
     if L2 > _MAX_L2 or B * H > 65535:
         raise ValueError(f"oaca_attention kernel takes L2 <= {_MAX_L2} and B*heads <= 65535")
-    loader.check_aligned("oaca_attention", *ops)
     if not scale > 0:
         raise ValueError(f"oaca_attention kernel takes a positive scale, got {scale}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ops):

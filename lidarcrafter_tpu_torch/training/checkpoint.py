@@ -84,12 +84,13 @@ def restore_checkpoint(path: str | Path, template: TrainState) -> tuple[TrainSta
     return template, cfg
 
 
-def load_ema_weights(path: str | Path, models: dict[str, nn.Module]) -> None:
-    """Load the EMA weights of the checkpoint at ``path`` into ``models``
-    ({'model'} or {'model', 'cond'}), as the serving CLIs sample with."""
-    ema = _load(path)["ema"]
+def load_weights(path: str | Path, models: dict[str, nn.Module], ema: bool = True) -> None:
+    """Load the EMA (or, with ``ema=False``, the online) weights of the
+    checkpoint at ``path`` into ``models`` ({'model'} or {'model', 'cond'}),
+    running statistics included, as the serving CLIs sample with."""
+    saved = _load(path)["ema" if ema else "models"]
     for name, module in models.items():
-        module.load_state_dict(ema[name])
+        module.load_state_dict(saved[name])
 
 
 def latest_checkpoint(output_dir: str | Path) -> str | None:

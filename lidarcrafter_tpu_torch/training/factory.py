@@ -135,7 +135,9 @@ def build_flow_training(cfg, device: str | torch.device = "cuda"):
     if getattr(cfg, "flow", None) is None:
         raise ValueError("not a flow config (cfg.flow is None)")
     model = _build_denoiser(cfg, _data_channels(cfg), device)
-    engine = MeanFlow(model=model, sampling_shape=(*cfg.data.resolution, _data_channels(cfg)))
+    dist, mu, sigma = cfg.flow.time_dist
+    engine = MeanFlow(model=model, sampling_shape=(*cfg.data.resolution, _data_channels(cfg)),
+                      flow_ratio=cfg.flow.flow_ratio, time_dist=dist, time_mu=float(mu), time_sigma=float(sigma))
     return model, engine, make_lidar_utils(cfg, device)
 
 

@@ -1,10 +1,15 @@
 """The training loop.
 
-Port of the JAX package's ``training/loop.py::Trainer`` for the
+Port of the JAX package's ``training/loop.py``: ``Trainer`` for the
 unconditional (``nuscenes-unet-uncond``) and the concat-conditioned layout
 configs (``nuscenes-box-layout-v6``, ``nuscenes-auto-reg-v2``): factory →
-AdamW → train step → EMA → periodic checkpoints → resume.  The host reads
-the loss only when it logs.
+AdamW → train step → EMA → periodic checkpoints → resume; and its three
+subclasses, which change only the build, the loss's extra arguments and
+the batch: ``FlowTrainer`` (``meanflow-nusc``, the MeanFlow JVP loss),
+``ObjectTrainer`` (``nuscenes-object``) and ``LayoutTrainer``
+(``nuscenes-layout``, padded scene-graph batches).  The host reads the loss
+only when it logs.  Sample previews, the tracker and the profiling window of
+the JAX ``Trainer`` are not ported.
 """
 
 from __future__ import annotations
@@ -17,9 +22,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models.graph import MaskedBatchNorm
 from ..weights import init_random_
 from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
-from .factory import build_diffusion_training
+from .factory import build_diffusion_training, build_flow_training, build_layout_training, build_object_training
 from .optim import cosine_warmup_schedule, make_optimizer
 from .preprocess import preprocess_autoregressive_cond, preprocess_condition_mask, preprocess_x0
 from .state import TrainState
@@ -36,6 +42,8 @@ class Trainer:
     source) and is only moved to the device.
     """
 
+    loss_has_aux = False  # engine.loss returns (loss, aux) instead of loss
+
     def __init__(
         self,
         cfg,
@@ -49,7 +57,7 @@ class Trainer:
         self.log_fn = log_fn
         self.device = resolve_device(device)
         self.output_dir = Path(output_dir or cfg.training.output_dir)
-        models, self.engine, self.lidar_utils = build_diffusion_training(cfg, self.device)
+        models, self.engine, self.lidar_utils = self._build(cfg)
         self.is_cond = isinstance(models, dict)
         self.models = models if self.is_cond else {"model": models}
         t = cfg.training
@@ -62,13 +70,21 @@ class Trainer:
         self.step_fn = make_train_step(
             self.engine, self.optimizer, ema_beta=t.ema_decay, ema_update_every=t.ema_update_every,
             ema_update_after_step=t.lr_warmup_steps * t.gradient_accumulation_steps,
-            amp=t.mixed_precision == "bf16",
+            amp=t.mixed_precision == "bf16", loss_kwargs=self._loss_kwargs(), loss_has_aux=self.loss_has_aux,
         )
+
+    def _build(self, cfg):
+        return build_diffusion_training(cfg, self.device)
+
+    def _loss_kwargs(self) -> dict:
+        """Extra arguments of every ``engine.loss`` call."""
+        return {}
 
     def init_state(self, seed: int) -> TrainState:
         """Fresh state: seeded random weights as the serving entry points
         draw them (``weights.init_random_``; encoder ``seed``, denoiser
-        ``seed + 1``), EMA copies and a zero optimizer state."""
+        ``seed + 1``), so a fresh checkpoint serves like the generator of
+        the same seed; EMA copies and a zero optimizer state."""
         if self.is_cond:
             init_random_(self.models["cond"], seed)
         init_random_(self.models["model"], seed + int(self.is_cond))
@@ -140,3 +156,141 @@ class Trainer:
             if checkpoint_every and step % checkpoint_every == 0:
                 save_checkpoint(self.output_dir / f"ckpt_{step:010d}", state, self.cfg)
         return state
+
+
+def _to_device(tree, device: torch.device):
+    """numpy arrays / tensors of a nested dict → tensors on ``device``,
+    integer indices as int64."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    t = torch.as_tensor(tree)
+    return t.to(device, torch.int64 if t.dtype == torch.int32 else t.dtype)
+
+
+class FlowTrainer(Trainer):
+    """MeanFlow trainer (``meanflow-nusc``).  The engine's loss returns
+    ``(adaptive loss, mse)``; the step trains on the first."""
+
+    loss_has_aux = True
+
+    def _build(self, cfg):
+        return build_flow_training(cfg, self.device)
+
+
+class ObjectTrainer(Trainer):
+    """Per-object point diffusion trainer (``nuscenes-object``).
+    ``data_iter`` yields ``fg_points`` (B, num_samples, 4) box-frame clouds
+    (``norm_fg_points``), ``fg_encoding_box`` (B, 6) and ``fg_class`` (B,);
+    ``text_features`` is the (num_class, 512) CLIP class-text table, held
+    on the device and fed with every batch."""
+
+    def __init__(self, cfg, data_iter, text_features, **kw):
+        super().__init__(cfg, data_iter, **kw)
+        self.text_features = torch.as_tensor(np.asarray(text_features), dtype=torch.float32, device=self.device)
+
+    def _build(self, cfg):
+        return build_object_training(cfg, self.device)
+
+    def prepare_batch(self, batch: dict) -> dict:
+        return {
+            "x_0": torch.as_tensor(batch["fg_points"], dtype=torch.float32).to(self.device),
+            "fg_encoding_box": torch.as_tensor(batch["fg_encoding_box"], dtype=torch.float32).to(self.device),
+            "fg_class": torch.as_tensor(batch["fg_class"]).to(self.device),
+            "fg_text_features": self.text_features,
+        }
+
+
+# nuScenes layout scenes carry at most 13 objects besides the ego node; each
+# object pair emits up to 5 relationships and each object-ego pair up to 4
+MAX_OBJECTS_PER_SCENE = 13
+EDGES_PER_SCENE = MAX_OBJECTS_PER_SCENE * (MAX_OBJECTS_PER_SCENE - 1) // 2 * 5 + MAX_OBJECTS_PER_SCENE * 4  # 442
+
+
+def _round8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def pad_layout_batch(collated: dict, max_nodes: int, max_edges: int) -> dict:
+    """The decoder side of a collated scene-graph batch
+    (``collate_scene_graphs``) → the layout engine's input at fixed node and
+    edge budgets, numpy arrays as the JAX package's: padded nodes carry zero
+    loss weight (``boxes[:, 20:] = 0``) and scene 0, padded triples point at
+    node 0 with ``edge_mask`` False.  The engine's loss is a mean over all
+    ``max_nodes`` rows, padded ones included, as in the JAX package."""
+    dec = collated["decoder"] if "decoder" in collated else collated
+    boxes = np.asarray(dec["boxes"], np.float32)
+    objs = np.asarray(dec["objs"], np.int32)
+    triples = np.asarray(dec.get("tripltes", dec.get("triples")), np.int32).reshape(-1, 3)
+    n, e = len(objs), len(triples)
+    if n > max_nodes or e > max_edges:
+        raise ValueError(f"batch ({n} nodes, {e} edges) exceeds budgets ({max_nodes}, {max_edges})")
+    tf = np.asarray(dec["text_feats"], np.float32)
+    rf = np.asarray(dec["rel_feats"], np.float32)
+
+    def pad(a, rows, shape, dtype):
+        out = np.zeros((rows, *shape), dtype)
+        if len(a):
+            out[:len(a)] = a
+        return out
+
+    return {
+        "boxes": pad(boxes, max_nodes, boxes.shape[1:], np.float32),
+        "scene_ids": pad(np.asarray(dec["obj_to_scene"], np.int32), max_nodes, (), np.int32),
+        "scenegraph": {
+            "objs": pad(objs, max_nodes, (), np.int32),
+            "triples": pad(triples, max_edges, (3,), np.int32),
+            "text_feats": pad(tf, max_nodes, (tf.shape[1] if tf.ndim == 2 else 512,), np.float32),
+            "rel_feats": pad(rf, max_edges, (rf.shape[1] if rf.ndim == 2 else 512,), np.float32),
+            "edge_mask": np.arange(max_edges) < e,
+        },
+    }
+
+
+def train_running_statistics_(module: torch.nn.Module) -> None:
+    """Make the running statistics of every ``MaskedBatchNorm`` in
+    ``module`` trained tensors.  The JAX ``LayoutTrainer`` keeps them in the
+    parameter tree it differentiates (its ``batch_stats`` collection), and
+    the GCNs read them (running-average mode), so they take gradients, the
+    clip, AdamW and the EMA like any parameter; nothing updates them with
+    batch statistics."""
+    for m in module.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.running_mean.requires_grad_(True)
+            m.running_var.requires_grad_(True)
+
+
+class LayoutTrainer(Trainer):
+    """Scene-graph → 1D layout trainer (``nuscenes-layout``).  ``data_iter``
+    yields collated scene-graph batches (``collate_scene_graphs``), padded
+    to node and edge budgets: by default the worst case of
+    ``batch_size_train`` scenes, ``_round8(B·14)`` nodes and
+    ``_round8(B·442)`` edges.  A batch beyond them grows the budgets (and is
+    logged) instead of failing.  Both GCNs run on their running statistics,
+    which train as parameters (:func:`train_running_statistics_`)."""
+
+    def __init__(self, cfg, data_iter, max_nodes: int | None = None, max_edges: int | None = None, **kw):
+        B = cfg.training.batch_size_train
+        self.max_nodes = max_nodes or _round8(B * (MAX_OBJECTS_PER_SCENE + 1))
+        self.max_edges = max_edges or _round8(B * EDGES_PER_SCENE)
+        super().__init__(cfg, data_iter, **kw)
+
+    def _build(self, cfg):
+        models, engine, lidar_utils = build_layout_training(cfg, self.device)
+        for m in models.values():
+            train_running_statistics_(m)
+        return models, engine, lidar_utils
+
+    def _loss_kwargs(self) -> dict:
+        return {"num_scenes": self.cfg.training.batch_size_train}
+
+    def prepare_batch(self, batch: dict) -> dict:
+        if "scenegraph" not in batch:
+            dec = batch["decoder"] if "decoder" in batch else batch
+            n = len(np.asarray(dec["objs"]))
+            e = len(np.asarray(dec.get("tripltes", dec.get("triples"))).reshape(-1, 3))
+            if n > self.max_nodes or e > self.max_edges:
+                self.max_nodes = max(self.max_nodes, _round8(n))
+                self.max_edges = max(self.max_edges, _round8(e))
+                self._log({"layout_budget_grow": {"max_nodes": self.max_nodes, "max_edges": self.max_edges}})
+            batch = pad_layout_batch(batch, self.max_nodes, self.max_edges)
+        return _to_device(batch, self.device)

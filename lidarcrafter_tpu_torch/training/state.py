@@ -18,10 +18,23 @@ from torch import nn
 from .optim import AdamW
 
 
+def named_module_params(modules: dict[str, nn.Module]) -> list[tuple[str, torch.Tensor]]:
+    """The trained tensors of ``modules`` as ``('key.name', tensor)``, in
+    key order: each module's parameters, then its buffers that require grad
+    (the layout branch's running statistics, which the JAX package trains
+    with the parameters: ``training/loop.py::train_running_statistics_``).
+    The optimizer state and the EMA follow this order."""
+    out = []
+    for key in sorted(modules):
+        m = modules[key]
+        trained = [*m.named_parameters(), *((n, b) for n, b in m.named_buffers() if b.requires_grad)]
+        out += [(f"{key}.{n}", t) for n, t in trained]
+    return out
+
+
 def module_params(modules: dict[str, nn.Module]) -> list[torch.Tensor]:
-    """The parameters of ``modules``, in key order, then ``parameters()``
-    order: the order the optimizer state and the EMA follow."""
-    return [p for name in sorted(modules) for p in modules[name].parameters()]
+    """The tensors of :func:`named_module_params`."""
+    return [t for _, t in named_module_params(modules)]
 
 
 @dataclasses.dataclass
@@ -33,11 +46,20 @@ class TrainState:
 
     @classmethod
     def create(cls, models: dict[str, nn.Module], optimizer: AdamW) -> "TrainState":
-        ema = {k: copy.deepcopy(m).requires_grad_(False) for k, m in models.items()}
+        ema = {}
+        for k, m in models.items():
+            ema[k] = copy.deepcopy(m).requires_grad_(False)
+            for b in ema[k].buffers():
+                b.requires_grad_(False)
         return cls(step=0, models=models, ema=ema, opt_state=optimizer.init(module_params(models)))
 
     def params(self) -> list[torch.Tensor]:
         return module_params(self.models)
 
     def ema_params(self) -> list[torch.Tensor]:
-        return module_params(self.ema)
+        """The EMA copies of :meth:`params`, matched by name (the EMA's
+        tensors do not require grad, so they are looked up by the online
+        modules' names, not selected as trained)."""
+        ema = {f"{k}.{n}": t for k, m in self.ema.items()
+               for n, t in (*m.named_parameters(), *m.named_buffers())}
+        return [ema[n] for n, _ in named_module_params(self.models)]

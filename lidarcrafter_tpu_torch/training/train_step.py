@@ -11,9 +11,11 @@ one.
 
 ``amp=True`` is the JAX package's bf16 AMP (``amp_engine`` / ``_amp_wrap``):
 the model and encoder forwards run through ``torch.func.functional_call``
-on bf16 casts of the float32 master parameters and of their inputs, and
+on bf16 casts of the float32 master parameters (and running statistics,
+which the JAX package keeps in the same tree) and of their inputs, and
 their outputs are cast back to float32; the casts carry the gradients back
-to the masters, and schedules, q-sampling and the loss stay float32.
+to the masters, and a ``torch.func.jvp`` tangent through them (the MeanFlow
+loss), while schedules, q-sampling and the loss stay float32.
 ``torch.autocast`` would keep GroupNorm and softmax in float32 and so send
 mixed dtypes to the kernels; here every operand of a kernel is bf16.
 """
@@ -34,16 +36,23 @@ from .state import TrainState
 
 
 class Bf16Forward(nn.Module):
-    """``module``'s forward on bf16 casts of its parameters and of the
-    floating inputs, with the floating outputs cast to float32."""
+    """``module``'s forward on bf16 casts of its parameters, of its floating
+    persistent buffers (the running statistics of the layout branch; none
+    in the frame stacks, whose forward casts only the parameters) and of
+    the floating inputs, with the floating outputs cast to float32."""
 
     def __init__(self, module: nn.Module):
         super().__init__()
         self.module = module
+        persistent = set(module.state_dict(keep_vars=True))
+        self.cast_buffers = {n for n, b in module.named_buffers() if n in persistent and b.is_floating_point()}
 
-    def forward(self, *args):
-        params = {n: p.to(torch.bfloat16) for n, p in self.module.named_parameters()}
-        out = torch.func.functional_call(self.module, params, cast_tree(args, torch.bfloat16))
+    def forward(self, *args, **kwargs):
+        state = {n: p.to(torch.bfloat16) for n, p in self.module.named_parameters()}
+        if self.cast_buffers:
+            state.update((n, b.to(torch.bfloat16)) for n, b in self.module.named_buffers() if n in self.cast_buffers)
+        out = torch.func.functional_call(self.module, state, cast_tree(args, torch.bfloat16),
+                                         cast_tree(kwargs, torch.bfloat16))
         return cast_tree(out, torch.float32)
 
 
@@ -62,10 +71,13 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     return torch.Generator(device=device).manual_seed(state)
 
 
-def loss_and_grads(engine, params: list[torch.Tensor], batch, **loss_kwargs):
-    """``engine.loss(batch, **loss_kwargs)`` and its gradients with respect
-    to ``params`` (zeros for a parameter the loss does not reach)."""
+def loss_and_grads(engine, params: list[torch.Tensor], batch, loss_has_aux: bool = False, **loss_kwargs):
+    """``engine.loss(batch, **loss_kwargs)`` (its first element with
+    ``loss_has_aux``) and its gradients with respect to ``params`` (zeros
+    for a parameter the loss does not reach)."""
     loss = engine.loss(batch, **loss_kwargs)
+    if loss_has_aux:
+        loss = loss[0]
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
@@ -77,23 +89,30 @@ def make_train_step(
     ema_update_every: int = 10,
     ema_update_after_step: int = 100,
     amp: bool = False,
+    loss_kwargs: dict | None = None,
+    loss_has_aux: bool = False,
 ) -> Callable[..., tuple[TrainState, torch.Tensor]]:
-    """Build ``train_step(state, batch, seed, t=None, noise=None)``.
+    """Build ``train_step(state, batch, seed, **draws)``.
 
     ``batch`` is the engine's input: x_0 (B, H, W, C) normalized to [-1, 1],
-    or the conditional engine's input dict with ``x_0``.  ``state.models``
-    must be the modules ``engine`` runs.  ``t`` and ``noise`` replace the
-    step's draws when given (parity tests inject the JAX key chain's).
+    or the conditional engine's input dict (with ``x_0``, or the layout
+    engine's ``boxes``).  ``state.models`` must be the modules ``engine``
+    runs.  ``loss_kwargs`` go to every ``engine.loss`` call (the layout
+    engine's ``num_scenes``); ``loss_has_aux`` takes the loss from a
+    ``(loss, aux)`` return (MeanFlow's ``(loss, mse)``).  ``draws`` (``t``,
+    ``noise``, the layout engine's ``t_scene``, MeanFlow's ``r``) replace
+    the step's draws when given (parity tests inject the JAX key chain's).
     The state is updated in place and returned with the loss tensor.
     """
     if amp:
         engine = amp_engine(engine)
+    loss_kwargs = loss_kwargs or {}
 
-    def train_step(state: TrainState, batch, seed: int, t=None, noise=None):
-        x_0 = batch["x_0"] if isinstance(batch, dict) else batch
-        generator = step_generator(seed, state.step, x_0.device)
+    def train_step(state: TrainState, batch, seed: int, **draws):
         params = state.params()
-        loss, grads = loss_and_grads(engine, params, batch, generator=generator, t=t, noise=noise)
+        generator = step_generator(seed, state.step, params[0].device)
+        loss, grads = loss_and_grads(engine, params, batch, loss_has_aux, generator=generator, **draws,
+                                     **loss_kwargs)
         optimizer.update_(params, grads, state.opt_state)
         ema_update_(state.ema_params(), params, state.step, beta=ema_beta,
                     update_every=ema_update_every, update_after_step=ema_update_after_step)

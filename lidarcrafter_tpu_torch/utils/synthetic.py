@@ -9,7 +9,10 @@ and :func:`synthetic_object_boxes` are the inputs of the layout and object
 branches: boxes drawn from a numpy seed, the scene graph's triples derived
 with the ported relationship rules (every object pair once, every object to
 the ego, so the edge count is the converter's O(n²)), and seeded unit
-vectors in place of the CLIP text features.
+vectors in place of the CLIP text features.  :func:`synthetic_object_points`
+adds the object branch's training target: points drawn uniformly in each
+box, normalised to the box frame with ``norm_fg_points`` as the object
+dataset does.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 from ..datasets.scene_graph import (
     CLASSES, RELATIONSHIPS, cal_box_relationships, collate_scene_graphs, pack_boxes_with_trajs,
 )
-from ..datasets.transforms import object_encoding_boxes_3d, scale_boxes_3d
+from ..datasets.transforms import _rotate_points_along_z_np, norm_fg_points, object_encoding_boxes_3d, scale_boxes_3d
 
 CLIP_DIM = 512
 
@@ -92,6 +95,22 @@ def synthetic_object_boxes(num_scenes: int, objs_per_scene: int, seed: int = 0) 
         "fg_class": (classes - 1).astype(np.int64),
         "fg_text_features": _unit_rows(np.random.default_rng([seed, 2]), len(CLASSES)),
     }
+
+
+def synthetic_object_points(num_scenes: int, objs_per_scene: int, num_points: int = 1024, seed: int = 0) -> dict:
+    """:func:`synthetic_object_boxes` of the same arguments plus
+    ``fg_points`` (n, num_points, 4) float32: per object, points uniform in
+    its box with intensities uniform in [0, 255], centre-relative in the
+    scene frame (rotated by the yaw), then normalised with
+    ``norm_fg_points``."""
+    boxes = np.concatenate([b for b, _ in _scene_boxes(num_scenes, objs_per_scene, seed)])
+    rng = np.random.default_rng([seed, 3])
+    n = len(boxes)
+    local = rng.uniform(-1, 1, (n, num_points, 3)) * boxes[:, None, 3:6] / 2
+    points = np.concatenate([local, rng.uniform(0, 255, (n, num_points, 1))], axis=-1)
+    points = _rotate_points_along_z_np(points, boxes[:, 6])
+    fg_points = np.stack([norm_fg_points(p, b) for p, b in zip(points, boxes)]).astype(np.float32)
+    return dict(synthetic_object_boxes(num_scenes, objs_per_scene, seed), fg_points=fg_points)
 
 
 def banded_range_image_batch(

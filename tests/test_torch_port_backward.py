@@ -154,12 +154,34 @@ def test_group_norm_backward_matches_jax_vjp(dname, case):
 
 
 def _plain_launches(monkeypatch):
-    """Each route's kernel launch replaced by its plain version."""
-    monkeypatch.setattr(oaca, "launch", lambda *ops, scale: oaca.oaca_attention_plain(*ops, scale=scale))
-    monkeypatch.setattr(attention, "launch", lambda q, k, v, *, scale, kv_len: attention.attention_plain(
-        q, k, v, scale=scale, kv_len=kv_len))
-    monkeypatch.setattr(groupnorm, "launch", lambda x, w, b, s, t, **kw: groupnorm.group_norm_plain(
-        x, w, b, scale=s, shift=t, **kw))
+    """Each route's kernel launch replaced by its plain version, after
+    reading every operand's pointer as the launch does (a tensor wrapped by
+    a ``torch.func`` transform has none); the attention outputs in the
+    kernels' (B, L, heads, d) memory layout."""
+
+    def read(*ops):
+        for t in ops:
+            if t is not None:
+                t.data_ptr()
+
+    def kernel_layout(out):
+        return out.transpose(1, 2).contiguous().transpose(1, 2)
+
+    def oaca_launch(*ops, scale):
+        read(*ops)
+        return kernel_layout(oaca.oaca_attention_plain(*ops, scale=scale))
+
+    def attention_launch(q, k, v, *, scale, kv_len):
+        read(q, k, v)
+        return kernel_layout(attention.attention_plain(q, k, v, scale=scale, kv_len=kv_len))
+
+    def groupnorm_launch(x, w, b, s, t, **kw):
+        read(x, w, b, s, t)
+        return groupnorm.group_norm_plain(x, w, b, scale=s, shift=t, **kw)
+
+    monkeypatch.setattr(oaca, "launch", oaca_launch)
+    monkeypatch.setattr(attention, "launch", attention_launch)
+    monkeypatch.setattr(groupnorm, "launch", groupnorm_launch)
 
 
 def _route_cases():

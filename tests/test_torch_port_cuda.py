@@ -561,3 +561,95 @@ def test_a_full_width_unet1d_call_launches_56_group_norms():
     cpu = {k: copy.deepcopy(m).cpu() for k, m in gen.models.items()}
     want = call(dataclasses.replace(gen.engine, model=cpu["model"], cond_model=cpu["cond"]), "cpu")
     assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("C,eps,silu", [(512, 1e-5, True), (1024, 1e-5, True), (512, 1e-6, False)])
+def test_groupnorm_kernel_at_the_layout_unets_token_shapes_in_bfloat16(gen, C, eps, silu):
+    """The same norms as the layout branch trains them under bf16 AMP:
+    every operand bfloat16."""
+    x = (torch.randn(104, 1, C, generator=gen, device="cuda") * 3 + 5).bfloat16()
+    w = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).bfloat16()
+    b = (0.1 * torch.randn(C, generator=gen, device="cuda")).bfloat16()
+    args = dict(num_groups=32, eps=eps, silu=silu)
+    n = groupnorm.launches.n
+    got = groupnorm.group_norm(x, w, b, **args)
+    torch.cuda.synchronize()
+    assert groupnorm.launches.n == n + 1 and got.dtype == torch.bfloat16
+    _assert_close(got, groupnorm.group_norm_plain(x, w, b, **args), torch.bfloat16)
+
+
+# ------------------------------------------------------------------ forward mode (the MeanFlow loss)
+
+
+def _jvp_case(route, dtype, gen):
+    """(wrapper call, plain call, primals, tangents, counter, parameter) at
+    the MeanFlow UNet's shapes: attention on per-head views of one qkv
+    projection (u_block4: 512 tokens, 8 heads of 32), GroupNorm as the
+    level-0 AdaGN (scale and shift halves of one projection, SiLU)."""
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+
+    if route == "attention":
+        B, L, H, d = 2, 512, 8, 32
+        p = torch.ones(H * d, device="cuda", requires_grad=True)
+
+        def split(qkv):
+            return [t.reshape(B, L, H, d).transpose(1, 2) for t in (qkv * p.to(dtype).repeat(3)).split(H * d, -1)]
+
+        call = lambda qkv: attention.attention(*split(qkv), scale=d**-0.5)  # noqa: E731
+        plain = lambda qkv: attention.attention_plain(*split(qkv), scale=d**-0.5)  # noqa: E731
+        primals = (r(B, L, 3 * H * d),)
+        return call, plain, primals, (r(B, L, 3 * H * d),), attention.launches, p
+    B, C = 2, 64
+    p = torch.ones(2 * C, device="cuda", requires_grad=True)
+
+    def args(proj):
+        s, t = (proj * p.to(dtype)).chunk(2, dim=-1)
+        return dict(num_groups=8, eps=1e-6, scale=s, shift=t, silu=True)
+
+    call = lambda x, proj: groupnorm.group_norm(x, None, None, **args(proj))  # noqa: E731
+    plain = lambda x, proj: groupnorm.group_norm_plain(x, None, None, **args(proj))  # noqa: E731
+    primals = (r(B, 32, 128, C, scale=2.0) + 1, r(B, 2 * C, scale=0.3))
+    return call, plain, primals, (r(B, 32, 128, C), r(B, 2 * C)), groupnorm.launches, p
+
+
+@pytest.mark.parametrize("mode", ["torch.func.jvp", "forward_ad"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["attention", "groupnorm"])
+def test_route_tangents_through_the_kernel_match_the_plain_version(gen, route, dtype, mode):
+    """A tangent on the operands sends the call through the Function (one
+    kernel launch), whose tangent and primal equal the plain version's; a
+    loss on the primal back-propagates as through the plain version."""
+    from torch.autograd import forward_ad
+
+    call, plain, primals, tangents, counter, p = _jvp_case(route, dtype, gen)
+    n = counter.n
+    if mode == "torch.func.jvp":
+        out, tan = torch.func.jvp(call, primals, tangents)
+    else:
+        with forward_ad.dual_level():
+            out, tan = forward_ad.unpack_dual(call(*(forward_ad.make_dual(a, t) for a, t in zip(primals, tangents))))
+    torch.cuda.synchronize()
+    assert counter.n == n + 1 and tan is not None and tan.dtype == dtype
+    want_out, want_tan = torch.func.jvp(plain, primals, tangents)
+    _assert_close(out, want_out, dtype)
+    _assert_close(tan, want_tan, dtype)
+    g = torch.autograd.grad(out.float().square().sum(), p)[0]
+    g_want = torch.autograd.grad(want_out.float().square().sum(), p)[0]
+    _assert_close(g, g_want, dtype)
+
+
+@pytest.mark.parametrize("mode", ["torch.func.jvp", "forward_ad"])
+def test_oaca_raises_on_a_tangent(gen, mode):
+    from torch.autograd import forward_ad
+
+    ops = [torch.randn(1, 2, L, d, generator=gen, device="cuda")
+           for L, d in ((64, 32), (64, 32), (64, 32), (13, 64), (64, 32), (13, 32))]
+    n = oaca.launches.n
+    with pytest.raises(NotImplementedError, match="forward-mode"):
+        if mode == "torch.func.jvp":
+            torch.func.jvp(lambda q: oaca.oaca_attention(q, *ops[1:], scale=0.35), (ops[0],), (ops[0],))
+        else:
+            with forward_ad.dual_level():
+                oaca.oaca_attention(forward_ad.make_dual(ops[0], ops[0]), *ops[1:], scale=0.35)
+    assert oaca.launches.n == n

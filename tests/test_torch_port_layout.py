@@ -78,15 +78,15 @@ def rel_l2(got, want) -> float:
 
 
 class Stack:
-    """``nuscenes-layout`` built by both packages with shared random weights
-    and one collated request."""
+    """``nuscenes-layout`` built by both packages (at ``configure``'s
+    topology) with shared random weights and one collated request."""
 
-    def __init__(self):
-        self.jmodels, jengine, _ = jax_build(small(jcfgs))
+    def __init__(self, configure=small):
+        self.jmodels, jengine, _ = jax_build(configure(jcfgs))
         # each network compiled once, shared by the forward, the loss and the step
         self.jengine = dataclasses.replace(jengine, apply_fn=jax.jit(jengine.apply_fn),
                                            cond_apply_fn=jax.jit(jengine.cond_apply_fn))
-        self.tmodels, self.tengine, _ = torch_build(small(tcfgs), device="cpu")
+        self.tmodels, self.tengine, _ = torch_build(configure(tcfgs), device="cpu")
         self.batch = synthetic_scene_graphs(SCENES, OBJECTS, seed=3)
         dec = self.batch["decoder"]
         self.N, self.T = len(dec["objs"]), len(dec["tripltes"])
@@ -371,5 +371,7 @@ def test_cli_writes_the_jax_tools_pickle(tmp_path):
         assert res["raw"].shape == (8, 20) and res["boxes"].shape == (8, 7) and res["trajs"].shape == (8, 6, 2)
         assert np.isfinite(res["raw"]).all() and (res["boxes"][0] == 0).all()
         np.testing.assert_array_equal(res["trajs"], res["raw"][:, 8:].reshape(8, 6, 2))
-    with pytest.raises(SystemExit, match="not ported"):
-        generate_layout.main(["--synthetic", "1", "--ckpt", "x", "--device", "cpu"])
+    # --ckpt reads a train.py checkpoint (test_torch_port_branch_train.py serves one)
+    with pytest.raises(FileNotFoundError):
+        generate_layout.main(["--synthetic", "1", "--ckpt", str(tmp_path / "no_such_ckpt"), "--model-channels", "64",
+                              "--device", "cpu"])

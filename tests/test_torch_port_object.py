@@ -141,5 +141,6 @@ def test_cli_writes_the_jax_tools_pickle(tmp_path):
         with open(out, "rb") as f:
             clouds = pickle.load(f)
         assert isinstance(clouds, np.ndarray) and clouds.shape == (n, 1024, 4) and np.isfinite(clouds).all()
-    with pytest.raises(SystemExit, match="not ported"):
-        generate_object.main(["--synthetic", "1", "--ckpt", "x", "--device", "cpu"])
+    # --ckpt reads a train.py checkpoint (test_torch_port_branch_train.py serves one)
+    with pytest.raises(FileNotFoundError):
+        generate_object.main(["--synthetic", "1", "--ckpt", str(tmp_path / "no_such_ckpt"), "--device", "cpu"])
