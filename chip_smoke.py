@@ -104,7 +104,25 @@ Phases, each printing one JSON line:
    each (lr 1e-4, warm-up 20; 8 scenes, 96 objects, MeanFlow at B=2) and
    its checkpoint served
    through the branch's generator (EMA weights and running statistics bit
-   for bit, finite samples).
+   for bit, finite samples);
+10. the metric suite ("evaluate") over phase 6's float32 rollout as host
+   clouds (scenes 0-3 "real", 4-7 "gen", 64 clouds each), with a RangeNet-53
+   (32x1024, 4,096 features) and a PointNet (k=16, 2,048 points) of seeded
+   weights: ``EvaluationEngine`` (frd, fpd and their squared MMDs, BEV jsd
+   and mmd), ``evaluate`` (cd and the chamfer mmd on 8 aligned pairs, emd
+   on them resampled to 2,048 points, jsd, and frid through a pretrained
+   folder written from the RangeNet-53), ``sequence_tcd`` (splits 1-4) of
+   each scene, and ICP recovering a 3° / (1.0, 0.5, 0) m motion of a frame
+   to 0.05 m; every metric again through the port on the CPU (the engine's
+   from the card's cached features; cd, mmd and TCD on clouds resampled to
+   2,048 points on both sides, as a CPU chamfer grows with N²; the features
+   and FRID descriptors of 8 clouds turned half a pixel, off the bin edges
+   their points lie on), held to 1e-4 relative (cd, jsd, mmd, TCD), 1e-3
+   (Fréchet distances in float64, emd) and 1e-3 relative L2 (features);
+   device times of the RangeNet-53 / PointNet features and the BEV histogram
+   a cloud, one chamfer at 32,768², one EMD at 26,624 points, the Fréchet
+   distance and squared MMD of 2,000 x 4,096 features, peak memory; no
+   kernel of the port launches.
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -820,8 +838,9 @@ def geometry_on_card_and_cpu(gen, frame0) -> dict:
     return result
 
 
-def phase_rollout(dtype, smi: str) -> dict:
-    """The 4D rollout on the card (phase 6); returns its launch counts."""
+def phase_rollout(dtype, smi: str) -> tuple[dict, list]:
+    """The 4D rollout on the card (phase 6); returns its launch counts and
+    its frames (host arrays)."""
     import torch
 
     from lidarcrafter_tpu_torch.configs import get_config
@@ -875,7 +894,7 @@ def phase_rollout(dtype, smi: str) -> dict:
           "outside_denoiser_share": 1.0 - sum(denoise_ms) / 1e3 / seconds,
           "peak_memory_gb": peak_gb, "launches": launches, "setup_and_warmup_seconds": setup_s,
           "frame_std": [float(f.std()) for f in frames], "card_vs_cpu_geometry": card_vs_cpu})
-    return {k: n for k, n in launches.items() if n}
+    return {k: n for k, n in launches.items() if n}, frames
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1584,6 +1603,227 @@ def phase_branch_train(smi: str) -> tuple[list, dict]:
     return rows, by_path
 
 
+# ------------------------------------------------------------------ phase 10
+
+
+EVAL_SEED = 10
+EVAL_PAIRS, EMD_POINTS = 8, 2048  # cd / emd / mmd pairs; the EMD pairs resampled to this size
+CMP_POINTS, CMP_CLOUDS = 2048, 8  # card vs CPU: cd / mmd / TCD clouds resampled; clouds whose features are held
+TCD_MAX_POINTS = 16384  # evaluate_temporal's --max-points
+CHAMFER_POINTS, EMD_TIMED_POINTS = 32768, 26624  # a full scan; the EMD eval size of ops/emd.py
+FEATURE_SET = (2000, 4096)  # Fréchet / MMD timing: an evaluation set of RangeNet-53 features
+# card vs CPU limits: relative, except the engine's RBF mmd (a difference of
+# kernel means near 1, held to 1e-4 of 1) and the feature matrices (relative
+# L2); Fréchet distances in float64 on both sides; EMD's auction may break a
+# near-tie the other way
+EVAL_RTOL = {"cd": 1e-4, "jsd": 1e-4, "mmd": 1e-4, "tcd": 1e-4, "emd": 1e-3, "features": 1e-3, "frechet": 1e-3}
+ICP_YAW_DEG, ICP_SHIFT, ICP_TOL_M = 3.0, (1.0, 0.5, 0.0), 0.05
+ENGINE_METRICS = ("frd", "fpd", "jsd", "mmd")
+
+
+def rollout_clouds(frames) -> list:
+    """Each scene's frames of a rollout as host (N, 3) clouds, as
+    ``sample_temporal`` writes them."""
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.sample_temporal import frame_points
+    from lidarcrafter_tpu_torch.training.factory import make_lidar_utils
+
+    lu = make_lidar_utils(get_config("nuscenes-auto-reg-v2"), "cpu")
+    return [[frame_points(f, s, lu) for f in frames] for s in range(frames[0].shape[0])]
+
+
+def to_pixel_centres(cloud, H: int = 32, W: int = 1024, fov_up: float = 10.0, fov_down: float = -30.0):
+    """``cloud`` turned by half a pixel in elevation and azimuth.  A frame's
+    points lie on the ray angles of its range image, which are pixel edges,
+    so projecting them again puts each on a bin edge, where an ulp between
+    the card and the CPU flips its row; half a pixel on, they sit at pixel
+    centres."""
+    c = cloud.astype(np.float64)
+    r = np.linalg.norm(c, axis=1)
+    el = np.arcsin(c[:, 2] / r) - math.radians(fov_up - fov_down) / H / 2
+    az = np.arctan2(c[:, 1], c[:, 0]) - math.pi / W
+    return np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az), r * np.sin(el)], 1).astype(np.float32)
+
+
+def resample(cloud, n: int, rnd) -> np.ndarray:
+    return cloud[rnd.choice(len(cloud), n, replace=len(cloud) < n)]
+
+
+def agrees(out: dict, name: str, card: float, cpu: float, tol: float, scale: float | None = None) -> None:
+    """Card against CPU, relative to |CPU| (or to ``scale``), recorded in
+    ``out`` with ``ok``; the phase fails after all are recorded."""
+    err = abs(card - cpu) / (abs(cpu) if scale is None else scale)
+    out[name] = {"card": card, "cpu": cpu, "err": err, "tol": tol, "ok": bool(np.isfinite(card) and err <= tol)}
+
+
+def agrees_l2(out: dict, name: str, card, cpu, tol: float) -> None:
+    """Card against CPU in relative L2 norm, recorded as :func:`agrees` does."""
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    err = float(np.linalg.norm(card - cpu) / np.linalg.norm(cpu)) if card.shape == cpu.shape else math.inf
+    out[name] = {"shape": list(card.shape), "rel_l2_err": err, "tol": tol,
+                 "ok": bool(np.isfinite(card).all() and err <= tol)}
+
+
+def phase_evaluate(frames, smi: str) -> None:
+    """Phase 10: the metric suite on the card over phase 6's float32 rollout
+    (scenes 0-3 "real", 4-7 "gen", 16 frames each), with a RangeNet-53 and a
+    PointNet of seeded weights; every metric again through the port on the
+    CPU, on the same clouds and weights, held to ``EVAL_RTOL``."""
+    import torch
+
+    from lidarcrafter_tpu_torch.metrics import eval_suite, evaluate
+    from lidarcrafter_tpu_torch.metrics.distribution import compute_frechet_distance, compute_squared_mmd
+    from lidarcrafter_tpu_torch.metrics.engine import EvaluationEngine
+    from lidarcrafter_tpu_torch.metrics.extractor.pointnet import PointNetFeatureExtractor
+    from lidarcrafter_tpu_torch.metrics.extractor.rangenet import RangeNet, to_rangenet_folder
+    from lidarcrafter_tpu_torch.metrics.pretrained import pointnet_features, rangenet_lidargen
+    from lidarcrafter_tpu_torch.metrics.temporal import icp_point_to_point, sequence_tcd
+    from lidarcrafter_tpu_torch.ops.bev import point_cloud_to_histogram
+    from lidarcrafter_tpu_torch.ops.chamfer import chamfer_metric
+    from lidarcrafter_tpu_torch.ops.emd import emd_metric
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    scenes = rollout_clouds(frames)
+    half = len(scenes) // 2
+    real = [c for s in scenes[:half] for c in s]
+    gen = [c for s in scenes[half:] for c in s]
+    sizes = [len(c) for c in real + gen]
+    rnd = np.random.RandomState(EVAL_SEED)
+    seconds, agree, metrics = {}, {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    rangenet = init_random_(RangeNet(num_classes=17, backbone=53), EVAL_SEED).eval()
+    pointnet = init_random_(PointNetFeatureExtractor(), EVAL_SEED + 1).eval()
+    extract = {"cpu": (rangenet_lidargen(rangenet), pointnet_features(pointnet)),
+               DEVICE: (rangenet_lidargen(copy.deepcopy(rangenet).to(DEVICE)),
+                        pointnet_features(copy.deepcopy(pointnet).to(DEVICE)))}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the engine on the card, then its metrics on the CPU from the card's cached features
+        engine = EvaluationEngine(rangenet_apply=extract[DEVICE][0], pointnet_apply=extract[DEVICE][1],
+                                  cache_dir=str(tmp / "cache"), device=DEVICE)
+        card = timed("engine", lambda: engine.evaluate(real, gen, ENGINE_METRICS))
+        cpu = timed("engine_cpu_from_card_features",
+                    lambda: EvaluationEngine(cache_dir=str(tmp / "cache"), device="cpu").evaluate(real, gen,
+                                                                                                  ENGINE_METRICS))
+        check(list(card) == ["frd", "frd_mmd", "fpd", "fpd_mmd", "jsd", "mmd"], f"engine metrics {list(card)}")
+        for k in card:
+            tol = EVAL_RTOL["frechet"] if k[:3] in ("frd", "fpd") else EVAL_RTOL[k]
+            agrees(agree, f"engine {k}", card[k], cpu[k], tol, scale=1.0 if k == "mmd" else None)
+        metrics.update({f"engine_{k}": v for k, v in card.items()})
+        # the features themselves, card vs CPU, from clouds at pixel centres; and the share of range-image
+        # pixels that differ when the clouds are projected as they are
+        subset = real[: CMP_CLOUDS // 2] + gen[: CMP_CLOUDS // 2]
+        flips = [float((engine._range_input(torch.as_tensor(c, device=DEVICE)).cpu()
+                        - EvaluationEngine(device="cpu")._range_input(torch.as_tensor(c))).abs().amax(1).gt(1e-5)
+                       .float().mean()) for c in subset]
+        agree["range input pixels differing, clouds as they are (reported)"] = {"share_max": max(flips), "ok": True}
+        subset = [to_pixel_centres(c) for c in subset]
+        feats = {dev: EvaluationEngine(rangenet_apply=a, pointnet_apply=b, device=dev).extract_features(subset, dev)
+                 for dev, (a, b) in extract.items()}
+        for k, dims in (("rangenet", 4096), ("pointnet", 1808), ("bev_hist", None)):
+            check(dims is None or feats[DEVICE][k].shape == (len(subset), dims), f"{k} features {feats[DEVICE][k].shape}")
+            agrees_l2(agree, f"{k} features", feats[DEVICE][k], feats["cpu"][k], EVAL_RTOL["features"])
+
+        # evaluate(): cd and mmd on 8 aligned pairs at full size, emd on them resampled, jsd and frid on all
+        folder = tmp / "pretrained" / "nuscenes" / "rangenet"
+        folder.mkdir(parents=True)
+        backbone, decoder = to_rangenet_folder(rangenet.state_dict())
+        torch.save(backbone, folder / "backbone")
+        torch.save(decoder, folder / "segmentation_decoder")
+        root = str(tmp / "pretrained")
+        pairs = real[:EVAL_PAIRS], gen[:EVAL_PAIRS]
+        emd_pairs = tuple([resample(c, EMD_POINTS, rnd) for c in p] for p in pairs)
+        kw = {"verbose": False, "device": DEVICE}
+        card = timed("evaluate_cd_mmd", lambda: evaluate(*pairs, ["cd", "mmd"], **kw))
+        card |= timed("evaluate_emd", lambda: evaluate(*emd_pairs, ["emd"], **kw))
+        card |= timed("evaluate_jsd_frid", lambda: evaluate(real, gen, ["jsd", "frid"], pretrained_root=root, **kw))
+        metrics.update(card)
+        # the same on the CPU: cd / mmd on the pairs resampled to CMP_POINTS (on both devices), emd and jsd as
+        # they are, frid from the card's descriptors in float64 and the descriptors on the subset
+        cmp_pairs = tuple([resample(c, CMP_POINTS, rnd) for c in p] for p in pairs)
+        on = {dev: evaluate(*cmp_pairs, ["cd", "mmd"], verbose=False, device=dev) for dev in (DEVICE, "cpu")}
+        for k in ("cd", "mmd"):
+            agrees(agree, f"{k} ({CMP_POINTS} points)", on[DEVICE][k], on["cpu"][k], EVAL_RTOL[k])
+        cpu = timed("cpu_emd_jsd", lambda: evaluate(*emd_pairs, ["emd"], verbose=False, device="cpu")
+                    | evaluate(real, gen, ["jsd"], verbose=False, device="cpu"))
+        for k in ("emd", "jsd"):
+            agrees(agree, k, card[k], cpu[k], EVAL_RTOL[k])
+        descs = [eval_suite._range_descriptors(c, "32", root, device=DEVICE) for c in (real, gen)]
+        agrees(agree, "frid", card["frid"], compute_frechet_distance(*[d.cpu() for d in descs], device="cpu"),
+                     EVAL_RTOL["frechet"])
+        sub = {dev: eval_suite._range_descriptors(subset, "32", root, device=dev).cpu().numpy() for dev in extract}
+        agrees_l2(agree, "frid descriptors", sub[DEVICE], sub["cpu"], EVAL_RTOL["features"])
+
+    # TCD of each scene's 16 frames, as evaluate_temporal subsamples them; card vs CPU on scene 0 resampled
+    cli_rng = np.random.default_rng(0)
+    tcd = timed("tcd", lambda: [sequence_tcd([c if len(c) <= TCD_MAX_POINTS else
+                                               c[cli_rng.choice(len(c), TCD_MAX_POINTS, replace=False)] for c in s],
+                                              device=DEVICE) for s in scenes])
+    metrics["tcd"] = {f"split_{k}": float(np.mean([v for t in tcd for v in t[k]])) for k in tcd[0]}
+    seq = [resample(c, CMP_POINTS, rnd) for c in scenes[0]]
+    on = {dev: sequence_tcd(seq, device=dev) for dev in (DEVICE, "cpu")}
+    worst = max(abs(a - b) / abs(b) for k in on["cpu"] for a, b in zip(on[DEVICE][k], on["cpu"][k]))
+    agree[f"tcd ({CMP_POINTS} points)"] = {"pairs": sum(map(len, on["cpu"].values())), "worst_rel_err": worst,
+                                           "tol": EVAL_RTOL["tcd"], "ok": worst <= EVAL_RTOL["tcd"]}
+
+    # ICP recovers a rigid motion of a rollout frame
+    src = torch.as_tensor(scenes[0][0], device=DEVICE)
+    yaw = math.radians(ICP_YAW_DEG)
+    R = torch.tensor([[math.cos(yaw), -math.sin(yaw), 0.0], [math.sin(yaw), math.cos(yaw), 0.0], [0.0, 0.0, 1.0]],
+                     device=DEVICE)
+    shift = torch.tensor(ICP_SHIFT, device=DEVICE)
+    R_est, t_est = timed("icp", lambda: icp_point_to_point(src, src @ R.T + shift))
+    icp = {"points": len(src), "t_est": t_est.tolist(), "t_err_m": float((t_est - shift).abs().max()),
+           "R_err": float((R_est - R).abs().max()), "tol_m": ICP_TOL_M}
+    check(icp["t_err_m"] <= ICP_TOL_M, f"ICP: translation off by {icp['t_err_m']:.3g} m > {ICP_TOL_M}")
+
+    # device times (CUDA events)
+    cloud = torch.as_tensor(real[0], device=DEVICE)
+    pts = torch.as_tensor(engine._subsample(real[0]), device=DEVICE)[None]
+    img = engine._range_input(cloud)
+    x, y = (torch.as_tensor(resample(c, CHAMFER_POINTS, rnd), device=DEVICE)[None] for c in (real[0], gen[0]))
+    e1, e2 = (torch.as_tensor(resample(c, EMD_TIMED_POINTS, rnd), device=DEVICE)[None] for c in (real[0], gen[0]))
+    lo, span = torch.minimum(e1.amin(1), e2.amin(1)), torch.maximum(e1.amax(1), e2.amax(1))
+    e1, e2 = ((e - lo) / (span - lo).max() for e in (e1, e2))  # EMD's convention: the unit cube
+    with torch.inference_mode():
+        times = {"rangenet53_features_ms_per_cloud": time_ms(lambda: extract[DEVICE][0](img), iters=10),
+                 "pointnet_features_ms_per_cloud": time_ms(lambda: extract[DEVICE][1](pts)),
+                 "bev_histogram_ms_per_cloud": time_ms(lambda: point_cloud_to_histogram(cloud)),
+                 f"chamfer_ms_{CHAMFER_POINTS}x{CHAMFER_POINTS}": time_ms(lambda: chamfer_metric(x, y), iters=3,
+                                                                          warmup=1),
+                 f"emd_ms_{EMD_TIMED_POINTS}": time_ms(lambda: emd_metric(e1, e2), iters=1, warmup=0)}
+    f1, f2 = (torch.as_tensor(a, device=DEVICE) for a in
+              np.random.RandomState(EVAL_SEED).standard_normal((2, *FEATURE_SET)).astype(np.float32))
+    f2 = f2 * 1.1 + 0.1
+    fd = timed(f"frechet_{FEATURE_SET[0]}x{FEATURE_SET[1]}", lambda: compute_frechet_distance(f1, f2, device=DEVICE))
+    mmd = timed(f"squared_mmd_{FEATURE_SET[0]}x{FEATURE_SET[1]}", lambda: compute_squared_mmd(f1, f2, device=DEVICE))
+    check(np.isfinite(fd) and fd > 0 and np.isfinite(mmd), f"Fréchet / MMD of the timing set: {fd}, {mmd}")
+    launches = {k: c.n for k, c in counters.items()}
+    failed = {k: v for k, v in agree.items() if not v["ok"]}
+    check(not failed, f"evaluate card vs CPU: {failed}")
+    check(all(n == 0 for n in launches.values()), f"evaluate: a kernel of the port launched: {launches}")
+    for k, v in metrics.items():
+        check(all(np.isfinite(list(v.values()) if isinstance(v, dict) else [v])), f"evaluate: {k} is {v}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "evaluate", "card": smi, "clouds": {"real": len(real), "gen": len(gen), "points_min": min(sizes),
+                                                        "points_max": max(sizes), "points_mean": float(np.mean(sizes))},
+          "extractors": "RangeNet-53 (32x1024, 4096 features) and PointNet (k=16, 2048 points), seeded weights",
+          "metrics": metrics, "card_vs_cpu": agree, "icp": icp, "device_ms": times, "seconds": seconds,
+          "frechet_timing_set": fd, "squared_mmd_timing_set": mmd, "launches": launches,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    torch.cuda.empty_cache()
+
+
 def probe_times(kernels) -> dict:
     """Device times of the loader's ``x·2`` probe kernel on its (8, 128)
     float32 input, of ``x * 2`` and of ``torch.mul(x, 2)``, and its bound
@@ -1659,7 +1899,10 @@ def main() -> int:
                           expect={"groupnorm kernel": norms})
         del gens, calls
         torch.cuda.empty_cache()
-        by_path[f"rollout {dname}"] = phase_rollout(dtype, smi)
+        by_path[f"rollout {dname}"], frames = phase_rollout(dtype, smi)
+        if dtype == torch.float32:
+            rollout_frames = frames  # phase 10 evaluates them
+        del frames
         torch.cuda.empty_cache()
     backward_rows, train_paths = phase_train(smi)
     by_path.update(train_paths)
@@ -1667,6 +1910,7 @@ def main() -> int:
     phase_object(smi)
     jvp_rows, branch_paths = phase_branch_train(smi)
     by_path.update(branch_paths)
+    phase_evaluate(rollout_frames, smi)
 
     # each kernel at its largest main-path shape, float32 (the default serving
     # dtype) with its bfloat16 numbers beside, and its launches summed over

@@ -105,15 +105,20 @@ class RolloutGenerator:
         )
 
 
+def frame_points(frame, scene: int, lidar_utils) -> np.ndarray:
+    """Scene ``scene`` of an (S, H, W, C) frame → its (N, 3) points (depth
+    > 1 cm), on the host."""
+    post = postprocess_sample(torch.as_tensor(frame[scene : scene + 1]).cpu(), lidar_utils)
+    xyz = post["xyz"][0].reshape(-1, 3).numpy()
+    return xyz[np.linalg.norm(xyz, axis=1) > 1e-2]
+
+
 def write_sequence(seq_dir: Path, frames: list, scene: int, lidar_utils) -> None:
     """Scene ``scene`` of each (S, H, W, C) frame → ``frame_XXX.txt`` points
-    (depth > 0)."""
+    (depth > 1 cm)."""
     seq_dir.mkdir(parents=True, exist_ok=True)
     for fi, frame in enumerate(frames):
-        post = postprocess_sample(torch.as_tensor(frame[scene : scene + 1]).cpu(), lidar_utils)
-        xyz = post["xyz"][0].reshape(-1, 3).numpy()
-        keep = np.linalg.norm(xyz, axis=1) > 1e-2
-        np.savetxt(seq_dir / f"frame_{fi:03d}.txt", xyz[keep], fmt="%.6f")
+        np.savetxt(seq_dir / f"frame_{fi:03d}.txt", frame_points(frame, scene, lidar_utils), fmt="%.6f")
 
 
 def main(argv=None) -> None:

@@ -12,11 +12,16 @@ onto a key one to one; the leaves convert as
   → Linear ``weight`` (C, h·dh); their ``bias`` (h, dh) → (h·dh,)
 - Conv ``kernel`` (H, W, I, O) → Conv2d ``weight`` (O, I, H, W)
 - ``scale`` of GroupNorm/LayerNorm and ``embedding`` of Embed → ``weight``
+- ``conv_kernel`` (H, W, O, I) of a transposed conv (the metric extractors'
+  ``lax.conv_transpose``) → ``conv.weight`` (I, O, H, W) of a
+  ``ConvTranspose2d`` named ``conv``; its ``conv_bias`` → ``conv.bias``
 - ``bias`` → ``bias``; any other leaf keeps its name.
 
 A flax variable dict ``{'params': ..., 'batch_stats': ...}`` carries its
 ``batch_stats`` collection too: the BatchNorm statistics ``mean`` and
-``var`` become the buffers ``running_mean`` and ``running_var``.
+``var`` become the buffers ``running_mean`` and ``running_var``.  The
+metric extractors' ``FrozenBN`` keeps the same statistics under
+``params``; they become the same buffers.
 
 It raises on a leaf left over, a key missing, or a shape mismatch.
 
@@ -49,10 +54,14 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
 def _convert_leaf(path: tuple[str, ...], value, stats: bool = False) -> tuple[str, np.ndarray]:
     *mods, leaf = path
     arr = np.asarray(value)
-    if stats:
-        if leaf not in _STAT_NAMES:
-            raise KeyError(f"batch_stats/{'/'.join(path)}: not a BatchNorm statistic")
+    if stats and leaf not in _STAT_NAMES:
+        raise KeyError(f"batch_stats/{'/'.join(path)}: not a BatchNorm statistic")
+    if leaf in _STAT_NAMES:  # in batch_stats, or FrozenBN's under params
         leaf = _STAT_NAMES[leaf]
+    elif leaf == "conv_kernel":
+        mods, leaf, arr = [*mods, "conv"], "weight", arr.transpose(3, 2, 0, 1)
+    elif leaf == "conv_bias":
+        mods, leaf = [*mods, "conv"], "bias"
     elif leaf == "kernel":
         if arr.ndim == 2:
             arr = arr.T
@@ -66,8 +75,8 @@ def _convert_leaf(path: tuple[str, ...], value, stats: bool = False) -> tuple[st
             raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
     elif leaf == "bias" and arr.ndim == 2:
         arr = arr.reshape(-1)
-    key = ".".join([m.lower() for m in mods] + [leaf if stats else _LEAF_NAMES.get(leaf, leaf)])
-    return key, np.ascontiguousarray(arr)
+    key = ".".join([m.lower() for m in mods] + [_LEAF_NAMES.get(leaf, leaf)])
+    return key, np.array(arr, order="C")  # a writable copy (a jax array reads as read-only)
 
 
 def flax_to_state_dict(params: Mapping, module: nn.Module) -> dict[str, torch.Tensor]:

@@ -653,3 +653,199 @@ def test_oaca_raises_on_a_tangent(gen, mode):
             with forward_ad.dual_level():
                 oaca.oaca_attention(forward_ad.make_dual(ops[0], ops[0]), *ops[1:], scale=0.35)
     assert oaca.launches.n == n
+
+
+# ------------------------------------------------------------ the metric suite
+#
+# Each metric and extractor on the card against the same function on the
+# CPU, at ``chip_smoke.py`` phase 10's limits: chamfer, JSD, MMD and TCD 1e-4
+# relative; feature matrices 1e-3 relative L2 (convolutions in float32,
+# TF32 off); Fréchet distances 1e-3 in float64 on both sides; EMD 1e-3 (the
+# auction may break a near-tie the other way); BEV grids exactly.  And a CUDA
+# input never leaves the card on the heavy ops.
+
+METRIC_RTOL, FEATURE_RTOL = 1e-4, 1e-3
+
+
+@pytest.fixture(scope="module")
+def clouds():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    rnd = np.random.RandomState(3)
+
+    def scan(n):
+        r, az, el = rnd.uniform(2, 60, n), rnd.uniform(-np.pi, np.pi, n), rnd.uniform(-0.5, 0.17, n)
+        return np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az), r * np.sin(el)], 1).astype(np.float32)
+
+    return [scan(n) for n in (20000, 24000, 20000, 18000)]
+
+
+@pytest.fixture
+def float32_convolutions():
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _rel(got, want):
+    return abs(got - want) / abs(want)
+
+
+def _rel_l2(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("masked", [False, True])
+def test_chamfer_on_the_card_matches_the_cpu(clouds, dims, masked):
+    from lidarcrafter_tpu_torch.ops.chamfer import chamfer_distance, chamfer_metric
+
+    x, y = (torch.as_tensor(c[None, :, :dims]) for c in clouds[:2])
+    masks = (x[..., 0] > -20, y[..., 1] < 25) if masked else (None, None)
+    want = chamfer_distance(x, y, *masks)
+    got = chamfer_distance(x.cuda(), y.cuda(), *(None if m is None else m.cuda() for m in masks))
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g.cpu() - w).abs().max()) <= METRIC_RTOL * max(1.0, float(w.abs().max()))
+    for g, w in zip(got[2:], want[2:]):
+        assert float((g.cpu() == w).float().mean()) >= 0.999  # argmin: only near-ties may differ
+    card = float(chamfer_metric(x.cuda(), y.cuda(), *(None if m is None else m.cuda() for m in masks)))
+    assert _rel(card, float(chamfer_metric(x, y, *masks))) <= METRIC_RTOL
+
+
+def test_emd_on_the_card_matches_the_cpu(clouds):
+    from lidarcrafter_tpu_torch.ops.emd import emd_auction
+
+    x, y = (torch.as_tensor(c[None, :2048] / 60.0) for c in clouds[:2])
+    d_cpu, a_cpu = emd_auction(x, y)
+    d_card, a_card = emd_auction(x.cuda(), y.cuda())
+    assert _rel(float(d_card.sqrt().mean()), float(d_cpu.sqrt().mean())) <= FEATURE_RTOL
+    assert float((a_card.cpu() == a_cpu).float().mean()) >= 0.99
+
+
+def test_bev_grids_on_the_card_match_the_cpu_exactly(clouds):
+    from lidarcrafter_tpu_torch.metrics.bev import bev_occupancy_grid
+    from lidarcrafter_tpu_torch.ops.bev import point_cloud_to_histogram
+
+    for c in clouds:
+        c = torch.as_tensor(c)
+        c[:500, :2] = torch.round(c[:500, :2] / 1.6) * 1.6  # on histogram bin edges
+        assert torch.equal(point_cloud_to_histogram(c.cuda()).cpu(), point_cloud_to_histogram(c))
+        for data_type in ("32", "64"):
+            assert torch.equal(bev_occupancy_grid(c.cuda(), data_type=data_type).cpu(),
+                               bev_occupancy_grid(c, data_type=data_type))
+
+
+def test_frechet_and_squared_mmd_on_the_card_match_the_cpu():
+    import numpy as np
+
+    from lidarcrafter_tpu_torch.metrics.distribution import compute_frechet_distance, compute_squared_mmd
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rnd = np.random.RandomState(4)
+    for n, dims in ((64, 4096), (500, 256)):
+        f1 = rnd.randn(n, dims).astype(np.float32)
+        f2 = (rnd.randn(n, dims) * 1.1 + 0.1).astype(np.float32)
+        assert _rel(compute_frechet_distance(f1, f2, device="cuda"),
+                    compute_frechet_distance(f1, f2, device="cpu")) <= FEATURE_RTOL
+        assert _rel(compute_squared_mmd(f1, f2, device="cuda"), compute_squared_mmd(f1, f2, device="cpu")) <= 1e-3
+
+
+def test_extractors_on_the_card_match_the_cpu(clouds, float32_convolutions):
+    import copy
+
+    from lidarcrafter_tpu_torch.metrics.engine import EvaluationEngine
+    from lidarcrafter_tpu_torch.metrics.extractor.pointnet import PointNetFeatureExtractor
+    from lidarcrafter_tpu_torch.metrics.extractor.rangenet import RangeNet
+    from lidarcrafter_tpu_torch.metrics.pretrained import pointnet_features, rangenet_lidargen
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    rangenet = init_random_(RangeNet(num_classes=17, backbone=53), 0)
+    pointnet = init_random_(PointNetFeatureExtractor(), 1)
+    feats = {}
+    for dev in ("cuda", "cpu"):
+        engine = EvaluationEngine(rangenet_apply=rangenet_lidargen(copy.deepcopy(rangenet).to(dev)),
+                                  pointnet_apply=pointnet_features(copy.deepcopy(pointnet).to(dev)), device=dev)
+        feats[dev] = engine.extract_features(clouds[:2], dev)
+    for k, shape in (("rangenet", (2, 4096)), ("pointnet", (2, 1808)), ("bev_hist", (2, 100, 100))):
+        assert feats["cuda"][k].shape == shape
+        assert _rel_l2(torch.as_tensor(feats["cuda"][k]), torch.as_tensor(feats["cpu"][k])) <= FEATURE_RTOL
+
+
+def test_icp_on_the_card_recovers_a_rigid_motion(clouds):
+    from lidarcrafter_tpu_torch.metrics.temporal import icp_point_to_point
+
+    src = torch.as_tensor(clouds[0]).cuda()
+    yaw = math.radians(3.0)
+    R = torch.tensor([[math.cos(yaw), -math.sin(yaw), 0.0], [math.sin(yaw), math.cos(yaw), 0.0], [0, 0, 1.0]]).cuda()
+    t = torch.tensor([1.0, 0.5, 0.0]).cuda()
+    R_est, t_est = icp_point_to_point(src, src @ R.T + t)
+    assert R_est.device.type == "cuda"
+    assert float((t_est - t).abs().max()) <= 0.05 and float((R_est - R).abs().max()) <= 1e-2
+
+
+def test_sequence_tcd_on_the_card_matches_the_cpu(clouds):
+    from lidarcrafter_tpu_torch.metrics.temporal import sequence_tcd
+
+    frames = [c[:3000] for c in clouds]
+    card, cpu = sequence_tcd(frames, device="cuda"), sequence_tcd(frames, device="cpu")
+    assert list(card) == [1, 2, 3, 4]
+    for k in cpu:
+        assert all(_rel(a, b) <= METRIC_RTOL for a, b in zip(card[k], cpu[k]))
+
+
+def test_evaluate_on_the_card_matches_the_cpu(clouds):
+    from lidarcrafter_tpu_torch.metrics import evaluate
+
+    ref, gen = [c[:4000] for c in clouds[:2]], [c[-4000:] for c in clouds[2:]]
+    kw = {"verbose": False}
+    card = evaluate(ref, gen, ["cd", "emd", "jsd", "mmd"], device="cuda", **kw)
+    cpu = evaluate(ref, gen, ["cd", "emd", "jsd", "mmd"], device="cpu", **kw)
+    for k in cpu:
+        assert _rel(card[k], cpu[k]) <= (FEATURE_RTOL if k == "emd" else METRIC_RTOL), k
+
+
+def test_heavy_metric_ops_never_leave_the_card(clouds):
+    """No op of chamfer, EMD, the BEV grids or the feature extractors
+    touches a CPU tensor of more than one element or reads a value back to
+    the host, given CUDA inputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from lidarcrafter_tpu_torch.metrics.bev import bev_occupancy_grid
+    from lidarcrafter_tpu_torch.metrics.extractor.rangenet import preprocess_range_input
+    from lidarcrafter_tpu_torch.metrics.pretrained import random_pointnet, random_rangenet_lidargen
+    from lidarcrafter_tpu_torch.ops.bev import point_cloud_to_histogram
+    from lidarcrafter_tpu_torch.ops.chamfer import chamfer_distance
+    from lidarcrafter_tpu_torch.ops.emd import emd_auction
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.host = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            tensors = [t for t in tree_flatten((args, kwargs, out))[0] if isinstance(t, torch.Tensor)]
+            if name in ("item", "_local_scalar_dense", "nonzero", "is_nonzero", "equal") or any(
+                    t.device.type == "cpu" and t.numel() > 1 for t in tensors):
+                self.host.append(name)
+            return out
+
+    x, y = (torch.as_tensor(c[:3000]).cuda() for c in clouds[:2])
+    rangenet, pointnet = random_rangenet_lidargen(0, device="cuda"), random_pointnet(0, device="cuda")
+    img = preprocess_range_input(torch.rand(1, 5, 32, 1024, device="cuda"))
+    rangenet(img)  # the feature positions are built once per shape, then kept on the card
+    calls = {"chamfer": lambda: chamfer_distance(x[None], y[None]),
+             "emd": lambda: emd_auction(x[None, :1024] / 60, y[None, :1024] / 60, iters=5),
+             "bev": lambda: (point_cloud_to_histogram(x), bev_occupancy_grid(x)),
+             "rangenet": lambda: rangenet(img), "pointnet": lambda: pointnet(x[None, :2048])}
+    for name, call in calls.items():
+        with Recorder() as rec:
+            call()
+        assert rec.host == [], f"{name}: {rec.host}"
