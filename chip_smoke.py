@@ -20,7 +20,11 @@ Phases, each printing one JSON line:
    strided scale/shift halves of the conditioning projection), and
    GroupNorm at the layout branch's UNet1D token shapes, (104, 1, 512) and
    (104, 1, 1024) with eps 1e-5 and (104, 1, 512) with eps 1e-6, float32
-   (as the branch serves) and bfloat16 (as it trains under AMP);
+   (as the branch serves) and bfloat16 (as it trains under AMP); and the
+   shapes of phase 11: OACA at head dims 64 (the v0 stack, ds4 L=2048 and a
+   ragged L=1000, 8 heads), GroupNorm on v0's (8, 32·1024, 256) and
+   (8, 32·1024, 512) slabs and kitti-360's (8, 64·1024, 64) AdaGN, and
+   attention at kitti-360's 1,024 tokens (head dims 64 and 32);
 3. full-width forwards on the card with the kernels against the same
    forwards on the CPU with the plain versions, shared seeded weights: the
    layout stack (encoder + ``LayoutUnetV1``, 32x1024) and ``EfficientUNet``
@@ -122,7 +126,26 @@ Phases, each printing one JSON line:
    device times of the RangeNet-53 / PointNet features and the BEV histogram
    a cloud, one chamfer at 32,768², one EMD at 26,624 points, the Fréchet
    distance and squared MMD of 2,000 x 4,096 features, peak memory; no
-   kernel of the port launches.
+   kernel of the port launches;
+11. the rest of the registry's image configs ("zoo"), at full width, seeded
+   random weights: ``nuscenes-box-layout`` (v0: ``LayoutUnet``, OACA at
+   head dims 64, 6 a call), ``nuscenes-box-layout-v5`` (served from a
+   batch with the v5 encoder's inputs), ``nuscenes-auto-reg`` (12 encoder
+   channels), ``kitti-360`` (64x1024) and ``nuscenes-hdit-uncond`` (HDiT,
+   plain PyTorch): one forward card vs CPU as phase 3 (f32 1e-3, bf16
+   5e-2; HDiT's bf16 call against the CPU's bf16 call, since its serving
+   cast rounds the Fourier time features as the JAX package's does, and
+   its gap to float32 reported), then one B=8 DPM++(2M)@15 request each
+   in float32 and in bfloat16 through ``CondFrameGenerator`` /
+   ``UncondFrameGenerator``, the counters set to 0 just before and read
+   just after (exactly one OACA per ``ObjectAwareCrossAttention``, one
+   attention per attention block, one GroupNorm per norm module, a call;
+   HDiT none), with seconds, frames/s and peak memory; a profile of one
+   v0 and one HDiT call; then on ``nuscenes-unet-uncond`` one RePaint
+   request (10 steps x 2 resamplings x jump 2, every other beam known:
+   the known beams held to (1 − α(0)) + 6·σ(0)) and one
+   ``DiscreteDiffusion`` DDPM@50 request (1,000 training steps, set on
+   the config: the registry leaves them unset).
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -291,32 +314,34 @@ def reset_counters() -> dict:
 # ------------------------------------------------------------------ phase 2
 
 
-def oaca_operands(B, H, L, L2, dtype, gen):
+def oaca_operands(B, H, L, L2, dtype, gen, d=32):
     """Operands laid out as the attention block produces them: per-head
     views of one fused qkv projection, a positional strip, a small layout
-    strip."""
+    strip; head dims (d, d, d)."""
     import torch
 
-    C = H * 32
+    C = H * d
     dev = DEVICE
     qkv = torch.randn(B, L, 3 * C, generator=gen, device=dev).to(dtype)
     heads = lambda t: t.reshape(B, t.shape[1], H, -1).transpose(1, 2)  # noqa: E731
     q_c, k_c, v_c = (heads(t) for t in qkv.chunk(3, dim=-1))
     ipe = heads(torch.randn(B, L, C, generator=gen, device=dev).to(dtype))
-    k_l = torch.randn(B, H, L2, 64, generator=gen, device=dev).to(dtype)
+    k_l = torch.randn(B, H, L2, 2 * d, generator=gen, device=dev).to(dtype)
     v_l = heads(torch.randn(B, L2, 2 * C, generator=gen, device=dev).to(dtype).chunk(2, -1)[1])
     return q_c, ipe, k_c, k_l, v_c, v_l
 
 
-def check_oaca(label, B, H, L, dtype, gen):
+def check_oaca(label, B, H, L, dtype, gen, d=32):
+    """One OACA row at head dims (d, d, d): 32 for the v1-v6 and auto-reg
+    stacks, 64 for the v0 stack."""
     import torch
     import torch.nn.functional as F
 
     from lidarcrafter_tpu_torch.kernels import oaca
 
     L2 = 13
-    ops = oaca_operands(B, H, L, L2, dtype, gen)
-    scale = 1.0 / math.sqrt(math.sqrt(64))
+    ops = oaca_operands(B, H, L, L2, dtype, gen, d)
+    scale = 1.0 / math.sqrt(math.sqrt(2 * d))
     got = oaca.oaca_attention(*ops, scale=scale)
     want = oaca.oaca_attention_plain(*ops, scale=scale)
     torch.cuda.synchronize()
@@ -328,11 +353,12 @@ def check_oaca(label, B, H, L, dtype, gen):
     v_mix = torch.cat([v_c, v_l], 2)
     library = time_ms(lambda: F.scaled_dot_product_attention(q_img, k_mix, v_mix, scale=scale ** 2))
     elt = torch.finfo(dtype).bits // 8
-    nbytes = elt * (4 * B * H * L * 32 + B * H * L2 * 96 + B * H * L * 32)
-    flops = 2.0 * B * H * L * (L + L2) * 96
+    nbytes = elt * (4 * B * H * L * d + B * H * L2 * 3 * d + B * H * L * d)
+    flops = 2.0 * B * H * L * (L + L2) * 3 * d
     bound, by = bound_ms(nbytes, flops, mma_route(dname))
     return {
-        "kernel": "oaca", "shape": label, "dtype": dname, "route": mma_route(dname), **errors,
+        "kernel": "oaca", "shape": label, "dtype": dname, "head_dims": [d, d, d], "route": mma_route(dname),
+        **errors,
         "ms": time_ms(lambda: oaca.oaca_attention(*ops, scale=scale)),
         "plain_ms": time_ms(lambda: oaca.oaca_attention_plain(*ops, scale=scale), iters=5),
         "library_ms": library, "library": "F.scaled_dot_product_attention on the concatenated strips",
@@ -452,6 +478,22 @@ def phase_kernels():
                                     dtype, True, True, gen, groups=8, eps=1e-6, affine=False))
         rows.append(check_groupnorm("unet ds8 (8,4,128,512) SiLU", (BATCH, 4, 128, 512),
                                     dtype, False, True, gen, groups=8, eps=1e-6))
+        # the v0 stack (nuscenes-box-layout): OACA at head dims 64 at ds4 and
+        # in the middle, GroupNorm on its 256-channel level-0 slabs and the
+        # 512-channel skip concats of its decoder
+        rows.append(check_oaca("v0 ds4 B=8 h=8 L=2048 d=64", BATCH, 8, 2048, dtype, gen, d=64))
+        rows.append(check_oaca("v0 ragged B=8 h=8 L=1000 d=64", BATCH, 8, 1000, dtype, gen, d=64))
+        rows.append(check_groupnorm("v0 level0 (8,32,1024,256) out_norm scale-shift+SiLU", (BATCH, 32, 1024, 256),
+                                    dtype, True, True, gen))
+        rows.append(check_groupnorm("v0 level0 (8,32,1024,512) in_norm skip concat", (BATCH, 32, 1024, 512),
+                                    dtype, False, True, gen))
+        # kitti-360 (64x1024 through EfficientUNet): the level-0 AdaGN and
+        # the attention of d_block4 / u_block4 at 1,024 tokens
+        rows.append(check_groupnorm("kitti-360 level0 (8,64,1024,64) AdaGN scale-shift+SiLU",
+                                    (BATCH, 64, 1024, 64), dtype, True, True, gen, groups=8, eps=1e-6,
+                                    affine=False))
+        rows.append(check_attention("kitti-360 d_block4 B=8 h=8 L=1024 d=64", BATCH, 8, 1024, 1024, 64, dtype, gen))
+        rows.append(check_attention("kitti-360 u_block4 B=8 h=8 L=1024 d=32", BATCH, 8, 1024, 1024, 32, dtype, gen))
     # the layout branch's UNet1D norms: N = 104 one-row images; float32 as the
     # branch serves, bfloat16 as it trains under AMP
     N = LAYOUT_SCENES * (LAYOUT_OBJECTS + 1)
@@ -471,8 +513,8 @@ def phase_kernels():
 
 
 def check_forward(what: str, got, want, tol: float, **extra) -> None:
-    """``got`` (card) against ``want`` (CPU float32) to ``tol`` of max
-    |want|; emits the forward_parity line."""
+    """``got`` (card) against ``want`` (CPU; float32 unless ``what`` says
+    otherwise) to ``tol`` of max |want|; emits the forward_parity line."""
     import torch
 
     err, _ = max_err(got, want)
@@ -491,7 +533,7 @@ def phase_forward_parity(cfg_name: str):
 
     from lidarcrafter_tpu_torch.configs import get_config
     from lidarcrafter_tpu_torch.precision import to_serving_dtype_
-    from lidarcrafter_tpu_torch.training.factory import build_diffusion_training, layout_condition_batch
+    from lidarcrafter_tpu_torch.training.factory import build_diffusion_training
     from lidarcrafter_tpu_torch.weights import init_random_
 
     cfg = get_config(cfg_name)
@@ -500,7 +542,7 @@ def phase_forward_parity(cfg_name: str):
     init_random_(models["model"], 11)
     B, (H, W) = 2, cfg.data.resolution
     gen = torch.Generator().manual_seed(12)
-    batch = layout_condition_batch(cfg, B, generator=gen)
+    batch = condition_batch(cfg, B, gen)
     x = torch.randn(B, H, W, 2, generator=gen)
     t = torch.tensor([-3.0, 5.0])
 
@@ -523,6 +565,22 @@ def phase_forward_parity(cfg_name: str):
         cond = served.get_network_condition({k: v.to(DEVICE) for k, v in batch.items()})
         got = served.denoise(x.to(DEVICE), t.to(DEVICE), cond).cpu()
     check_forward(f"{cfg_name} bfloat16", got, want, BF16_FORWARD_RTOL)
+
+
+def condition_batch(cfg, batch_size: int, generator, device="cpu") -> dict:
+    """``layout_condition_batch`` drawn from ``generator``, with the v5
+    encoder's ``fg_encoding_box`` (B, L, 8) in [-1, 1] and a (9, 512)
+    ``fg_text_features`` table of 0.05·normal."""
+    import torch
+
+    from lidarcrafter_tpu_torch.training.factory import layout_condition_batch
+
+    batch = layout_condition_batch(cfg, batch_size, generator=generator, device=device)
+    if cfg.condition_model.architecture == "layout_encoder_v5":
+        L = cfg.condition_model.params["layout_length"]
+        batch["fg_encoding_box"] = torch.rand((batch_size, L, 8), generator=generator, device=device) * 2 - 1
+        batch["fg_text_features"] = 0.05 * torch.randn((9, 512), generator=generator, device=device)
+    return batch
 
 
 def phase_unet_forward_parity(cfg_name: str):
@@ -551,6 +609,18 @@ def phase_unet_forward_parity(cfg_name: str):
         to_serving_dtype_(gpu, torch.bfloat16)
         served = dataclasses.replace(engine, model=gpu, dtype=torch.bfloat16)
         got = served.denoise(x.to(DEVICE), t.to(DEVICE)).cpu()
+        if cfg.model.architecture == "hdit":
+            # HDiT's serving cast rounds rff_freqs and with them the Fourier
+            # angles to bfloat16, as the JAX package's does, which moves the
+            # output far from the float32 one (ROADMAP Queue 3 item 11): the
+            # card is held to the same bfloat16 call on the CPU, and the gap
+            # reported
+            cpu = copy.deepcopy(model)
+            to_serving_dtype_(cpu, torch.bfloat16)
+            ref = dataclasses.replace(engine, model=cpu, dtype=torch.bfloat16).denoise(x, t)
+            check_forward(f"{cfg_name} bfloat16 vs CPU bfloat16", got, ref, BF16_FORWARD_RTOL,
+                          bf16_vs_float32_rel_err=float((got - want).abs().max() / want.abs().max()))
+            return
     check_forward(f"{cfg_name} bfloat16", got, want, BF16_FORWARD_RTOL)
 
 
@@ -1824,6 +1894,173 @@ def phase_evaluate(frames, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 11
+# every other image-generation config of the registry ("zoo")
+
+ZOO = ("nuscenes-box-layout", "nuscenes-box-layout-v5", "nuscenes-auto-reg", "kitti-360", "nuscenes-hdit-uncond")
+ZOO_REQUEST = ("dpmpp_2m", 15)
+V0_OACA_PER_FORWARD = 6  # ds4: 2 down + mid + 3 up
+REPAINT = dict(num_steps=10, num_resample_steps=2, jump_length=2)  # 40 denoiser calls
+DISCRETE_STEPS = 50
+
+
+def kernel_modules(model) -> dict:
+    """Kernel launches per denoiser call, from the modules the forward
+    holds: one OACA per ``ObjectAwareCrossAttention``, one attention per
+    EfficientUNet attention block, one GroupNorm per norm module."""
+    from lidarcrafter_tpu_torch.models.layout_unet import ObjectAwareCrossAttention
+    from lidarcrafter_tpu_torch.models.ops import FusedGN, MFSelfAttention2d, SelfAttention2d
+
+    def count(*cls):
+        return sum(isinstance(m, cls) for m in model.modules())
+
+    return {"oaca": count(ObjectAwareCrossAttention), "attention": count(SelfAttention2d, MFSelfAttention2d),
+            "groupnorm": count(FusedGN)}
+
+
+def zoo_generator(cfg_name: str, dtype, cfg=None):
+    """The config's generator (``CondFrameGenerator`` or
+    ``UncondFrameGenerator``) on the card, seeded random weights, and a
+    request function ``(steps, mode, seed) -> (sample, post)`` at B=8; the
+    v5 stack is served from a batch built here, as a caller would."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.generate import UncondFrameGenerator
+    from lidarcrafter_tpu_torch.generate_cond import CondFrameGenerator
+
+    cfg = cfg or get_config(cfg_name)
+    if cfg.condition_model is None:
+        gen = UncondFrameGenerator(cfg, DEVICE, 0, dtype)
+        return gen, gen.model, lambda steps, mode, seed: gen.generate(BATCH, steps, mode=mode, seed=seed)
+    gen = CondFrameGenerator(cfg, DEVICE, 0, dtype)
+    batch = None
+    if cfg.condition_model.architecture == "layout_encoder_v5":
+        batch = condition_batch(cfg, BATCH, torch.Generator(device=DEVICE).manual_seed(5), DEVICE)
+    return gen, gen.models["model"], lambda steps, mode, seed: gen.generate(BATCH, steps, mode=mode, seed=seed,
+                                                                           batch=batch)
+
+
+def zoo_request(what: str, run, warmup, per_call: dict, calls: int, smi: str, **extra) -> tuple[dict, tuple]:
+    """``run()`` after ``warmup()``, the launch counters set to 0 just
+    before and read just after; each kernel must have launched
+    ``per_call[kernel]`` times in each of the request's ``calls`` denoiser
+    calls.  Emits the line; returns the counts and ``run``'s (sample,
+    post)."""
+    import torch
+
+    warmup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    sample, post = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: c.n for k, c in counters.items()}
+    for k, n in launches.items():
+        check(n == per_call.get(k, 0) * calls, f"{what}: {k} launches {n} != {per_call.get(k, 0)} x {calls}")
+    check(bool(torch.isfinite(sample).all()) and bool(torch.isfinite(post["xyz"]).all()), f"{what}: not finite")
+    check(float(sample.std()) > 1e-3, f"{what}: sample is constant")
+    emit({"phase": "zoo", "what": what, "card": smi, "batch": BATCH, "denoiser_calls": calls, "seconds": seconds,
+          "frames_per_s": BATCH / seconds, "ms_per_call": seconds * 1e3 / calls, "launches": launches,
+          "per_call": per_call, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "sample_std": float(sample.std()), **extra})
+    return {k: n for k, n in launches.items() if n}, (sample, post)
+
+
+def zoo_call(gen, cfg):
+    """One denoiser call (x̂_0 at t = 0.5, B=8) of a zoo generator."""
+    import torch
+
+    H, W = cfg.data.resolution
+    x = torch.randn(BATCH, H, W, 2, device=DEVICE)
+    t = torch.full((BATCH,), 0.5, device=DEVICE)
+    if cfg.condition_model is None:
+        return lambda: gen.engine.predict_x_0(x, t)
+    with torch.inference_mode():
+        cond = gen.engine.get_network_condition(
+            condition_batch(cfg, BATCH, torch.Generator(device=DEVICE).manual_seed(6), DEVICE))
+    return lambda: gen.engine.predict_x_0(x, t, cond)
+
+
+def phase_zoo(smi: str) -> dict:
+    """Phase 11: the v0 stack, v5, the 12-channel auto-reg stack, kitti-360
+    and HDiT at full width: card-vs-CPU forwards, one B=8 DPM++(2M)@15
+    request each in float32 and in bfloat16 through the entry points with
+    exact launch counts, a profile of a v0 and an HDiT call, then one
+    RePaint and one ``DiscreteDiffusion`` request on the uncond stack.
+    Returns the launch counts by path."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.diffusion import schedules
+
+    by_path = {}
+    for name in ZOO:
+        t0 = time.perf_counter()
+        if get_config(name).condition_model is None:
+            phase_unet_forward_parity(name)
+        else:
+            phase_forward_parity(name)
+        emit({"phase": "zoo", "what": f"{name} forward parity", "seconds": time.perf_counter() - t0})
+        for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            gen, model, request = zoo_generator(name, dtype)
+            per_call = kernel_modules(model)
+            if name == "nuscenes-box-layout":
+                check(per_call["oaca"] == V0_OACA_PER_FORWARD, f"v0: {per_call['oaca']} OACA blocks")
+                heads = {(m.num_heads, m.qkv_projector.in_features // m.num_heads) for m in model.modules()
+                         if hasattr(m, "qkv_projector")}
+                check(heads == {(8, 64)}, f"v0 OACA heads x head dim {heads}, expected 8 x 64")
+            if name == "nuscenes-hdit-uncond":
+                check(not any(per_call.values()), f"HDiT holds kernel modules {per_call}")
+            mode, steps = ZOO_REQUEST
+            by_path[f"zoo {name} {dname}"], _ = zoo_request(
+                f"{name} {dname} {mode}@{steps}", lambda: request(steps, mode, 1), lambda: request(2, mode, 99),
+                per_call, steps, smi, config=name, dtype=dname)
+            if dtype == torch.float32 and name in ("nuscenes-box-layout", "nuscenes-hdit-uncond"):
+                expect = {"groupnorm kernel": per_call["groupnorm"], "oaca kernel": per_call["oaca"],
+                          "attention kernel": per_call["attention"]}
+                phase_profile(f"one denoiser call ({name}, predict_x_0), B=8, {dname}", zoo_call(gen, gen.cfg),
+                              smi, expect=expect)
+            del gen, model, request
+            torch.cuda.empty_cache()
+
+    # RePaint and DiscreteDiffusion on the uncond stack (float32)
+    cfg = get_config("nuscenes-unet-uncond")
+    gen, model, request = zoo_generator("nuscenes-unet-uncond", torch.float32, cfg)
+    per_call = kernel_modules(model)
+    known, _ = request(ZOO_REQUEST[1], ZOO_REQUEST[0], 3)
+    known = known.clamp(-1, 1)
+    mask = torch.zeros_like(known)
+    mask[:, ::2] = 1  # every other beam known: complete the rest
+    calls = REPAINT["num_steps"] * REPAINT["num_resample_steps"] * REPAINT["jump_length"]
+    by_path["zoo repaint nuscenes-unet-uncond float32"], (filled, _) = zoo_request(
+        "repaint nuscenes-unet-uncond float32", lambda: gen.inpaint(known, mask, seed=1, **REPAINT),
+        lambda: gen.inpaint(known, mask, 1, seed=99), per_call, calls, smi,
+        config="nuscenes-unet-uncond", dtype="float32", **REPAINT)
+    # the last paste is the known region noised to t = 0: known·α(0) + σ(0)·z
+    alpha0, sigma0 = schedules.log_snr_to_alpha_sigma(gen.engine.log_snr(torch.zeros(1)))
+    held_tol = float(1 - alpha0) + 6 * float(sigma0)
+    held = float((filled - known)[mask > 0].abs().max())
+    check(held <= held_tol, f"repaint: known region off by {held} > {held_tol}")
+    emit({"phase": "zoo", "what": "repaint known region", "max_abs_dev": held, "tol": held_tol,
+          "filled_std": float(filled[mask == 0].std())})
+    del gen, model, request
+    cfg = get_config("nuscenes-unet-uncond")
+    cfg.diffusion.timestep_type = "discrete"
+    cfg.diffusion.num_training_steps = 1000  # the registry leaves it None; the engine needs its table length
+    gen, model, request = zoo_generator("nuscenes-unet-uncond", torch.float32, cfg)
+    check(type(gen.engine).__name__ == "DiscreteDiffusion", f"discrete engine: {type(gen.engine).__name__}")
+    by_path["zoo discrete nuscenes-unet-uncond float32"], _ = zoo_request(
+        f"discrete nuscenes-unet-uncond float32 ddpm@{DISCRETE_STEPS}", lambda: request(DISCRETE_STEPS, "ddpm", 1),
+        lambda: request(2, "ddpm", 99), per_call, DISCRETE_STEPS, smi, config="nuscenes-unet-uncond",
+        dtype="float32", num_training_steps=gen.engine.num_training_steps)
+    del gen, model, request
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def probe_times(kernels) -> dict:
     """Device times of the loader's ``x·2`` probe kernel on its (8, 128)
     float32 input, of ``x * 2`` and of ``torch.mul(x, 2)``, and its bound
@@ -1911,6 +2148,7 @@ def main() -> int:
     jvp_rows, branch_paths = phase_branch_train(smi)
     by_path.update(branch_paths)
     phase_evaluate(rollout_frames, smi)
+    by_path.update(phase_zoo(smi))
 
     # each kernel at its largest main-path shape, float32 (the default serving
     # dtype) with its bfloat16 numbers beside, and its launches summed over
@@ -1945,6 +2183,12 @@ def main() -> int:
                                                 "max_abs_err", "tol", "norm_rel_err", "route")},
             "backward": {key: bwd["float32"][key] for key in backward_keys}
             | {"bf16": {key: bwd["bfloat16"][key] for key in backward_keys}},
+            # OACA's second instantiation, head dims 64 (the v0 stack)
+            **({"head_dims_64": {d: {key: r[key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                              "library_ms", "max_abs_err", "norm_rel_err", "route")}
+                                 for d in ("float32", "bfloat16") for r in rows
+                                 if r["kernel"] == k and r.get("head_dims") == [64, 64, 64] and r["dtype"] == d
+                                 and "ds4" in r["shape"]}} if k == "oaca" else {}),
             # the forward-mode route, where a path takes one (OACA has none)
             "jvp": None if jvp["float32"] is None else {key: jvp["float32"][key] for key in backward_keys}
             | {"bf16": {key: jvp["bfloat16"][key] for key in backward_keys}},

@@ -1,11 +1,13 @@
 """The experiment configs the port runs.
 
-An own copy of the matching builders of the JAX package's
-``configs/experiments.py``: ``nuscenes-unet-uncond`` and ``meanflow-nusc``
-for unconditional frames, ``nuscenes-box-layout-v6`` for layout-conditioned
-frames and ``nuscenes-auto-reg-v2`` for autoregressive frames, ``nuscenes-layout``
-for scene graph → 4D layout and ``nuscenes-object`` for per-object points;
-field for field the same values.
+An own copy of every config function of the JAX package's ``configs/experiments.py``,
+field for field the same values: ``nuscenes-unet-uncond``, ``kitti-360``,
+``nuscenes-hdit-uncond`` and ``meanflow-nusc`` for unconditional frames, the
+``nuscenes-box-layout`` family (v0 and v1-v6) for layout-conditioned frames,
+``nuscenes-auto-reg`` / ``-v2`` for autoregressive frames,
+``nuscenes-layout`` for scene graph → 4D layout and ``nuscenes-object`` for
+per-object points.  The ``option_nusc_box_layout_v*`` family is written as
+deltas over the shared v2 base.
 """
 
 from .common import (
@@ -43,6 +45,15 @@ def nusc_unet_uncond() -> ExperimentConfig:
     )
 
 
+def kitti_360() -> ExperimentConfig:
+    """cf. ``option_kitti.py`` (kitti-360): 64x1024 range images."""
+    cfg = nusc_unet_uncond()
+    cfg.data.dataset = "kitti_360"
+    cfg.data.resolution = (64, 1024)
+    cfg.data.fov_up, cfg.data.fov_down = 3.0, -25.0
+    return cfg
+
+
 def meanflow_nusc() -> ExperimentConfig:
     """cf. ``option_meanflow_nusc.py`` (meanflow-nusc)."""
     return ExperimentConfig(
@@ -51,6 +62,26 @@ def meanflow_nusc() -> ExperimentConfig:
         diffusion=DiffusionConfig(),  # unused by the flow engine
         flow=FlowConfig(),
         training=TrainingConfig(steps_save_model=50_000),
+    )
+
+
+def nusc_hdit_uncond() -> ExperimentConfig:
+    """cf. ``option_dit_nusc.py`` (nuscenes-hdit-uncond)."""
+    return ExperimentConfig(
+        data=DataConfig(),
+        model=ModelConfig(
+            "hdit",
+            {
+                "base_channels": 128,
+                "time_embed_channels": 256,
+                "depths": (3, 3, 3, 3),
+                "dilation": (1, 1, 1, 1),
+                "positional_embedding": "learnable_embedding",
+                "ring": True,
+            },
+        ),
+        diffusion=DiffusionConfig(),
+        training=TrainingConfig(),
     )
 
 
@@ -109,11 +140,72 @@ def _box_layout_base(out_channels=10, num_steps=300_000) -> ExperimentConfig:
     )
 
 
+def nusc_box_layout() -> ExperimentConfig:
+    """cf. ``option_nusc_box_layout.py`` (v0): the faithful ``LayoutUnet`` —
+    plain convs, ADM resampling, channel_mult (1,1,2), attention at ds=4
+    only, and no concat conditioning (that config's DiffusionConfig has no
+    ``cond_mode``: the layout enters through cross-attention and
+    ``xf_proj`` alone)."""
+    cfg = _box_layout_base()
+    cfg.model.architecture = "layout_unet"
+    cfg.model.params.update(
+        model_channels=256, encoder_channels=256, num_head_channels=64,
+        attention_ds=(4,), channel_mult=(1, 1, 2),
+    )
+    # the encoder at production width (option_nusc_box_layout.py:31-51)
+    cfg.condition_model.params.update(
+        hidden_dim=256, output_dim=1024, num_heads=8,
+        resolution_to_attention=(1, 2, 4),
+    )
+    cfg.condition_model.params.pop("out_channels", None)
+    cfg.diffusion.cond_mode = None
+    return cfg
+
+
+def nusc_box_layout_v1() -> ExperimentConfig:
+    """cf. ``option_nusc_box_layout_v1.py`` — r2dm coords + encoder fix."""
+    return _box_layout_base()
+
+
+def nusc_box_layout_v2() -> ExperimentConfig:
+    """cf. ``option_nusc_box_layout_v2.py`` — obj_bbox_embedding fix + fg mask."""
+    return _box_layout_base()
+
+
+def nusc_box_layout_v3() -> ExperimentConfig:
+    """cf. ``option_nusc_box_layout_v3.py`` — with gt-sampling data augments."""
+    cfg = _box_layout_base()
+    cfg.data.with_object = True  # gt-paste augmentation enabled
+    return cfg
+
+
+def nusc_box_layout_v4() -> ExperimentConfig:
+    """cf. ``option_nusc_box_layout_v4.py`` — condition-mask loss weight."""
+    cfg = _box_layout_base()
+    cfg.diffusion.w_loss_weight = True
+    return cfg
+
+
+def nusc_box_layout_v5() -> ExperimentConfig:
+    """cf. ``option_nusc_box_layout_v5.py`` — layout_encoder_v5 + loss weight."""
+    cfg = _box_layout_base()
+    cfg.condition_model.architecture = "layout_encoder_v5"
+    cfg.diffusion.w_loss_weight = True
+    return cfg
+
+
 def nusc_box_layout_v6() -> ExperimentConfig:
     """cf. ``option_nusc_box_layout_v6.py`` — no ground, 500k steps."""
     cfg = _box_layout_base(num_steps=500_000)
     cfg.data.delete_ground = True
     cfg.training.steps_save_model = 100_000
+    return cfg
+
+
+def nusc_auto_reg() -> ExperimentConfig:
+    """cf. ``option_nusc_auto_reg.py`` — autoregressive, encoder out 12ch."""
+    cfg = _box_layout_base(out_channels=12, num_steps=500_000)
+    cfg.data.task = "autoregressive_generation"
     return cfg
 
 

@@ -14,19 +14,31 @@
 // softmax.  On Hopper the strip does not fit a block's shared memory (at
 // ds=4 it is 2048 x 96 values per head), so this kernel is a thin loader
 // around the tensor-core flash core of flash_mma.cuh: one block of 4 warps
-// per (batch*head, 128-query tile),
+// per (batch*head, query tile),
 //
-//   * the q tile is assembled while it is staged: q_c goes to columns 0-31
-//     and ipe to columns 32-63 of each shared row, by two cp.async sources;
+//   * the q tile is assembled while it is staged: q_c goes to columns
+//     0..DC-1 and ipe to columns DC..DC+DP-1 of each shared row, by two
+//     cp.async sources;
 //   * 64-key image tiles are assembled the same way from k_c and ipe, with
 //     v_c beside them, in two stages filled with cp.async so that the next
 //     tile loads while the products of this one run;
-//   * the L2 <= 64 layout keys k_l (64 wide) and values v_l (32 wide) are
-//     staged once at block start into their own buffer, rounded up to 16
-//     rows, and folded in after the image tiles, 16 keys at a time, masked
-//     past L2 (L2 = 0 skips them);
+//   * the L2 <= 64 layout keys k_l (DC+DP wide) and values v_l (DV wide)
+//     are staged once at block start into their own buffer, rounded up to
+//     16 rows, and folded in after the image tiles, 16 keys at a time,
+//     masked past L2 (L2 = 0 skips them);
 //   * the scale^2 goes onto the f32 logits.
 //
+// Two head-dim instantiations, (DC, DP, DV) = (32, 32, 32) for the v1-v6
+// and auto-reg stacks and (64, 64, 64) for the v0 LayoutUnet (512 channels
+// at ds=4, 8 heads, a positional strip as wide as the content).  The tile
+// sizes follow the q/k width DC+DP as in csrc/attention.cu: 128 query rows
+// a block (two m16 tiles a warp) at width 64, 64 rows (one a warp) at
+// width 128, where the Q fragments of two tiles would not fit the
+// registers.  In f32 at width 128 the block then holds a 64-row q tile,
+// two stages of 64 [k_c|ipe] and v_c rows and a layout strip of up to 64
+// rows: 191,488 of the 232,448 bytes a block may use (152,320 with the
+// 13 layout keys of the nuScenes stacks).
+
 // No concatenation, padding or scale pre-multiply is materialised in device
 // memory: operands are read and the output written through their (batch,
 // head, row) strides, so the per-head views of the fused qkv projection
@@ -34,12 +46,13 @@
 // order.  Every pointer and stride is 16-byte aligned (the wrapper checks
 // it), as cp.async needs.
 //
-// Bound on the H100 at ds=4, B=8 (64 heads, 2048 queries, 2048 + 13 keys,
-// 2 * 64 * 2048 * 2061 * 96 = 52 GFLOP):
-//   * bf16 (mma.sync bf16): operations, 0.052 ms at 989 TFLOP/s, against
-//     42 MB of operands and output (0.013 ms);
-//   * f32 (3xTF32): operations, three TF32 products per product, 0.31 ms at
-//     495 / 3 TFLOP/s, against 84 MB (0.025 ms).
+// Bound on the H100 at ds=4, B=8, both bound by operations:
+//   * 32^3 (64 heads, 2048 queries, 2048 + 13 keys, 2 * 64 * 2048 * 2061 *
+//     96 = 52 GFLOP): bf16 0.052 ms at 989 TFLOP/s against 42 MB of
+//     operands and output (0.013 ms); f32 (3xTF32, three TF32 products per
+//     product) 0.31 ms at 495 / 3 TFLOP/s against 84 MB (0.025 ms);
+//   * 64^3 (the v0 stack, same token counts, 2 * 64 * 2048 * 2061 * 192 =
+//     104 GFLOP): bf16 0.105 ms against 84 MB; f32 0.63 ms against 168 MB.
 // Every product runs on the tensor cores with P kept in registers; the
 // exponentials of the online softmax (one per logit, on the special
 // function units) are what the design leaves beside them.
@@ -73,10 +86,9 @@ namespace {
 
 using namespace flash;
 
-constexpr int DC = 32, DP = 32, DQK = DC + DP, DV = 32;  // head dims
-constexpr int LSLICE = 16;                                // layout keys per fold
+constexpr int LSLICE = 16;  // layout keys per fold
 
-template <typename T>
+template <typename T, int DQK, int DV>
 struct Smem {
   static constexpr int LDQ = ld_qk<DQK>(), LDV = ld_v<T, DV>(), BQ = block_rows<DQK>();
   // K stages 0 and 1, V stages 0 and 1, the q tile, then the layout strip
@@ -85,9 +97,10 @@ struct Smem {
   static size_t bytes(int l2p) { return sizeof(T) * (kL + l2p * (LDQ + LDV)); }
 };
 
-template <typename T>
+template <typename T, int DC, int DP, int DV>
 __global__ void __launch_bounds__(NT) oaca_fwd_kernel(const OacaArgs a) {
-  using S = Smem<T>;
+  constexpr int DQK = DC + DP;
+  using S = Smem<T, DQK, DV>;
   constexpr int LDQ = S::LDQ, LDV = S::LDV, BQ = S::BQ;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);
@@ -149,29 +162,37 @@ __global__ void __launch_bounds__(NT) oaca_fwd_kernel(const OacaArgs a) {
   w.store(out, a.out_s[2], q0, Lq, DV);
 }
 
-template <typename T>
+template <typename T, int DC, int DP, int DV>
 int launch(const OacaArgs& a, cudaStream_t s) {
-  const size_t bytes = Smem<T>::bytes((int)((a.L2 + LSLICE - 1) / LSLICE * LSLICE));
-  constexpr int BQ = Smem<T>::BQ;
-  const dim3 grid((unsigned)((a.Lq + BQ - 1) / BQ), (unsigned)(a.B * a.H));
-  cudaError_t err = cudaFuncSetAttribute(oaca_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  using S = Smem<T, DC + DP, DV>;
+  const size_t bytes = S::bytes((int)((a.L2 + LSLICE - 1) / LSLICE * LSLICE));
+  const dim3 grid((unsigned)((a.Lq + S::BQ - 1) / S::BQ), (unsigned)(a.B * a.H));
+  auto* kernel = oaca_fwd_kernel<T, DC, DP, DV>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  oaca_fwd_kernel<T><<<grid, NT, bytes, s>>>(a);
+  kernel<<<grid, NT, bytes, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dims(const OacaArgs& a, int dc, int dp, int dv, cudaStream_t s) {
+  if (dc == 32 && dp == 32 && dv == 32) return launch<T, 32, 32, 32>(a, s);
+  if (dc == 64 && dp == 64 && dv == 64) return launch<T, 64, 64, 64>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Returns a cudaError_t code; cudaErrorInvalidValue for head dims or a layout
-// length this build does not cover, or a scale that is not positive.
+// Returns a cudaError_t code; cudaErrorInvalidValue for head dims other than
+// (32, 32, 32) and (64, 64, 64), a layout length this build does not cover,
+// or a scale that is not positive.
 extern "C" int oaca_forward(OacaArgs a, int dtype, int dc, int dp, int dv, void* stream) {
-  if (dc != DC || dp != DP || dv != DV) return (int)cudaErrorInvalidValue;
   if (a.L2 < 0 || a.L2 > BK || a.Lq <= 0 || a.B <= 0 || a.H <= 0 || a.B * a.H > 65535 ||
       !(a.scale2 > 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kFloat32) return launch<float>(a, s);
-  if (dtype == kBFloat16) return launch<__nv_bfloat16>(a, s);
+  if (dtype == kFloat32) return launch_dims<float>(a, dc, dp, dv, s);
+  if (dtype == kBFloat16) return launch_dims<__nv_bfloat16>(a, dc, dp, dv, s);
   return (int)cudaErrorInvalidValue;
 }

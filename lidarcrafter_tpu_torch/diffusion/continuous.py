@@ -1,6 +1,6 @@
 """Continuous-time Gaussian diffusion: the training losses, the
 unconditional sampler, the timestep grids and the DPM-Solver++(2M)
-multistep solver.
+multistep solver, and RePaint inpainting.
 
 Port of the JAX package's ``diffusion/continuous.py``: the losses
 (``criterion``, ``get_target``, ``get_loss_weight`` with min-SNR-γ,
@@ -12,8 +12,12 @@ noise as optional inputs and ``loss`` draws them from a ``torch.Generator``
 (the JAX package draws them from its key), so a caller can inject the JAX
 key chain's draws.  ``sample`` takes an optional ``x_T``
 and a ``torch.Generator``, so a caller can hand it the same start as the JAX
-sampler draws.  The conditional sampler (``conditional.py``) shares all of
-it and only changes how the denoiser is called.
+sampler draws.  ``repaint`` (alias ``inpaint``) runs the unrolled (step,
+resample) schedule of RePaint with ``jump_length`` as nested Python loops;
+its normal draws come from a ``draw(kind, index, k)`` callable when given,
+so a caller can hand it the JAX key chain's draws.  The conditional sampler
+(``conditional.py``) shares all of it and only changes how the denoiser is
+called.
 
 ``dtype`` is the serving precision of the denoiser call, as the JAX
 package's ``build_sampler_fn`` sets it: the image and the time input go in
@@ -352,3 +356,81 @@ class ContinuousDiffusion:
         not given); returns x_0 (B, *sampling_shape)."""
         x = self.start(batch_size, x_T, generator)
         return self.reverse(x, num_steps, mode, ddim_eta, generator)
+
+    def repaint_loop(
+        self,
+        x_t: torch.Tensor,
+        known: torch.Tensor,
+        mask: torch.Tensor,
+        num_steps: int,
+        num_resample_steps: int = 1,
+        jump_length: int = 1,
+        generator: torch.Generator | None = None,
+        draw: Callable[[str, int, int], torch.Tensor] | None = None,
+        condition=None,
+    ) -> torch.Tensor:
+        """RePaint (arXiv:2201.09865) from ``x_t`` over the uniform t grid:
+        for each of the ``num_steps`` steps, ``num_resample_steps`` times,
+        ``jump_length`` DDPM steps through the sub-grid between t and s,
+        each followed by pasting the known region (``mask`` = 1) noised to
+        the same time, then, except on a step's last resampling and on the
+        last step, diffusing back from s to t.  Returns the x_s of the last
+        iteration.
+
+        ``draw(kind, index, k)`` gives the normal draw (float32, x's shape)
+        of the known region's noising (``"known"``), of the DDPM step
+        (``"reverse"``) or of the forward jump (``"forward"``), at outer
+        iteration ``index`` (step-major) and inner step ``k``; by default
+        they come from ``generator``."""
+        if num_resample_steps < 1 or jump_length < 1:
+            raise ValueError("num_resample_steps and jump_length must be positive")
+        B = x_t.shape[0]
+        known = known.to(x_t)
+        mask = mask.to(x_t)
+        if draw is None:
+            def draw(kind, index, k):
+                return torch.randn(x_t.shape, generator=generator, device=x_t.device, dtype=torch.float32)
+
+        def t_full(v) -> torch.Tensor:
+            return torch.full((B,), float(v), dtype=torch.float32, device=x_t.device)
+
+        grid = linspace_timesteps(num_steps).numpy()
+        interp = np.linspace(0.0, 1.0, jump_length + 1, dtype=np.float32)
+        index = 0
+        for i in range(num_steps):
+            for j in range(num_resample_steps):
+                # the sub-grid in float32, as the JAX package computes it
+                r = grid[i] + interp * (grid[i + 1] - grid[i])
+                x = x_t
+                for k in range(jump_length):
+                    known_s, _ = self.q_step_from_x_0(known, t_full(r[k + 1]), noise=draw("known", index, k))
+                    unknown_s = self.p_step(x, t_full(r[k]), t_full(r[k + 1]), mode="ddpm",
+                                            noise=draw("reverse", index, k), condition=condition)
+                    x = mask * known_s + (1 - mask) * unknown_s
+                x_s = x
+                if i < num_steps - 1 and j < num_resample_steps - 1:
+                    for k in range(jump_length, 0, -1):
+                        x = self.q_step(x, t_full(r[k - 1]), t_full(r[k]), noise=draw("forward", index, k))
+                x_t = x
+                index += 1
+        return x_s
+
+    @torch.inference_mode()
+    def repaint(
+        self,
+        known: torch.Tensor,
+        mask: torch.Tensor,
+        num_steps: int,
+        num_resample_steps: int = 1,
+        jump_length: int = 1,
+        x_T: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+        draw: Callable[[str, int, int], torch.Tensor] | None = None,
+    ) -> torch.Tensor:
+        """RePaint inpainting of ``known`` (B, *sampling_shape) where
+        ``mask`` is 1, from ``x_T`` (drawn from ``generator`` when not
+        given); see :meth:`repaint_loop`."""
+        x = self.start(known.shape[0], x_T, generator)
+        return self.repaint_loop(x, known, mask, num_steps, num_resample_steps, jump_length, generator, draw)
+
+    inpaint = repaint

@@ -1,7 +1,9 @@
-"""Log-SNR noise schedules for continuous-time Gaussian diffusion.
+"""Noise schedules: log-SNR schedules for continuous-time Gaussian
+diffusion and beta tables for discrete-time DDPM.
 
-Port of the continuous half of the JAX package's ``diffusion/schedules.py``:
-pure functions of the timestep tensor with no broadcasting dims baked in.
+Port of the JAX package's ``diffusion/schedules.py``: pure functions of the
+timestep tensor with no broadcasting dims baked in, and float64 numpy beta
+tables.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ import math
 from functools import partial
 from typing import Callable
 
+import numpy as np
 import torch
 
 
@@ -85,3 +88,36 @@ def get_log_snr_fn(
             noise_d_high=noise_d_high,
         )
     raise ValueError(f"invalid noise schedule: {noise_schedule}")
+
+
+# ---------------------------------------------------------------- discrete
+# Beta tables depend only on the step count, so they are computed on the
+# host in numpy float64, as the reference's torch.float64 tables are.
+
+
+def beta_schedule_linear(T: int) -> np.ndarray:
+    """DDPM linear betas, scaled by 1000 / T."""
+    scale = 1000.0 / T
+    return np.linspace(scale * 0.0001, scale * 0.02, T, dtype=np.float64)
+
+
+def beta_schedule_cosine(T: int, s: float = 0.008) -> np.ndarray:
+    """Improved-DDPM cosine alpha-bar, as betas clipped to [0, 0.999]."""
+    t = np.linspace(0, T, T + 1, dtype=np.float64) / T
+    alphas_cumprod = np.cos((t + s) / (1 + s) * math.pi * 0.5) ** 2
+    alphas_cumprod = alphas_cumprod / alphas_cumprod[0]
+    betas = 1 - (alphas_cumprod[1:] / alphas_cumprod[:-1])
+    return np.clip(betas, 0, 0.999)
+
+
+def beta_schedule_sigmoid(T: int, start: float = -3, end: float = 3, tau: float = 1.0) -> np.ndarray:
+    """Sigmoid alpha-bar between ``start`` and ``end``, as betas clipped to
+    [0, 0.999]."""
+    t = np.linspace(0, T, T + 1, dtype=np.float64) / T
+    sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
+    v_start = sig(start / tau)
+    v_end = sig(end / tau)
+    alphas_cumprod = (-sig((t * (end - start) + start) / tau) + v_end) / (v_end - v_start)
+    alphas_cumprod = alphas_cumprod / alphas_cumprod[0]
+    betas = 1 - (alphas_cumprod[1:] / alphas_cumprod[:-1])
+    return np.clip(betas, 0, 0.999)

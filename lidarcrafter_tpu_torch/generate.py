@@ -1,8 +1,11 @@
 """Unconditional single-frame generation: the port's entry point for
-``nuscenes-unet-uncond``.
+``nuscenes-unet-uncond``, ``kitti-360`` (64x1024) and
+``nuscenes-hdit-uncond`` (HDiT).
 
 Mirrors the JAX package's ``tools/generate.py``: unconditional sampling
-(DDPM, DDIM or DPM-Solver++(2M)) and ``postprocess_sample``; writes one
+(DDPM, DDIM or DPM-Solver++(2M); DDPM or DDIM over integer steps for a
+config with ``timestep_type='discrete'``) and ``postprocess_sample``;
+:meth:`UncondFrameGenerator.inpaint` serves RePaint requests.  It writes one
 ``sample_NNNN.txt`` point cloud (x, y, z, reflectance) per frame and
 ``samples.npy``.  ``--ckpt`` samples with the EMA weights of one of the
 port's training checkpoints (``train.py``); without it the model runs with
@@ -13,6 +16,8 @@ float32); the default is float32.
 Usage::
 
   python -m lidarcrafter_tpu_torch.generate -c nuscenes-unet-uncond -n 8 \\
+      --num-steps 50 --mode ddim [--dtype bfloat16]
+  python -m lidarcrafter_tpu_torch.generate -c nuscenes-hdit-uncond -n 8 \\
       --num-steps 50 --mode ddim [--dtype bfloat16]
 
 :class:`UncondFrameGenerator` holds a built model and answers requests;
@@ -69,6 +74,25 @@ class UncondFrameGenerator:
         sample = self.engine.sample(batch_size, num_steps, mode=mode, generator=generator)
         return sample, postprocess_sample(sample, self.lidar_utils)
 
+    def inpaint(
+        self,
+        known: torch.Tensor,
+        mask: torch.Tensor,
+        num_steps: int,
+        num_resample_steps: int = 1,
+        jump_length: int = 1,
+        seed: int = 0,
+    ) -> tuple[torch.Tensor, dict]:
+        """RePaint: complete the [-1, 1] frames ``known`` (B, H, W, C) where
+        ``mask`` is 0, keeping them where it is 1 (a continuous-time config);
+        returns the sample and its postprocessed depth / xyz / reflectance."""
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        sample = self.engine.repaint(
+            known.to(self.device), mask.to(self.device), num_steps, num_resample_steps, jump_length,
+            generator=generator,
+        )
+        return sample, postprocess_sample(sample, self.lidar_utils)
+
 
 def generate(
     cfg_name: str = "nuscenes-unet-uncond",
@@ -95,7 +119,8 @@ def main(argv=None) -> None:
     parser.add_argument("--ckpt", default=None, help="training checkpoint dir (its EMA weights)")
     parser.add_argument("-n", "--num-samples", type=int, default=8)
     parser.add_argument("--num-steps", type=int, default=256)
-    parser.add_argument("--mode", choices=["ddpm", "ddim", "dpmpp_2m"], default="ddpm")
+    parser.add_argument("--mode", choices=["ddpm", "ddim", "dpmpp_2m"], default="ddpm",
+                        help="sampler (a discrete-time config takes ddpm or ddim)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--dtype", choices=list(DTYPES), default="float32",

@@ -2,8 +2,14 @@
 
 Mirrors the JAX package's ``tools/generate_cond.py`` in its ``--synthetic``
 branch: zero layout conditions, conditional sampling (DDPM, DDIM or
-DPM-Solver++(2M)) and ``postprocess_sample``.  Without ``--ckpt`` the stack
-runs with seeded random weights.
+DPM-Solver++(2M)) and ``postprocess_sample``, for every layout-conditioned
+config: ``nuscenes-box-layout`` (v0) through ``-v6`` and
+``nuscenes-auto-reg`` / ``-v2``.  ``-v5``'s encoder reads per-object box
+encodings and the class text table (``fg_encoding_box``,
+``fg_text_features``), which no synthetic request carries (the JAX tool's
+``--synthetic`` fails on it too): the CLI refuses it, and a caller serves it
+through :meth:`CondFrameGenerator.generate` with a batch of its own.
+Without ``--ckpt`` the stack runs with seeded random weights.
 ``--dtype bfloat16`` serves the stack in bf16, as the JAX package's
 ``build_sampler_fn`` does (the sampler stays float32); the default is
 float32.  ``--ckpt`` samples with the EMA weights of one of the port's
@@ -63,16 +69,32 @@ class CondFrameGenerator:
         num_steps: int,
         mode: str = "ddpm",
         seed: int = 0,
+        batch: dict | None = None,
     ) -> tuple[torch.Tensor, dict]:
-        """Sample ``batch_size`` frames from the synthetic zero conditions;
-        returns the [-1, 1] sample (B, H, W, C) and its postprocessed depth /
-        xyz / reflectance."""
-        batch = layout_condition_batch(self.cfg, batch_size, device=self.device)
+        """Sample ``batch_size`` frames from the condition ``batch`` (a
+        caller-built condition dict on the generator's device, as the JAX
+        engine's ``sample(params, rng, batch, ...)`` takes it) or, without
+        one, from the synthetic zero conditions of
+        :func:`layout_condition_batch`; returns the [-1, 1] sample (B, H, W,
+        C) and its postprocessed depth / xyz / reflectance."""
+        if batch is None:
+            check_synthetic(self.cfg)
+            batch = layout_condition_batch(self.cfg, batch_size, device=self.device)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         sample = self.engine.sample(
             batch, batch_size=batch_size, num_steps=num_steps, mode=mode, generator=generator
         )
         return sample, postprocess_sample(sample, self.lidar_utils)
+
+
+def check_synthetic(cfg) -> None:
+    """Raise for a config whose encoder needs inputs that the synthetic
+    condition batch does not carry (the v5 encoder's)."""
+    if cfg.condition_model.architecture == "layout_encoder_v5":
+        raise ValueError(
+            "nuscenes-box-layout-v5's encoder reads fg_encoding_box (B, L, 8) and fg_text_features (9, 512), "
+            "which no synthetic request carries; pass a condition batch to CondFrameGenerator.generate"
+        )
 
 
 def generate_cond(
@@ -87,7 +109,9 @@ def generate_cond(
     ckpt: str | None = None,
 ) -> dict:
     """Build the stack of ``cfg_name`` and sample ``num_samples`` frames from
-    synthetic conditions; returns ``{'sample', 'depth', 'xyz', ...}``."""
+    synthetic conditions; returns ``{'sample', 'depth', 'xyz', ...}``.
+    Raises ``ValueError`` for ``nuscenes-box-layout-v5`` (see
+    :func:`check_synthetic`)."""
     cfg = apply_reduced_topology(get_config(cfg_name), resolution=resolution)
     gen = CondFrameGenerator(cfg, device=device, weights_seed=seed, dtype=dtype, ckpt=ckpt)
     sample, post = gen.generate(num_samples, num_steps, mode=mode, seed=seed)
@@ -113,6 +137,10 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if not args.synthetic:
         raise SystemExit("only --synthetic conditions are ported so far")
+    try:
+        check_synthetic(get_config(args.cfg))
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     out = generate_cond(
         args.cfg, args.num_samples, args.num_steps, args.mode, args.seed,
         args.device, args.resolution, DTYPES[args.dtype], args.ckpt,

@@ -28,7 +28,9 @@ from . import loader
 launches = loader.LaunchCounter("oaca")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 32, 32)  # (content, positional, value) dims the kernel is built for
+# (content, positional, value) head dims the kernel is built for: 32^3 for
+# the v1-v6 and auto-reg stacks, 64^3 for the v0 LayoutUnet
+HEAD_DIMS = ((32, 32, 32), (64, 64, 64))
 _MAX_L2 = 64  # layout tokens: one shared-memory key tile
 
 
@@ -55,6 +57,14 @@ def oaca_attention_backward(ops, g: torch.Tensor, *, scale: float) -> tuple[torc
         out = oaca_attention_plain(*xs, scale=scale)
         grads = torch.autograd.grad(out, xs, g.float())
     return tuple(d.to(t.dtype) for d, t in zip(grads, ops))
+
+
+def check_head_dims(dc: int, dp: int, dv: int) -> None:
+    """Raise ``ValueError`` unless the kernel has an instantiation for the
+    head dims (dc, dp, dv): the wrapper checks this before a launch on the
+    card and never takes the plain version for a CUDA tensor instead."""
+    if (dc, dp, dv) not in HEAD_DIMS:
+        raise ValueError(f"oaca_attention kernel is built for head dims {HEAD_DIMS}, got {(dc, dp, dv)}")
 
 
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -108,6 +118,8 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
       k_l, v_l: layout strip, L2 tokens; k_l is already [k_content | pe].
       scale: the per-operand 1/√√d factor (applied as scale² to the logits).
 
+    On the card the head dims (dc, dp, dv) must be (32, 32, 32) or (64, 64,
+    64), the kernel's two instantiations (else ``ValueError``).
     Any strides are taken as long as the last dimension is contiguous and
     the pointers and strides are whole 16-byte pieces (else ``ValueError``).
     The kernel runs its products on the tensor cores: bf16 ``mma.sync``, or
@@ -131,8 +143,7 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
                                   "(torch.func.jvp / forward_ad), which the kernel would drop")
     if any(t.dtype != q_c.dtype for t in ops) or q_c.dtype not in _DTYPE_CODES:
         raise TypeError("oaca_attention kernel needs one dtype, float32 or bfloat16")
-    if (dc, dp, dv) != _HEAD_DIMS:
-        raise ValueError(f"oaca_attention kernel is built for head dims {_HEAD_DIMS}, got {(dc, dp, dv)}")
+    check_head_dims(dc, dp, dv)
     expect = {
         "ipe": (ipe, (B, H, Lq, dp)), "k_c": (k_c, (B, H, Lq, dc)),
         "k_l": (k_l, (B, H, L2, dc + dp)), "v_c": (v_c, (B, H, Lq, dv)),

@@ -1,17 +1,22 @@
 """The port's models, by the JAX package's registry keys."""
 
-from .efficient_unet import EfficientUNet, MFEfficientUNet
-from .layout_encoder import LayoutTransformerEncoder
-from .layout_unet import LayoutUnetV1
+from .efficient_unet import EfficientUNet, EfficientUNetCond, MFEfficientUNet
+from .hdit import HDiT
+from .layout_encoder import LayoutTransformerEncoder, LayoutTransformerEncoderV5
+from .layout_unet import LayoutUnet, LayoutUnetV1
 from .point_unet import ObjectGenEncoder, PointUNet
 from .scene_graph import SceneGraph
 from .unet_1d import UNet1DModel
 
 _REGISTRY = {
     "efficient_unet": EfficientUNet,
+    "efficient_unet_cond": EfficientUNetCond,
     "mf_efficient_unet": MFEfficientUNet,
     "layout_encoder": LayoutTransformerEncoder,
+    "layout_encoder_v5": LayoutTransformerEncoderV5,
     "layout_unet_v1": LayoutUnetV1,
+    "layout_unet": LayoutUnet,
+    "hdit": HDiT,
     "unet_1d": UNet1DModel,
     "scene_graph": SceneGraph,
     "object_gen_encoder": ObjectGenEncoder,

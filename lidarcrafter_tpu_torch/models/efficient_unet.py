@@ -1,8 +1,9 @@
 """EfficientUNet range-image denoiser and its MeanFlow variant, NHWC.
 
 Port of the JAX package's ``models/efficient_unet.py``: ``TimeEmbedding``,
-``UNetBlock``, ``EfficientUNet`` (``nuscenes-unet-uncond``) and
-``MFEfficientUNet`` (``meanflow-nusc``).  Ring convs on the periodic azimuth
+``UNetBlock``, ``EfficientUNet`` (``nuscenes-unet-uncond``, ``kitti-360``),
+``EfficientUNetCond`` (the same network with the timestep in a condition
+dict) and ``MFEfficientUNet`` (``meanflow-nusc``).  Ring convs on the periodic azimuth
 axis, AdaGN timestep conditioning, FIR resampling, and full self-attention in
 the deepest down block and the first up block.  Submodules carry the JAX
 package's names, so a flax parameter path maps onto a ``state_dict`` key one
@@ -20,22 +21,33 @@ from torch import nn
 
 from ..utils.lidar import get_linear_ray_angles_np
 from . import encoding as enc
-from .ops import MFSelfAttention2d, Resample, ResidualBlock, RingConv, SelfAttention2d, sinusoidal_embedding
+from .ops import (
+    MFSelfAttention2d,
+    Resample,
+    ResidualBlock,
+    RingConv,
+    SelfAttention2d,
+    adm_timestep_embedding,
+    sinusoidal_embedding,
+)
 
 
 class TimeEmbedding(nn.Module):
-    """sinusoidal → Linear → SiLU → Linear."""
+    """sinusoidal → Linear → SiLU → Linear; ``adm=True`` takes the ADM
+    sinusoid (:func:`ops.adm_timestep_embedding`), as the v0 ``LayoutUnet``
+    does.  The parameter names are the same either way."""
 
-    def __init__(self, base_channels: int, temb_channels: int):
+    def __init__(self, base_channels: int, temb_channels: int, adm: bool = False):
         super().__init__()
         self.base_channels = base_channels
+        self.embed = adm_timestep_embedding if adm else sinusoidal_embedding
         self.dense_0 = nn.Linear(base_channels, temb_channels)
         self.dense_1 = nn.Linear(temb_channels, temb_channels)
 
     def forward(self, timesteps: torch.Tensor) -> torch.Tensor:
         # the sinusoid is float32, and as flax promotes it against bfloat16
         # parameters, both dense layers run in float32 at any serving dtype
-        h = sinusoidal_embedding(timesteps, self.base_channels)
+        h = self.embed(timesteps, self.base_channels)
         h = F.linear(h, self.dense_0.weight.float(), self.dense_0.bias.float())
         return F.linear(F.silu(h), self.dense_1.weight.float(), self.dense_1.bias.float())
 
@@ -180,6 +192,15 @@ class EfficientUNet(nn.Module):
         u = self.u_block2(torch.cat([u, h2], dim=-1), temb)
         u = self.u_block1(torch.cat([u, h1], dim=-1), temb)
         return self.out_conv(u)
+
+
+class EfficientUNetCond(EfficientUNet):
+    """The same network as :class:`EfficientUNet`, called as
+    ``forward(images, {'time_condition': (B,), ...})``: a conditional engine
+    concatenates any condition channels onto ``images`` first."""
+
+    def forward(self, images: torch.Tensor, condition_dict: dict) -> torch.Tensor:
+        return super().forward(images, condition_dict["time_condition"])
 
 
 class MFEfficientUNet(EfficientUNet):

@@ -1,5 +1,6 @@
 """Layout transformer encoder (CLIP-ViT style), port of the JAX package's
-``models/layout_encoder.py::LayoutTransformerEncoder``.
+``models/layout_encoder.py``: ``LayoutTransformerEncoder`` and its v5
+variant ``LayoutTransformerEncoderV5``.
 
 Encodes up to ``layout_length`` objects (class embedding + 3D-box linear +
 2D-box linear) through a pre-LN transformer and returns the dict the layout
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .ops import softmax_f32_math
+from .point_unet import ObjectGenEncoder
 
 LN_EPS = 1e-6  # flax nn.LayerNorm
 
@@ -128,6 +130,28 @@ class LayoutTransformerEncoder(nn.Module):
         self.final_ln = nn.LayerNorm(hidden_dim, eps=LN_EPS) if use_final_ln else None
         self.transformer_proj = nn.Linear(hidden_dim, output_dim)
 
+    def patch_embeddings(self, outputs: dict, batch: int, dtype: torch.dtype) -> None:
+        """The normalised patch boxes of each attention resolution through
+        the 2D-box projection, broadcast over the batch, into ``outputs``."""
+        for r in self.patch_keys:
+            # the patch boxes are a float32 buffer; under bf16 AMP the
+            # projection's weight is bf16
+            boxes = getattr(self, f"patch_bboxes_{r}").to(dtype)
+            emb = self.obj_bbox_2d_embedding(boxes)
+            outputs[f"image_patch_bbox_embedding_for_resolution{r}"] = emb[None].expand(batch, -1, -1)
+
+    def fuse(self, outputs: dict, xf_in: torch.Tensor) -> None:
+        """The transformer over the layout tokens: ``xf_out`` and the pooled
+        (token 0) ``xf_proj`` into ``outputs``."""
+        kpm = outputs.get("key_padding_mask") if self.use_key_padding_mask else None
+        xf_out = xf_in
+        for i in range(self.num_layers):
+            xf_out = self.get_submodule(f"resblock{i}")(xf_out, kpm)
+        if self.final_ln is not None:
+            xf_out = self.final_ln(xf_out)
+        outputs["xf_proj"] = self.transformer_proj(xf_out[:, 0])
+        outputs["xf_out"] = xf_out
+
     def forward(self, condition_dict: dict) -> dict:
         obj_bbox = condition_dict["scaled_gt_boxes"][..., :8]
         obj_bbox_2d = condition_dict["gt_boxes_2d"]
@@ -148,23 +172,11 @@ class LayoutTransformerEncoder(nn.Module):
             emb2d = self.obj_bbox_2d_embedding(obj_bbox_2d)
             xf_in = emb3d + emb2d if xf_in is None else xf_in + emb3d + emb2d
             outputs["obj_bbox_embedding"] = emb2d
-            for r in self.patch_keys:
-                # the patch boxes are a float32 buffer; under bf16 AMP the
-                # projection's weight is bf16
-                boxes = getattr(self, f"patch_bboxes_{r}").to(emb2d.dtype)
-                emb = self.obj_bbox_2d_embedding(boxes)
-                outputs[f"image_patch_bbox_embedding_for_resolution{r}"] = emb[None].expand(B, -1, -1)
+            self.patch_embeddings(outputs, B, emb2d.dtype)
         if "is_valid_obj" in self.used_condition_types:
             outputs["key_padding_mask"] = (1 - is_valid_obj).to(torch.bool)
 
-        kpm = outputs.get("key_padding_mask") if self.use_key_padding_mask else None
-        xf_out = xf_in
-        for i in range(self.num_layers):
-            xf_out = self.get_submodule(f"resblock{i}")(xf_out, kpm)
-        if self.final_ln is not None:
-            xf_out = self.final_ln(xf_out)
-        outputs["xf_proj"] = self.transformer_proj(xf_out[:, 0])
-        outputs["xf_out"] = xf_out
+        self.fuse(outputs, xf_in)
         if "concat_cond" in condition_dict:
             if "autoregressive_cond" in condition_dict:
                 outputs["concat_cond"] = torch.cat(
@@ -172,4 +184,42 @@ class LayoutTransformerEncoder(nn.Module):
                 )
             else:
                 outputs["concat_cond"] = condition_dict["concat_cond"]
+        return outputs
+
+
+class LayoutTransformerEncoderV5(LayoutTransformerEncoder):
+    """The v5 encoder (``nuscenes-box-layout-v5``): the 3D-box linear
+    embedding becomes an :class:`ObjectGenEncoder` over the per-object box
+    encoding and the class's text feature, and ``autoregressive_cond`` is
+    not concatenated.  Besides the base inputs, ``condition_dict`` carries
+    ``fg_encoding_box`` (B, L, 8) and ``fg_text_features`` (9, 512), the
+    CLIP class table (class 0 = unknown)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        h = self.obj_bbox_2d_embedding.out_features
+        del self.obj_bbox_embedding
+        self.obj_bbox_3d_embedding = ObjectGenEncoder(
+            num_class=self.obj_class_embedding.num_embeddings, input_dim=8,
+            proj_dims=(h * 8, h * 4, h * 4, h),
+        )
+
+    def forward(self, condition_dict: dict) -> dict:
+        obj_class = condition_dict["scaled_gt_boxes"][..., -1]
+        B = obj_class.shape[0]
+        outputs: dict = {}
+        cls_emb = self.obj_class_embedding(obj_class.to(torch.int64))
+        outputs["obj_class_embedding"] = cls_emb
+        emb2d = self.obj_bbox_2d_embedding(condition_dict["gt_boxes_2d"])
+        emb3d = self.obj_bbox_3d_embedding({
+            "fg_encoding_box": condition_dict["fg_encoding_box"],
+            "fg_class": obj_class,
+            "fg_text_features": condition_dict["fg_text_features"],
+        })
+        outputs["obj_bbox_embedding"] = emb2d
+        self.patch_embeddings(outputs, B, emb2d.dtype)
+        outputs["key_padding_mask"] = (1 - condition_dict["is_valid_obj"]).to(torch.bool)
+        self.fuse(outputs, cls_emb + emb3d + emb2d)
+        if "concat_cond" in condition_dict:
+            outputs["concat_cond"] = condition_dict["concat_cond"]
         return outputs

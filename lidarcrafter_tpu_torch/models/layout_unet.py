@@ -1,11 +1,13 @@
-"""Layout-conditioned range-image denoiser (``LayoutUnetV1``), NHWC.
+"""Layout-conditioned range-image denoisers (``LayoutUnetV1`` and the v0
+``LayoutUnet``), NHWC.
 
 Port of the JAX package's ``models/layout_unet.py``: ADM ResBlocks with
-scale-shift GroupNorm conditioning and FIR-resampled up/down blocks, ring
-convs on the periodic azimuth axis, and ``ObjectAwareCrossAttention`` at the
-configured downsampling factors.  Submodules carry the JAX package's names,
-so a flax parameter path maps onto a ``state_dict`` key one to one
-(``weights.py``).  Tokens flatten row-major (h·W + w).
+scale-shift GroupNorm conditioning, ``ObjectAwareCrossAttention`` at the
+configured downsampling factors, and either V1's FIR-resampled up/down
+blocks with ring convs on the periodic azimuth axis or v0's zero-padded
+convs with ADM nearest / average-pool resampling.  Submodules carry the JAX
+package's names, so a flax parameter path maps onto a ``state_dict`` key
+one to one (``weights.py``).  Tokens flatten row-major (h·W + w).
 """
 
 from __future__ import annotations
@@ -21,11 +23,23 @@ from ..kernels.oaca import oaca_attention
 from ..utils.lidar import get_linear_ray_angles_np
 from . import encoding as enc
 from .efficient_unet import TimeEmbedding
-from .ops import GroupNorm32, Resample, RingConv, merge_heads, split_heads
+from .ops import GroupNorm32, Resample, RingConv, merge_heads, split_heads, to_nchw, to_nhwc
+
+
+def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest up-sampling of NHWC (each pixel repeated 2x2)."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def avg_pool2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pooling, stride 2, of NHWC."""
+    return to_nhwc(F.avg_pool2d(to_nchw(x), 2, stride=2))
 
 
 class ResBlockADM(nn.Module):
-    """ADM residual block with optional FIR up/down resampling; ring convs."""
+    """ADM residual block with optional up/down resampling: V1's FIR
+    ``Resample`` (``fir``) or v0's ``h_upd``/``x_upd`` (2x nearest up,
+    2x2 average-pool down); ring convs when ``ring``, zero-padded otherwise."""
 
     def __init__(
         self,
@@ -36,19 +50,23 @@ class ResBlockADM(nn.Module):
         use_scale_shift_norm: bool = False,
         up: bool = False,
         down: bool = False,
+        ring: bool = True,
+        fir: bool = True,
     ):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.in_norm = GroupNorm32(in_channels)
-        self.updown = (
-            Resample(up=2 if up else 1, down=2 if down else 1) if up or down else None
-        )
-        self.in_conv = RingConv(in_channels, out_channels, ring=True)
+        self.updown = None
+        if (up or down) and fir:
+            self.updown = Resample(up=2 if up else 1, down=2 if down else 1, ring=ring)
+        elif up or down:
+            self.updown = upsample_nearest2x if up else avg_pool2x
+        self.in_conv = RingConv(in_channels, out_channels, ring=ring)
         emb_out = 2 * out_channels if use_scale_shift_norm else out_channels
         self.emb_proj = nn.Linear(emb_channels, emb_out)
         self.out_norm = GroupNorm32(out_channels)
         self.dropout = nn.Dropout(dropout)
-        self.out_conv = RingConv(out_channels, out_channels, ring=True)
+        self.out_conv = RingConv(out_channels, out_channels, ring=ring)
         self.skip = (
             RingConv(in_channels, out_channels, kernel_size=(1, 1), padding=0)
             if in_channels != out_channels else None
@@ -70,6 +88,31 @@ class ResBlockADM(nn.Module):
         if self.skip is not None:
             x = self.skip(x)
         return x + h
+
+
+class Downsample(nn.Module):
+    """Stride-2 conv (``use_conv``) or 2x2 average pool; the down step of a
+    stack built with ``resblock_updown=False``."""
+
+    def __init__(self, channels: int, use_conv: bool = True, ring: bool = True):
+        super().__init__()
+        self.op = RingConv(channels, channels, stride=2, ring=ring) if use_conv else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return avg_pool2x(x) if self.op is None else self.op(x)
+
+
+class Upsample(nn.Module):
+    """2x nearest up-sampling, then a conv (``use_conv``); the up step of a
+    stack built with ``resblock_updown=False``."""
+
+    def __init__(self, channels: int, use_conv: bool = True, ring: bool = True):
+        super().__init__()
+        self.conv = RingConv(channels, channels, ring=ring) if use_conv else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = upsample_nearest2x(x)
+        return x if self.conv is None else self.conv(x)
 
 
 class ObjectAwareCrossAttention(nn.Module):
@@ -132,6 +175,13 @@ class LayoutUnetV1(nn.Module):
     size the attention blocks' layout projections.  ``encoder_channels`` and
     ``use_positional_embedding_for_attention`` are config keys that the JAX
     package does not read either.
+
+    The v0 switches: ``ring`` (circular azimuth padding), ``fir_updown``
+    (FIR or nearest / average-pool resampling in the up/down ResBlocks),
+    ``adm_time_embed`` (the ADM sinusoid), ``use_concat_cond`` (concatenate
+    the encoder's ``concat_cond`` onto the input); ``resblock_updown=False``
+    resamples with :class:`Downsample` / :class:`Upsample` instead of
+    ResBlocks (``conv_resample`` gives them their conv).
     """
 
     def __init__(
@@ -158,14 +208,20 @@ class LayoutUnetV1(nn.Module):
         fov_down: float = -30.0,
         attention_block_type: str = "ObjectAwareCrossAttention",
         resblock_updown: bool = True,
+        conv_resample: bool = True,
         use_positional_embedding_for_attention: bool = True,
+        ring: bool = True,
+        fir_updown: bool = True,
+        adm_time_embed: bool = False,
+        use_concat_cond: bool = True,
     ):
         super().__init__()
-        if attention_block_type != "ObjectAwareCrossAttention" or not resblock_updown:
+        if attention_block_type != "ObjectAwareCrossAttention":
             raise NotImplementedError(
-                "the port builds LayoutUnetV1 with ObjectAwareCrossAttention and "
-                "resblock_updown=True only"
+                "the port builds the layout UNets with ObjectAwareCrossAttention only "
+                "(the GLIDE block of openai_unet is not ported)"
             )
+        self.use_concat_cond = use_concat_cond
         self.resolution = tuple(resolution)
         self.model_channels, self.channel_mult = model_channels, tuple(channel_mult)
         self.num_res_blocks, self.attention_ds = num_res_blocks, tuple(attention_ds)
@@ -185,11 +241,12 @@ class LayoutUnetV1(nn.Module):
         n_coords = 0 if self.coords is None else self.coords.shape[-1]
 
         temb = model_channels * 4
-        self.time_embed = TimeEmbedding(model_channels, temb)
+        self.time_embed = TimeEmbedding(model_channels, temb, adm=adm_time_embed)
 
         def res(name, cin, cout, **kw):
             self.add_module(name, ResBlockADM(
-                cin, cout, temb, dropout=dropout, use_scale_shift_norm=use_scale_shift_norm, **kw,
+                cin, cout, temb, dropout=dropout, use_scale_shift_norm=use_scale_shift_norm,
+                ring=ring, fir=fir_updown, **kw,
             ))
 
         def attn(name, ch, ds, upsample):
@@ -198,7 +255,7 @@ class LayoutUnetV1(nn.Module):
             ))
 
         ch = int(channel_mult[0] * model_channels)
-        self.in_conv = RingConv(in_channels + n_coords, ch, ring=True)
+        self.in_conv = RingConv(in_channels + n_coords, ch, ring=ring)
         skips = [ch]
         ds = 1
         for level, mult in enumerate(channel_mult):
@@ -211,7 +268,10 @@ class LayoutUnetV1(nn.Module):
                         attn(f"in_{level}_{i}_attn{a}", ch, ds, False)
                 skips.append(ch)
             if level != len(channel_mult) - 1:
-                res(f"down_{level}", ch, ch, down=True)
+                if resblock_updown:
+                    res(f"down_{level}", ch, ch, down=True)
+                else:
+                    self.add_module(f"down_{level}", Downsample(ch, conv_resample, ring=ring))
                 skips.append(ch)
                 ds *= 2
         res("mid_res1", ch, ch)
@@ -226,10 +286,13 @@ class LayoutUnetV1(nn.Module):
                     for a in range(num_attention_blocks):
                         attn(f"out_{level}_{i}_attn{a}", ch, ds, True)
                 if level and i == num_res_blocks:
-                    res(f"up_{level}", ch, ch, up=True)
+                    if resblock_updown:
+                        res(f"up_{level}", ch, ch, up=True)
+                    else:
+                        self.add_module(f"up_{level}", Upsample(ch, conv_resample, ring=ring))
                     ds //= 2
         self.out_norm = GroupNorm32(ch)
-        self.out_conv = RingConv(ch, out_channels, ring=True)
+        self.out_conv = RingConv(ch, out_channels, ring=ring)
 
     def _heads(self, ch: int, upsample: bool = False) -> int:
         if self.num_head_channels == -1:
@@ -243,6 +306,10 @@ class LayoutUnetV1(nn.Module):
                 h = self.get_submodule(f"{prefix}_attn{a}")(h, layout)
         return h
 
+    def _resample(self, name: str, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        block = self.get_submodule(name)
+        return block(h, emb) if isinstance(block, ResBlockADM) else block(h)
+
     def forward(self, x: torch.Tensor, cond_dict: dict) -> torch.Tensor:
         timesteps = cond_dict["time_condition"]
         layout = cond_dict["other_condition"]
@@ -253,7 +320,7 @@ class LayoutUnetV1(nn.Module):
         emb = (emb + layout["xf_proj"].to(emb.dtype)).to(x.dtype)
 
         h = x
-        if "concat_cond" in layout:
+        if self.use_concat_cond and "concat_cond" in layout:
             h = torch.cat([h, layout["concat_cond"].to(h.dtype)], dim=-1)
         if self.coords is not None:
             cenc = self.coords.to(h.dtype)[None].expand(B, -1, -1, -1)
@@ -268,7 +335,7 @@ class LayoutUnetV1(nn.Module):
                 h = self._attend(f"in_{level}_{i}", h, ds, layout)
                 hs.append(h)
             if level != len(self.channel_mult) - 1:
-                h = self.get_submodule(f"down_{level}")(h, emb)
+                h = self._resample(f"down_{level}", h, emb)
                 hs.append(h)
                 ds *= 2
 
@@ -282,8 +349,34 @@ class LayoutUnetV1(nn.Module):
                 h = self.get_submodule(f"out_{level}_{i}_res")(h, emb)
                 h = self._attend(f"out_{level}_{i}", h, ds, layout)
                 if level and i == self.num_res_blocks:
-                    h = self.get_submodule(f"up_{level}")(h, emb)
+                    h = self._resample(f"up_{level}", h, emb)
                     ds //= 2
 
         h = self.out_norm(h, silu=True)
         return self.out_conv(h)
+
+
+class LayoutUnet(LayoutUnetV1):
+    """The v0 stack (registry key ``layout_unet``, ``nuscenes-box-layout``):
+    :class:`LayoutUnetV1` with zero-padded convs, ADM nearest / average-pool
+    resampling in the up/down ResBlocks, the ADM timestep sinusoid, and no
+    coordinate encoding or ``concat_cond`` input (the layout enters through
+    cross-attention and ``xf_proj`` alone)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        layout_channels: int,
+        resolution: tuple[int, int] = (32, 1024),
+        ring: bool = False,
+        fir_updown: bool = False,
+        adm_time_embed: bool = True,
+        use_concat_cond: bool = False,
+        coords_encoding: str | None = None,
+        **kwargs,
+    ):
+        super().__init__(
+            in_channels, resolution, layout_channels, ring=ring, fir_updown=fir_updown,
+            adm_time_embed=adm_time_embed, use_concat_cond=use_concat_cond,
+            coords_encoding=coords_encoding, **kwargs,
+        )

@@ -49,6 +49,18 @@ def sinusoidal_embedding(x: torch.Tensor, channels: int, max_period: int = 10_00
     return torch.cat([torch.sin(h), torch.cos(h)], dim=-1)
 
 
+def adm_timestep_embedding(x: torch.Tensor, channels: int, max_period: int = 10_000) -> torch.Tensor:
+    """The ADM/GLIDE timestep embedding [cos | sin]: unlike
+    :func:`sinusoidal_embedding`, the frequency denominator is ``half`` (not
+    ``half - 1``) and cos comes first; ``x`` is (B,)."""
+    half = channels // 2
+    freqs = torch.exp(
+        -math.log(max_period) / half * torch.arange(half, dtype=torch.float32, device=x.device)
+    )
+    h = x[:, None].float() * freqs[None, :]
+    return torch.cat([torch.cos(h), torch.sin(h)], dim=-1)
+
+
 def softmax_f32_math(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Softmax whose max/exp/sum run in f32 while the result keeps the
     logits' dtype."""

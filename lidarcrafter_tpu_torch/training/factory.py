@@ -1,10 +1,14 @@
 """Model/engine factory.
 
-Port of the JAX package's ``training/factory.py``: the unconditional and the
-concat-conditioned continuous-time branches of ``build_diffusion_training``
-(``nuscenes-unet-uncond``; ``nuscenes-box-layout-v6`` and
-``nuscenes-auto-reg-v2``, which differ only in the encoder's ``out_channels``
-and in the ``autoregressive_cond`` input), ``build_flow_training``
+Port of the JAX package's ``training/factory.py``: every branch of
+``build_diffusion_training`` — unconditional continuous time
+(``nuscenes-unet-uncond``, ``kitti-360``, ``nuscenes-hdit-uncond``), the
+layout-conditioned stacks (the v0 ``LayoutUnet`` of ``nuscenes-box-layout``
+with ``cond_mode=None``; ``LayoutUnetV1`` with ``cond_mode='concat'`` for
+v1-v6 and ``nuscenes-auto-reg`` / ``-v2``, which differ in the encoder's
+``out_channels`` and architecture and in the ``autoregressive_cond``
+input) and discrete time (``timestep_type='discrete'``) —,
+``build_flow_training``
 (``meanflow-nusc``), ``build_layout_training`` (``nuscenes-layout``: scene
 graph → 4D layout), ``build_object_training`` (``nuscenes-object``: box +
 class → object points) and ``layout_condition_batch``.
@@ -15,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_device
-from ..diffusion import CondContinuousDiffusion, CondLayoutDiffusion, ContinuousDiffusion, MeanFlow
+from ..diffusion import CondContinuousDiffusion, CondLayoutDiffusion, ContinuousDiffusion, DiscreteDiffusion, MeanFlow
 from ..models import build_model
 from ..utils.lidar import LiDARUtility
 
@@ -99,33 +103,56 @@ def _build_denoiser(cfg, in_channels: int, device: torch.device, **extra):
 
 
 def build_diffusion_training(cfg, device: str | torch.device = "cuda"):
-    """The continuous-time image-diffusion branches, built on ``device``.
+    """The image-diffusion branches, built on ``device``.
 
     Unconditional configs give ``(model, ContinuousDiffusion, utils)``;
-    concat-conditioned ones give ``({'model': LayoutUnetV1, 'cond':
-    LayoutTransformerEncoder}, CondContinuousDiffusion, utils)``.  Models
-    are in ``eval()`` mode (dropout off, as the JAX trainer runs them) with
+    conditioned ones give ``({'model': denoiser, 'cond': encoder},
+    CondContinuousDiffusion, utils)``; ``timestep_type='discrete'`` gives
+    ``(model, DiscreteDiffusion, utils)`` (the config must set
+    ``num_training_steps``, which every registry config leaves None, as the
+    JAX factory needs it too).  With
+    ``cond_mode='concat'`` the denoiser's input widens by the encoder's
+    ``out_channels``; with ``cond_mode=None`` (v0) it does not.  Models are
+    in ``eval()`` mode (dropout off, as the JAX trainer runs them) with
     float32 parameters that require grad: the same build serves and trains.
     """
     device = resolve_device(device)
-    if cfg.diffusion.timestep_type != "continuous":
-        raise NotImplementedError("the port builds the continuous-time branches only")
-    engine_kw = _engine_kw(cfg, (*cfg.data.resolution, _data_channels(cfg)))
-    if getattr(cfg, "condition_model", None) is None:
-        model = _build_denoiser(cfg, _data_channels(cfg), device)
-        return model, ContinuousDiffusion(model=model, **engine_kw), make_lidar_utils(cfg, device)
-    if cfg.diffusion.cond_mode != "concat":
-        raise NotImplementedError("the port builds the concat-conditioned branch only")
-    model = _build_denoiser(
-        cfg, _data_channels(cfg) + cfg.condition_model.params["out_channels"], device,
-        layout_channels=cfg.condition_model.params["hidden_dim"],
-    )
+    data_channels = _data_channels(cfg)
+    sampling_shape = (*cfg.data.resolution, data_channels)
+    conditioned = getattr(cfg, "condition_model", None) is not None
+    cond_mode = cfg.diffusion.cond_mode
+    if cond_mode not in ("concat", None):
+        raise ValueError(f"cond_mode {cond_mode!r}")
+    in_channels, extra = data_channels, {}
+    if conditioned:
+        cp = cfg.condition_model.params
+        if cond_mode == "concat":
+            in_channels += cp["out_channels"]
+        if cfg.model.architecture in ("layout_unet", "layout_unet_v1"):
+            extra["layout_channels"] = cp["hidden_dim"]
+    model = _build_denoiser(cfg, in_channels, device, **extra)
+    lidar_utils = make_lidar_utils(cfg, device)
+
+    if cfg.diffusion.timestep_type == "discrete":
+        if cfg.diffusion.num_training_steps is None:
+            raise ValueError("timestep_type='discrete' needs cfg.diffusion.num_training_steps")
+        engine = DiscreteDiffusion(
+            model=model, sampling_shape=sampling_shape,
+            num_training_steps=cfg.diffusion.num_training_steps,
+            prediction_type=cfg.diffusion.prediction_type, loss_type=cfg.diffusion.loss_type,
+            noise_schedule=cfg.diffusion.noise_schedule,
+        )
+        return model, engine, lidar_utils
+    engine_kw = _engine_kw(cfg, sampling_shape)
+    if not conditioned:
+        return model, ContinuousDiffusion(model=model, **engine_kw), lidar_utils
     cond_model = build_model(cfg.condition_model.architecture, **cfg.condition_model.params)
     cond_model = cond_model.to(device).eval()
     engine = CondContinuousDiffusion(
-        model=model, cond_model=cond_model, w_loss_weight=cfg.diffusion.w_loss_weight, **engine_kw
+        model=model, cond_model=cond_model, cond_mode=cond_mode,
+        w_loss_weight=cfg.diffusion.w_loss_weight, **engine_kw,
     )
-    return {"model": model, "cond": cond_model}, engine, make_lidar_utils(cfg, device)
+    return {"model": model, "cond": cond_model}, engine, lidar_utils
 
 
 def build_flow_training(cfg, device: str | torch.device = "cuda"):

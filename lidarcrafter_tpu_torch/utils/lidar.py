@@ -1,7 +1,7 @@
 """LiDAR geometry: depth codec, [-1, 1] normalisation, range → xyz.
 
 Port of the JAX package's ``utils/lidar.py`` (``LiDARUtility``,
-``get_linear_ray_angles_np``).  Images are NHWC ``(B, H, W, C)``; ray angles
+``get_linear_ray_angles_np``, ``nearest_interp_2d``).  Images are NHWC ``(B, H, W, C)``; ray angles
 are ``(H, W, 2)`` radians with channel 0 = elevation and channel 1 = azimuth.
 """
 
@@ -52,14 +52,24 @@ class LiDARUtility:
         fov_up: float = 10.0,
         fov_down: float = -30.0,
         device: str | torch.device = "cpu",
+        ray_angles: np.ndarray | torch.Tensor | None = None,
     ) -> "LiDARUtility":
+        """Linear ray angles from the field of view, or the given
+        ``ray_angles`` (H', W', 2), resampled to ``resolution`` with
+        :func:`nearest_interp_2d` where their size differs."""
         if depth_format not in ("log_depth", "inverse_depth", "depth"):
             raise ValueError(depth_format)
-        angles = get_linear_ray_angles_np(
-            *resolution, fov_up=fov_up, fov_down=fov_down, dtype=np.float32
-        )
+        if ray_angles is None:
+            ray_angles = get_linear_ray_angles_np(
+                *resolution, fov_up=fov_up, fov_down=fov_down, dtype=np.float32
+            )
+        angles = torch.as_tensor(ray_angles, dtype=torch.float32)
+        if angles.ndim != 3 or angles.shape[-1] != 2:
+            raise ValueError(f"ray angles of shape {tuple(angles.shape)}, expected (H, W, 2)")
+        if tuple(angles.shape[:2]) != tuple(resolution):
+            angles = nearest_interp_2d(angles, resolution)
         return cls(
-            ray_angles=torch.as_tensor(angles, dtype=torch.float32, device=device),
+            ray_angles=angles.to(device),
             resolution=tuple(resolution),
             depth_format=depth_format,
             min_depth=float(min_depth),
@@ -116,3 +126,13 @@ class LiDARUtility:
         grid_y = metric * torch.cos(phi) * torch.sin(theta)
         grid_z = metric * torch.sin(phi)
         return torch.cat([grid_x, grid_y, grid_z], dim=-1) * mask
+
+
+def nearest_interp_2d(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """'nearest-exact' resize over the first two dims of an (H, W, C)
+    tensor: output index i reads floor((i + 0.5) · in / out)."""
+    H, W = x.shape[:2]
+    out_h, out_w = size
+    rows = np.clip(np.floor((np.arange(out_h) + 0.5) * (H / out_h)).astype(np.int64), 0, H - 1)
+    cols = np.clip(np.floor((np.arange(out_w) + 0.5) * (W / out_w)).astype(np.int64), 0, W - 1)
+    return x[torch.as_tensor(rows, device=x.device)][:, torch.as_tensor(cols, device=x.device)]

@@ -11,11 +11,14 @@ onto a key one to one; the leaves convert as
   ``key`` / ``value`` → Linear ``weight`` (h·dh, C); (h, dh, C) of ``out``
   → Linear ``weight`` (C, h·dh); their ``bias`` (h, dh) → (h·dh,)
 - Conv ``kernel`` (H, W, I, O) → Conv2d ``weight`` (O, I, H, W)
-- ``scale`` of GroupNorm/LayerNorm and ``embedding`` of Embed → ``weight``
+- ``scale`` of GroupNorm/LayerNorm/RMSNorm (rank 1) and ``embedding`` of
+  Embed → ``weight``; a ``scale`` of any other rank (HDiT's per-head
+  attention log scale, (heads, 1)) keeps its name
 - ``conv_kernel`` (H, W, O, I) of a transposed conv (the metric extractors'
   ``lax.conv_transpose``) → ``conv.weight`` (I, O, H, W) of a
   ``ConvTranspose2d`` named ``conv``; its ``conv_bias`` → ``conv.bias``
-- ``bias`` → ``bias``; any other leaf keeps its name.
+- ``bias`` → ``bias``; any other leaf keeps its name (HDiT's
+  ``rff_freqs`` buffer, ``spatial_pe`` and ``expand_{i}_alpha``).
 
 A flax variable dict ``{'params': ..., 'batch_stats': ...}`` carries its
 ``batch_stats`` collection too: the BatchNorm statistics ``mean`` and
@@ -75,7 +78,9 @@ def _convert_leaf(path: tuple[str, ...], value, stats: bool = False) -> tuple[st
             raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
     elif leaf == "bias" and arr.ndim == 2:
         arr = arr.reshape(-1)
-    key = ".".join([m.lower() for m in mods] + [_LEAF_NAMES.get(leaf, leaf)])
+    # a norm's scale is a vector; any other scale (a per-head log scale) keeps its name
+    name = leaf if leaf == "scale" and arr.ndim != 1 else _LEAF_NAMES.get(leaf, leaf)
+    key = ".".join([m.lower() for m in mods] + [name])
     return key, np.array(arr, order="C")  # a writable copy (a jax array reads as read-only)
 
 
@@ -117,8 +122,9 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from ``numpy.random.default_rng(seed)`` in
     ``state_dict`` order: matrices and conv filters normal/√fan_in, norm
     scales 1 + 0.1·normal, biases and other vectors 0.1·normal; then the
-    BatchNorm statistics: running means 0.1·normal, running variances
-    1 + 0.1·|normal| (positive)."""
+    buffers saved with the weights: BatchNorm running means 0.1·normal,
+    running variances 1 + 0.1·|normal| (positive), any other floating one
+    (HDiT's random Fourier frequencies) standard normal."""
     rng = np.random.default_rng(seed)
     for name, p in module.named_parameters():
         shape = tuple(p.shape)
@@ -130,9 +136,15 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
         else:
             value = 0.1 * z
         p.copy_(torch.as_tensor(value))
+    saved = module.state_dict(keep_vars=True)
     for name, b in module.named_buffers():
+        if name not in saved or not b.is_floating_point():
+            continue
         stat = name.rsplit(".", 1)[-1]
-        if stat in _STAT_NAMES.values():
-            z = rng.standard_normal(tuple(b.shape), dtype=np.float32)
-            b.copy_(torch.as_tensor(1.0 + 0.1 * np.abs(z) if stat == "running_var" else 0.1 * z))
+        z = rng.standard_normal(tuple(b.shape), dtype=np.float32)
+        if stat == "running_var":
+            z = 1.0 + 0.1 * np.abs(z)
+        elif stat == "running_mean":
+            z = 0.1 * z
+        b.copy_(torch.as_tensor(z))
     return module

@@ -43,35 +43,25 @@ import numpy as np
 import pytest
 import torch
 from flax import traverse_util
-from torch_port_harness import Pair, UncondPair, one_torch_thread, to_torch  # noqa: F401 (one_torch_thread: autouse)
+from torch_port_harness import (  # noqa: F401 (one_torch_thread: autouse)
+    Pair,
+    UncondPair,
+    check_bf16_forward,
+    jax_bf16_apply,
+    one_torch_thread,
+    to_torch,
+)
 
 from lidarcrafter_tpu.models.efficient_unet import TimeEmbedding as JTimeEmbedding
 from lidarcrafter_tpu.serving.export import _cast_tree
 from lidarcrafter_tpu_torch.models.efficient_unet import TimeEmbedding
 from lidarcrafter_tpu_torch.precision import cast_tree, to_serving_dtype_
 
-VS_JAX_RTOL = 6e-2
-VS_F32_RTOL = 5e-2
-MIN_BF16_EFFECT = 1e-3
 ENCODER_RTOL = 1e-5  # also the time embeddings: float32 in both packages
 BF16_ULP = 2.0**-7  # the largest spacing of bfloat16 values, relative
 OFF_GRID_LOG_SNR = np.array([-3.1416, 5.4321], np.float32)  # not bfloat16 values
 BF = jnp.bfloat16
 B = 2
-
-
-def _bf16_apply(apply):
-    """``apply(params, x, *rest)`` as ``build_sampler_fn`` wraps it."""
-    return jax.jit(lambda p, x, *rest: apply(p, x.astype(BF), *_cast_tree(rest, BF)).astype(jnp.float32))
-
-
-def _check(got, want_bf16, want_f32):
-    scale = np.abs(want_f32).max()
-    assert got.dtype == np.float32 and got.shape == want_f32.shape
-    assert np.all(np.isfinite(got))
-    assert np.abs(got - want_bf16).max() <= VS_JAX_RTOL * scale
-    assert np.abs(got - want_f32).max() <= VS_F32_RTOL * scale
-    assert np.abs(got - want_f32).max() > MIN_BF16_EFFECT * scale
 
 
 @pytest.fixture(scope="module")
@@ -118,13 +108,13 @@ def test_layout_denoiser_forward_in_bf16_matches_jax(layout):
         pair.params["model"], jnp.asarray(x),
         {"time_condition": jnp.asarray(t), "other_condition": _jax_layout(pair, pair.params)}))
     pbf = _cast_tree(pair.params, BF)
-    want_bf16 = np.asarray(_bf16_apply(model.apply)(
+    want_bf16 = np.asarray(jax_bf16_apply(model.apply)(
         pbf["model"], jnp.asarray(x),
         {"time_condition": jnp.asarray(t), "other_condition": _jax_layout(pair, pbf)}))
     with torch.no_grad():
         cond = engine.get_network_condition(to_torch(pair.batch))
         got = engine.denoise(torch.as_tensor(x), torch.as_tensor(t), cond).numpy()
-    _check(got, want_bf16, want_f32)
+    check_bf16_forward(got, want_bf16, want_f32)
 
 
 def test_unet_forward_in_bf16_matches_jax(uncond):
@@ -134,14 +124,14 @@ def test_unet_forward_in_bf16_matches_jax(uncond):
         else [np.array([-3.0, 5.0], np.float32)]
     jt = [jnp.asarray(a) for a in times]
     want_f32 = np.asarray(jax.jit(pair.jmodel.apply)(pair.params, jnp.asarray(x), *jt))
-    want_bf16 = np.asarray(_bf16_apply(pair.jmodel.apply)(_cast_tree(pair.params, BF), jnp.asarray(x), *jt))
+    want_bf16 = np.asarray(jax_bf16_apply(pair.jmodel.apply)(_cast_tree(pair.params, BF), jnp.asarray(x), *jt))
     with torch.no_grad():
         tx, tt = torch.as_tensor(x), [torch.as_tensor(a) for a in times]
         if pair.flow:  # the engine's own cast, as MeanFlow.sample makes it
             got = engine.model(tx.bfloat16(), *(a.bfloat16() for a in tt)).float().numpy()
         else:
             got = engine.denoise(tx, tt[0]).numpy()
-    _check(got, want_bf16, want_f32)
+    check_bf16_forward(got, want_bf16, want_f32)
 
 
 def _jax_time_embeddings(apply, params, *args):
@@ -242,7 +232,7 @@ def test_layout_sampler_step_in_bf16_matches_jax_and_keeps_a_float32_carry(layou
 
     model = pair.jmodels["model"]
     want_f32 = jax_step(pair.params, pair.jengine)
-    bf16_engine = dataclasses.replace(pair.jengine, apply_fn=lambda p, x, cd: _bf16_apply(
+    bf16_engine = dataclasses.replace(pair.jengine, apply_fn=lambda p, x, cd: jax_bf16_apply(
         lambda pm, xx, c: model.apply(pm, xx, c))(p["model"], x, cd))
     want_bf16 = jax_step(_cast_tree(pair.params, BF), bf16_engine)
     with torch.no_grad():
@@ -250,7 +240,7 @@ def test_layout_sampler_step_in_bf16_matches_jax_and_keeps_a_float32_carry(layou
         got = engine.p_step(torch.as_tensor(x), torch.as_tensor(t), torch.as_tensor(s),
                             mode="ddim", condition=cond)
     assert got.dtype == torch.float32
-    _check(got.numpy(), want_bf16, want_f32)
+    check_bf16_forward(got.numpy(), want_bf16, want_f32)
 
 
 def test_uncond_sampler_step_in_bf16_matches_jax_and_keeps_a_float32_carry(uncond):
@@ -260,7 +250,7 @@ def test_uncond_sampler_step_in_bf16_matches_jax_and_keeps_a_float32_carry(uncon
     rnd = np.random.RandomState(8)
     x = rnd.standard_normal((B, *pair.jcfg.data.resolution, 2)).astype(np.float32)
     jmodel = pair.jmodel
-    bf16_engine = dataclasses.replace(pair.jengine, apply_fn=_bf16_apply(jmodel.apply))
+    bf16_engine = dataclasses.replace(pair.jengine, apply_fn=jax_bf16_apply(jmodel.apply))
     pbf = _cast_tree(pair.params, BF)
     if pair.flow:
         key = jax.random.PRNGKey(5)
@@ -276,7 +266,7 @@ def test_uncond_sampler_step_in_bf16_matches_jax_and_keeps_a_float32_carry(uncon
         with torch.no_grad():
             got = engine.p_step(torch.as_tensor(x), torch.as_tensor(t), torch.as_tensor(s), mode="ddim")
     assert got.dtype == torch.float32
-    _check(got.numpy(), want_bf16, want_f32)
+    check_bf16_forward(got.numpy(), want_bf16, want_f32)
 
 
 @pytest.mark.parametrize("mode", ["ddim", "dpmpp_2m"])

@@ -849,3 +849,105 @@ def test_heavy_metric_ops_never_leave_the_card(clouds):
         with Recorder() as rec:
             call()
         assert rec.host == [], f"{name}: {rec.host}"
+
+
+# ------------------------------------------------------------------ image-config zoo
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,L,L2", [(1, 1, 1, 1), (2, 3, 100, 13), (1, 2, 64, 64), (3, 1, 130, 0), (1, 2, 1000, 13), (2, 1, 77, 1)]
+)
+def test_oaca_kernel_at_head_dims_64_matches_plain(gen, dtype, B, H, L, L2):
+    """The v0 stack's instantiation: (dc, dp, dv) = (64, 64, 64), 64-row
+    query tiles."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    ops = (r(B, H, L, 64), r(B, H, L, 64), r(B, H, L, 64), r(B, H, L2, 128), r(B, H, L, 64), r(B, H, L2, 64))
+    scale = 1 / math.sqrt(math.sqrt(128))
+    n = oaca.launches.n
+    got = oaca.oaca_attention(*ops, scale=scale)
+    torch.cuda.synchronize()
+    assert oaca.launches.n == n + 1
+    want = oaca.oaca_attention_plain(*ops, scale=scale)
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v0_attention_block_on_the_card_matches_the_cpu(gen, dtype, float32_convolutions):
+    """A v0 ``ObjectAwareCrossAttention`` at ds4 width (512 channels, 8
+    heads of 64): the kernel reads the per-head views of the fused qkv
+    projection and the 512-wide positional strips."""
+    from lidarcrafter_tpu_torch.models.layout_unet import ObjectAwareCrossAttention
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    block = init_random_(ObjectAwareCrossAttention(512, 8, 256, resolution=8), 0)
+    B, Hh, Ww, L2 = 2, 8, 256, 13
+    cond = {"image_patch_bbox_embedding_for_resolution8": torch.randn(B, Hh * Ww, 256, generator=gen, device="cuda"),
+            "obj_bbox_embedding": torch.randn(B, L2, 256, generator=gen, device="cuda"),
+            "obj_class_embedding": torch.randn(B, L2, 256, generator=gen, device="cuda"),
+            "xf_out": torch.randn(B, L2, 256, generator=gen, device="cuda")}
+    x = torch.randn(B, Hh, Ww, 512, generator=gen, device="cuda")
+    with torch.inference_mode():
+        want = block(x.cpu(), {k: v.cpu() for k, v in cond.items()})
+        card = block.to("cuda", dtype)
+        n = oaca.launches.n
+        got = card(x.to(dtype), {k: v.to(dtype) for k, v in cond.items()})
+        torch.cuda.synchronize()
+    assert oaca.launches.n == n + 1
+    tol = 1e-3 if dtype == torch.float32 else 5e-2
+    assert float((got.float().cpu() - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def test_a_full_width_v0_call_launches_6_oaca_and_one_group_norm_a_norm(float32_convolutions):
+    """``nuscenes-box-layout`` at full width, B=1: one denoiser call
+    launches OACA at head dims 64 six times (ds4: 2 down, mid, 3 up) and
+    the GroupNorm kernel once per ``GroupNorm32``; card (kernels) against
+    CPU (plain versions) to 1e-3 of the largest output."""
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.models.ops import GroupNorm32
+    from lidarcrafter_tpu_torch.training.factory import build_diffusion_training, layout_condition_batch
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = get_config("nuscenes-box-layout")
+    models, engine, _ = build_diffusion_training(cfg, "cpu")
+    init_random_(models["cond"], 0)
+    init_random_(models["model"], 1)
+    batch = layout_condition_batch(cfg, 1, generator=torch.Generator().manual_seed(0))
+    x, t = torch.randn(1, 32, 1024, 2, generator=torch.Generator().manual_seed(1)), torch.tensor([2.0])
+    with torch.inference_mode():
+        want = engine.denoise(x, t, engine.get_network_condition(batch))
+        for m in models.values():
+            m.to("cuda")
+        for c in (oaca.launches, groupnorm.launches, attention.launches):
+            c.n = 0
+        got = engine.denoise(x.cuda(), t.cuda(), engine.get_network_condition(
+            {k: v.cuda() for k, v in batch.items()}))
+        torch.cuda.synchronize()
+    norms = sum(isinstance(m, GroupNorm32) for m in models["model"].modules())
+    assert (oaca.launches.n, groupnorm.launches.n, attention.launches.n) == (6, norms, 0)
+    assert float((got.cpu() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_an_hdit_call_launches_no_kernel_and_matches_the_cpu(float32_convolutions):
+    """``nuscenes-hdit-uncond`` at 32x1024, 64 base channels: plain PyTorch
+    on the card, no kernel of the port launched; card against CPU to 1e-3."""
+    from lidarcrafter_tpu_torch.models.hdit import HDiT
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = init_random_(HDiT((32, 1024), 2, base_channels=64, depths=(1, 1, 1, 1)), 0)
+    x, t = torch.randn(2, 32, 1024, 2, generator=torch.Generator().manual_seed(0)), torch.tensor([-3.0, 5.0])
+    with torch.inference_mode():
+        want = model(x, t)
+        for c in (oaca.launches, groupnorm.launches, attention.launches):
+            c.n = 0
+        got = model.cuda()(x.cuda(), t.cuda())
+        torch.cuda.synchronize()
+    assert (oaca.launches.n, groupnorm.launches.n, attention.launches.n) == (0, 0, 0)
+    assert float((got.cpu() - want).abs().max()) <= 1e-3 * float(want.abs().max())

@@ -55,6 +55,20 @@ FRAME0_L2, FRAME_L2 = 1e-4, 1e-3
 KEY = jax.random.PRNGKey(5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def fresh_jax_caches():
+    """Clear JAX's caches after this module.  It calls the JAX package's
+    ``points_to_range_image`` with float depth ranges, which that function
+    takes as static arguments; the JAX package's own
+    ``refine_points_via_condition_mask`` passes a traced depth range on as
+    those static arguments, and in a process whose cache holds the float
+    entries, JAX's cache lookup compares the tracer with them and raises
+    (``tests/test_rollout_pipeline.py`` fails after this module, passes
+    alone)."""
+    yield
+    jax.clear_caches()
+
+
 @pytest.fixture(scope="module")
 def stacks():
     return Pair("nuscenes-box-layout-v6", small=True, batch_size=S, seed=0), Pair(

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from lidarcrafter_tpu import configs as jcfgs
+from lidarcrafter_tpu.serving.export import _cast_tree
 from lidarcrafter_tpu.training.factory import build_diffusion_training as jax_build
 from lidarcrafter_tpu.training.factory import build_flow_training as jax_build_flow
 from lidarcrafter_tpu_torch import configs as tcfgs
@@ -89,11 +90,13 @@ def random_params(shape_tree, seed: int):
 
 def condition_batch(cfg, batch_size: int, seed: int) -> dict:
     """numpy condition batch: random boxes with integer classes in the last
-    box slot, random concat / autoregressive maps."""
+    box slot, random concat / autoregressive maps when the encoder declares
+    ``out_channels`` (the v0 encoder does not), and the v5 encoder's
+    ``fg_encoding_box`` (B, L, 8) and (9, 512) ``fg_text_features`` table."""
     rnd = np.random.RandomState(seed)
     H, W = cfg.data.resolution
     L = cfg.condition_model.params["layout_length"]
-    cc = cfg.condition_model.params["out_channels"]
+    cc = cfg.condition_model.params.get("out_channels", 0)
     boxes = rnd.uniform(0, 0.5, (batch_size, L, 9)).astype(np.float32)
     boxes[..., -1] = rnd.randint(0, 9, (batch_size, L))
     batch = {
@@ -101,11 +104,15 @@ def condition_batch(cfg, batch_size: int, seed: int) -> dict:
         "gt_boxes_2d": rnd.uniform(0, 0.5, (batch_size, L, 4)).astype(np.float32),
         "is_valid_obj": np.ones((batch_size, L), np.float32),
     }
-    maps = 0.1 * rnd.standard_normal((batch_size, H, W, cc)).astype(np.float32)
-    if "autoregressive" in cfg.data.task:
-        batch["concat_cond"], batch["autoregressive_cond"] = maps[..., :-1], maps[..., -1:]
-    else:
-        batch["concat_cond"] = maps
+    if cc:
+        maps = 0.1 * rnd.standard_normal((batch_size, H, W, cc)).astype(np.float32)
+        if "autoregressive" in cfg.data.task:
+            batch["concat_cond"], batch["autoregressive_cond"] = maps[..., :-1], maps[..., -1:]
+        else:
+            batch["concat_cond"] = maps
+    if cfg.condition_model.architecture == "layout_encoder_v5":
+        batch["fg_encoding_box"] = rnd.uniform(-1, 1, (batch_size, L, 8)).astype(np.float32)
+        batch["fg_text_features"] = (0.05 * rnd.standard_normal((9, 512))).astype(np.float32)
     return batch
 
 
@@ -126,20 +133,50 @@ def check_block(flax_mod, torch_mod, args, kwargs=None, seed=0, rtol=1e-5):
     return got, want
 
 
+BF16_VS_JAX_RTOL = 6e-2  # bfloat16 serving: the port against the JAX cast (test_torch_port_bf16.py)
+BF16_VS_F32_RTOL = 5e-2  # and against the float32 forward
+MIN_BF16_EFFECT = 1e-3
+
+
+def jax_bf16_apply(apply):
+    """``apply(params, x, *rest)`` as ``serving/export.py::build_sampler_fn``
+    wraps it: the image and the rest cast to bfloat16, the prediction cast
+    back to float32."""
+    bf = jnp.bfloat16
+    return jax.jit(lambda p, x, *rest: apply(p, x.astype(bf), *_cast_tree(rest, bf)).astype(jnp.float32))
+
+
+def check_bf16_forward(got, want_bf16, want_f32, vs_f32: bool = True):
+    """The port's bfloat16 forward ``got`` against the JAX bfloat16 one to
+    ``BF16_VS_JAX_RTOL`` of the largest float32 output, (with ``vs_f32``)
+    against the float32 one to ``BF16_VS_F32_RTOL``, and further than
+    ``MIN_BF16_EFFECT`` from it: it ran in bfloat16 at all."""
+    scale = np.abs(want_f32).max()
+    assert got.dtype == np.float32 and got.shape == want_f32.shape
+    assert np.all(np.isfinite(got))
+    assert np.abs(got - want_bf16).max() <= BF16_VS_JAX_RTOL * scale
+    if vs_f32:
+        assert np.abs(got - want_f32).max() <= BF16_VS_F32_RTOL * scale
+    assert np.abs(got - want_f32).max() > MIN_BF16_EFFECT * scale
+
+
 def to_torch(tree):
     return jax.tree_util.tree_map(lambda a: torch.as_tensor(np.asarray(a)), tree)
 
 
 class Pair:
-    """One config built by both packages with shared random weights."""
+    """One config built by both packages with shared random weights: ``name``
+    shrunk by each package's own ``apply_reduced_topology`` (``shrink``), or
+    the given ``(jcfg, tcfg)``."""
 
-    def __init__(self, name: str, small: bool, batch_size: int = 2, seed: int = 0):
-        self.jcfg = shrink(jcfgs, name, small)
-        self.tcfg = shrink(tcfgs, name, small)
+    def __init__(self, name: str, small: bool, batch_size: int = 2, seed: int = 0, cfgs=None):
+        if cfgs is None:
+            cfgs = shrink(jcfgs, name, small), shrink(tcfgs, name, small)
+        self.jcfg, self.tcfg = cfgs
         self.jmodels, self.jengine, self.jlu = jax_build(self.jcfg)
         self.tmodels, self.tengine, self.tlu = torch_build(self.tcfg, device="cpu")
         self.batch = condition_batch(self.jcfg, batch_size, seed)
-        H, W = RESOLUTION
+        H, W = self.jcfg.data.resolution
         jbatch = {k: jnp.asarray(v) for k, v in self.batch.items()}
         cond_shapes = jax.eval_shape(self.jmodels["cond"].init, jax.random.PRNGKey(0), jbatch)
         cond_params = random_params(cond_shapes, seed + 1)
