@@ -145,7 +145,33 @@ Phases, each printing one JSON line:
    request (10 steps x 2 resamplings x jump 2, every other beam known:
    the known beams held to (1 − α(0)) + 6·σ(0)) and one
    ``DiscreteDiffusion`` DDPM@50 request (1,000 training steps, set on
-   the config: the registry leaves them unset).
+   the config: the registry leaves them unset);
+12. released checkpoints and the CLIP text tower ("ingest"): for one config
+   of each architecture pair that the JAX route ingests (v6, v0,
+   ``nuscenes-unet-uncond``, ``meanflow-nusc``, ``nuscenes-hdit-uncond``,
+   ``nuscenes-layout``, ``nuscenes-object``; v5 is refused there) at full
+   width, an upstream-format engine ``.pth`` written from seeded port
+   modules through the inverse tables (online weights 1.0 off the EMA
+   ones), converted by ``python -m lidarcrafter_tpu_torch.convert_checkpoint``
+   (all seven processes at once, on the CPU) and loaded through the
+   generator's ``ckpt=`` on the card: every tensor equal to its source bit
+   for bit, one denoiser call against the source modules on the CPU to
+   1e-3 with exact launches (11 OACA + 101 GroupNorm v6, 6 + 67 v0, 2
+   attention + 50 GroupNorm uncond and MeanFlow, 56 GroupNorm layout, none
+   HDiT and object); then the CLIP text tower at ViT-B/32 text width
+   (vocab 49,408, context 77, width 512, 8 heads, 12 layers, 512-d),
+   seeded weights under OpenAI's names saved as a state dict and as a
+   TorchScript archive, each loaded on the card with a synthetic merges
+   table (the same features, bit for bit), the class and relationship
+   words card vs CPU to 1e-4; then words to frames: 8 synthetic scenes of
+   ego + 12 objects through ``build_scene_graph_info``,
+   ``SceneGraphAssigner`` (train-split edits) and ``collate_scene_graphs``
+   with that tower's features, the converted ``nuscenes-layout`` stack
+   serving them with DDIM@50 (56 GroupNorm launches a call) and its boxes
+   conditioning the converted v6 stack in one DPM++(2M)@15 request (11 +
+   101 a call), finite frames; conversion seconds per config, CLIP ms a
+   batch of words and the request seconds, beside the card's name and
+   power limit.
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -159,6 +185,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gzip
 import json
 import math
 import subprocess
@@ -2061,6 +2088,407 @@ def phase_zoo(smi: str) -> dict:
     return by_path
 
 
+# ----------------------------------------------------------------- phase 12
+
+
+# one registry config of each architecture pair that the JAX route ingests
+# (the largest first: its conversion overlaps the others' writing)
+INGEST = ("nuscenes-layout", "nuscenes-box-layout", "nuscenes-hdit-uncond", "nuscenes-box-layout-v6",
+          "nuscenes-unet-uncond", "meanflow-nusc", "nuscenes-object")
+V0_GN_PER_FORWARD = 67
+INGEST_PER_CALL = {  # kernel launches in one denoiser call of each
+    "nuscenes-box-layout-v6": {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD},
+    "nuscenes-box-layout": {"oaca": V0_OACA_PER_FORWARD, "groupnorm": V0_GN_PER_FORWARD},
+    "nuscenes-unet-uncond": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
+    "meanflow-nusc": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
+    "nuscenes-hdit-uncond": {},
+    "nuscenes-layout": {"groupnorm": GN_PER_UNET1D},
+    "nuscenes-object": {},
+}
+INGEST_PARITY_BATCH = 1  # images a card-vs-CPU denoiser call of an image config
+CLIP_DIMS = dict(vocab_size=49408, context_length=77, width=512, heads=8, layers=12, embed_dim=512)  # ViT-B/32
+CLIP_RTOL = 1e-4
+# a synthetic BPE merges table (CLIP's real one is not in the repository)
+CLIP_MERGES = ["#version: synthetic", "c a", "ca r</w>", "t r", "u c", "tr uc", "truc k</w>", "w i", "wi l",
+               "wil l</w>", "s t", "st o", "sto p</w>", "b u", "bu s</w>"]
+WORDS_MODE, WORDS_STEPS = "ddim", 50  # the layout request
+STATES = ("Stop", "Go straight", "Turn left", "Turn right")
+
+
+def ingest_modules(cfg, seed: int) -> dict:
+    """The config's modules on the CPU with seeded weights (cond, model)."""
+    from lidarcrafter_tpu_torch.utils.torch_ckpt import build_modules
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    mods = build_modules(cfg, "cpu")
+    for i, k in enumerate(sorted(mods)):
+        init_random_(mods[k], seed + i)
+    return mods
+
+
+def ingest_generator(name: str, cfg, ckpt: str):
+    """The entry point a user serves ``name`` through, loading the port
+    checkpoint ``ckpt`` on the card; returns (generator, modules)."""
+    from lidarcrafter_tpu_torch.generate import UncondFrameGenerator
+    from lidarcrafter_tpu_torch.generate_cond import CondFrameGenerator
+    from lidarcrafter_tpu_torch.generate_flow import FlowFrameGenerator
+    from lidarcrafter_tpu_torch.generate_layout import LayoutGenerator
+    from lidarcrafter_tpu_torch.generate_object import ObjectGenerator
+
+    arch = cfg.model.architecture
+    if arch == "unet_1d":
+        gen = LayoutGenerator(cfg, DEVICE, ckpt=ckpt)
+    elif arch == "point_unet":
+        gen = ObjectGenerator(cfg, DEVICE, ckpt=ckpt)
+    elif arch == "mf_efficient_unet":
+        gen = FlowFrameGenerator(cfg, DEVICE, ckpt=ckpt)  # the online weights
+    elif cfg.condition_model is None:
+        gen = UncondFrameGenerator(cfg, DEVICE, ckpt=ckpt)
+    else:
+        gen = CondFrameGenerator(cfg, DEVICE, ckpt=ckpt)
+    return gen, getattr(gen, "models", None) or {"model": gen.model}
+
+
+def ingest_call(cfg, mods: dict, device, seed: int):
+    """One denoiser call of ``cfg``'s modules on ``device`` (the encoder,
+    then the denoiser), on seeded inputs at the request shapes (image
+    configs at ``INGEST_PARITY_BATCH``)."""
+    import torch
+
+    from lidarcrafter_tpu_torch.generate_layout import layout_request
+    from lidarcrafter_tpu_torch.utils.synthetic import synthetic_object_boxes, synthetic_scene_graphs
+
+    gen = torch.Generator().manual_seed(seed)
+    arch = cfg.model.architecture
+    with torch.inference_mode():
+        if arch == "unet_1d":
+            req = layout_request(synthetic_scene_graphs(LAYOUT_SCENES, LAYOUT_OBJECTS, seed=0), device)
+            sg = req["scenegraph"]
+            _, emb = mods["cond"](sg["objs"], sg["triples"], sg["text_feats"], sg["rel_feats"])
+            N = emb.shape[0]
+            x, t = torch.randn(N, 20, generator=gen), torch.linspace(-5.0, 5.0, N)
+            cd = {"time_condition": t.to(device), "other_condition": {"preds": sg["triples"], "uc_b": emb}}
+            return mods["model"](x.to(device), cd)
+        if arch == "point_unet":
+            boxes = {k: torch.as_tensor(v, device=device)
+                     for k, v in synthetic_object_boxes(LAYOUT_SCENES, LAYOUT_OBJECTS, seed=0).items()}
+            B = boxes["fg_class"].shape[0]
+            x, t = torch.randn(B, cfg.data.num_samples, 4, generator=gen), torch.linspace(-5.0, 5.0, B)
+            feat = mods["cond"](boxes)
+            return mods["model"](x.to(device), {"time_condition": t.to(device), "other_condition": feat})
+        B, (H, W) = INGEST_PARITY_BATCH, cfg.data.resolution
+        x, t = torch.randn(B, H, W, 2, generator=gen).to(device), torch.linspace(-3.0, 5.0, B, device=device)
+        if arch == "mf_efficient_unet":
+            return mods["model"](x, torch.full((B,), 0.9, device=device), torch.full((B,), 0.2, device=device))
+        if cfg.condition_model is None:
+            return mods["model"](x, t)
+        batch = {k: v.to(device) for k, v in condition_batch(cfg, B, gen).items()}
+        return mods["model"](x, {"time_condition": t, "other_condition": mods["cond"](batch)})
+
+
+def openai_clip_archive(sd: dict, path) -> None:
+    """A TorchScript archive whose state dict holds ``sd`` under its names
+    (OpenAI's ``ViT-B-32.pt`` is one), traced from a module tree built from
+    the dotted names."""
+    import torch
+    from torch import nn
+
+    class Archive(nn.Module):
+        def forward(self, x):
+            return x @ self.text_projection
+
+    root = Archive()
+    for name, value in sd.items():
+        *mods, leaf = name.split(".")
+        node = root
+        for m in mods:
+            if not hasattr(node, m):
+                node.add_module(m, nn.Module())
+            node = getattr(node, m)
+        node.register_parameter(leaf, nn.Parameter(value.clone(), requires_grad=False))
+    traced = torch.jit.trace(root, torch.zeros(1, sd["text_projection"].shape[0]))
+    torch.jit.save(traced, str(path))
+
+
+def scene_infos(num_scenes: int, n: int, seed: int) -> list:
+    """Converter info dicts of ``num_scenes`` scenes of ``n`` kept boxes
+    (within 40 m, a kept class, 100 points), with futures."""
+    from lidarcrafter_tpu_torch.datasets.scene_graph import KEEP_NAMES
+
+    rng = np.random.RandomState(seed)
+    infos = []
+    for _ in range(num_scenes):
+        boxes = np.concatenate([rng.uniform(-40, 40, (n, 2)), rng.uniform(-2, 1, (n, 1)),
+                                rng.uniform([3.5, 1.5, 1.5], [12.0, 3.0, 4.0], (n, 3)),
+                                rng.uniform(-np.pi, np.pi, (n, 1))], axis=1)
+        infos.append({
+            "gt_boxes": boxes, "gt_names": rng.choice(KEEP_NAMES, n), "num_lidar_pts": np.full(n, 100),
+            "gt_agent_fut_trajs": np.cumsum(rng.normal(0, 0.5, (n, 6, 2)), axis=1),
+            "gt_agent_fut_masks": np.ones((n, 6)), "gt_agent_fut_states": rng.choice(STATES, n),
+            "instance_inds": np.arange(n), "gt_ego_fut_trajs": np.cumsum(rng.normal(0, 0.5, (6, 2)), axis=0),
+            "gt_ego_fut_masks": np.ones(6), "gt_ego_fut_state": "Go straight", "lidar_path": None,
+        })
+    return infos
+
+
+def words_to_graphs(encode_fn, seed: int) -> dict:
+    """``LAYOUT_SCENES`` synthetic scenes of ego + ``LAYOUT_OBJECTS``
+    through the converter step, ``SceneGraphAssigner`` (train split: its
+    edits) and ``collate_scene_graphs``, CLIP features from ``encode_fn``."""
+    from lidarcrafter_tpu_torch.datasets import scene_graph as SG
+    from lidarcrafter_tpu_torch.datasets.transforms import scale_boxes_3d
+
+    assigner = SG.SceneGraphAssigner(split="train", text_encode_fn=encode_fn, rng=np.random.RandomState(seed))
+    items = []
+    for i, info in enumerate(scene_infos(LAYOUT_SCENES, LAYOUT_OBJECTS, seed)):
+        sg = SG.build_scene_graph_info(info)["scene_graph"]
+        check(sg["valid"] and len(sg["keep_box_names"]) == LAYOUT_OBJECTS + 1, "words to frames: a box was dropped")
+        items.append(assigner.assign_item(i, {
+            "scaled_gt_boxes": scale_boxes_3d(sg["keep_box"]), "gt_fut_trajs": sg["keep_agent_fut_trajs"],
+            "gt_fut_masks": sg["keep_agent_fut_masks"], "gt_names": sg["keep_box_names"],
+            "gt_fut_states": sg["keep_agent_fut_states"], "gt_box_relationships": sg["keep_box_relationships"]}))
+    batch = SG.collate_scene_graphs(items, text_encode_fn=encode_fn)
+    batch["edits"] = [it["manipulate"]["type"] for it in items]
+    batch["words"] = [items[0]["decoder"]["words"]]  # the first scene's relationship words
+    return batch
+
+
+def layout_frame_batch(raw, graphs: dict, cfg, lidar_utils) -> dict:
+    """A layout sample (N, 20) → the frame stack's condition batch, as the
+    dataset builds one for ``layout_cond``: per scene, its nodes' boxes
+    (clipped into the scaled boxes' range [-1, 1], since an untrained
+    denoiser's x̂_0 is unbounded) unscaled to metres with the decoder's
+    classes, rasterised into ``condition_mask`` with the ego, and its
+    objects' scaled 3D and 2D boxes padded to ``layout_length``."""
+    import torch
+
+    from lidarcrafter_tpu_torch.datasets.transforms import scale_boxes_3d, unscale_boxes_3d
+    from lidarcrafter_tpu_torch.ops.projection import convert_boxes_to_2d
+    from lidarcrafter_tpu_torch.training.preprocess import preprocess_condition_mask
+
+    dec = graphs["decoder"]
+    raw = np.clip(raw.cpu().numpy(), -1.0, 1.0)
+    H, W = cfg.data.resolution
+    L = cfg.condition_model.params["layout_length"]
+    scaled, boxes_2d, valid, masks = [], [], [], []
+    for s in range(int(dec["obj_to_scene"].max()) + 1):
+        idx = np.nonzero(dec["obj_to_scene"] == s)[0]
+        check(dec["objs"][idx[0]] == 0, "words to frames: a scene's first node is not the ego")
+        metric, _ = unscale_boxes_3d(raw[idx])  # zeroes the ego row
+        gt = np.concatenate([metric, dec["objs"][idx, None].astype(np.float64)], axis=1)
+        b2d, cmask, _ = convert_boxes_to_2d(torch.as_tensor(gt, dtype=torch.float32, device=DEVICE)[None],
+                                            H=H, W=W, fov_up=cfg.data.fov_up, fov_down=cfg.data.fov_down)
+        n = min(len(idx) - 1, L)
+        row3, row2 = np.zeros((L, 9), np.float32), np.zeros((L, 4), np.float32)
+        row3[:n] = scale_boxes_3d(gt)[1:n + 1]
+        row2[:n] = b2d[0, 1:n + 1].cpu().numpy()
+        scaled.append(row3)
+        boxes_2d.append(row2)
+        valid.append((np.arange(L) < n).astype(np.float32))
+        masks.append(cmask)
+    return {"scaled_gt_boxes": torch.as_tensor(np.stack(scaled), device=DEVICE),
+            "gt_boxes_2d": torch.as_tensor(np.stack(boxes_2d), device=DEVICE),
+            "is_valid_obj": torch.as_tensor(np.stack(valid), device=DEVICE),
+            "concat_cond": preprocess_condition_mask({"condition_mask": torch.cat(masks)}, lidar_utils)}
+
+
+class Conversions:
+    """``python -m lidarcrafter_tpu_torch.convert_checkpoint`` processes on
+    the CPU (no CUDA), each started as soon as its upstream checkpoint is
+    written; :meth:`finish` waits for all of them and returns each config's
+    port checkpoint and seconds (the process's wall time, and the CLI's
+    own, by step).  Leaving the ``with`` block kills any still running."""
+
+    def __init__(self, out_dir: Path):
+        import os
+
+        self.out_dir = out_dir
+        self.env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        self.procs = {}
+
+    def start(self, name: str, pth: Path) -> None:
+        out = self.out_dir / name
+        cmd = [sys.executable, "-m", "lidarcrafter_tpu_torch.convert_checkpoint", "--torch-ckpt", str(pth),
+               "-c", name, "-o", str(out)]
+        self.procs[name] = (subprocess.Popen(cmd, cwd=REPO, env=self.env, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True), time.perf_counter(), out)
+
+    def finish(self) -> dict:
+        done = {}
+        for name, (proc, t0, out) in self.procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"convert_checkpoint {name} exited {proc.returncode}: {stderr[-2000:]}")
+            check("strict load into the config's modules: OK" in stdout, f"convert_checkpoint {name}: {stdout}")
+            steps = stdout.split("seconds: ", 1)[1].splitlines()[0]
+            done[name] = {"ckpt": str(out), "wall_seconds": time.perf_counter() - t0,
+                          "cli_seconds": float(stdout.rsplit("(", 1)[1].split(" s)")[0]),
+                          **{f"{k}_seconds": float(v) for k, v in (x.split() for x in steps.split(", "))}}
+        return done
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for proc, _, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_ingest(smi: str) -> dict:
+    """Phase 12: released-checkpoint ingestion and the CLIP text tower,
+    words to frames.  Returns the launch counts by path."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.datasets.scene_graph import CLASSES, RELATIONSHIPS
+    from lidarcrafter_tpu_torch.models.clip_text import CLIPTextEncoder, load_clip_text_encoder
+    from lidarcrafter_tpu_torch.utils import torch_ckpt
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) upstream-format engine checkpoints from seeded port modules, each converted by the CLI
+        # as soon as it is written
+        t0 = time.perf_counter()
+        sources, paths = {}, {}
+        with Conversions(tmp) as conversions:
+            for i, name in enumerate(INGEST):
+                cfg = get_config(name)
+                sources[name] = ingest_modules(cfg, 40 + 2 * i)
+                ckpt = torch_ckpt.to_upstream_checkpoint(cfg, sources[name])
+                ckpt["weights"] = {k: v + 1.0 for k, v in ckpt["weights"].items()}  # online ≠ EMA
+                paths[name] = tmp / f"{name}.pth"
+                torch.save(ckpt, paths[name])
+                del ckpt
+                conversions.start(name, paths[name])
+            write_s = time.perf_counter() - t0
+            converted = conversions.finish()
+        emit({"phase": "ingest", "what": "convert_checkpoint", "card": smi, "write_seconds": write_s,
+              "written_and_converted_seconds": time.perf_counter() - t0,
+              "per_config": {n: {k: v for k, v in c.items() if k != "ckpt"} for n, c in converted.items()}})
+        for p in paths.values():
+            p.unlink()
+
+        # (b) each through its generator on the card: weights bit for bit, one call card vs CPU, launches
+        gens = {}
+        for name in INGEST:
+            cfg = get_config(name)
+            t0 = time.perf_counter()
+            gen, mods = ingest_generator(name, cfg, converted[name]["ckpt"])
+            load_s = time.perf_counter() - t0
+            for k, m in sources[name].items():
+                got = mods[k].state_dict()
+                for n, v in m.state_dict().items():
+                    check(torch.equal(got[n].cpu(), v), f"ingest {name}: {k}.{n} differs from its seeded source")
+            counters = reset_counters()
+            out = ingest_call(cfg, mods, DEVICE, seed=50)
+            torch.cuda.synchronize()
+            launches = {k: c.n for k, c in counters.items()}
+            want_launches = {k: INGEST_PER_CALL[name].get(k, 0) for k in launches}
+            check(launches == want_launches, f"ingest {name}: one call launched {launches}, expected {want_launches}")
+            t0 = time.perf_counter()
+            want = ingest_call(cfg, sources[name], "cpu", seed=50)
+            cpu_s = time.perf_counter() - t0
+            check_forward(f"ingest {name} converted checkpoint, one denoiser call float32", out.cpu(), want,
+                          FORWARD_RTOL, load_seconds=load_s, cpu_seconds=cpu_s, launches=launches)
+            if any(launches.values()):
+                by_path[f"ingest {name} call"] = {k: n for k, n in launches.items() if n}
+            if name in ("nuscenes-box-layout-v6", "nuscenes-layout"):
+                gens[name] = gen
+            del gen, mods, out, want
+            torch.cuda.empty_cache()
+        del sources
+
+        # (c) the CLIP text tower at ViT-B/32 text width: a state dict and a TorchScript archive
+        tower = init_random_(CLIPTextEncoder(**CLIP_DIMS), 60)
+        sd = torch_ckpt.export(torch_ckpt.clip_text, tower.state_dict())
+        sd["visual.proj"] = torch.randn(768, 512, generator=torch.Generator().manual_seed(61))  # skipped
+        plain, archive, bpe = tmp / "clip_text.pt", tmp / "clip_script.pt", tmp / "bpe_synthetic.txt.gz"
+        torch.save(sd, plain)
+        openai_clip_archive(sd, archive)
+        with gzip.open(bpe, "wt") as f:
+            f.write("\n".join(CLIP_MERGES))
+        vocab = list(CLASSES) + list(RELATIONSHIPS)
+        feats, times = [], {}
+        for label, path in (("state dict", plain), ("TorchScript archive", archive)):
+            encode_fn, tokenizer, model = load_clip_text_encoder(path, bpe, device=DEVICE)
+            for k, v in tower.state_dict().items():
+                check(torch.equal(model.state_dict()[k].cpu(), v), f"clip {label}: {k} differs from its source")
+            feats.append(encode_fn(vocab))
+        check(torch.equal(feats[0], feats[1]), "clip: the archive's features differ from the state dict's")
+        cpu_encode = load_clip_text_encoder(plain, bpe, device="cpu")[0]
+        check_forward(f"clip text tower ({len(vocab)} class and relationship words) float32", feats[0].cpu(),
+                      cpu_encode(vocab), CLIP_RTOL, dims=CLIP_DIMS)
+
+        def timed(words, reps=5):
+            out = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                encode_fn(words)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(out))
+
+        encode_fn(vocab)
+        times["vocabulary"] = {"words": len(vocab), "ms": timed(vocab)}
+
+        # (d) words to frames: scene graphs → CLIP → the converted layout stack → the converted v6 stack
+        t0 = time.perf_counter()
+        graphs = words_to_graphs(encode_fn, seed=70)
+        graph_s = time.perf_counter() - t0
+        dec = graphs["decoder"]
+        words = [w for it in graphs.pop("words") for w in it]
+        times["one scene's relationships"] = {"words": len(words), "ms": timed(words, 3)}
+        emit({"phase": "ingest", "what": "clip", "card": smi, "dims": CLIP_DIMS, "ms_per_batch": times,
+              "scene_graph_seconds": graph_s, "nodes": len(dec["objs"]), "triples": len(dec["tripltes"]),
+              "edits": graphs.pop("edits")})
+
+        layout, v6 = gens["nuscenes-layout"], gens["nuscenes-box-layout-v6"]
+        layout.generate(graphs, 2, mode=WORDS_MODE, seed=99)  # warm-up
+        torch.cuda.synchronize()
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        raw = layout.generate(graphs, WORDS_STEPS, mode=WORDS_MODE, seed=1)
+        torch.cuda.synchronize()
+        layout_s = time.perf_counter() - t0
+        launches = {k: c.n for k, c in counters.items()}
+        check(launches == {"oaca": 0, "groupnorm": GN_PER_UNET1D * WORDS_STEPS, "attention": 0},
+              f"words to frames, layout: launches {launches}")
+        check(bool(torch.isfinite(raw).all()) and float(raw.std()) > 1e-3, "words to frames: layout not finite")
+        by_path[f"words-to-frames layout {WORDS_MODE}@{WORDS_STEPS}"] = {"groupnorm": launches["groupnorm"]}
+        frame_batch = layout_frame_batch(raw, graphs, v6.cfg, v6.lidar_utils)
+        mode, steps = ZOO_REQUEST
+        v6.generate(2, 2, mode=mode, seed=99, batch={k: v[:2] for k, v in frame_batch.items()})  # warm-up
+        torch.cuda.synchronize()
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        sample, post = v6.generate(LAYOUT_SCENES, steps, mode=mode, seed=1, batch=frame_batch)
+        torch.cuda.synchronize()
+        frame_s = time.perf_counter() - t0
+        launches = {k: c.n for k, c in counters.items()}
+        check(launches == {"oaca": OACA_PER_FORWARD * steps, "groupnorm": GN_PER_FORWARD * steps, "attention": 0},
+              f"words to frames, v6: launches {launches}")
+        check(bool(torch.isfinite(sample).all()) and bool(torch.isfinite(post["xyz"]).all()),
+              "words to frames: frames not finite")
+        check(float(sample.std()) > 1e-3, "words to frames: frames are constant")
+        by_path[f"words-to-frames nuscenes-box-layout-v6 {mode}@{steps}"] = {
+            k: n for k, n in launches.items() if n}
+        emit({"phase": "ingest", "what": "words to frames", "card": smi, "scenes": LAYOUT_SCENES,
+              "layout_request": {"mode": WORDS_MODE, "steps": WORDS_STEPS, "seconds": layout_s,
+                                 "groupnorm_launches": GN_PER_UNET1D * WORDS_STEPS},
+              "frame_request": {"mode": mode, "steps": steps, "seconds": frame_s, "launches": launches,
+                                "shape": list(sample.shape), "sample_std": float(sample.std())},
+              "valid_objects": float(frame_batch["is_valid_obj"].sum())})
+        del gens, layout, v6
+        torch.cuda.empty_cache()
+    emit({"phase": "ingest", "what": "phase seconds", "seconds": time.perf_counter() - t_phase})
+    return by_path
+
+
 def probe_times(kernels) -> dict:
     """Device times of the loader's ``x·2`` probe kernel on its (8, 128)
     float32 input, of ``x * 2`` and of ``torch.mul(x, 2)``, and its bound
@@ -2149,6 +2577,7 @@ def main() -> int:
     by_path.update(branch_paths)
     phase_evaluate(rollout_frames, smi)
     by_path.update(phase_zoo(smi))
+    by_path.update(phase_ingest(smi))
 
     # each kernel at its largest main-path shape, float32 (the default serving
     # dtype) with its bfloat16 numbers beside, and its launches summed over

@@ -48,9 +48,10 @@ class FlowFrameGenerator:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model, engine, self.lidar_utils = build_flow_training(cfg, self.device)
-        init_random_(self.model, weights_seed)
         if ckpt:
             load_weights(ckpt, {"model": self.model}, ema=ema)
+        else:
+            init_random_(self.model, weights_seed)
         to_serving_dtype_(self.model, dtype)
         self.engine = dataclasses.replace(engine, dtype=dtype)
 

@@ -62,10 +62,11 @@ class LayoutGenerator:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.models, self.engine, _ = build_layout_training(cfg, self.device)
-        init_random_(self.models["cond"], weights_seed)
-        init_random_(self.models["model"], weights_seed + 1)
         if ckpt:
             load_weights(ckpt, self.models)
+        else:
+            init_random_(self.models["cond"], weights_seed)
+            init_random_(self.models["model"], weights_seed + 1)
 
     def generate(self, batch: dict, num_steps: int, mode: str = "ddpm", seed: int = 0) -> torch.Tensor:
         """Sample the (N, 20) scaled boxes + trajectories of the collated

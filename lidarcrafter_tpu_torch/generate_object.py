@@ -45,10 +45,11 @@ class ObjectGenerator:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.models, self.engine, _ = build_object_training(cfg, self.device)
-        init_random_(self.models["cond"], weights_seed)
-        init_random_(self.models["model"], weights_seed + 1)
         if ckpt:
             load_weights(ckpt, self.models)
+        else:
+            init_random_(self.models["cond"], weights_seed)
+            init_random_(self.models["model"], weights_seed + 1)
 
     def generate(self, boxes: dict, num_steps: int, mode: str = "ddpm", seed: int = 0) -> torch.Tensor:
         """Sample one (num_samples, point_dim) cloud per object of ``boxes``

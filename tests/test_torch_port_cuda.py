@@ -951,3 +951,78 @@ def test_an_hdit_call_launches_no_kernel_and_matches_the_cpu(float32_convolution
         torch.cuda.synchronize()
     assert (oaca.launches.n, groupnorm.launches.n, attention.launches.n) == (0, 0, 0)
     assert float((got.cpu() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+# ------------------------------------------- released checkpoints and CLIP
+#
+# An upstream-format checkpoint written from seeded port modules, converted
+# by ``convert_checkpoint`` and served through the generator's ``ckpt=`` on
+# the card: the weights bit for bit, one denoiser call against the source
+# modules on the CPU to 1e-3 with the main path's launches; the CLIP text
+# tower at ViT-B/32 text width on the card against the CPU to 1e-4.
+
+
+@pytest.mark.parametrize("name,per_call", [("nuscenes-box-layout-v6", (11, 101, 0)),
+                                           ("nuscenes-unet-uncond", (0, 50, 2))])
+def test_a_converted_checkpoint_served_on_the_card_matches_the_cpu(tmp_path, name, per_call, float32_convolutions):
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.convert_checkpoint import convert_checkpoint
+    from lidarcrafter_tpu_torch.generate import UncondFrameGenerator
+    from lidarcrafter_tpu_torch.generate_cond import CondFrameGenerator
+    from lidarcrafter_tpu_torch.training.factory import layout_condition_batch
+    from lidarcrafter_tpu_torch.utils.torch_ckpt import build_modules, to_upstream_checkpoint
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = get_config(name)
+    source = build_modules(cfg, "cpu")
+    for i, k in enumerate(sorted(source)):
+        init_random_(source[k], 20 + i)
+    ckpt = to_upstream_checkpoint(cfg, source)
+    ckpt["weights"] = {k: v + 1.0 for k, v in ckpt["weights"].items()}
+    torch.save(ckpt, tmp_path / "upstream.pth")
+    convert_checkpoint(tmp_path / "upstream.pth", cfg, tmp_path / "port")
+    cond = cfg.condition_model is not None
+    gen = (CondFrameGenerator if cond else UncondFrameGenerator)(cfg, "cuda", ckpt=str(tmp_path / "port"))
+    served = gen.models if cond else {"model": gen.model}
+    for k, m in source.items():
+        for n, v in m.state_dict().items():
+            assert torch.equal(served[k].state_dict()[n].cpu(), v), f"{k}.{n}"
+    x, t = torch.randn(1, *cfg.data.resolution, 2, generator=torch.Generator().manual_seed(1)), torch.tensor([2.0])
+    batch = layout_condition_batch(cfg, 1, generator=torch.Generator().manual_seed(0)) if cond else None
+
+    def call(mods, device):
+        other = {"other_condition": mods["cond"]({k: v.to(device) for k, v in batch.items()})} if cond else {}
+        args = ({"time_condition": t.to(device), **other},) if cond else (t.to(device),)
+        return mods["model"](x.to(device), *args)
+
+    with torch.inference_mode():
+        want = call(source, "cpu")
+        for c in (oaca.launches, groupnorm.launches, attention.launches):
+            c.n = 0
+        got = call(served, "cuda")
+        torch.cuda.synchronize()
+    assert (oaca.launches.n, groupnorm.launches.n, attention.launches.n) == per_call
+    assert float((got.cpu() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_clip_on_the_card_matches_the_cpu(tmp_path):
+    import gzip
+
+    from lidarcrafter_tpu_torch.datasets.scene_graph import CLASSES, RELATIONSHIPS
+    from lidarcrafter_tpu_torch.models.clip_text import CLIPTextEncoder, load_clip_text_encoder
+    from lidarcrafter_tpu_torch.utils.torch_ckpt import clip_text, export
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tower = init_random_(CLIPTextEncoder(), 0)  # ViT-B/32 text dimensions
+    torch.save(export(clip_text, tower.state_dict()), tmp_path / "clip.pt")
+    with gzip.open(tmp_path / "bpe.txt.gz", "wt") as f:
+        f.write("\n".join(["#version: test", "c a", "ca r</w>", "t r", "u c", "tr uc", "truc k</w>"]))
+    words = list(CLASSES) + list(RELATIONSHIPS) + ["car will stop", "truck1 left car2"]
+    card = load_clip_text_encoder(tmp_path / "clip.pt", tmp_path / "bpe.txt.gz")[0](words)
+    cpu = load_clip_text_encoder(tmp_path / "clip.pt", tmp_path / "bpe.txt.gz", device="cpu")[0](words)
+    assert card.device.type == "cuda" and card.shape == (len(words), 512)
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
