@@ -171,9 +171,28 @@ Phases, each printing one JSON line:
    conditioning the converted v6 stack in one DPM++(2M)@15 request (11 +
    101 a call), finite frames; conversion seconds per config, CLIP ms a
    batch of words and the request seconds, beside the card's name and
-   power limit.
+   power limit;
+13. training from nuScenes-format files ("data"): a synthetic tree
+   (``utils/synthetic.py::write_nuscenes_tree``: 2 scenes x 4 frames a
+   split, 35,000-point clouds at uniform random angles and depths, lidarseg
+   labels, info pickles, a GT database, a CLIP cache); the dataset's host
+   projection of 3 clouds against the card's (no pixel's winner may differ,
+   depth to a float32 ulp) with the ms of each; the loader's batches/s at 0
+   and 4 threads; ``nuscenes-auto-reg-v2`` at full width through
+   ``train.main`` (B=2, bf16 AMP, 4 loader threads, ``JsonlTracker``, the
+   profiling window over steps 4-6, 10 steps and one DDIM@10 preview on
+   the EMA weights at the last: exactly 11 OACA + 101 GroupNorm launches a
+   forward, 20 forwards; finite losses, no ``preview_error``, PNGs that
+   decode; steps/s over steps 6-10 and the device's idle share) against
+   the same run on the synthetic source, run first; ``nuscenes-unet-uncond``,
+   ``nuscenes-layout`` and ``nuscenes-object`` 2 steps each from files
+   (2 + 50, 56 and no launches a step); and ``torchrun --nproc-per-node 1``
+   (NCCL) for 2 steps of ``nuscenes-box-layout-v6`` with
+   ``--deterministic``, at once with the same 2 steps without a process
+   group, whose losses it must equal bit for bit.
 
-Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line and,
+Then a ``kernels`` JSON line (OACA, GroupNorm, attention and the probe,
+which runs once when the kernels load), the ``nvidia-smi`` name/power-limit line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero; so does a machine without CUDA or a directory without
 the port.
@@ -188,6 +207,8 @@ import dataclasses
 import gzip
 import json
 import math
+import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -2489,6 +2510,222 @@ def phase_ingest(smi: str) -> dict:
     return by_path
 
 
+# ------------------------------------------------------------------ phase 13
+
+DATA_POINTS = 35000  # a nuScenes LIDAR_TOP sweep
+DATA_STEPS, DATA_WORKERS, DATA_PREVIEW_STEPS = 10, 4, 10  # steps from files, loader threads, the preview's DDIM steps
+DATA_PROFILE = (4, 6)  # the trainer's profiling window; steps/s read over steps 6-10, after it
+DATA_LOADER_BATCHES = 8  # batches timed at 0 and 4 workers
+DATA_BRANCHES = {  # config → launches a train step, 2 steps each from files
+    "nuscenes-unet-uncond": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
+    "nuscenes-layout": {"groupnorm": GN_PER_UNET1D},
+    "nuscenes-object": {},
+}
+
+
+def _train_main(args: list) -> tuple[list, str, dict]:
+    """``train.main(args)`` in this process, its printed records captured
+    (and echoed to stderr); returns the step records, the output and the
+    launch counts of the run (counters set to 0 just before it)."""
+    import ast
+    import contextlib
+    import io
+
+    from lidarcrafter_tpu_torch import train as train_cli
+
+    out = io.StringIO()
+    counters = reset_counters()
+    with contextlib.redirect_stdout(out):
+        train_cli.main(args)
+    launches = {k: c.n for k, c in counters.items()}
+    text = out.getvalue()
+    print(text[-2000:], file=sys.stderr, flush=True)
+    records = [ast.literal_eval(line) for line in text.splitlines() if line.startswith("{")]
+    return records, text, launches
+
+
+def _wall_steps_per_s(events: list, first: int, last: int) -> float:
+    """Steps a second between the ``first`` and ``last`` step records of a
+    tracker log (each written after the host read the step's loss)."""
+    t = {e["step"]: e["wall_time"] for e in events}
+    return (last - first) / (t[last] - t[first])
+
+
+def _cli_losses(cmds: list, env: dict) -> list:
+    """The losses each ``train`` CLI command prints, the commands run at
+    once."""
+    import ast
+
+    procs = [subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    out = []
+    for cmd, proc in zip(cmds, procs):
+        stdout, stderr = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"{' '.join(cmd[:6])}...: exit {proc.returncode}\n{stdout[-2000:]}"
+                                    f"\n{stderr[-3000:]}")
+        out.append([ast.literal_eval(line)["loss"] for line in stdout.splitlines() if line.startswith("{'step'")])
+    return out
+
+
+def phase_data(smi: str) -> dict:
+    """Phase 13 ("data"): training from nuScenes-format files.  Writes a
+    synthetic tree (2 scenes x 4 frames a split, 35,000-point clouds at
+    uniform random angles and depths); checks the dataset's host projection
+    against the card's projection of the same clouds (no pixel's winner may
+    differ; depth to one float32 ulp) and times it; times the loader at 0
+    and ``DATA_WORKERS`` threads; trains ``nuscenes-auto-reg-v2`` at full
+    width through ``train.main`` (B=2, bf16 AMP, ``DATA_WORKERS`` loader
+    threads, ``JsonlTracker``, the profiling window, one DDIM@10 preview on
+    the EMA weights at the last step) with exact launches, finite losses, no
+    ``preview_error`` and PNGs that decode, against the same run on the
+    synthetic source; trains the uncond, layout and object branches 2 steps
+    each from files; and runs ``torchrun --nproc-per-node 1`` (NCCL) for 2
+    steps of ``nuscenes-box-layout-v6``, whose losses must equal those of
+    the same 2 steps without a process group, bit for bit."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from lidarcrafter_tpu_torch import train as train_cli
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.datasets import make_dataset
+    from lidarcrafter_tpu_torch.ops.projection import points_to_range_image
+    from lidarcrafter_tpu_torch.training.tracker import read_png
+    from lidarcrafter_tpu_torch.utils.synthetic import point_config_at_tree, write_nuscenes_tree
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tree = write_nuscenes_tree(Path(tmp) / "nusc", num_points=DATA_POINTS, seed=13)
+        write_s = time.perf_counter() - t0
+        files = ["--set", f'data.data_root="{tree["data_root"]}"', "--set", f'data.pkl_path="{tree["pkl_path"]}"',
+                 "--set", f'data.clip_cache_dir="{tree["clip_cache_dir"]}"']
+
+        # (1) the dataset's host projection against the card's
+        cfg = point_config_at_tree(get_config("nuscenes-auto-reg-v2"), tree)
+        ds = make_dataset(cfg)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # as a loader thread runs it
+        flips, depth_err, host_ms = 0, 0.0, []
+        for i in range(3):
+            points = ds._load_points(ds.data[i])
+            t0 = time.perf_counter()
+            host = ds.project(points)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            card = points_to_range_image(torch.from_numpy(points).to(DEVICE), min_depth=cfg.data.min_depth,
+                                         max_depth=cfg.data.max_depth)
+            card = (card * card[..., 5:6]).cpu().numpy()
+            flips += int(np.any(card[..., :3] != host["xyz"], axis=-1).sum())
+            depth_err = max(depth_err, float(np.abs(card[..., 4:5] - host["depth"]).max()))
+        torch.set_num_threads(threads)
+        cloud = torch.from_numpy(ds._load_points(ds.data[0])).to(DEVICE)
+        card_ms = time_ms(lambda: points_to_range_image(cloud))
+        check(flips == 0, f"data: {flips} pixels whose winner differs between the host and the card")
+        check(depth_err <= 2.0**-23 * cfg.data.max_depth, f"data: depth differs by {depth_err}")
+
+        # the loader alone, at 0 and DATA_WORKERS threads
+        loader = {}
+        for workers in (0, DATA_WORKERS):
+            stream = train_cli.file_batches(cfg, 0, workers)
+            next(stream)
+            t0 = time.perf_counter()
+            for _ in range(DATA_LOADER_BATCHES):
+                next(stream)
+            loader[workers] = DATA_LOADER_BATCHES / (time.perf_counter() - t0)
+            stream.close()
+        emit({"phase": "data", "check": "dataset", "card": smi, "tree_write_s": write_s, "points": DATA_POINTS,
+              "pixels_with_other_winner": flips, "depth_max_abs_err": depth_err,
+              "host_projection_ms_per_cloud": host_ms, "card_projection_ms": card_ms,
+              "loader_batches_per_s": {str(k): v for k, v in loader.items()}, "batch": cfg.training.batch_size_train})
+
+        # (2) nuscenes-auto-reg-v2 at full width from files, and on the synthetic source
+        runs = {}
+        for source in ("synthetic", "files"):  # the synthetic run first: it takes the process's warm-up
+            log_dir = Path(tmp) / f"ar_{source}"
+            args = ["-c", "nuscenes-auto-reg-v2", "--num-steps", str(DATA_STEPS), "--workers", str(DATA_WORKERS),
+                    "--log-every", "1", "--checkpoint-every", "0", "--log-dir", str(log_dir / "log"),
+                    "--output-dir", str(log_dir)]
+            if source == "files":
+                args += files + ["--set", f"training.steps_save_image={DATA_STEPS}",
+                                 "--set", f"diffusion.num_sampling_steps={DATA_PREVIEW_STEPS}",
+                                 "--profile-dir", str(log_dir / "prof")]
+            else:
+                args += ["--synthetic-data", "--set", "training.steps_save_image=0"]
+            records, text, launches = _train_main(args)
+            events = [_json.loads(line) for line in (log_dir / "log" / "events.jsonl").read_text().splitlines()]
+            losses = [e["loss"] for e in events]
+            check(len(losses) == DATA_STEPS and all(math.isfinite(v) for v in losses),
+                  f"data: {source} losses {losses}")
+            check("preview_error" not in text, f"data: a preview failed: {text[-500:]}")
+            runs[source] = {"losses": losses, "launches": launches,
+                            "steps_per_s_1_3": _wall_steps_per_s(events, 1, 3),
+                            "steps_per_s_6_10": _wall_steps_per_s(events, 6, DATA_STEPS)}
+            if source == "files":
+                calls = DATA_STEPS + DATA_PREVIEW_STEPS  # train forwards + the preview's denoiser calls
+                for k, n in (("oaca", OACA_PER_FORWARD), ("groupnorm", GN_PER_FORWARD), ("attention", 0)):
+                    check(launches[k] == n * calls, f"data: auto-reg-v2 {k} launches {launches[k]} != {n} x {calls}")
+                pngs = sorted((log_dir / "log" / "images" / f"{DATA_STEPS:010d}").glob("*.png"))
+                tags = {p.stem for p in pngs}
+                check({"sample_depth", "sample_bev", "sample_reflectance"} <= tags, f"data: preview PNGs {tags}")
+                shapes = {p.stem: list(read_png(p).shape) for p in pngs}
+                trace = _json.loads((log_dir / "prof" / "train_steps.pt.trace.json").read_text())
+                kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+                span = [e for e in trace["traceEvents"] if e.get("ph") == "X" and e.get("cat") in ("kernel",
+                                                                                                  "cpu_op")]
+                wall_us = max(e["ts"] + e["dur"] for e in span) - min(e["ts"] for e in span)
+                busy_us = sum(e["dur"] for e in kernels)
+                steps = DATA_PROFILE[1] - DATA_PROFILE[0] + 1
+                step_ms = 1e3 / runs[source]["steps_per_s_6_10"]
+                runs[source].update(png_shapes=shapes, profile_window_steps=list(DATA_PROFILE),
+                                    window_device_busy_ms=busy_us / 1e3, window_wall_ms=wall_us / 1e3,
+                                    window_idle_share=max(0.0, 1 - busy_us / wall_us), window_kernels=len(kernels),
+                                    # the window's device time a step against an untraced step's wall time
+                                    idle_share=max(0.0, 1 - busy_us / 1e3 / steps / step_ms))
+        emit({"phase": "data", "check": "train from files", "config": "nuscenes-auto-reg-v2", "card": smi,
+              "batch": 2, "dtype": "bfloat16 AMP", "workers": DATA_WORKERS, "steps": DATA_STEPS,
+              "preview": f"ddim@{DATA_PREVIEW_STEPS} on the EMA weights", **runs})
+        by_path[f"data nuscenes-auto-reg-v2 files ({DATA_STEPS} steps + preview)"] = {
+            k: n for k, n in runs["files"]["launches"].items() if n}
+
+        # (3) the other branches from files
+        for name, per_step in DATA_BRANCHES.items():
+            data = files + (["--set", f'data.pkl_path="{tree["db_path"]}"'] if name == "nuscenes-object" else [])
+            records, text, launches = _train_main(["-c", name, "--num-steps", "2", "--workers", str(DATA_WORKERS),
+                                                   "--log-every", "1", "--checkpoint-every", "0", *data,
+                                                   "--output-dir", str(Path(tmp) / name)])
+            losses = [r["loss"] for r in records if "loss" in r]
+            check(len(losses) == 2 and all(math.isfinite(v) for v in losses), f"data: {name} losses {losses}")
+            for k, n in launches.items():
+                check(n == 2 * per_step.get(k, 0), f"data: {name} {k} launches {n} != 2 x {per_step.get(k, 0)}")
+            emit({"phase": "data", "check": "branch from files", "config": name, "card": smi, "losses": losses,
+                  "launches": launches})
+            if any(launches.values()):
+                by_path[f"data {name} files (2 steps)"] = {k: n for k, n in launches.items() if n}
+            torch.cuda.empty_cache()
+
+        # (4) torchrun with NCCL, one process, against no process group
+        args = ["-c", "nuscenes-box-layout-v6", "--num-steps", "2", "--workers", "2", "--log-every", "1",
+                "--checkpoint-every", "0", "--deterministic", *files]
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        plain, ddp = _cli_losses([
+            [sys.executable, "-m", "lidarcrafter_tpu_torch.train", *args, "--output-dir", str(Path(tmp) / "plain")],
+            [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1", "--master-addr", "localhost",
+             "--master-port", str(port), "-m", "lidarcrafter_tpu_torch.train", *args,
+             "--output-dir", str(Path(tmp) / "ddp")]], env)
+        check(len(plain) == 2 and plain == ddp, f"data: torchrun losses {ddp} != {plain}")
+        emit({"phase": "data", "check": "torchrun nccl x1", "config": "nuscenes-box-layout-v6", "card": smi,
+              "losses": plain, "torchrun_losses": ddp, "bit_equal": plain == ddp,
+              "seconds_both_at_once": time.perf_counter() - t0})
+    emit({"phase": "data", "check": "phase seconds", "card": smi, "seconds": time.perf_counter() - t_phase})
+    return by_path
+
+
 def probe_times(kernels) -> dict:
     """Device times of the loader's ``x·2`` probe kernel on its (8, 128)
     float32 input, of ``x * 2`` and of ``torch.mul(x, 2)``, and its bound
@@ -2530,12 +2767,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    kernels = loader.load_kernels()  # builds, loads and runs the x·2 probe (raises on failure)
+    loaded = loader.load_kernels()  # builds, loads and runs the x·2 probe (raises on failure)
     load_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in kernels.ptxas_log.splitlines() if "registers" in ln or "spill" in ln]
+    check(loader.probe_launches.n == 1, f"the probe ran {loader.probe_launches.n} times at load")
+    ptxas = [ln.strip() for ln in loaded.ptxas_log.splitlines() if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "nvcc_seconds": kernels.build_seconds, "load_and_probe_seconds": load_s,
-          "probe": "x*2 ok", **probe_times(kernels), "ptxas": ptxas})
+          "nvcc_seconds": loaded.build_seconds, "load_and_probe_seconds": load_s,
+          "probe": "x*2 ok", **probe_times(loaded), "ptxas": ptxas})
 
     rows = phase_kernels()
     phase_forward_parity("nuscenes-box-layout-v6")
@@ -2578,6 +2816,7 @@ def main() -> int:
     phase_evaluate(rollout_frames, smi)
     by_path.update(phase_zoo(smi))
     by_path.update(phase_ingest(smi))
+    by_path.update(phase_data(smi))
 
     # each kernel at its largest main-path shape, float32 (the default serving
     # dtype) with its bfloat16 numbers beside, and its launches summed over
@@ -2622,6 +2861,16 @@ def main() -> int:
             "jvp": None if jvp["float32"] is None else {key: jvp["float32"][key] for key in backward_keys}
             | {"bf16": {key: jvp["bfloat16"][key] for key in backward_keys}},
         })
+    # the probe: launched once per process, when the kernels load (this
+    # process's load; the train CLI processes of phase 13 load their own)
+    probe = probe_times(loaded)
+    kernels.append({
+        "name": "probe", "route": "cuda", "source": "lidarcrafter_tpu_torch/csrc/probe.cu",
+        "replaces": "lidarcrafter_tpu/ops/mosaic.py:29", "launches": loader.probe_launches.n,
+        "launches_by_path": {"load": loader.probe_launches.n}, "max_abs_err": 0.0, "ms": probe["probe_ms"],
+        "plain_ms": probe["probe_plain_ms"], "bound_ms": probe["probe_bound_ms"], "bound_by": probe["probe_bound_by"],
+        "library_ms": probe["probe_library_ms"], "shape": [8, 128], "dtype": "float32",
+    })
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,11 @@ of the same name:
                  public boundary, like the JAX package).
 - ``diffusion``  log-SNR schedules and the conditional sampler (DDPM, DDIM,
                  DPM-Solver++(2M)) as Python loops over eager PyTorch.
-- ``training``   pre/post-processing and the model/engine factory.
+- ``datasets``   nuScenes-format datasets, the augmentor, the threaded
+                 prefetch loader, and the rollout's geometry.
+- ``training``   pre/post-processing, the model/engine factory, the
+                 trainers and their tracker.
+- ``parallel``   data parallelism across processes (``torchrun``).
 - ``kernels``    hand-written CUDA kernels for Hopper (``csrc/*.cu``) with a
                  plain PyTorch version of each beside its wrapper.
 - ``weights``    bridge from a flax parameter tree to the port's state_dict.

@@ -1,6 +1,8 @@
 """Named config registry: every config of the JAX package's registry, under
 the same keys."""
 
+import json
+
 from . import experiments as E
 from .common import ExperimentConfig  # noqa: F401
 
@@ -56,3 +58,22 @@ def apply_reduced_topology(cfg, resolution=None, model_channels=None):
             if cfg.model.architecture == "layout_unet":
                 cfg.condition_model.params["hidden_dim"] = model_channels
     return cfg
+
+
+def apply_override(cfg, spec: str) -> None:
+    """``a.b.c=json`` → set that attribute or dict entry of the config,
+    keeping a tuple field a tuple."""
+    path, _, raw = spec.partition("=")
+    value = json.loads(raw)
+    parts = path.split(".")
+    obj = cfg
+    for p in parts[:-1]:
+        obj = obj[p] if isinstance(obj, dict) else getattr(obj, p)
+    leaf = parts[-1]
+    old = obj[leaf] if isinstance(obj, dict) else getattr(obj, leaf, None)
+    if isinstance(old, tuple) and isinstance(value, list):
+        value = tuple(value)
+    if isinstance(obj, dict):
+        obj[leaf] = value
+    else:
+        setattr(obj, leaf, value)

@@ -30,36 +30,16 @@ model.params.base_channels=16``), for checkpoints trained off the registry.
 from __future__ import annotations
 
 import argparse
-import json
 import time
 from pathlib import Path
 
 import torch
 
-from .configs import get_config
+from .configs import apply_override, get_config
 from .training.checkpoint import save_checkpoint
 from .training.optim import make_optimizer
 from .training.state import TrainState, module_params
 from .utils.torch_ckpt import build_modules, ingest_engine_state_dict, load_torch_checkpoint
-
-
-def apply_override(cfg, spec: str) -> None:
-    """``a.b.c=json`` → set that attribute or dict entry of the config,
-    keeping a tuple field a tuple."""
-    path, _, raw = spec.partition("=")
-    value = json.loads(raw)
-    parts = path.split(".")
-    obj = cfg
-    for p in parts[:-1]:
-        obj = obj[p] if isinstance(obj, dict) else getattr(obj, p)
-    leaf = parts[-1]
-    old = obj[leaf] if isinstance(obj, dict) else getattr(obj, leaf, None)
-    if isinstance(old, tuple) and isinstance(value, list):
-        value = tuple(value)
-    if isinstance(obj, dict):
-        obj[leaf] = value
-    else:
-        setattr(obj, leaf, value)
 
 
 def convert_checkpoint(torch_ckpt, cfg, output, use_ema: bool = True, validate: bool = True) -> dict:
@@ -97,12 +77,12 @@ def main(argv=None) -> None:
                         help="load the weights into the config's modules without the strict check "
                              "(the ingestion still holds every name and shape to them)")
     args = parser.parse_args(argv)
-    torch.set_grad_enabled(False)
     cfg = get_config(args.cfg)
     for spec in args.set:
         apply_override(cfg, spec)
-    done = convert_checkpoint(args.torch_ckpt, cfg, args.output, use_ema=not args.no_ema,
-                              validate=not args.no_validate)
+    with torch.no_grad():  # not process-wide: an in-process caller keeps its grad mode
+        done = convert_checkpoint(args.torch_ckpt, cfg, args.output, use_ema=not args.no_ema,
+                                  validate=not args.no_validate)
     if not args.no_validate:
         print("strict load into the config's modules: OK")
     print(f"skipped {len(done['skipped'])} upstream keys that no converter reads"

@@ -222,14 +222,15 @@ class SceneGraphAssigner:
 
     # --------------------------------------------------------------- edits
 
-    def remove_node_and_relationship(self, graph: dict) -> int:
+    def remove_node_and_relationship(self, graph: dict, rng: np.random.RandomState | None = None) -> int:
         """Pop a non-ego node (the 'added' node the model must bring back)
         with its triples, renumbering the rest; returns its index, or -1
-        when 100 draws found none."""
+        when 100 draws (from ``rng``, else the assigner's) found none."""
+        rng = self.rng if rng is None else rng
         excluded = {self.classes["ego"]}
         node_id = -1
         for _ in range(100):
-            cand = self.rng.randint(len(graph["objs"]) - 1)
+            cand = rng.randint(len(graph["objs"]) - 1)
             if graph["objs"][cand] not in excluded:
                 node_id = cand
                 break
@@ -250,21 +251,22 @@ class SceneGraphAssigner:
                 t[2] -= 1
         return node_id
 
-    def modify_relship(self, graph: dict, interpretable: bool = False):
+    def modify_relship(self, graph: dict, interpretable: bool = False, rng: np.random.RandomState | None = None):
         """Change one triple's predicate (to its opposite with
         ``interpretable``, else to another drawn at random), rewrite its
         words and mark it ``changed_id`` for the collation to re-encode;
         returns (index, original triple, True), or (-1, None, False) after
-        1,000 draws."""
+        1,000 draws (from ``rng``, else the assigner's)."""
+        rng = self.rng if rng is None else rng
         for _ in range(1000):
-            idx = self.rng.randint(len(graph["triples"]))
+            idx = rng.randint(len(graph["triples"]))
             s, p, o = graph["triples"][idx]
             if interpretable:
                 if p >= len(self.relationships):
                     continue
                 new_pred = self.rel_to_idx[CHANGED_RELATIONSHIPS[self.relationships[p]]]
             else:
-                new_pred = self.rng.randint(0, 9)
+                new_pred = rng.randint(0, 9)
                 if new_pred == p:
                     continue
             if "words" in graph and p < len(self.relationships):
@@ -276,12 +278,15 @@ class SceneGraphAssigner:
 
     # --------------------------------------------------------------- build
 
-    def assign_item(self, idx: int, data_dict: dict) -> dict:
+    def assign_item(self, idx: int, data_dict: dict, rng: np.random.RandomState | None = None) -> dict:
         """One sample's ``{'encoder', 'decoder', 'manipulate', 'scan_id'}``:
         the graph's nodes, triples, packed boxes, relationship words and
         text features; in the train split, a graph of more than two nodes
         gets one edit on its encoder side, drawn from relationship change,
-        node addition and none."""
+        node addition and none.  The edits draw from ``rng``, else from the
+        assigner's own generator (a dataset passes each sample's own, so
+        that threads loading samples at once draw in no shared order)."""
+        rng = self.rng if rng is None else rng
         boxes = pack_boxes_with_trajs(
             data_dict["scaled_gt_boxes"][:, :8],
             np.asarray(data_dict["gt_fut_trajs"]),
@@ -307,13 +312,13 @@ class SceneGraphAssigner:
         out["decoder"] = copy.deepcopy(encoder)
 
         if self.with_changes and not self.eval and len(encoder["objs"]) > 2:
-            kind = ["relationship", "addition", "none"][self.rng.randint(3)]
+            kind = ["relationship", "addition", "none"][rng.randint(3)]
             if kind == "addition":
-                node_id = self.remove_node_and_relationship(out["encoder"])
+                node_id = self.remove_node_and_relationship(out["encoder"], rng)
                 if node_id >= 0:
                     out["manipulate"] = {"type": "addition", "added_node_id": node_id}
             elif kind == "relationship":
-                idx2, orig, ok = self.modify_relship(out["encoder"])
+                idx2, orig, ok = self.modify_relship(out["encoder"], rng=rng)
                 if ok:
                     out["manipulate"] = {"type": "relationship", "original_relship": (idx2, orig)}
         return out

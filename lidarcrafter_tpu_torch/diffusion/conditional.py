@@ -25,6 +25,7 @@ from typing import Callable, Literal
 import torch
 from torch import nn
 
+from ..draws import Rows
 from ..precision import cast_tree
 from .continuous import ContinuousDiffusion
 
@@ -74,13 +75,14 @@ class CondContinuousDiffusion(ContinuousDiffusion):
         loss_mask: torch.Tensor | None = None,
         t: torch.Tensor | None = None,
         noise: torch.Tensor | None = None,
+        rows: Rows | None = None,
     ) -> torch.Tensor:
         """Training loss with uniform continuous timesteps (``t``, then the
-        noise, drawn from ``generator`` unless given); with
+        noise, drawn from ``generator`` unless given, :meth:`draw`); with
         ``w_loss_weight`` the (B, H, W) ``scene_loss_weight_map``, when the
         batch has one, is the loss mask."""
         x_0 = input_dict["x_0"]
-        t = self.draw_t(x_0, generator) if t is None else t
+        t, noise = self.draw(x_0, generator, rows, t, noise)
         if self.w_loss_weight and loss_mask is None:
             w = input_dict.get("scene_loss_weight_map")
             if w is not None:

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..draws import Rows
 from . import schedules
 
 
@@ -220,9 +221,15 @@ class ContinuousDiffusion:
         ``generator`` unless given."""
         return self.weighted_loss(x_0, t, noise, loss_mask, generator=generator)
 
-    def draw_t(self, x_0: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
-        """Uniform continuous timesteps (B,), float32."""
-        return torch.rand((x_0.shape[0],), generator=generator, device=x_0.device, dtype=torch.float32)
+    def draw(self, x_0: torch.Tensor, generator: torch.Generator | None, rows: Rows | None = None,
+             t: torch.Tensor | None = None, noise: torch.Tensor | None = None):
+        """A loss's draws, each unless given: uniform continuous timesteps
+        (B,) float32, then the noise like ``x_0``; at the global batch's size
+        with this rank's ``rows`` kept (all rows by default)."""
+        rows = rows or Rows.whole(x_0.shape[0])
+        t = rows.rand(generator, x_0.device) if t is None else t
+        noise = rows.randn(generator, x_0.device, x_0.shape[1:], x_0.dtype) if noise is None else noise
+        return t, noise
 
     def loss(
         self,
@@ -231,10 +238,11 @@ class ContinuousDiffusion:
         loss_mask: torch.Tensor | None = None,
         t: torch.Tensor | None = None,
         noise: torch.Tensor | None = None,
+        rows: Rows | None = None,
     ) -> torch.Tensor:
         """Training loss with uniform continuous timesteps: ``t``, then the
-        noise, drawn from ``generator`` unless given."""
-        t = self.draw_t(x_0, generator) if t is None else t
+        noise, drawn from ``generator`` unless given (:meth:`draw`)."""
+        t, noise = self.draw(x_0, generator, rows, t, noise)
         return self.p_loss(x_0, t, noise, loss_mask, generator)
 
     def predict_x_0(self, x_t: torch.Tensor, t: torch.Tensor, condition=None) -> torch.Tensor:

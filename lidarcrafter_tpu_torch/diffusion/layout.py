@@ -21,6 +21,7 @@ from typing import Literal
 
 import torch
 
+from ..draws import Rows
 from .conditional import CondContinuousDiffusion
 
 
@@ -30,23 +31,26 @@ class CondLayoutDiffusion(CondContinuousDiffusion):
     ``cond_model(objs, triples, text_feats, rel_feats, ...)`` returns
     (latent, obj_embed)."""
 
-    def get_network_condition(self, input_dict: dict, generator: torch.Generator | None = None) -> dict:
+    def get_network_condition(self, input_dict: dict, generator: torch.Generator | None = None,
+                              rows: Rows | None = None) -> dict:
         """``other_condition`` from the scene graph ``input_dict['scenegraph']``
         (``objs``, ``triples``, ``text_feats``, ``rel_feats`` and the optional
-        ``added_mask``, ``manipulated_mask``, ``edge_mask``)."""
+        ``added_mask``, ``manipulated_mask``, ``edge_mask``); the encoder's
+        change noise is this rank's ``rows`` of the global node batch's."""
         sg = input_dict["scenegraph"]
         latent, obj_embed = self.cond_model(
             sg["objs"], sg["triples"], sg["text_feats"], sg["rel_feats"],
             added_mask=sg.get("added_mask"), manipulated_mask=sg.get("manipulated_mask"),
-            edge_mask=sg.get("edge_mask"), generator=generator,
+            edge_mask=sg.get("edge_mask"), generator=generator, noise_rows=rows,
         )
         return dict(other_condition=dict(
             preds=sg["triples"], uc_b=obj_embed, c_b=latent, edge_mask=sg.get("edge_mask")))
 
     def sample_timesteps(self, scene_ids: torch.Tensor, num_scenes: int,
-                         generator: torch.Generator | None = None) -> torch.Tensor:
-        """One uniform t per scene, gathered to the nodes."""
-        t_scene = torch.rand((num_scenes,), generator=generator, device=scene_ids.device, dtype=torch.float32)
+                         generator: torch.Generator | None = None, rows: Rows | None = None) -> torch.Tensor:
+        """One uniform t per scene (this rank's ``rows`` of the global batch's
+        scenes; all ``num_scenes`` by default), gathered to the nodes."""
+        t_scene = (rows or Rows.whole(num_scenes)).rand(generator, scene_ids.device)
         return t_scene[scene_ids]
 
     def p_loss(
@@ -56,12 +60,18 @@ class CondLayoutDiffusion(CondContinuousDiffusion):
         noise: torch.Tensor | None = None,
         loss_mask: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        rows: Rows | None = None,
     ) -> torch.Tensor:
         """The loss of ``input_dict['x_0']`` (N, C) at the node timesteps ``t``
         (N,); the encoder's change noise, then the noise unless given, drawn
-        from ``generator``."""
-        condition = self.get_network_condition(input_dict, generator)
-        return self.weighted_loss(input_dict["x_0"], t, noise, loss_mask, condition, generator)
+        from ``generator`` (this rank's ``rows`` of the global node batch's
+        draws; all rows by default)."""
+        x_0 = input_dict["x_0"]
+        rows = rows or Rows.whole(x_0.shape[0])
+        condition = self.get_network_condition(input_dict, generator, rows)
+        if noise is None:
+            noise = rows.randn(generator, x_0.device, x_0.shape[1:], x_0.dtype)
+        return self.weighted_loss(x_0, t, noise, loss_mask, condition, generator)
 
     def loss(
         self,
@@ -70,11 +80,15 @@ class CondLayoutDiffusion(CondContinuousDiffusion):
         generator: torch.Generator | None = None,
         t_scene: torch.Tensor | None = None,
         noise: torch.Tensor | None = None,
+        scene_rows: Rows | None = None,
+        node_rows: Rows | None = None,
     ) -> torch.Tensor:
         """Training loss of ``input_dict['boxes']`` (N, 40): x_0 is its first
         20 columns, the mask the rest.  The per-scene timesteps ``t_scene``
         (num_scenes,), the encoder's change noise and the noise are drawn
-        from ``generator`` in that order unless given."""
+        from ``generator`` in that order unless given; under data
+        parallelism at the global batch's size, with this rank's
+        ``scene_rows`` and ``node_rows`` kept."""
         boxes = input_dict["boxes"]
         x_0, loss_mask = boxes[:, :20], boxes[:, 20:]
         if loss_mask.shape[1] == 0:
@@ -83,10 +97,10 @@ class CondLayoutDiffusion(CondContinuousDiffusion):
             loss_mask = loss_mask[:, :1].expand(x_0.shape)
         scene_ids = input_dict["scene_ids"]
         if t_scene is None:
-            t = self.sample_timesteps(scene_ids, num_scenes, generator)
+            t = self.sample_timesteps(scene_ids, num_scenes, generator, scene_rows)
         else:
             t = t_scene[scene_ids]
-        return self.p_loss(dict(input_dict, x_0=x_0), t, noise, loss_mask, generator)
+        return self.p_loss(dict(input_dict, x_0=x_0), t, noise, loss_mask, generator, node_rows)
 
     def p_step_cond(
         self,

@@ -23,6 +23,8 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..draws import Rows
+
 
 def adaptive_l2_loss(error: torch.Tensor, gamma: float = 0.5, c: float = 1e-3) -> torch.Tensor:
     """sg(w)·‖Δ‖² with w = 1 / (‖Δ‖² + c)^(1−γ), ‖Δ‖² the per-sample mean
@@ -69,14 +71,18 @@ class MeanFlow:
         t: torch.Tensor | None = None,
         r: torch.Tensor | None = None,
         noise: torch.Tensor | None = None,
+        rows: Rows | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(adaptive L2 loss, mse) of ``x`` (B, H, W, C): z = (1−t)·x + t·e,
         v = e − x, u_tgt = v − (t−r)·du/dt.  t and r (B,), then the noise e,
-        are drawn from ``generator`` unless given (t and r together)."""
+        are drawn from ``generator`` unless given (t and r together), at the
+        global batch's size with this rank's ``rows`` kept (all rows by
+        default)."""
         B = x.shape[0]
+        rows = rows or Rows.whole(B)
         if t is None:
-            t, r = self.sample_t_r(B, generator, x.device)
-        e = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype) if noise is None else noise
+            t, r = (rows.cut(a) for a in self.sample_t_r(rows.total, generator, x.device))
+        e = rows.randn(generator, x.device, x.shape[1:], x.dtype) if noise is None else noise
         t_, r_ = (a.reshape(B, *([1] * (x.ndim - 1))) for a in (t, r))
         z = (1 - t_) * x + t_ * e
         v = e - x

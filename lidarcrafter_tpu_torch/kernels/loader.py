@@ -158,9 +158,13 @@ def _build(names: list[str]) -> tuple[float, str]:
     return seconds, log
 
 
+probe_launches = LaunchCounter("probe")
+
+
 def _probe(lib: ctypes.CDLL) -> None:
     x = torch.arange(8 * 128, dtype=torch.float32, device="cuda").reshape(8, 128)
     y = torch.empty_like(x)
+    probe_launches.n += 1
     err = lib.probe_x2(x.data_ptr(), y.data_ptr(), x.numel(),
                        torch.cuda.current_stream().cuda_stream)
     if err != 0:

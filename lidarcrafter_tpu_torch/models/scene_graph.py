@@ -11,8 +11,9 @@ with node indices into that axis, ``text_feats`` (N, 512) and
 ``rel_feats`` (T, 512) CLIP features, and optional (N,) bool
 ``added_mask`` / ``manipulated_mask`` and (T,) bool ``edge_mask``.
 
-The change noise is ``noise`` when given, else drawn from ``generator``,
-else zeros (the JAX package's ``rng=None``).
+The change noise is ``noise`` when given, else drawn from ``generator``
+(under data parallelism at the global node batch's size, with this rank's
+``noise_rows`` kept), else zeros (the JAX package's ``rng=None``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..draws import Rows
 from .graph import GraphTripleConvNet
 
 
@@ -73,6 +75,7 @@ class SceneGraph(nn.Module):
         generator: torch.Generator | None = None,
         noise: torch.Tensor | None = None,
         use_running_average: bool = True,
+        noise_rows: Rows | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (latent_obj_vecs (N, 2E+512), obj_embed_ (N, 512+2E))."""
         N, E = objs.shape[0], self.embedding_dim
@@ -89,7 +92,7 @@ class SceneGraph(nn.Module):
         latent_obj = torch.where(added_mask[:, None], 0.0, latent_obj)
         touched = (added_mask | manipulated_mask)[:, None]
         if noise is None and generator is not None:
-            noise = torch.randn((N, E), generator=generator, device=objs.device, dtype=latent_obj.dtype)
+            noise = (noise_rows or Rows.whole(N)).randn(generator, objs.device, (E,), latent_obj.dtype)
         change = latent_obj.new_zeros((N, E)) if noise is None else torch.where(touched, noise, 0.0)
         latent_in = torch.cat([latent_obj, change], dim=1)
 

@@ -74,11 +74,13 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 def loss_and_grads(engine, params: list[torch.Tensor], batch, loss_has_aux: bool = False, **loss_kwargs):
     """``engine.loss(batch, **loss_kwargs)`` (its first element with
     ``loss_has_aux``) and its gradients with respect to ``params`` (zeros
-    for a parameter the loss does not reach)."""
-    loss = engine.loss(batch, **loss_kwargs)
-    if loss_has_aux:
-        loss = loss[0]
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    for a parameter the loss does not reach), whatever the caller's grad
+    mode."""
+    with torch.enable_grad():
+        loss = engine.loss(batch, **loss_kwargs)
+        if loss_has_aux:
+            loss = loss[0]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
     return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
@@ -91,6 +93,7 @@ def make_train_step(
     amp: bool = False,
     loss_kwargs: dict | None = None,
     loss_has_aux: bool = False,
+    reduce_grads: Callable[[list[torch.Tensor]], None] | None = None,
 ) -> Callable[..., tuple[TrainState, torch.Tensor]]:
     """Build ``train_step(state, batch, seed, **draws)``.
 
@@ -99,10 +102,15 @@ def make_train_step(
     engine's ``boxes``).  ``state.models`` must be the modules ``engine``
     runs.  ``loss_kwargs`` go to every ``engine.loss`` call (the layout
     engine's ``num_scenes``); ``loss_has_aux`` takes the loss from a
-    ``(loss, aux)`` return (MeanFlow's ``(loss, mse)``).  ``draws`` (``t``,
-    ``noise``, the layout engine's ``t_scene``, MeanFlow's ``r``) replace
-    the step's draws when given (parity tests inject the JAX key chain's).
-    The state is updated in place and returned with the loss tensor.
+    ``(loss, aux)`` return (MeanFlow's ``(loss, mse)``).  ``draws`` go to
+    the loss too: ``t``, ``noise``, the layout engine's ``t_scene``,
+    MeanFlow's ``r`` replace the step's draws (parity tests inject the JAX
+    key chain's), and ``rows`` (the layout engine's ``scene_rows`` /
+    ``node_rows``) name a data-parallel rank's rows of the global batch,
+    whose draws the loss makes whole and cuts.  ``reduce_grads``
+    changes the gradients in place before the optimizer sees them (the
+    data-parallel mean over the ranks).  The state is updated in place and
+    returned with the loss tensor.
     """
     if amp:
         engine = amp_engine(engine)
@@ -113,6 +121,8 @@ def make_train_step(
         generator = step_generator(seed, state.step, params[0].device)
         loss, grads = loss_and_grads(engine, params, batch, loss_has_aux, generator=generator, **draws,
                                      **loss_kwargs)
+        if reduce_grads is not None:
+            reduce_grads(grads)
         optimizer.update_(params, grads, state.opt_state)
         ema_update_(state.ema_params(), params, state.step, beta=ema_beta,
                     update_every=ema_update_every, update_after_step=ema_update_after_step)

@@ -402,6 +402,7 @@ def test_cli_no_ema_reads_the_online_weights(built, tmp_path):
     out = tmp_path / "ckpt"
     cc.main(["--torch-ckpt", str(b.path), "-c", "nuscenes-object", "-o", str(out), "--no-ema", "--no-validate",
              "--set", f"data.num_samples={b.tcfg.data.num_samples}"])
+    assert torch.is_grad_enabled()  # the CLI leaves an in-process caller's grad mode as it was
     served = ObjectGenerator(b.tcfg, "cpu", ckpt=str(out)).models
     for k, m in served.items():
         for n, v in m.state_dict().items():

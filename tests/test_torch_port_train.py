@@ -34,7 +34,9 @@
 (f) Save → resume → continue through ``Trainer`` equals an unbroken run,
     bit for bit.
 (g) The ``train`` CLI for 2 steps on ``--device cpu``, and its checkpoint
-    read back by the serving CLIs' loader (EMA weights, bit for bit).
+    read back by the serving CLIs' loader (EMA weights, bit for bit);
+    without ``--synthetic-data`` and with no info pickle it stops with a
+    message.
 """
 
 import jax
@@ -452,5 +454,5 @@ def test_train_cli_two_steps_and_its_checkpoint_serves(tmp_path, capsys):
             assert torch.equal(value, saved["ema"][key][name])
     sample, _ = gen.generate(1, 1, mode="ddim")
     assert torch.isfinite(sample).all()
-    with pytest.raises(SystemExit, match="not ported"):
-        train_cli.main(["-c", "nuscenes-auto-reg-v2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="no training data"):  # file data by default; none at the config's path
+        train_cli.main(["-c", "nuscenes-auto-reg-v2", "--device", "cpu", "--set", 'data.pkl_path="/nonexistent.pkl"'])
