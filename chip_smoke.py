@@ -33,7 +33,7 @@ Phases, each printing one JSON line:
 4. the main paths, each with the launch counters set to 0 just before it
    and read just after, seeded random weights, 8 frames a request:
    ``CondFrameGenerator`` for ``nuscenes-box-layout-v6`` and
-   ``UncondFrameGenerator`` for ``nuscenes-unet-uncond`` (DDIM@50 and
+   ``UncondFrameGenerator`` for ``nuscenes-unet-uncond`` (DDIM@25 and
    DPM-Solver++(2M)@15 each), then ``FlowFrameGenerator`` for
    ``meanflow-nusc`` (one step), all in float32; then each path served in
    bfloat16 answers one request (DPM-Solver++(2M)@15, MeanFlow one step);
@@ -49,12 +49,12 @@ Phases, each printing one JSON line:
 6. the 4D rollout, in float32 and then served in bfloat16:
    ``RolloutGenerator`` (``nuscenes-box-layout-v6`` frame 0,
    ``nuscenes-auto-reg-v2`` after it) rolls 8 synthetic scenes of 4 boxes
-   1 + 15 frames with DPM-Solver++(2M)@15, after one short warm-up, with
+   1 + 7 frames with DPM-Solver++(2M)@15, after one short warm-up, with
    the launch counters set to 0 just before and read just after: rollout
    seconds and frames/s, the geometry step's device time per frame and the
-   denoiser calls' (CUDA events around each), peak memory; checks 16 finite,
-   non-constant (8, 32, 1024, 2) frames, exactly 11·15·16 OACA and
-   101·15·16 GroupNorm launches, and one frame's geometry step on the card
+   denoiser calls' (CUDA events around each), peak memory; checks 8 finite,
+   non-constant (8, 32, 1024, 2) frames, exactly 11·15·8 OACA and
+   101·15·8 GroupNorm launches, and one frame's geometry step on the card
    against the CPU from the same frame (condition maps equal to 1e-5 on at
    least 99.9% of the pixels; the rest are bin-edge flips);
 7. training ("train"): (a) each kernel route's backward (the float32
@@ -66,10 +66,10 @@ Phases, each printing one JSON line:
    float32, card (kernels) against CPU (plain), same weights, x_0, t, noise
    and conditions: loss to 1e-4 relative, every gradient to 1e-3 relative
    L2; (c) ``Trainer`` on ``nuscenes-box-layout-v6`` and
-   ``nuscenes-unet-uncond`` at B=8, float32 and bf16 AMP, 3 warm-up and 10
+   ``nuscenes-unet-uncond`` at B=8, float32 and bf16 AMP, 3 warm-up and 5
    timed steps: steps/s, frames/s, peak memory, and exactly 11 OACA + 101
    GroupNorm launches a layout step, 2 attention + 50 GroupNorm an uncond
-   step; (d) ``nuscenes-auto-reg-v2`` at full width, B=2, float32, 100
+   step; (d) ``nuscenes-auto-reg-v2`` at full width, B=2, float32, 50
    steps on banded synthetic range images (lr 1e-4, warm-up 20): the mean
    of the last 10 losses must lie below that of the first 10; (e) its
    checkpoint read back through ``sample_temporal``'s ``--autoreg-ckpt``
@@ -99,18 +99,18 @@ Phases, each printing one JSON line:
    take; (b) one full-width float32 step of ``LayoutTrainer``
    (``nuscenes-layout``, 8 scenes of ego + 12, budgets 112 / 3,536),
    ``ObjectTrainer`` (``nuscenes-object``, 96 objects × 1024 points) and
-   ``FlowTrainer`` (``meanflow-nusc``, the MeanFlow JVP loss, B=2), card
+   ``FlowTrainer`` (``meanflow-nusc``, the MeanFlow JVP loss, B=1), card
    against CPU on the same weights, batch and draws: loss to 1e-4
    relative, every gradient to 1e-3 relative L2; (c) each trainer at B=8 (8
    scenes for the layout), float32 and bf16 AMP, as phase 7 (c), with
    exactly 56 GroupNorm launches a layout step, 2 attention + 50 GroupNorm
-   a MeanFlow step and none an object step; (d) a 100-step loss gate of
+   a MeanFlow step and none an object step; (d) a 50-step loss gate of
    each (lr 1e-4, warm-up 20; 8 scenes, 96 objects, MeanFlow at B=2) and
    its checkpoint served
    through the branch's generator (EMA weights and running statistics bit
    for bit, finite samples);
 10. the metric suite ("evaluate") over phase 6's float32 rollout as host
-   clouds (scenes 0-3 "real", 4-7 "gen", 64 clouds each), with a RangeNet-53
+   clouds (scenes 0-3 "real", 4-7 "gen", 32 clouds each), with a RangeNet-53
    (32x1024, 4,096 features) and a PointNet (k=16, 2,048 points) of seeded
    weights: ``EvaluationEngine`` (frd, fpd and their squared MMDs, BEV jsd
    and mmd), ``evaluate`` (cd and the chamfer mmd on 8 aligned pairs, emd
@@ -191,9 +191,40 @@ Phases, each printing one JSON line:
    ``--deterministic``, at once with the same 2 steps without a process
    group, whose losses it must equal bit for bit.
 
-Then a ``kernels`` JSON line (OACA, GroupNorm, attention and the probe,
-which runs once when the kernels load), the ``nvidia-smi`` name/power-limit line and,
-last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+14. the rest of the model registry ("registry"), at full width (32x1024,
+   64 model channels, multipliers (1, 2, 4, 8), 2 residual blocks,
+   attention at ds 4 and 8, B=8): (a) the attention kernel at the GLIDE
+   block's shapes (the v6 stack's ds 4, 8 heads of 32 over 2,048 queries
+   and 13 + 2,048 keys, and ds 8, 16 heads over 512 and 13 + 512: per-head
+   views of the [q|k|v]-packed projection, the encoder's K/V in front), at
+   OpenAIUNet's wide heads (one head of 256 over 2,048 tokens, one of 512
+   over 512, a ragged 384-wide case with a ``kv_len`` mask) and OACA at
+   positional head dims 16 and 64 on the ds 4 v6 shape, float32 and
+   bfloat16, each against its plain version at phase 2's limits, beside
+   SDPA and the bound; (b) forwards card vs CPU (float32 1e-3, bfloat16
+   5e-2 against the float32 CPU forward): ``OpenAIUNet`` with GLIDE blocks
+   at its default heads and with ``SpatialTransformer``s of 32-channel
+   heads over a (B, 13, 64) context (B=1), the v6 stack with GLIDE blocks,
+   ``LiDARGenRefineNet`` (base 128, multipliers (1, 2, 2, 2), B=1, float32)
+   and ``SpatialRescaler`` (bilinear and nearest, B=8, float32), HDiT with a
+   Fourier-feature positional embedding and ``EfficientUNet`` with
+   spherical harmonics (as phase 11's); (c) the GLIDE v6 stack served
+   through ``CondFrameGenerator`` at B=8, DPM-Solver++(2M)@15, float32 and
+   bfloat16, with exactly 11 attention and 68 GroupNorm launches a call
+   (worked out from the block list), a profile of one float32 call (as
+   many attention and GroupNorm device kernels), and ``OpenAIUNet`` at B=8,
+   ms a forward in float32 and bfloat16 (11 attention, 56 GroupNorm);
+   (d) one GLIDE v6 training step card vs CPU as phase 7 (b), then 2 steps
+   each of ``nuscenes-box-layout`` (v0), ``nuscenes-hdit-uncond`` and the
+   GLIDE v6 stack through ``train.main`` at B=2 on the synthetic source,
+   finite losses and exact launches (the forward's, twice).
+
+Every phase ends with a ``phase seconds`` line, and the script with the
+seconds of each.  Then a ``kernels`` JSON line (OACA, GroupNorm, attention
+and the probe, which runs once when the kernels load; attention with its
+``glide`` and ``wide_heads`` rows, OACA with its ``positional_dims`` rows),
+the ``nvidia-smi`` name/power-limit line and, last, ``{"ok": true,
+"device": {...}}``.  Any failed check raises, so the
 script exits non-zero; so does a machine without CUDA or a directory without
 the port.
 
@@ -242,13 +273,19 @@ FORWARD_RTOL = 1e-3  # card (kernels, cuDNN f32) vs CPU (plain), relative to max
 BF16_FORWARD_RTOL = 5e-2
 OACA_PER_FORWARD, GN_PER_FORWARD = 11, 101  # layout UNet, per denoiser call
 ATTN_PER_UNET, GN_PER_UNET = 2, 50  # EfficientUNet / MFEfficientUNet, per call
-REQUESTS = (("ddim", 50), ("dpmpp_2m", 15))
+REQUESTS = (("ddim", 25), ("dpmpp_2m", 15))
 BATCH = 8
-ROLLOUT_SCENES, ROLLOUT_FRAMES, ROLLOUT_STEPS = 8, 15, 15  # 1 + 15 frames, DPM++(2M)@15
+ROLLOUT_SCENES, ROLLOUT_FRAMES, ROLLOUT_STEPS = 8, 7, 15  # 1 + 7 frames, DPM++(2M)@15
 GEOMETRY_RTOL, GEOMETRY_PIXEL_SHARE = 1e-5, 0.999  # card vs CPU condition maps
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3  # one v6 step, card vs CPU
-TRAIN_WARMUP, TRAIN_TIMED = 3, 10  # steps of the B=8 training runs
-GATE_STEPS, GATE_BATCH = 100, 2  # nuscenes-auto-reg-v2 on banded range images
+TRAIN_WARMUP, TRAIN_TIMED = 3, 5  # steps of the B=8 training runs
+# the loss gates' steps (nuscenes-auto-reg-v2 on banded range images at B=2):
+# 50 (100 up to PR 12; in a 100-step run the losses at step 40 already lay
+# 20-60% below the mean of the first 10 on auto-reg-v2, layout and
+# MeanFlow); the object branch, whose loss falls by ~10% in 100 steps of
+# ~13 ms each, keeps 100
+GATE_STEPS, GATE_BATCH = 50, 2
+GATE_STEPS_BY_CONFIG = {"nuscenes-object": 100}
 # the layout and object branches: 8 scenes of ego + 12 objects (13 nodes, the
 # frame stack's layout_length; N = 104), and the 96 objects of those scenes
 LAYOUT_SCENES, LAYOUT_OBJECTS = 8, 12
@@ -362,34 +399,38 @@ def reset_counters() -> dict:
 # ------------------------------------------------------------------ phase 2
 
 
-def oaca_operands(B, H, L, L2, dtype, gen, d=32):
+def oaca_operands(B, H, L, L2, dtype, gen, d=32, dp=None):
     """Operands laid out as the attention block produces them: per-head
     views of one fused qkv projection, a positional strip, a small layout
-    strip; head dims (d, d, d)."""
+    strip; head dims (d, dp, d), dp = d unless given."""
     import torch
 
+    dp = d if dp is None else dp
     C = H * d
     dev = DEVICE
     qkv = torch.randn(B, L, 3 * C, generator=gen, device=dev).to(dtype)
     heads = lambda t: t.reshape(B, t.shape[1], H, -1).transpose(1, 2)  # noqa: E731
     q_c, k_c, v_c = (heads(t) for t in qkv.chunk(3, dim=-1))
-    ipe = heads(torch.randn(B, L, C, generator=gen, device=dev).to(dtype))
-    k_l = torch.randn(B, H, L2, 2 * d, generator=gen, device=dev).to(dtype)
+    ipe = heads(torch.randn(B, L, H * dp, generator=gen, device=dev).to(dtype))
+    k_l = torch.randn(B, H, L2, d + dp, generator=gen, device=dev).to(dtype)
     v_l = heads(torch.randn(B, L2, 2 * C, generator=gen, device=dev).to(dtype).chunk(2, -1)[1])
     return q_c, ipe, k_c, k_l, v_c, v_l
 
 
-def check_oaca(label, B, H, L, dtype, gen, d=32):
-    """One OACA row at head dims (d, d, d): 32 for the v1-v6 and auto-reg
-    stacks, 64 for the v0 stack."""
+def check_oaca(label, B, H, L, dtype, gen, d=32, dp=None):
+    """One OACA row at head dims (d, dp, d): 32 for the v1-v6 and auto-reg
+    stacks, 64 for the v0 stack; a positional width dp of 16 or 64 for
+    ``channels_scale_for_positional_embedding`` 0.5 or 2 (dp = d unless
+    given)."""
     import torch
     import torch.nn.functional as F
 
     from lidarcrafter_tpu_torch.kernels import oaca
 
     L2 = 13
-    ops = oaca_operands(B, H, L, L2, dtype, gen, d)
-    scale = 1.0 / math.sqrt(math.sqrt(2 * d))
+    dp = d if dp is None else dp
+    ops = oaca_operands(B, H, L, L2, dtype, gen, d, dp)
+    scale = 1.0 / math.sqrt(math.sqrt(d + dp))
     got = oaca.oaca_attention(*ops, scale=scale)
     want = oaca.oaca_attention_plain(*ops, scale=scale)
     torch.cuda.synchronize()
@@ -401,11 +442,12 @@ def check_oaca(label, B, H, L, dtype, gen, d=32):
     v_mix = torch.cat([v_c, v_l], 2)
     library = time_ms(lambda: F.scaled_dot_product_attention(q_img, k_mix, v_mix, scale=scale ** 2))
     elt = torch.finfo(dtype).bits // 8
-    nbytes = elt * (4 * B * H * L * d + B * H * L2 * 3 * d + B * H * L * d)
-    flops = 2.0 * B * H * L * (L + L2) * 3 * d
+    # q_c, ipe, k_c, v_c and the output; k_l and v_l
+    nbytes = elt * (B * H * L * (4 * d + dp) + B * H * L2 * (2 * d + dp))
+    flops = 2.0 * B * H * L * (L + L2) * (2 * d + dp)
     bound, by = bound_ms(nbytes, flops, mma_route(dname))
     return {
-        "kernel": "oaca", "shape": label, "dtype": dname, "head_dims": [d, d, d], "route": mma_route(dname),
+        "kernel": "oaca", "shape": label, "dtype": dname, "head_dims": [d, dp, d], "route": mma_route(dname),
         **errors,
         "ms": time_ms(lambda: oaca.oaca_attention(*ops, scale=scale)),
         "plain_ms": time_ms(lambda: oaca.oaca_attention_plain(*ops, scale=scale), iters=5),
@@ -461,9 +503,6 @@ def check_attention(label, B, H, Lq, Lkv, d, dtype, gen, kv_len=None):
     """q, k, v as strided per-head views of one (B, L, 3C) projection, as
     ``SelfAttention2d`` produces them (Lq == Lkv), else separate strips."""
     import torch
-    import torch.nn.functional as F
-
-    from lidarcrafter_tpu_torch.kernels import attention
 
     C = H * d
     heads = lambda t: t.reshape(B, t.shape[1], H, d).transpose(1, 2)  # noqa: E731
@@ -473,6 +512,34 @@ def check_attention(label, B, H, Lq, Lkv, d, dtype, gen, kv_len=None):
     else:
         q = heads(torch.randn(B, Lq, C, generator=gen, device=DEVICE).to(dtype))
         k, v = (heads(torch.randn(B, Lkv, C, generator=gen, device=DEVICE).to(dtype)) for _ in range(2))
+    return attention_row(label, q, k, v, dtype, kv_len)
+
+
+def check_attention_glide(label, B, H, L, d, dtype, gen, L_enc=13):
+    """The operands as ``GLIDEAttentionBlock`` hands them: q, k and v
+    per-head views of one (B, L, heads·3d) projection packed per head as
+    [q|k|v], and the encoder's ``L_enc`` tokens' K/V (one (B, L_enc, 2C)
+    projection) concatenated in front of the image's."""
+    import torch
+
+    C = H * d
+    qkv = torch.randn(B, L, 3 * C, generator=gen, device=DEVICE).to(dtype).view(B, L, H, 3 * d)
+    q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
+    ekv = torch.randn(B, L_enc, 2 * C, generator=gen, device=DEVICE).to(dtype).view(B, L_enc, H, 2 * d)
+    ek, ev = (t.transpose(1, 2) for t in ekv.split(d, dim=-1))
+    return attention_row(label, q, torch.cat([ek, k], dim=2), torch.cat([ev, v], dim=2), dtype)
+
+
+def attention_row(label, q, k, v, dtype, kv_len=None):
+    """One attention row: the kernel against its plain version, their device
+    times beside SDPA's on the same operands and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from lidarcrafter_tpu_torch.kernels import attention
+
+    B, H, Lq, d = q.shape
+    Lkv = k.shape[2]
     scale = 1.0 / math.sqrt(d)
     args = dict(scale=scale, kv_len=kv_len)
     got = attention.attention(q, k, v, **args)
@@ -488,7 +555,8 @@ def check_attention(label, B, H, Lq, Lkv, d, dtype, gen, kv_len=None):
     flops = 4.0 * B * H * Lq * n * d
     bound, by = bound_ms(nbytes, flops, mma_route(dname))
     return {
-        "kernel": "attention", "shape": label, "dtype": dname, "route": mma_route(dname), **errors,
+        "kernel": "attention", "shape": label, "dtype": dname, "route": mma_route(dname), "head_dim": d,
+        "lq": Lq, "lkv": Lkv, **errors,
         "ms": time_ms(lambda: attention.attention(q, k, v, **args)),
         "plain_ms": time_ms(lambda: attention.attention_plain(q, k, v, **args), iters=5),
         "library_ms": library, "library": "F.scaled_dot_product_attention",
@@ -576,7 +644,7 @@ def check_forward(what: str, got, want, tol: float, **extra) -> None:
           "max_abs_err": err, "rel_err": rel, "tol": tol, **extra})
 
 
-def phase_forward_parity(cfg_name: str):
+def phase_forward_parity(cfg_name: str, cfg=None, label: str | None = None):
     import torch
 
     from lidarcrafter_tpu_torch.configs import get_config
@@ -584,7 +652,8 @@ def phase_forward_parity(cfg_name: str):
     from lidarcrafter_tpu_torch.training.factory import build_diffusion_training
     from lidarcrafter_tpu_torch.weights import init_random_
 
-    cfg = get_config(cfg_name)
+    cfg = cfg or get_config(cfg_name)
+    cfg_name = label or cfg_name
     models, engine, _ = build_diffusion_training(cfg, "cpu")
     init_random_(models["cond"], 10)
     init_random_(models["model"], 11)
@@ -631,7 +700,7 @@ def condition_batch(cfg, batch_size: int, generator, device="cpu") -> dict:
     return batch
 
 
-def phase_unet_forward_parity(cfg_name: str):
+def phase_unet_forward_parity(cfg_name: str, cfg=None, label: str | None = None):
     import torch
 
     from lidarcrafter_tpu_torch.configs import get_config
@@ -639,7 +708,8 @@ def phase_unet_forward_parity(cfg_name: str):
     from lidarcrafter_tpu_torch.training.factory import build_diffusion_training
     from lidarcrafter_tpu_torch.weights import init_random_
 
-    cfg = get_config(cfg_name)
+    cfg = cfg or get_config(cfg_name)
+    cfg_name = label or cfg_name
     model, engine, _ = build_diffusion_training(cfg, "cpu")
     init_random_(model, 13)
     B, (H, W) = 2, cfg.data.resolution
@@ -1222,7 +1292,8 @@ def phase_train_speed(cfg_name: str, amp: bool, per_step: dict, smi: str, out_di
 
 
 def _loss_gate(cfg_name: str, batch: int, per_step: dict, smi: str, out_dir: str):
-    """``cfg_name``'s trainer for ``GATE_STEPS`` steps at ``batch``, float32,
+    """``cfg_name``'s trainer for ``GATE_STEPS`` steps (``GATE_STEPS_BY_CONFIG``
+    where it names the config) at ``batch``, float32,
     lr 1e-4 with 20 warm-up steps, the launch counters set to 0 just before
     and read just after (``per_step`` launches a step, 0 if absent): the
     mean of the last 10 losses must lie below that of the first 10.
@@ -1230,24 +1301,25 @@ def _loss_gate(cfg_name: str, batch: int, per_step: dict, smi: str, out_dir: str
     from lidarcrafter_tpu_torch.training.checkpoint import latest_checkpoint
 
     out_dir = str(Path(out_dir) / cfg_name)
-    trainer, logs = _trainer(cfg_name, batch, False, out_dir, lr=1e-4, lr_warmup_steps=20, num_steps=GATE_STEPS)
+    steps = GATE_STEPS_BY_CONFIG.get(cfg_name, GATE_STEPS)
+    trainer, logs = _trainer(cfg_name, batch, False, out_dir, lr=1e-4, lr_warmup_steps=20, num_steps=steps)
     counters = reset_counters()
     t0 = time.perf_counter()
-    state = trainer.train(num_steps=GATE_STEPS, seed=0, checkpoint_every=GATE_STEPS, log_every=1)
+    state = trainer.train(num_steps=steps, seed=0, checkpoint_every=steps, log_every=1)
     seconds = time.perf_counter() - t0
     launches = {k: c.n for k, c in counters.items()}
     for k, n in launches.items():
-        check(n == per_step.get(k, 0) * GATE_STEPS, f"{cfg_name} loss gate: {k} launches {n}")
+        check(n == per_step.get(k, 0) * steps, f"{cfg_name} loss gate: {k} launches {n}")
     losses = [r["loss"] for r in logs if "loss" in r]
-    check(len(losses) == GATE_STEPS and all(math.isfinite(v) for v in losses), f"{cfg_name} loss gate: losses")
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"{cfg_name} loss gate: losses")
     first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
     emit({"phase": "train", "check": "loss falls", "config": cfg_name, "batch": batch, "dtype": "float32",
-          "steps": GATE_STEPS, "lr": 1e-4, "warmup": 20, "card": smi, "seconds": seconds,
+          "steps": steps, "lr": 1e-4, "warmup": 20, "card": smi, "seconds": seconds,
           "first10_mean": first, "last10_mean": last, "ratio": last / first, "launches": launches,
           "losses_every_10": losses[::10]})
     check(last < first, f"{cfg_name} loss gate: mean of the last 10 losses {last:.4g} >= the first 10 {first:.4g}")
     path = latest_checkpoint(out_dir)
-    check(path is not None and path.endswith(f"ckpt_{GATE_STEPS:010d}"), f"{cfg_name} loss gate: checkpoint {path}")
+    check(path is not None and path.endswith(f"ckpt_{steps:010d}"), f"{cfg_name} loss gate: checkpoint {path}")
     del trainer
     return state, path, {k: n for k, n in launches.items() if n}
 
@@ -1492,9 +1564,10 @@ BRANCH_PER_STEP = {  # kernel launches a train step of each branch
     "meanflow-nusc": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
 }
 # card-vs-CPU step batches: 8 scenes of ego + 12 (budgets 112 / 3,536), the
-# 96 objects of those scenes, 2 frames (MeanFlow), 1 frame (v6)
+# 96 objects of those scenes, 1 frame (MeanFlow: 2 up to PR 12, whose CPU
+# side took ~15 s; v6)
 PARITY_BATCH = {"nuscenes-layout": LAYOUT_SCENES, "nuscenes-object": LAYOUT_SCENES * LAYOUT_OBJECTS,
-                "meanflow-nusc": 2, "nuscenes-box-layout-v6": 1}
+                "meanflow-nusc": 1, "nuscenes-box-layout-v6": 1}
 # the loss gates: 8 scenes; 96 objects (at 8, a step's loss spreads as far as
 # 100 steps move its mean); 2 frames
 GATE_BATCH_BRANCH = {"nuscenes-layout": LAYOUT_SCENES, "nuscenes-object": LAYOUT_SCENES * LAYOUT_OBJECTS,
@@ -1623,12 +1696,13 @@ def _step_draws(cfg_name: str, trainer, batch) -> dict:
     return draws
 
 
-def phase_step_parity(cfg_name: str, smi: str, phase: str) -> None:
+def phase_step_parity(cfg_name: str, smi: str, phase: str, edit=None, label: str | None = None) -> None:
     """Phase 7 (b), phase 9 (b): one full-width float32 step of
     ``cfg_name``'s trainer at ``PARITY_BATCH``, the card (kernels) against
     the CPU (plain versions) on the same weights, batch and draws: the loss
     to ``TRAIN_LOSS_RTOL``, every trained tensor's gradient to
-    ``TRAIN_GRAD_RTOL`` relative L2."""
+    ``TRAIN_GRAD_RTOL`` relative L2.  ``edit(cfg)`` changes the config
+    first (phase 14: GLIDE blocks)."""
     import torch
 
     from lidarcrafter_tpu_torch import train as train_cli
@@ -1636,6 +1710,8 @@ def phase_step_parity(cfg_name: str, smi: str, phase: str) -> None:
     from lidarcrafter_tpu_torch.training.train_step import loss_and_grads
 
     cfg = _train_cfg(cfg_name, PARITY_BATCH[cfg_name], False)
+    if edit is not None:
+        edit(cfg)
     cpu = train_cli.build_trainer(cfg, 5, "cpu", log_fn=None)
     cpu.init_state(21)
     card = train_cli.build_trainer(cfg, 5, DEVICE, log_fn=None)
@@ -1659,7 +1735,7 @@ def phase_step_parity(cfg_name: str, smi: str, phase: str) -> None:
         rows.append((diff / max(ref, 1e-30), name, ref, diff))
     rows.sort(reverse=True)
     overall = math.sqrt(sum(r[3] ** 2 for r in rows)) / total
-    emit({"phase": phase, "check": "step parity", "config": cfg_name, "batch": PARITY_BATCH[cfg_name],
+    emit({"phase": phase, "check": "step parity", "config": label or cfg_name, "batch": PARITY_BATCH[cfg_name],
           "dtype": "float32", "card": smi, "loss_card": float(loss), "loss_cpu": float(want_loss),
           "loss_rel_err": loss_rel, "loss_tol": TRAIN_LOSS_RTOL, "grad_tol": TRAIN_GRAD_RTOL,
           "grad_overall_rel_l2": overall, "tensors": len(rows), "zero_gradients": sum(r[2] == 0 for r in rows),
@@ -1784,7 +1860,7 @@ def agrees_l2(out: dict, name: str, card, cpu, tol: float) -> None:
 
 def phase_evaluate(frames, smi: str) -> None:
     """Phase 10: the metric suite on the card over phase 6's float32 rollout
-    (scenes 0-3 "real", 4-7 "gen", 16 frames each), with a RangeNet-53 and a
+    (scenes 0-3 "real", 4-7 "gen", 8 frames each), with a RangeNet-53 and a
     PointNet of seeded weights; every metric again through the port on the
     CPU, on the same clouds and weights, held to ``EVAL_RTOL``."""
     import torch
@@ -1882,7 +1958,7 @@ def phase_evaluate(frames, smi: str) -> None:
         sub = {dev: eval_suite._range_descriptors(subset, "32", root, device=dev).cpu().numpy() for dev in extract}
         agrees_l2(agree, "frid descriptors", sub[DEVICE], sub["cpu"], EVAL_RTOL["features"])
 
-    # TCD of each scene's 16 frames, as evaluate_temporal subsamples them; card vs CPU on scene 0 resampled
+    # TCD of each scene's 8 frames, as evaluate_temporal subsamples them; card vs CPU on scene 0 resampled
     cli_rng = np.random.default_rng(0)
     tcd = timed("tcd", lambda: [sequence_tcd([c if len(c) <= TCD_MAX_POINTS else
                                                c[cli_rng.choice(len(c), TCD_MAX_POINTS, replace=False)] for c in s],
@@ -1955,15 +2031,15 @@ DISCRETE_STEPS = 50
 def kernel_modules(model) -> dict:
     """Kernel launches per denoiser call, from the modules the forward
     holds: one OACA per ``ObjectAwareCrossAttention``, one attention per
-    EfficientUNet attention block, one GroupNorm per norm module."""
-    from lidarcrafter_tpu_torch.models.layout_unet import ObjectAwareCrossAttention
+    EfficientUNet or GLIDE attention block, one GroupNorm per norm module."""
+    from lidarcrafter_tpu_torch.models.layout_unet import GLIDEAttentionBlock, ObjectAwareCrossAttention
     from lidarcrafter_tpu_torch.models.ops import FusedGN, MFSelfAttention2d, SelfAttention2d
 
     def count(*cls):
         return sum(isinstance(m, cls) for m in model.modules())
 
-    return {"oaca": count(ObjectAwareCrossAttention), "attention": count(SelfAttention2d, MFSelfAttention2d),
-            "groupnorm": count(FusedGN)}
+    return {"oaca": count(ObjectAwareCrossAttention),
+            "attention": count(SelfAttention2d, MFSelfAttention2d, GLIDEAttentionBlock), "groupnorm": count(FusedGN)}
 
 
 def zoo_generator(cfg_name: str, dtype, cfg=None):
@@ -1989,7 +2065,8 @@ def zoo_generator(cfg_name: str, dtype, cfg=None):
                                                                            batch=batch)
 
 
-def zoo_request(what: str, run, warmup, per_call: dict, calls: int, smi: str, **extra) -> tuple[dict, tuple]:
+def zoo_request(what: str, run, warmup, per_call: dict, calls: int, smi: str, phase: str = "zoo",
+                **extra) -> tuple[dict, tuple]:
     """``run()`` after ``warmup()``, the launch counters set to 0 just
     before and read just after; each kernel must have launched
     ``per_call[kernel]`` times in each of the request's ``calls`` denoiser
@@ -2010,7 +2087,7 @@ def zoo_request(what: str, run, warmup, per_call: dict, calls: int, smi: str, **
         check(n == per_call.get(k, 0) * calls, f"{what}: {k} launches {n} != {per_call.get(k, 0)} x {calls}")
     check(bool(torch.isfinite(sample).all()) and bool(torch.isfinite(post["xyz"]).all()), f"{what}: not finite")
     check(float(sample.std()) > 1e-3, f"{what}: sample is constant")
-    emit({"phase": "zoo", "what": what, "card": smi, "batch": BATCH, "denoiser_calls": calls, "seconds": seconds,
+    emit({"phase": phase, "what": what, "card": smi, "batch": BATCH, "denoiser_calls": calls, "seconds": seconds,
           "frames_per_s": BATCH / seconds, "ms_per_call": seconds * 1e3 / calls, "launches": launches,
           "per_call": per_call, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "sample_std": float(sample.std()), **extra})
@@ -2726,6 +2803,242 @@ def phase_data(smi: str) -> dict:
     return by_path
 
 
+# ----------------------------------------------------------------- phase 14
+
+
+# OpenAIUNet at the layout stacks' full width: 32x1024, 64 channels,
+# multipliers (1, 2, 4, 8), 2 residual blocks, attention at ds 4 and 8; at
+# the default heads its GLIDE blocks hold one head as wide as the block
+# (256 at ds 4, 512 at ds 8 and in the middle)
+OPENAI_UNET = dict(resolution=(32, 1024), in_channels=2, model_channels=64, out_channels=2, num_res_blocks=2,
+                   channel_mult=(1, 2, 4, 8), attention_resolutions=(4, 8))
+OPENAI_TRANSFORMER = dict(use_spatial_transformer=True, num_head_channels=32, context_dim=64)
+CONTEXT_TOKENS = 13  # the SpatialTransformer's context: (B, 13, 64), a layout encoder's tokens
+OACA_POSITIONAL_DIMS = (16, 64)  # channels_scale_for_positional_embedding 0.5 and 2 on 32-channel heads
+REGISTRY_TRAIN = ("nuscenes-box-layout", "nuscenes-hdit-uncond", "nuscenes-box-layout-v6 glide")
+REGISTRY_TRAIN_BATCH = 2
+
+
+def glide_cfg(cfg=None):
+    """``nuscenes-box-layout-v6`` (or ``cfg``) with GLIDE attention blocks."""
+    from lidarcrafter_tpu_torch.configs import get_config
+
+    cfg = cfg or get_config("nuscenes-box-layout-v6")
+    cfg.model.params["attention_block_type"] = "GLIDEAttentionBlock"
+    return cfg
+
+
+def adm_blocks(channel_mult, num_res_blocks: int, attention_ds, resblock_updown: bool) -> tuple[int, int]:
+    """(residual blocks, attention blocks) of an ADM UNet's block list: the
+    encoder's levels and down steps, the middle's two residual blocks and
+    one attention block, the decoder's levels (one block more) and up
+    steps."""
+    levels = len(channel_mult)
+    attn_levels = sum(2 ** i in attention_ds for i in range(levels))
+    res = levels * num_res_blocks + 2 + levels * (num_res_blocks + 1)
+    if resblock_updown:
+        res += 2 * (levels - 1)
+    return res, attn_levels * (2 * num_res_blocks + 1) + 1
+
+
+def registry_kernel_rows(gen) -> list:
+    """Phase 14 (a): the attention kernel at the GLIDE block's shapes (the
+    v6 stack's ds 4 and ds 8, 13 encoder tokens in front) and at OpenAIUNet's
+    wide heads, and OACA at positional head dims 16 and 64 on the ds 4 v6
+    shape, float32 and bfloat16, each against its plain version."""
+    import torch
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        rows.append(check_attention_glide("glide ds4 B=8 h=8 L=2048+13 d=32", BATCH, 8, 2048, 32, dtype, gen)
+                    | {"sub": "glide"})
+        rows.append(check_attention_glide("glide ds8 B=8 h=16 L=512+13 d=32", BATCH, 16, 512, 32, dtype, gen)
+                    | {"sub": "glide"})
+        rows.append(check_attention("wide B=8 h=1 L=2048 d=256", BATCH, 1, 2048, 2048, 256, dtype, gen)
+                    | {"sub": "wide_heads"})
+        rows.append(check_attention("wide B=8 h=1 L=512 d=512", BATCH, 1, 512, 512, 512, dtype, gen)
+                    | {"sub": "wide_heads"})
+        rows.append(check_attention("wide ragged B=8 h=2 L=1000 kv_len=777 d=384", BATCH, 2, 1000, 1000, 384,
+                                    dtype, gen, kv_len=777) | {"sub": "wide_heads"})
+        for dp in OACA_POSITIONAL_DIMS:
+            rows.append(check_oaca(f"ds4 B=8 h=8 L=2048 dp={dp}", BATCH, 8, 2048, dtype, gen, dp=dp)
+                        | {"sub": "positional_dims"})
+    for row in rows:
+        emit({"phase": "registry", "check": "kernel", **row})
+        check(row["ms"] >= row["bound_ms"],
+              f"{row['kernel']} {row['shape']} {row['dtype']}: {row['ms']} ms below its bound {row['bound_ms']} ms")
+    return rows
+
+
+def module_forward_parity(what: str, model, make_args, bf16: bool = True) -> None:
+    """``model`` (seeded, float32) on the card against the CPU,
+    ``make_args(dtype, device)`` giving its arguments; with ``bf16`` the
+    card's copy served in bfloat16 (``to_serving_dtype_``, floating inputs
+    cast) against the same CPU forward."""
+    import torch
+
+    from lidarcrafter_tpu_torch.precision import to_serving_dtype_
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = model(*make_args(torch.float32, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    gpu = copy.deepcopy(model).to(DEVICE)
+    with torch.inference_mode():
+        got = gpu(*make_args(torch.float32, DEVICE)).cpu()
+    check_forward(f"{what} float32", got, want, FORWARD_RTOL, cpu_seconds=cpu_s)
+    if bf16:
+        to_serving_dtype_(gpu, torch.bfloat16)
+        with torch.inference_mode():
+            got = gpu(*make_args(torch.bfloat16, DEVICE)).float().cpu()
+        check_forward(f"{what} bfloat16", got, want, BF16_FORWARD_RTOL)
+
+
+def openai_unet_args(B: int, context: bool, seed: int):
+    """``make_args`` of an OpenAIUNet: an image, log-SNR times and, for the
+    SpatialTransformer, a (B, 13, 64) context, drawn on the CPU."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, *OPENAI_UNET["resolution"], 2, generator=g)
+    t = torch.linspace(-3.0, 5.0, B)
+    ctx = torch.randn(B, CONTEXT_TOKENS, OPENAI_TRANSFORMER["context_dim"], generator=g) if context else None
+
+    def make(dtype, device):
+        cd = {"time_condition": t.to(device)}
+        if ctx is not None:
+            cd["other_condition"] = ctx.to(device, dtype)
+        return x.to(device, dtype), cd
+
+    return make
+
+
+def registry_forward_parity() -> None:
+    """Phase 14 (b): full-width forwards, card against CPU."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.models import build_model
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    for kind, extra in (("glide", {}), ("spatial transformer", OPENAI_TRANSFORMER)):
+        model = init_random_(build_model("openai_unet", **OPENAI_UNET, **extra), 31).eval()
+        module_forward_parity(f"openai_unet {kind} B=1", model, openai_unet_args(1, bool(extra), 32))
+    phase_forward_parity("nuscenes-box-layout-v6", glide_cfg(), "nuscenes-box-layout-v6 glide")
+    refine = init_random_(build_model("refinenet", in_channels=2, resolution=(32, 1024), base_channels=128,
+                                      channel_multiplier=(1, 2, 2, 2)), 33).eval()
+    x = torch.randn(1, 32, 1024, 2, generator=torch.Generator().manual_seed(34))
+    module_forward_parity("refinenet base 128 (1,2,2,2) B=1", refine, lambda dtype, device: (x.to(device, dtype),),
+                          bf16=False)
+    cond = torch.randn(BATCH, 32, 1024, 2, generator=torch.Generator().manual_seed(35))
+    for method in ("bilinear", "nearest"):
+        rescaler = init_random_(build_model("easy_unet", strides=((2, 2), (1, 2)), method=method, in_channels=2,
+                                            out_channels=8), 36).eval()
+        module_forward_parity(f"easy_unet {method} B=8", rescaler, lambda dtype, device: ({"cond": cond.to(device)},),
+                              bf16=False)
+    hdit = get_config("nuscenes-hdit-uncond")
+    hdit.model.params["positional_embedding"] = "fourier_features"
+    phase_unet_forward_parity("nuscenes-hdit-uncond", hdit, "nuscenes-hdit-uncond fourier_features")
+    sh = get_config("nuscenes-unet-uncond")
+    sh.model.params["coords_encoding"] = "spherical_harmonics"
+    phase_unet_forward_parity("nuscenes-unet-uncond", sh, "nuscenes-unet-uncond spherical_harmonics")
+
+
+def phase_registry(smi: str) -> tuple[list, dict]:
+    """Phase 14: the rest of the registry at full width.  Returns the kernel
+    rows and the launch counts by path."""
+    import torch
+
+    from lidarcrafter_tpu_torch.models import build_model
+    from lidarcrafter_tpu_torch.precision import to_serving_dtype_
+    from lidarcrafter_tpu_torch.utils.torch_ckpt import build_modules
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    t_phase = time.perf_counter()
+    rows = registry_kernel_rows(torch.Generator(device=DEVICE).manual_seed(40))
+    t0 = time.perf_counter()
+    registry_forward_parity()
+    emit({"phase": "registry", "check": "forward parity seconds", "seconds": time.perf_counter() - t0})
+
+    # (c) served: the GLIDE v6 stack through CondFrameGenerator, OpenAIUNet forwards
+    by_path = {}
+    res, attn = adm_blocks((1, 2, 4, 8), 2, (4, 8), True)
+    glide_call = {"attention": attn, "groupnorm": 2 * res + 1 + attn}  # ResBlocks, out_norm, one a GLIDE block
+    mode, steps = ZOO_REQUEST
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        gen, model, request = zoo_generator("nuscenes-box-layout-v6", dtype, glide_cfg())
+        per_call = kernel_modules(model)
+        check(per_call == {"oaca": 0, **glide_call}, f"glide v6 blocks {per_call} != {glide_call}")
+        by_path[f"registry glide v6 {dname}"], _ = zoo_request(
+            f"nuscenes-box-layout-v6 glide {dname} {mode}@{steps}", lambda: request(steps, mode, 1),
+            lambda: request(2, mode, 99), per_call, steps, smi, phase="registry", config="nuscenes-box-layout-v6",
+            attention_block_type="GLIDEAttentionBlock", dtype=dname)
+        if dtype == torch.float32:
+            phase_profile(f"one denoiser call (nuscenes-box-layout-v6 glide, predict_x_0), B=8, {dname}",
+                          zoo_call(gen, gen.cfg), smi,
+                          expect={"attention kernel": per_call["attention"], "groupnorm kernel": per_call["groupnorm"]})
+        del gen, model, request
+        torch.cuda.empty_cache()
+
+    res, attn = adm_blocks(OPENAI_UNET["channel_mult"], OPENAI_UNET["num_res_blocks"],
+                           OPENAI_UNET["attention_resolutions"], False)
+    openai_call = {"oaca": 0, "attention": attn, "groupnorm": 2 * res + 1 + attn}
+    model = init_random_(build_model("openai_unet", **OPENAI_UNET), 37).eval().to(DEVICE)
+    check(kernel_modules(model) == openai_call, f"openai_unet blocks {kernel_modules(model)} != {openai_call}")
+    heads = sorted({(m.num_heads, m.qkv.in_features // m.num_heads) for m in model.modules() if hasattr(m, "qkv")})
+    check(heads == [(1, 256), (1, 512)], f"openai_unet heads x head dim {heads}")
+    make = openai_unet_args(BATCH, False, 38)
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        if dtype == torch.bfloat16:
+            to_serving_dtype_(model, dtype)
+        args = make(dtype, DEVICE)
+        with torch.inference_mode():
+            model(*args)  # warm-up
+            torch.cuda.synchronize()
+            counters = reset_counters()
+            out = model(*args)
+            torch.cuda.synchronize()
+            launches = {k: c.n for k, c in counters.items()}
+            ms = time_ms(lambda: model(*args), iters=5, warmup=1, gc_off=False)
+        check(launches == openai_call, f"openai_unet {dname}: launches {launches} != {openai_call}")
+        check(bool(torch.isfinite(out).all()), f"openai_unet {dname}: not finite")
+        emit({"phase": "registry", "what": f"openai_unet glide B=8 {dname} forward", "card": smi, "ms": ms,
+              "launches": launches, "heads": heads})
+        by_path[f"registry openai_unet {dname} (1 forward)"] = {k: n for k, n in launches.items() if n}
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) trained: one GLIDE v6 step card vs CPU, then 2 steps of v0, HDiT and GLIDE through train.py
+    phase_step_parity("nuscenes-box-layout-v6", smi, "registry", edit=glide_cfg,
+                      label="nuscenes-box-layout-v6 glide")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in REGISTRY_TRAIN:
+            cfg_name, _, variant = name.partition(" ")
+            from lidarcrafter_tpu_torch.configs import get_config
+
+            cfg = get_config(cfg_name)
+            sets = []
+            if variant == "glide":
+                glide_cfg(cfg)
+                sets = ["--set", 'model.params.attention_block_type="GLIDEAttentionBlock"']
+            per_step = kernel_modules(build_modules(cfg, "meta")["model"])
+            records, _, launches = _train_main(
+                ["-c", cfg_name, "--synthetic-data", "--num-steps", "2", "-b", str(REGISTRY_TRAIN_BATCH),
+                 "--log-every", "1", "--checkpoint-every", "0", "--output-dir", str(Path(tmp) / name.replace(" ", "_")),
+                 *sets])
+            losses = [r["loss"] for r in records if "loss" in r]
+            check(len(losses) == 2 and all(math.isfinite(v) for v in losses), f"registry train {name}: {losses}")
+            for k, n in launches.items():
+                check(n == 2 * per_step.get(k, 0), f"registry train {name}: {k} launches {n} != 2 x {per_step}")
+            emit({"phase": "registry", "check": "train.py 2 steps", "config": name, "batch": REGISTRY_TRAIN_BATCH,
+                  "card": smi, "losses": losses, "launches": launches, "per_step": per_step})
+            if any(launches.values()):
+                by_path[f"registry train {name} (2 steps)"] = {k: n for k, n in launches.items() if n}
+            torch.cuda.empty_cache()
+    emit({"phase": "registry", "check": "phase seconds", "card": smi, "seconds": time.perf_counter() - t_phase})
+    return rows, by_path
+
+
 def probe_times(kernels) -> dict:
     """Device times of the loader's ``x·2`` probe kernel on its (8, 128)
     float32 input, of ``x * 2`` and of ``torch.mul(x, 2)``, and its bound
@@ -2775,15 +3088,27 @@ def main() -> int:
           "nvcc_seconds": loaded.build_seconds, "load_and_probe_seconds": load_s,
           "probe": "x*2 ok", **probe_times(loaded), "ptxas": ptxas})
 
+    marks, last = {}, [t0]
+
+    def phase_done(name: str) -> None:
+        """The seconds since the last mark (the build's: since it began), on
+        a line of their own."""
+        now = time.perf_counter()
+        marks[name], last[0] = now - last[0], now
+        emit({"phase": name, "check": "phase seconds", "seconds": marks[name]})
+
+    phase_done("build")
     rows = phase_kernels()
+    phase_done("kernels")
     phase_forward_parity("nuscenes-box-layout-v6")
     phase_unet_forward_parity("nuscenes-unet-uncond")
+    phase_done("forward_parity")
     counts = {
         "nuscenes-box-layout-v6": {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD},
         "nuscenes-unet-uncond": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
         "meanflow-nusc": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
     }
-    # float32: DDIM@50 + DPM++@15 (MeanFlow one step); bfloat16: one DPM++@15
+    # float32: DDIM@25 + DPM++@15 (MeanFlow one step); bfloat16: one DPM++@15
     # request (MeanFlow one step) per path, served by its own generators
     requests = {
         "float32": {name: (("meanflow", 1),) if name == "meanflow-nusc" else REQUESTS for name in counts},
@@ -2802,21 +3127,34 @@ def main() -> int:
                           expect={"groupnorm kernel": norms})
         del gens, calls
         torch.cuda.empty_cache()
+        phase_done(f"main_path and profile {dname}")
         by_path[f"rollout {dname}"], frames = phase_rollout(dtype, smi)
         if dtype == torch.float32:
             rollout_frames = frames  # phase 10 evaluates them
         del frames
         torch.cuda.empty_cache()
+        phase_done(f"rollout {dname}")
     backward_rows, train_paths = phase_train(smi)
     by_path.update(train_paths)
+    phase_done("train")
     by_path["layout nuscenes-layout float32"] = phase_layout(smi)
     phase_object(smi)
+    phase_done("layout and object")
     jvp_rows, branch_paths = phase_branch_train(smi)
     by_path.update(branch_paths)
+    phase_done("branch_train")
     phase_evaluate(rollout_frames, smi)
+    phase_done("evaluate")
     by_path.update(phase_zoo(smi))
+    phase_done("zoo")
     by_path.update(phase_ingest(smi))
+    phase_done("ingest")
     by_path.update(phase_data(smi))
+    phase_done("data")
+    registry_rows, registry_paths = phase_registry(smi)
+    by_path.update(registry_paths)
+    phase_done("registry")
+    emit({"phase": "script", "check": "seconds by phase", "seconds": marks, "total_seconds": time.perf_counter() - t0})
 
     # each kernel at its largest main-path shape, float32 (the default serving
     # dtype) with its bfloat16 numbers beside, and its launches summed over
@@ -2829,6 +3167,8 @@ def main() -> int:
     kernels = []
     backward_keys = ("ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by", "max_abs_err", "rel_err",
                      "norm_rel_err", "shape", "route")
+    sub_keys = ("shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "rel_err",
+                "norm_rel_err", "route")
     for k, (source, replaces) in sources.items():
         first = next(r for r in rows if r["kernel"] == k and r["dtype"] == "float32")
         bf16 = next(r for r in rows if r["kernel"] == k and r["dtype"] == "bfloat16"
@@ -2860,6 +3200,11 @@ def main() -> int:
             # the forward-mode route, where a path takes one (OACA has none)
             "jvp": None if jvp["float32"] is None else {key: jvp["float32"][key] for key in backward_keys}
             | {"bf16": {key: jvp["bfloat16"][key] for key in backward_keys}},
+            # phase 14: the GLIDE shapes and wide heads (attention), positional
+            # head dims 16 and 64 (OACA), float32 and bfloat16
+            **{sub: [{key: r[key] for key in sub_keys} for r in registry_rows
+                     if r["kernel"] == k and r["sub"] == sub]
+               for sub in {r["sub"] for r in registry_rows if r["kernel"] == k}},
         })
     # the probe: launched once per process, when the kernels load (this
     # process's load; the train CLI processes of phase 13 load their own)

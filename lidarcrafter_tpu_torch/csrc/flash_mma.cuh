@@ -267,15 +267,16 @@ struct FlashWarp {
     }
   }
 
-  // Q A-fragments from the shared Q tile (row stride LDQ)
-  __device__ __forceinline__ void load_q(const T* sQ) {
+  // Q A-fragments from the shared Q tile (row stride ldq, LDQ unless the
+  // tile is wider than DQK and this is one DQK-wide chunk of it)
+  __device__ __forceinline__ void load_q(const T* sQ, int ldq = LDQ) {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       const int r = row0 + mt * 16;
       if constexpr (kF32) {
         const int g = lane >> 2, t = lane & 3;
-        const float* r0 = sQ + (r + g) * LDQ + 2 * t;
-        const float* r1 = r0 + 8 * LDQ;
+        const float* r0 = sQ + (r + g) * ldq + 2 * t;
+        const float* r1 = r0 + 8 * ldq;
 #pragma unroll
         for (int kk = 0; kk < KQ; ++kk) {
           const float2 a = *reinterpret_cast<const float2*>(r0 + kk * 8);
@@ -286,7 +287,7 @@ struct FlashWarp {
           q[mt][kk][3] = __float_as_uint(b.y);  // (row g+8, head dim 2t+1)
         }
       } else {
-        const T* p = sQ + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * LDQ + (lane >> 4) * 8;
+        const T* p = sQ + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * ldq + (lane >> 4) * 8;
 #pragma unroll
         for (int kk = 0; kk < KQ; ++kk) ldsm_x4(q[mt][kk], p + kk * 16);
       }
@@ -299,16 +300,27 @@ struct FlashWarp {
   // -inf; only the last tile of a strip needs it.
   template <int NK, bool MASK>
   __device__ __forceinline__ void attend(const T* sK, const T* sV, int n_valid) {
-    const int g = lane >> 2, t = lane & 3;
     float s[MT][NK / 8][4];
+    zero_scores<NK>(s);
+    scores<NK>(s, sK);
+    fold<NK, MASK>(s, sV, n_valid);
+  }
+
+  template <int NK>
+  static __device__ __forceinline__ void zero_scores(float (&s)[MT][NK / 8][4]) {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int n = 0; n < NK / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.0f;
+  }
 
-    // S = Q K^T
+  // S += Q K^T over the DQK columns of the loaded Q fragments and of a
+  // shared K tile (row stride LDQ): one DQK-wide chunk of the head dim
+  template <int NK>
+  __device__ __forceinline__ void scores(float (&s)[MT][NK / 8][4], const T* sK) {
+    const int g = lane >> 2, t = lane & 3;
     if constexpr (kF32) {
 #pragma unroll
       for (int kk = 0; kk < KQ; ++kk) {
@@ -344,7 +356,13 @@ struct FlashWarp {
           }
         }
     }
+  }
 
+  // Fold the logits S of keys 0..NK-1 and their shared V tile (row stride
+  // LDV) into the running softmax and O
+  template <int NK, bool MASK>
+  __device__ __forceinline__ void fold(float (&s)[MT][NK / 8][4], const T* sV, int n_valid) {
+    const int g = lane >> 2, t = lane & 3;
     // online softmax; the accumulator of n tile n holds keys 8n + 2t and
     // 8n + 2t + 1 of rows g (e = 0, 1) and g + 8 (e = 2, 3)
     if constexpr (MASK) {

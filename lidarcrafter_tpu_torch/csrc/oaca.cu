@@ -28,9 +28,14 @@
 //     masked past L2 (L2 = 0 skips them);
 //   * the scale^2 goes onto the f32 logits.
 //
-// Two head-dim instantiations, (DC, DP, DV) = (32, 32, 32) for the v1-v6
-// and auto-reg stacks and (64, 64, 64) for the v0 LayoutUnet (512 channels
-// at ds=4, 8 heads, a positional strip as wide as the content).  The tile
+// Three head-dim instantiations, (DC, DP, DV) = (32, 32, 32) for the v1-v6
+// and auto-reg stacks, (64, 64, 64) for the v0 LayoutUnet (512 channels
+// at ds=4, 8 heads, a positional strip as wide as the content), and
+// (32, 64, 32) for a positional strip twice as wide as the content
+// (`channels_scale_for_positional_embedding` = 2 on 32-channel heads).
+// A strip half as wide (scale 0.5, DP = 16) runs in the (32, 32, 32) build:
+// columns DC + 16 .. DC + 31 of every q, k_img and k_l row are zero-filled
+// in shared memory, and zeros change no logit.  The tile
 // sizes follow the q/k width DC+DP as in csrc/attention.cu: 128 query rows
 // a block (two m16 tiles a warp) at width 64, 64 rows (one a warp) at
 // width 128, where the Q fragments of two tiles would not fit the
@@ -97,8 +102,10 @@ struct Smem {
   static size_t bytes(int l2p) { return sizeof(T) * (kL + l2p * (LDQ + LDV)); }
 };
 
+// DP is the positional width the kernel is built for; dp <= DP is the
+// operands' (the columns of ipe and k_l past DC + dp are zero-filled)
 template <typename T, int DC, int DP, int DV>
-__global__ void __launch_bounds__(NT) oaca_fwd_kernel(const OacaArgs a) {
+__global__ void __launch_bounds__(NT) oaca_fwd_kernel(const OacaArgs a, const int dp) {
   constexpr int DQK = DC + DP;
   using S = Smem<T, DQK, DV>;
   constexpr int LDQ = S::LDQ, LDV = S::LDV, BQ = S::BQ;
@@ -125,15 +132,15 @@ __global__ void __launch_bounds__(NT) oaca_fwd_kernel(const OacaArgs a) {
     const int k0 = t * BK, n = min(BK, Lq - k0);
     T* dk = sK + (t & 1) * BK * LDQ;
     stage_rows<T, DC, BK>(dk, LDQ, kc, a.kc_s[2], k0, n, DC);
-    stage_rows<T, DP, BK>(dk + DC, LDQ, ipe, a.ipe_s[2], k0, n, DP);
+    stage_rows<T, DP, BK>(dk + DC, LDQ, ipe, a.ipe_s[2], k0, n, dp);
     stage_rows<T, DV, BK>(sV + (t & 1) * BK * LDV, LDV, vc, a.vc_s[2], k0, n, DV);
     cp_async_commit();
   };
   // queries [q_c | ipe]
   stage_rows<T, DC, BQ>(sQ, LDQ, qc, a.qc_s[2], q0, Lq - q0, DC);
-  stage_rows<T, DP, BQ>(sQ + DC, LDQ, ipe, a.ipe_s[2], q0, Lq - q0, DP);
+  stage_rows<T, DP, BQ>(sQ + DC, LDQ, ipe, a.ipe_s[2], q0, Lq - q0, dp);
   // layout strip: keys k_l (already [k_lc | lpe]), values v_l
-  stage_rows_n<T, DQK>(sKl, LDQ, l2p, kl, a.kl_s[2], 0, L2, DQK);
+  stage_rows_n<T, DQK>(sKl, LDQ, l2p, kl, a.kl_s[2], 0, L2, DC + dp);
   stage_rows_n<T, DV>(sVl, LDV, l2p, vl, a.vl_s[2], 0, L2, DV);
   stage_image(0);
 
@@ -163,7 +170,7 @@ __global__ void __launch_bounds__(NT) oaca_fwd_kernel(const OacaArgs a) {
 }
 
 template <typename T, int DC, int DP, int DV>
-int launch(const OacaArgs& a, cudaStream_t s) {
+int launch(const OacaArgs& a, int dp, cudaStream_t s) {
   using S = Smem<T, DC + DP, DV>;
   const size_t bytes = S::bytes((int)((a.L2 + LSLICE - 1) / LSLICE * LSLICE));
   const dim3 grid((unsigned)((a.Lq + S::BQ - 1) / S::BQ), (unsigned)(a.B * a.H));
@@ -171,22 +178,25 @@ int launch(const OacaArgs& a, cudaStream_t s) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NT, bytes, s>>>(a);
+  kernel<<<grid, NT, bytes, s>>>(a, dp);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dims(const OacaArgs& a, int dc, int dp, int dv, cudaStream_t s) {
-  if (dc == 32 && dp == 32 && dv == 32) return launch<T, 32, 32, 32>(a, s);
-  if (dc == 64 && dp == 64 && dv == 64) return launch<T, 64, 64, 64>(a, s);
+  // DP = 16 (channels_scale_for_positional_embedding 0.5) runs in the
+  // 32-wide build: its zero-filled columns change no logit
+  if (dc == 32 && (dp == 16 || dp == 32) && dv == 32) return launch<T, 32, 32, 32>(a, dp, s);
+  if (dc == 32 && dp == 64 && dv == 32) return launch<T, 32, 64, 32>(a, dp, s);
+  if (dc == 64 && dp == 64 && dv == 64) return launch<T, 64, 64, 64>(a, dp, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns a cudaError_t code; cudaErrorInvalidValue for head dims other than
-// (32, 32, 32) and (64, 64, 64), a layout length this build does not cover,
-// or a scale that is not positive.
+// (32, 16, 32), (32, 32, 32), (32, 64, 32) and (64, 64, 64), a layout length
+// this build does not cover, or a scale that is not positive.
 extern "C" int oaca_forward(OacaArgs a, int dtype, int dc, int dp, int dv, void* stream) {
   if (a.L2 < 0 || a.L2 > BK || a.Lq <= 0 || a.B <= 0 || a.H <= 0 || a.B * a.H > 65535 ||
       !(a.scale2 > 0))

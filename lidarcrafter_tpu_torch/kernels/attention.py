@@ -34,7 +34,9 @@ from . import loader
 launches = loader.LaunchCounter("attention")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128  # one shared-memory tile of 128 padded columns
+# head dims up to 128 run in one padded shared tile; up to 512 in 128-wide
+# chunks of dqk and slices of dv (csrc/attention.cu, attention_fwd_wide_kernel)
+_MAX_HEAD_DIM = 512
 
 
 def attention_plain(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tensor:
@@ -159,6 +161,9 @@ def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tens
     Any strides are taken as long as the last dimension is contiguous and
     the pointers, strides and head dims are whole 16-byte pieces (else
     ``ValueError``), so per-head views of a fused projection need no copy.
+    Head dims go up to 512 (``ValueError`` above): up to 128 in one padded
+    tile, above it (OpenAIUNet's single heads of 256 and 512) in 128-wide
+    chunks, which recompute the logits once per 128 columns of dv.
     The kernel runs its products on the tensor cores: bf16 ``mma.sync``, or
     3xTF32 for float32.  Returns (B, heads, Lq, dv) in q's dtype; on the
     card its memory is laid out (B, Lq, heads, dv), so that merging the

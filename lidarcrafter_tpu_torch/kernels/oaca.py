@@ -28,9 +28,11 @@ from . import loader
 launches = loader.LaunchCounter("oaca")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# (content, positional, value) head dims the kernel is built for: 32^3 for
-# the v1-v6 and auto-reg stacks, 64^3 for the v0 LayoutUnet
-HEAD_DIMS = ((32, 32, 32), (64, 64, 64))
+# (content, positional, value) head dims the kernel runs: 32^3 for the
+# v1-v6 and auto-reg stacks, 64^3 for the v0 LayoutUnet, and positional
+# strips of half and twice the content width on 32-channel heads
+# (channels_scale_for_positional_embedding 0.5 and 2)
+HEAD_DIMS = ((32, 32, 32), (64, 64, 64), (32, 16, 32), (32, 64, 32))
 _MAX_L2 = 64  # layout tokens: one shared-memory key tile
 
 
@@ -116,10 +118,12 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
       ipe: per-head image-patch positional embedding, concatenated onto both
         q_c and k_c.
       k_l, v_l: layout strip, L2 tokens; k_l is already [k_content | pe].
-      scale: the per-operand 1/√√d factor (applied as scale² to the logits).
+      scale: the per-operand 1/√√(dc + dp) factor (applied as scale² to the
+        logits).
 
-    On the card the head dims (dc, dp, dv) must be (32, 32, 32) or (64, 64,
-    64), the kernel's two instantiations (else ``ValueError``).
+    On the card the head dims (dc, dp, dv) must be one of ``HEAD_DIMS``:
+    (32, 32, 32), (64, 64, 64), (32, 16, 32) or (32, 64, 32) (else
+    ``ValueError``).
     Any strides are taken as long as the last dimension is contiguous and
     the pointers and strides are whole 16-byte pieces (else ``ValueError``).
     The kernel runs its products on the tensor cores: bf16 ``mma.sync``, or

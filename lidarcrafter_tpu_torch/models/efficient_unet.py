@@ -115,9 +115,9 @@ class EfficientUNet(nn.Module):
     """``forward(images (B,H,W,C), timesteps (B,))`` → (B,H,W,out).
 
     ``in_channels`` counts the image channels; the coordinate-encoding
-    channels (Fourier features of the ray angles for spherical projections,
+    channels (the encoding of the ray angles for spherical projections,
     else of polar coordinates; computed on the host in float64) are added
-    here.
+    here.  ``mf_attn`` swaps in the MeanFlow qk-norm attention blocks.
     """
 
     mf_attn = False
@@ -139,8 +139,11 @@ class EfficientUNet(nn.Module):
         use_ray_angle_coords: bool = False,
         fov_up: float = 10.0,
         fov_down: float = -30.0,
+        mf_attn: bool | None = None,
     ):
         super().__init__()
+        if mf_attn is not None:  # else the class's own attention blocks
+            self.mf_attn = mf_attn
         self.resolution = tuple(resolution)
         if use_ray_angle_coords:
             coords = get_linear_ray_angles_np(*self.resolution, fov_up=fov_up, fov_down=fov_down)

@@ -5,7 +5,10 @@ Port of the JAX package's ``models/hdit.py`` in plain PyTorch: the JAX
 package computes it in XLA einsums and reaches no Pallas kernel, so no
 kernel of the port runs here either.
 
-- tokens: a (1, 4) patch conv, then a learnable ``spatial_pe``;
+- tokens: a (1, 4) patch conv, then a learnable ``spatial_pe``, or an
+  absolute embedding: the patch-averaged polar coordinates encoded as
+  spherical harmonics, polar coordinates or Fourier features, through
+  ``ape_linear`` and a mapping network (``spatial_mapping``);
 - time: random Fourier features (``rff_freqs``, a buffer) → ``rff_linear``
   → a mapping network of RMSNorms and GEGLU residual MLPs;
 - three local levels of ``HDiTBlock``s, each a 3×9 circular-neighbourhood
@@ -300,10 +303,6 @@ class HDiT(nn.Module):
         fov_down: float = -30.0,
     ):
         super().__init__()
-        if positional_embedding not in ("learnable_embedding", None):
-            raise NotImplementedError(
-                f"HDiT positional_embedding {positional_embedding!r} is not ported (learnable_embedding or None)"
-            )
         H, W = resolution
         ph, pw = patch_size
         th, tw = H // ph, W // pw
@@ -322,6 +321,15 @@ class HDiT(nn.Module):
         )
 
         c = _pool2(torch.as_tensor(enc.generate_polar_coords(H, W), dtype=torch.float32), ph, pw)
+        if positional_embedding not in ("learnable_embedding", None):
+            # an absolute embedding: the encoded token coordinates (float64 on
+            # the host), a bias-free projection and a mapping network
+            pemb = enc.encode_coords(c.numpy().astype(np.float64), positional_embedding, (th, tw))
+            self.register_buffer("pos_encoding", torch.as_tensor(pemb, dtype=torch.float32), persistent=False)
+            self.ape_linear = nn.Linear(pemb.shape[-1], C, bias=False)
+            self.spatial_mapping = MappingNetwork(C, int(C * mlp_ratio), mapping_depth)
+        else:
+            self.pos_encoding = None
         max_h = (max(th // 2, 1), max(tw // 2, 1))
         levels = len(self.depths) - 1
         self.levels = levels
@@ -370,6 +378,9 @@ class HDiT(nn.Module):
         h = self.tokenizer(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         if self.spatial_pe is not None:
             h = h + self.spatial_pe
+        elif self.pos_encoding is not None:
+            pemb = dense(self.ape_linear, self.pos_encoding.to(h.dtype))
+            h = h + self.spatial_mapping(pemb)[None]
         skips = []
         for i in range(self.levels):
             for j in range(self.depths[i]):

@@ -3,7 +3,8 @@
 variant ``LayoutTransformerEncoderV5``.
 
 Encodes up to ``layout_length`` objects (class embedding + 3D-box linear +
-2D-box linear) through a pre-LN transformer and returns the dict the layout
+2D-box linear, + a linear of the flattened ``obj_mask`` where that condition
+is used) through a pre-LN transformer and returns the dict the layout
 UNet consumes: ``xf_out`` (B, L, hidden), ``xf_proj`` (B, output_dim),
 ``obj_class_embedding`` / ``obj_bbox_embedding`` (B, L, hidden),
 ``image_patch_bbox_embedding_for_resolution{H/ds}`` (B, L1, hidden),
@@ -98,11 +99,11 @@ class LayoutTransformerEncoder(nn.Module):
         resolution_to_attention: Sequence[int] = (),
         use_key_padding_mask: bool = False,
         not_use_layout_fusion_module: bool = False,
+        fov_up: float = 10.0,  # config keys the JAX package does not read either
+        fov_down: float = -30.0,
         out_channels: int = 10,  # concat-cond channels consumed by the UNet
     ):
         super().__init__()
-        if "obj_mask" in used_condition_types:
-            raise NotImplementedError("the obj_mask condition is not ported")
         self.feature_map_size = tuple(feature_map_size)
         self.used_condition_types = tuple(used_condition_types)
         self.use_key_padding_mask = use_key_padding_mask
@@ -125,6 +126,9 @@ class LayoutTransformerEncoder(nn.Module):
                     persistent=False,
                 )
                 self.patch_keys.append(r)
+        if "obj_mask" in self.used_condition_types:
+            # over each object's flattened (mask_size, mask_size) mask
+            self.obj_mask_embedding = nn.Linear(mask_size_for_layout_object ** 2, hidden_dim)
         for i in range(self.num_layers):
             self.add_module(f"resblock{i}", ResidualAttentionBlock(hidden_dim, num_heads))
         self.final_ln = nn.LayerNorm(hidden_dim, eps=LN_EPS) if use_final_ln else None
@@ -173,6 +177,10 @@ class LayoutTransformerEncoder(nn.Module):
             xf_in = emb3d + emb2d if xf_in is None else xf_in + emb3d + emb2d
             outputs["obj_bbox_embedding"] = emb2d
             self.patch_embeddings(outputs, B, emb2d.dtype)
+        if "obj_mask" in self.used_condition_types:
+            m = condition_dict["obj_mask"]
+            memb = self.obj_mask_embedding(m.reshape(*m.shape[:2], -1))
+            xf_in = memb if xf_in is None else xf_in + memb
         if "is_valid_obj" in self.used_condition_types:
             outputs["key_padding_mask"] = (1 - is_valid_obj).to(torch.bool)
 

@@ -2,16 +2,18 @@
 ``LayoutUnet``), NHWC.
 
 Port of the JAX package's ``models/layout_unet.py``: ADM ResBlocks with
-scale-shift GroupNorm conditioning, ``ObjectAwareCrossAttention`` at the
-configured downsampling factors, and either V1's FIR-resampled up/down
-blocks with ring convs on the periodic azimuth axis or v0's zero-padded
-convs with ADM nearest / average-pool resampling.  Submodules carry the JAX
-package's names, so a flax parameter path maps onto a ``state_dict`` key
-one to one (``weights.py``).  Tokens flatten row-major (h·W + w).
+scale-shift GroupNorm conditioning, ``ObjectAwareCrossAttention`` (or
+GLIDE's attention block) at the configured downsampling factors, and either
+V1's FIR-resampled up/down blocks with ring convs on the periodic azimuth
+axis or v0's zero-padded convs with ADM nearest / average-pool
+resampling.  Submodules carry the JAX package's names, so a flax parameter
+path maps onto a ``state_dict`` key one to one (``weights.py``).  Tokens
+flatten row-major (h·W + w).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.attention import attention
 from ..kernels.oaca import oaca_attention
 from ..utils.lidar import get_linear_ray_angles_np
 from . import encoding as enc
@@ -115,6 +118,42 @@ class Upsample(nn.Module):
         return x if self.conv is None else self.conv(x)
 
 
+class GLIDEAttentionBlock(nn.Module):
+    """GLIDE self-attention over the H·W tokens, with the encoder's tokens
+    prepended to the keys and values when ``encoder_channels`` (the width of
+    ``xf_out``) is given and the block is called with a condition dict.
+
+    One fused ``qkv`` projection packed per head as [q|k|v] (the legacy
+    packing, unlike OACA's full-width split); the kernel reads per-head
+    views of it.  The reference scales q and k by 1/√√dh each, which is
+    1/√dh on the float32 logits here.  ``proj_out`` closes the residual.
+    """
+
+    def __init__(self, channels: int, num_heads: int, encoder_channels: int | None = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm = GroupNorm32(channels)
+        self.qkv = nn.Linear(channels, 3 * channels)
+        self.encoder_kv = None if encoder_channels is None else nn.Linear(encoder_channels, 2 * channels)
+        self.proj_out = nn.Linear(channels, channels)
+        self.scale = 1.0 / math.sqrt(channels // num_heads)
+
+    def forward(self, x: torch.Tensor, cond: dict | None = None) -> torch.Tensor:
+        B, H, W, C = x.shape
+        nh = self.num_heads
+        dh = C // nh
+        tokens = x.reshape(B, H * W, C)
+        qkv = self.qkv(self.norm(tokens)).view(B, H * W, nh, 3 * dh)
+        q, k, v = (t.transpose(1, 2) for t in qkv.split(dh, dim=-1))
+        if cond is not None and self.encoder_kv is not None:
+            ekv = self.encoder_kv(cond["xf_out"])
+            ek, ev = (t.transpose(1, 2) for t in ekv.view(B, -1, nh, 2 * dh).split(dh, dim=-1))
+            k = torch.cat([ek, k], dim=2)
+            v = torch.cat([ev, v], dim=2)
+        out = self.proj_out(merge_heads(attention(q, k, v, scale=self.scale)))
+        return (tokens + out).reshape(B, H, W, C)
+
+
 class ObjectAwareCrossAttention(nn.Module):
     """Image-patch + layout joint attention.
 
@@ -122,23 +161,43 @@ class ObjectAwareCrossAttention(nn.Module):
     for image tokens and layout content ⊕ layout positional embedding for
     layout tokens; values carry content only.  Unlike a per-head packed qkv,
     the fused projection splits at full-channel width first, then per head.
-    Positional embeddings are C wide (projected, then normalised), so q and k
-    are 2C/heads wide and each takes the scale 1/√√(2C/heads).
+    The positional embeddings are ``int(C · channels_scale_for_positional_embedding)``
+    wide (projected, then normalised; normalised, then projected with
+    ``norm_first``), so q and k are (1 + s)·C/heads wide and each takes the
+    scale 1/√√(int((1 + s)·C) // heads).  ``norm_for_obj_embedding``
+    normalises the encoder's ``xf_out`` before it enters the layout content.
     """
 
-    def __init__(self, channels: int, num_heads: int, layout_channels: int, resolution: int):
+    def __init__(
+        self,
+        channels: int,
+        num_heads: int,
+        layout_channels: int,
+        resolution: int,
+        channels_scale_for_positional_embedding: float = 1.0,
+        norm_first: bool = False,
+        norm_for_obj_embedding: bool = False,
+    ):
         super().__init__()
         C = channels
-        self.num_heads, self.resolution = num_heads, resolution
+        s = channels_scale_for_positional_embedding
+        pe = int(C * s)
+        self.num_heads, self.resolution, self.norm_first = num_heads, resolution, norm_first
         self.norm_for_qkv = GroupNorm32(C)
         self.qkv_projector = nn.Linear(C, 3 * C)
-        self.layout_position_embedding_projector = nn.Linear(layout_channels, C)
-        self.norm_for_image_patch_positional_embedding = GroupNorm32(C)
-        self.norm_for_layout_positional_embedding = GroupNorm32(C)
+        self.layout_position_embedding_projector = nn.Linear(layout_channels, pe)
+        pe_norm = layout_channels if norm_first else pe
+        self.norm_for_image_patch_positional_embedding = GroupNorm32(pe_norm)
+        self.norm_for_layout_positional_embedding = GroupNorm32(pe_norm)
         self.norm_for_obj_class_embedding = GroupNorm32(layout_channels)
+        self.norm_for_obj_embedding_gn = GroupNorm32(layout_channels) if norm_for_obj_embedding else None
         self.layout_content_embedding_projector = nn.Linear(layout_channels, 2 * C)
         self.proj_out = nn.Linear(C, C)
-        self.scale = float(1.0 / np.sqrt(np.sqrt(2 * C // num_heads)))
+        self.scale = float(1.0 / np.sqrt(np.sqrt(int((1 + s) * C) // num_heads)))
+
+    def _position(self, norm: nn.Module, raw: torch.Tensor) -> torch.Tensor:
+        proj = self.layout_position_embedding_projector
+        return proj(norm(raw)) if self.norm_first else norm(proj(raw))
 
     def forward(self, x: torch.Tensor, cond: dict) -> torch.Tensor:
         B, H, W, C = x.shape
@@ -147,13 +206,14 @@ class ObjectAwareCrossAttention(nn.Module):
         qkv = self.qkv_projector(self.norm_for_qkv(tokens))
         q_c, k_c, v_c = (split_heads(t, nh) for t in qkv.chunk(3, dim=-1))
 
-        pos_proj = self.layout_position_embedding_projector
-        ipe = self.norm_for_image_patch_positional_embedding(
-            pos_proj(cond[f"image_patch_bbox_embedding_for_resolution{self.resolution}"])
-        )
-        lpe = self.norm_for_layout_positional_embedding(pos_proj(cond["obj_bbox_embedding"]))
+        ipe = self._position(self.norm_for_image_patch_positional_embedding,
+                             cond[f"image_patch_bbox_embedding_for_resolution{self.resolution}"])
+        lpe = self._position(self.norm_for_layout_positional_embedding, cond["obj_bbox_embedding"])
         cls_n = self.norm_for_obj_class_embedding(cond["obj_class_embedding"])
-        layout_content = (cond["xf_out"] + cls_n) / 2
+        xf = cond["xf_out"]
+        if self.norm_for_obj_embedding_gn is not None:
+            xf = self.norm_for_obj_embedding_gn(xf)
+        layout_content = (xf + cls_n) / 2
         k_lc, v_lc = self.layout_content_embedding_projector(layout_content).chunk(2, dim=-1)
         k_l = torch.cat([split_heads(k_lc, nh), split_heads(lpe, nh)], dim=-1)
 
@@ -172,9 +232,14 @@ class LayoutUnetV1(nn.Module):
     ``in_channels`` counts the noisy image and the ``concat_cond`` channels;
     the coordinate-encoding channels are added here.  ``layout_channels`` is
     the condition encoder's hidden width: unlike flax, PyTorch needs it to
-    size the attention blocks' layout projections.  ``encoder_channels`` and
-    ``use_positional_embedding_for_attention`` are config keys that the JAX
-    package does not read either.
+    size the attention blocks' layout projections.  ``attention_block_type``
+    picks :class:`ObjectAwareCrossAttention` or, for any other value,
+    :class:`GLIDEAttentionBlock`, which prepends the encoder's tokens to its
+    keys and values unless ``encoder_channels`` is None.  The OACA options
+    ``channels_scale_for_positional_embedding``, ``norm_first`` and
+    ``norm_for_obj_embedding`` are its own.
+    ``use_positional_embedding_for_attention`` and ``use_key_padding_mask``
+    are config keys that the JAX package does not read either.
 
     The v0 switches: ``ring`` (circular azimuth padding), ``fir_updown``
     (FIR or nearest / average-pool resampling in the up/down ResBlocks),
@@ -214,13 +279,12 @@ class LayoutUnetV1(nn.Module):
         fir_updown: bool = True,
         adm_time_embed: bool = False,
         use_concat_cond: bool = True,
+        use_key_padding_mask: bool = False,
+        channels_scale_for_positional_embedding: float = 1.0,
+        norm_first: bool = False,
+        norm_for_obj_embedding: bool = False,
     ):
         super().__init__()
-        if attention_block_type != "ObjectAwareCrossAttention":
-            raise NotImplementedError(
-                "the port builds the layout UNets with ObjectAwareCrossAttention only "
-                "(the GLIDE block of openai_unet is not ported)"
-            )
         self.use_concat_cond = use_concat_cond
         self.resolution = tuple(resolution)
         self.model_channels, self.channel_mult = model_channels, tuple(channel_mult)
@@ -250,9 +314,17 @@ class LayoutUnetV1(nn.Module):
             ))
 
         def attn(name, ch, ds, upsample):
-            self.add_module(name, ObjectAwareCrossAttention(
-                ch, self._heads(ch, upsample), layout_channels, resolution=int(image_size // ds),
-            ))
+            if attention_block_type == "ObjectAwareCrossAttention":
+                block = ObjectAwareCrossAttention(
+                    ch, self._heads(ch, upsample), layout_channels, resolution=int(image_size // ds),
+                    channels_scale_for_positional_embedding=channels_scale_for_positional_embedding,
+                    norm_first=norm_first, norm_for_obj_embedding=norm_for_obj_embedding,
+                )
+            else:  # any other type is GLIDE's block, as in the JAX package
+                block = GLIDEAttentionBlock(
+                    ch, self._heads(ch, upsample), None if encoder_channels is None else layout_channels,
+                )
+            self.add_module(name, block)
 
         ch = int(channel_mult[0] * model_channels)
         self.in_conv = RingConv(in_channels + n_coords, ch, ring=ring)

@@ -17,6 +17,9 @@ optional parts it reads where the checkpoint holds them).  Leaf rules:
   ``nn.MultiheadAttention`` ``in_proj_*`` (the EfficientUNet attention's
   ``query`` / ``key`` / ``value`` Linears);
 - ``TAP0``: a kernel-size-1 Conv1d (O, I, 1) read as a Linear (O, I);
+- ``flat(k)``: a vector stored with ``k`` trailing unit axes, read flat
+  (RefineNet's ``InstanceNorm2dPlus`` leaves; its post-affine weight is a
+  depthwise 1x1 conv's);
 - ``mid_tap(k)``: a Conv1d (O, I, k) read as a Linear from its middle tap
   (``UNet1DModel`` runs length-1 sequences, where SAME padding multiplies
   the other taps by zeros).
@@ -52,6 +55,11 @@ TAP0 = ("tap0",)
 
 def rows(i: int, n: int) -> tuple:
     return ("rows", i, n)
+
+
+def flat(k: int) -> tuple:
+    """A vector stored upstream with ``k`` trailing unit axes."""
+    return ("flat", k)
 
 
 def mid_tap(k: int) -> tuple:
@@ -90,9 +98,12 @@ class _Table:
         self.add(f"{port}.running_mean", f"{up}.running_mean")
         self.add(f"{port}.running_var", f"{up}.running_var")
 
-    def conv(self, port: str, up: str) -> None:
+    def conv(self, port: str, up: str, bias: bool = True) -> None:
         """An upstream Conv2d onto the port's ``RingConv`` / ``Conv`` wrapper."""
-        self.lin(f"{port}.conv_0", up)
+        if bias:
+            self.lin(f"{port}.conv_0", up)
+        else:
+            self.add(f"{port}.conv_0.weight", f"{up}.weight")
 
     def tap0(self, port: str, up: str) -> None:
         self.add(f"{port}.weight", f"{up}.weight", TAP0)
@@ -157,9 +168,10 @@ def _adm_resblock(t: _Table, p: str, u: str) -> None:
 def _object_aware_attn(t: _Table, p: str, u: str) -> None:
     """``ObjectAwareCrossAttention``: its 1D convs read as Linears.  An
     upstream ``norm_for_obj_embedding`` is mapped to that name, as the JAX
-    converter writes it; the model names the module
+    converter writes it; the model, as the JAX one, names the module
     ``norm_for_obj_embedding_gn`` (an option no registry config sets), so
-    such a checkpoint is refused at the module, as in the JAX package."""
+    such a checkpoint is refused at the module, as in the JAX package.  No
+    GLIDE block is mapped: the JAX converter maps none either."""
     t.lin(f"{p}.norm_for_qkv", f"{u}.norm_for_qkv")
     for name in ("qkv_projector", "layout_content_embedding_projector", "layout_position_embedding_projector",
                  "proj_out"):
@@ -419,6 +431,139 @@ def hdit(t: _Table) -> None:
         block(f"mid_{j}", f"mid_levels.{j}")
 
 
+def _glide_attn(t: _Table, p: str, u: str) -> None:
+    """GLIDE's ``AttentionBlock``: its norm and two 1D convs read as Linears."""
+    t.lin(f"{p}.norm", f"{u}.norm")
+    t.tap0(f"{p}.qkv", f"{u}.qkv")
+    t.tap0(f"{p}.proj_out", f"{u}.proj_out")
+
+
+def _spatial_transformer(t: _Table, p: str, u: str, depth: int) -> None:
+    """LDM's ``SpatialTransformer`` with Linear in / out projections (the
+    JAX ``_spatial_transformer``: a bias where the checkpoint holds one)."""
+    t.lin(f"{p}.norm", f"{u}.norm")
+    for name in ("proj_in", "proj_out"):
+        t.add(f"{p}.{name}.weight", f"{u}.{name}.weight")
+        if t.has(f"{u}.{name}.bias", f"{p}.{name}.bias"):
+            t.add(f"{p}.{name}.bias", f"{u}.{name}.bias")
+    for d in range(depth):
+        b, bu = f"{p}.block{d}", f"{u}.transformer_blocks.{d}"
+        for name in ("norm1", "norm2", "norm3"):
+            t.lin(f"{b}.{name}", f"{bu}.{name}")
+        for a in ("attn1", "attn2"):
+            for name in ("to_q", "to_k", "to_v"):
+                t.add(f"{b}.{a}.{name}.weight", f"{bu}.{a}.{name}.weight")
+            t.lin(f"{b}.{a}.to_out", f"{bu}.{a}.to_out.0")
+        t.lin(f"{b}.ff_geglu.proj", f"{bu}.ff.net.0.proj")
+        t.lin(f"{b}.ff_out", f"{bu}.ff.net.2")
+
+
+def openai_unet(
+    t: _Table, channel_mult=(1, 2, 4, 8), num_res_blocks: int = 2, attention_resolutions=(4, 8),
+    resblock_updown: bool = False, use_spatial_transformer: bool = False, transformer_depth: int = 1,
+) -> None:
+    """The vendored guided-diffusion ``OpenAIUNetModel`` (JAX
+    ``convert_openai_unet``): its input / middle / output block lists
+    replayed onto the port's named modules; GLIDE attention blocks or
+    SpatialTransformers at the attention resolutions; a conv ``Downsample``
+    / ``Upsample`` where the checkpoint holds one."""
+
+    def attn(p: str, u: str) -> None:
+        if use_spatial_transformer:
+            _spatial_transformer(t, p, u, transformer_depth)
+        else:
+            _glide_attn(t, p, u)
+
+    t.lin("time_dense1", "time_embed.0")
+    t.lin("time_dense2", "time_embed.2")
+    t.conv("in_conv", "input_blocks.0.0")
+    t.lin("out_norm", "out.0")
+    t.conv("out_conv", "out.2")
+    if t.has("label_emb.weight", "label_emb.weight"):
+        t.add("label_emb.weight", "label_emb.weight")
+    ds, idx = 1, 1
+    for level in range(len(channel_mult)):
+        for i in range(num_res_blocks):
+            _adm_resblock(t, f"in_{level}_{i}_res", f"input_blocks.{idx}.0")
+            if ds in attention_resolutions:
+                attn(f"in_{level}_{i}_attn", f"input_blocks.{idx}.1")
+            idx += 1
+        if level != len(channel_mult) - 1:
+            if resblock_updown:
+                _adm_resblock(t, f"in_{level}_down", f"input_blocks.{idx}.0")
+            elif t.has(f"input_blocks.{idx}.0.op.weight", f"in_{level}_down.op.conv_0.weight"):
+                t.conv(f"in_{level}_down.op", f"input_blocks.{idx}.0.op")
+            idx += 1
+            ds *= 2
+    _adm_resblock(t, "mid_res1", "middle_block.0")
+    attn("mid_attn", "middle_block.1")
+    _adm_resblock(t, "mid_res2", "middle_block.2")
+    idx = 0
+    for level in reversed(range(len(channel_mult))):
+        for i in range(num_res_blocks + 1):
+            _adm_resblock(t, f"out_{level}_{i}_res", f"output_blocks.{idx}.0")
+            off = 1
+            if ds in attention_resolutions:
+                attn(f"out_{level}_{i}_attn", f"output_blocks.{idx}.{off}")
+                off += 1
+            if level and i == num_res_blocks:
+                if resblock_updown:
+                    _adm_resblock(t, f"out_{level}_up", f"output_blocks.{idx}.{off}")
+                elif t.has(f"output_blocks.{idx}.{off}.conv.weight", f"out_{level}_up.conv.conv_0.weight"):
+                    t.conv(f"out_{level}_up.conv", f"output_blocks.{idx}.{off}.conv")
+                ds //= 2
+            idx += 1
+
+
+def refinenet(t: _Table) -> None:
+    """``LiDARGenRefineNet`` (JAX ``convert_refinenet``).  A residual block
+    that pools (the first of level 2: down-sampling at dilation 1) holds its
+    ``conv2`` and ``skip`` as ``Sequential(conv, avgpool)`` upstream, keys
+    ``.0``; ingestion reads whichever form the checkpoint holds."""
+
+    def inorm(p: str, u: str) -> None:
+        t.add(f"{p}.alpha", f"{u}.alpha", flat(0))
+        t.add(f"{p}.post_weight", f"{u}.post_affine.weight", flat(3))
+        t.add(f"{p}.post_bias", f"{u}.post_affine.bias")
+
+    def resblock(p: str, u: str) -> None:
+        pooled = f"{u}.conv2.0.weight" in t.keys if t.ingest else p == "d2a"
+        inorm(f"{p}.norm1", f"{u}.norm1")
+        t.conv(f"{p}.conv1", f"{u}.conv1")
+        inorm(f"{p}.norm2", f"{u}.norm2")
+        t.conv(f"{p}.conv2", f"{u}.conv2.0" if pooled else f"{u}.conv2")
+        skips = (f"{u}.skip.0", f"{u}.skip") if t.ingest else ((f"{u}.skip.0",) if pooled else (f"{u}.skip",))
+        for sk in skips:
+            if t.has(f"{sk}.weight", f"{p}.skip.conv_0.weight"):
+                t.conv(f"{p}.skip", sk)
+                break
+
+    def rcu(p: str, u: str, num_blocks: int = 2, num_stages: int = 2) -> None:
+        for b in range(num_blocks):
+            for s in range(num_stages):
+                t.conv(f"{p}.b{b}s{s}", f"{u}.units.{b}.{2 * s + 1}", bias=False)
+
+    def refineblock(p: str, u: str, num_inputs: int, num_end_blocks: int = 1) -> None:
+        for i in range(num_inputs):
+            rcu(f"{p}.rcu{i}", f"{u}.adaptive_convs.{i}.0")
+            if num_inputs > 1:
+                t.conv(f"{p}.adapt{i}", f"{u}.adaptive_convs.{i}.1")
+        for s in range(2):
+            t.conv(f"{p}.crp.crp{s}", f"{u}.crp.convs.{s}.1", bias=False)
+        rcu(f"{p}.out_rcu", f"{u}.output_conv", num_blocks=num_end_blocks)
+
+    t.lin("in_conv", "in_conv")
+    inorm("out_norm", "out_conv.0")
+    t.lin("out_conv", "out_conv.2")
+    for d in (1, 2, 3, 4):
+        resblock(f"d{d}a", f"d_block{d}.0")
+        resblock(f"d{d}b", f"d_block{d}.1")
+    refineblock("u4", "u_block4", 1)
+    refineblock("u3", "u_block3", 2)
+    refineblock("u2", "u_block2", 2)
+    refineblock("u1", "u_block1", 2, num_end_blocks=3)
+
+
 def clip_text(t: _Table) -> None:
     """OpenAI CLIP's text tower (JAX ``convert_clip_text``): the fused
     ``in_proj`` stays fused, ``text_projection`` is used as stored."""
@@ -530,6 +675,8 @@ def _read(rule: tuple, x: torch.Tensor) -> torch.Tensor:
         return x[..., 0]
     if kind == "mid_tap":
         return x[..., x.shape[-1] // 2]
+    if kind == "flat":
+        return x.reshape(-1)
     return x
 
 
@@ -585,6 +732,8 @@ def export(build: Callable[[_Table], None], state: Mapping[str, torch.Tensor]) -
         elif kind == "mid_tap":
             k = rule[1]
             out[up] = torch.stack([x if j == k // 2 else -x for j in range(k)], dim=-1)
+        elif kind == "flat":
+            out[up] = x.reshape(-1, *(1,) * rule[1])
         else:
             out[up] = x
     for up, parts in pieces.items():
@@ -666,6 +815,25 @@ def to_upstream_checkpoint(cfg, models: Mapping[str, nn.Module], ema_models: Map
         return out
 
     return {"weights": engine(models), "ema_weights": engine(ema_models or models), "cfg": config_to_dict(cfg)}
+
+
+def convert_openai_unet(sd: Mapping, module: nn.Module, **arch) -> dict[str, torch.Tensor]:
+    """A vendored ``OpenAIUNetModel`` state dict → the ``state_dict`` of
+    the port's :class:`~lidarcrafter_tpu_torch.models.openai_unet.OpenAIUNet`
+    ``module`` (strict).  ``arch`` takes :func:`openai_unet`'s block-list
+    options (``channel_mult``, ``num_res_blocks``, ``attention_resolutions``,
+    ``resblock_updown``, ``use_spatial_transformer``, ``transformer_depth``),
+    as the module was built.  A family converter, as in the JAX package: no
+    config of the registry builds this model, so
+    :func:`ingest_checkpoint_for_config` has no route to it."""
+    return convert(functools.partial(openai_unet, **arch), sd, module.state_dict(), "openai_unet")
+
+
+def convert_refinenet(sd: Mapping, module: nn.Module) -> dict[str, torch.Tensor]:
+    """A ``LiDARGenRefineNet`` state dict → the ``state_dict`` of the
+    port's :class:`~lidarcrafter_tpu_torch.models.refinenet.LiDARGenRefineNet`
+    ``module`` (strict); a family converter, as :func:`convert_openai_unet`."""
+    return convert(refinenet, sd, module.state_dict(), "refinenet")
 
 
 def convert_clip_text(sd: Mapping, module: nn.Module | None = None) -> dict[str, torch.Tensor]:

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at edge
 shapes the main path does not reach (ragged query tiles that are no multiple
 of 16 or 64, layout strips of 0, 1, 13 and 64 tokens, odd channel counts,
-tiny groups, masked key tails inside the first 16 keys, head dims 8-128 with
+tiny groups, masked key tails inside the first 16 keys, head dims 8-512 with
 dqk != dv, logits near +-30), and the wrappers refusing what the kernels do
 not take.  Marked ``cuda``; without a card they skip.  Run them on the card
 with ``python -m pytest tests/test_torch_port_cuda.py``.
@@ -51,6 +51,26 @@ def test_oaca_kernel_matches_plain(gen, dtype, B, H, L, L2):
 
     ops = (r(B, H, L, 32), r(B, H, L, 32), r(B, H, L, 32), r(B, H, L2, 64), r(B, H, L, 32), r(B, H, L2, 32))
     scale = 1 / math.sqrt(math.sqrt(64))
+    n = oaca.launches.n
+    got = oaca.oaca_attention(*ops, scale=scale)
+    torch.cuda.synchronize()
+    assert oaca.launches.n == n + 1
+    want = oaca.oaca_attention_plain(*ops, scale=scale)
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dp", [16, 64])
+@pytest.mark.parametrize("B,H,L,L2", [(1, 1, 1, 1), (2, 3, 100, 13), (3, 1, 130, 0), (2, 8, 2048, 13)])
+def test_oaca_kernel_positional_widths_match_plain(gen, dtype, dp, B, H, L, L2):
+    """``channels_scale_for_positional_embedding`` 0.5 and 2 on 32-channel
+    heads: positional head dims 16 (the 32-wide build, zero-filled) and 64."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    ops = (r(B, H, L, 32), r(B, H, L, dp), r(B, H, L, 32), r(B, H, L2, 32 + dp), r(B, H, L, 32), r(B, H, L2, 32))
+    scale = 1 / math.sqrt(math.sqrt(32 + dp))
     n = oaca.launches.n
     got = oaca.oaca_attention(*ops, scale=scale)
     torch.cuda.synchronize()
@@ -185,6 +205,48 @@ def test_attention_kernel_matches_plain(gen, dtype, B, H, Lq, Lkv, kv_len, dqk, 
     _assert_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,Lq,Lkv,kv_len,dqk,dv",
+    [(2, 1, 300, 300, None, 256, 256), (1, 2, 77, 130, 100, 384, 384), (2, 1, 200, 513, 9, 512, 512),
+     (1, 1, 64, 64, None, 512, 128), (1, 2, 100, 70, None, 128, 256), (1, 1, 1, 1, None, 160, 160),
+     (2, 2, 130, 143, 140, 256, 384)],
+)
+def test_attention_kernel_wide_heads_match_plain(gen, dtype, B, H, Lq, Lkv, kv_len, dqk, dv):
+    """Head dims above 128 (the wide route: 128-wide chunks of dqk, slices
+    of dv), ragged query and key tiles and a ``kv_len`` mask."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = r(B, H, Lq, dqk), r(B, H, Lkv, dqk), r(B, H, Lkv, dv)
+    scale = 1 / math.sqrt(dqk)
+    n = attention.launches.n
+    got = attention.attention(q, k, v, scale=scale, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert attention.launches.n == n + 1
+    want = attention.attention_plain(q, k, v, scale=scale, kv_len=kv_len)
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_reads_glide_views(gen, dtype):
+    """GLIDE's operands: per-head views of one projection packed per head as
+    [q|k|v], the encoder's 13 tokens' K/V in front of the image's; the same
+    output as contiguous copies, and as the plain version."""
+    B, L, H, d = 2, 300, 4, 32
+    qkv = torch.randn(B, L, H * 3 * d, generator=gen, device="cuda").to(dtype).view(B, L, H, 3 * d)
+    q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
+    ekv = torch.randn(B, 13, H * 2 * d, generator=gen, device="cuda").to(dtype).view(B, 13, H, 2 * d)
+    ek, ev = (t.transpose(1, 2) for t in ekv.split(d, dim=-1))
+    k, v = torch.cat([ek, k], dim=2), torch.cat([ev, v], dim=2)
+    got = attention.attention(q, k, v, scale=d**-0.5)
+    same = attention.attention(q.contiguous(), k, v, scale=d**-0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, same, rtol=0, atol=0)
+    _assert_close(got, attention.attention_plain(q, k, v, scale=d**-0.5), dtype)
+
+
 def test_attention_kernel_reads_strided_head_views(gen):
     """Per-head views of one (B, L, 3C) projection, as ``SelfAttention2d``
     hands them, give the same output as contiguous copies."""
@@ -245,11 +307,19 @@ def test_kernels_refuse_views_that_are_not_16_byte_aligned(gen, dtype):
 
 
 def test_attention_kernel_refuses_head_dims_above_128(gen):
-    q = torch.zeros(1, 1, 8, 129, device="cuda")
-    with pytest.raises(ValueError, match="head dims"):
+    """Head dims above 128 take the wide route up to 512 and are refused
+    above it, naming the limit; a width that is no whole number of 16-byte
+    pieces is refused at any size."""
+    q = torch.zeros(1, 1, 8, 516, device="cuda")
+    n = attention.launches.n
+    with pytest.raises(ValueError, match="head dims <= 512"):
         attention.attention(q, q, q, scale=1.0)
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match="head dims <= 512"):
         attention.attention(q[..., :64], q[..., :64], q, scale=1.0)
+    odd = torch.zeros(1, 1, 8, 129, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.attention(odd, odd, odd, scale=1.0)
+    assert attention.launches.n == n
 
 
 # ------------------------------------------------------ the rollout geometry
@@ -408,6 +478,14 @@ def _grad_case(route, dtype, gen):
 
         return (lambda: oaca.oaca_attention(*ops(), scale=scale),
                 lambda: oaca.oaca_attention_plain(*ops(), scale=scale), [qkv, ipe, k_l, v_l])
+    if route == "attention wide d=256":  # OpenAIUNet's one head at ds 4, ragged
+        qkv = leaf(r(2, 300, 3 * 256))
+
+        def ops():
+            return [t[:, None] for t in qkv.split(256, dim=-1)]
+
+        return (lambda: attention.attention(*ops(), scale=256**-0.5),
+                lambda: attention.attention_plain(*ops(), scale=256**-0.5), [qkv])
     if route.startswith("attention"):
         d = 64 if route == "attention d_block4" else 32
         qkv = leaf(r(2, 512, 3 * 8 * d))
@@ -439,7 +517,7 @@ def _grad_case(route, dtype, gen):
 
 
 GRAD_ROUTES = ["oaca ds4", "oaca ds8", "attention d_block4", "attention u_block4", "groupnorm level0 scale-shift",
-               "groupnorm level0 192", "groupnorm ds8", "groupnorm tokens", "groupnorm AdaGN"]
+               "groupnorm level0 192", "groupnorm ds8", "groupnorm tokens", "groupnorm AdaGN", "attention wide d=256"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
