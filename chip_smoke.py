@@ -218,6 +218,24 @@ Phases, each printing one JSON line:
    each of ``nuscenes-box-layout`` (v0), ``nuscenes-hdit-uncond`` and the
    GLIDE v6 stack through ``train.main`` at B=2 on the synthetic source,
    finite losses and exact launches (the forward's, twice).
+15. the sparse 3D stack ("sparse"), plain PyTorch: (a) MinkowskiNet and
+   SPVCNN at upstream's eval widths (``DEFAULT_LAYERS`` at cr 0.5, 4 input
+   dims, 17 classes) of seeded weights, written as torchsparse
+   ``model.ckpt`` files under a pretrained root, FSVD and FPVD through
+   ``evaluate --pretrained-root`` at 32,768 points a cloud over phase 6's
+   rollout clouds; card vs CPU: the level-0 voxel coordinates and masks of
+   4 clouds exactly, their descriptors to 1e-3 of the largest, FSVD / FPVD
+   on the CPU from the card's descriptors to 1e-3; ms a cloud of each
+   backbone's descriptor (CUDA events); (b) Voxel R-CNN (CenterHead with
+   the six nuScenes class groups and the RoI head) from a pcdet file of
+   seeded weights at ±54 × [-5, 3] m and (0.075, 0.075, 0.2) m, 65,536
+   voxels: ``predict`` on 4 rollout clouds (seconds a cloud), the voxel
+   coordinates exactly and the dense head maps to 1e-3 of the largest on 2
+   of them against the CPU, and the same NMS keep set on the card and on
+   the CPU from the card's boxes and scores; (c) ``evaluate_detection`` and
+   ``extract_foreground`` on the card (``--pcdet-ckpt`` and
+   ``--random-params``) over 2 clouds with synthetic ground truth; (d)
+   every kernel counter at 0.
 
 Every phase ends with a ``phase seconds`` line, and the script with the
 seconds of each.  Then a ``kernels`` JSON line (OACA, GroupNorm, attention
@@ -233,12 +251,15 @@ Usage: ``python3 chip_smoke.py`` (one card).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gzip
+import io
 import json
 import math
 import os
+import pickle
 import socket
 import subprocess
 import sys
@@ -3039,6 +3060,176 @@ def phase_registry(smi: str) -> tuple[list, dict]:
     return rows, by_path
 
 
+# ------------------------------------------------------------------ phase 15
+# the sparse 3D stack ("sparse"): the FSVD / FPVD backbones and the Voxel
+# R-CNN detection metric with its CLIs, plain PyTorch (no kernel of the port)
+
+SPARSE_SEED = 15
+SPARSE_MAX_POINTS = 32768  # evaluate's --sparse-max-points default
+SPARSE_CMP_CLOUDS = 4  # clouds whose level-0 voxels and descriptors are held card vs CPU (2 real, 2 gen)
+SPARSE_RTOL = 1e-3  # descriptors and dense head maps, card vs CPU, of the largest
+DET_CLOUDS, DET_CPU_CLOUDS = 4, 2  # clouds through Voxel R-CNN's predict; of them, dense maps held vs the CPU
+DET_MAX_POINTS = 32768  # evaluate_detection's --max-points default
+CLI_CLOUDS = 2
+
+
+def max_rel(card, cpu) -> float:
+    """max |card − cpu| over max |cpu|."""
+    return float((card.cpu().float() - cpu.float()).abs().max()) / max(float(cpu.float().abs().max()), 1e-30)
+
+
+def phase_sparse(frames, smi: str) -> None:
+    """Phase 15: (a) FSVD / FPVD through ``evaluate --pretrained-root`` with
+    torchsparse checkpoints of seeded MinkowskiNet / SPVCNN at upstream's
+    eval widths, on phase 6's float32 rollout, card against CPU; (b) Voxel
+    R-CNN (CenterHead + RoI head) from a pcdet file of seeded weights at the
+    full nuScenes range and voxel, card against CPU; (c) the two detection
+    CLIs on the card; (d) no kernel of the port launched."""
+    import torch
+
+    from lidarcrafter_tpu_torch import evaluate_detection, extract_foreground
+    from lidarcrafter_tpu_torch.metrics import eval_suite, evaluate
+    from lidarcrafter_tpu_torch.metrics.distribution import compute_frechet_distance
+    from lidarcrafter_tpu_torch.metrics.extractor import sparse_unet as SU
+    from lidarcrafter_tpu_torch.metrics.models import voxel_rcnn as VR
+    from lidarcrafter_tpu_torch.metrics.pretrained import load_sparse_descriptor
+    from lidarcrafter_tpu_torch.ops.iou3d import nms
+    from lidarcrafter_tpu_torch.ops.sparse import voxelize, voxelize_mean
+    from lidarcrafter_tpu_torch.utils.torch_ckpt import to_pcdet_state_dict
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    scenes = rollout_clouds(frames)
+    half = len(scenes) // 2
+    real, gen = [c for s in scenes[:half] for c in s], [c for s in scenes[half:] for c in s]
+    agree, device_ms, seconds, out = {}, {}, {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) FSVD / FPVD: upstream's eval widths (DEFAULT_LAYERS at cr 0.5, 4 input dims, 17 classes)
+        root = tmp / "pretrained"
+        for i, (name, cls) in enumerate((("minkowskinet", SU.MinkowskiNet), ("spvcnn", SU.SPVCNN))):
+            (root / "nuscenes" / name).mkdir(parents=True)
+            state = init_random_(cls(), SPARSE_SEED + i).state_dict()
+            torch.save({"state_dict": SU.to_torchsparse_state_dict(state)}, root / "nuscenes" / name / "model.ckpt")
+        kw = {"pretrained_root": str(root), "max_points": SPARSE_MAX_POINTS, "verbose": False}
+        card = timed("evaluate_fsvd_fpvd", lambda: evaluate(real, gen, ["fsvd", "fpvd"], device=DEVICE, **kw))
+        out["metrics"] = card
+        subset = real[: SPARSE_CMP_CLOUDS // 2] + gen[: SPARSE_CMP_CLOUDS // 2]
+        for name, metric in (("minkowskinet", "fsvd"), ("spvcnn", "fpvd")):
+            desc = {dev: eval_suite._sparse_descriptors(subset, name, "32", str(root), SPARSE_MAX_POINTS, device=dev)
+                    for dev in (DEVICE, "cpu")}
+            err = max_rel(desc[DEVICE], desc["cpu"])
+            agree[f"{name} descriptors ({len(subset)} clouds)"] = {"max_rel_err": err, "tol": SPARSE_RTOL,
+                                                                   "ok": err <= SPARSE_RTOL}
+            full = [eval_suite._sparse_descriptors(c, name, "32", str(root), SPARSE_MAX_POINTS, device=DEVICE).cpu()
+                    for c in (real, gen)]
+            agrees(agree, f"{metric} (CPU from the card's descriptors)", card[metric],
+                   compute_frechet_distance(*full, device="cpu"), EVAL_RTOL["frechet"])
+            describe = load_sparse_descriptor(root, name, max_points=SPARSE_MAX_POINTS, device=DEVICE)
+            inp = [torch.as_tensor(a, device=DEVICE) for a in eval_suite.sparse_input(real[0], (1.0, 45.0),
+                                                                                      SPARSE_MAX_POINTS)]
+            device_ms[f"{name}_descriptor_ms_per_cloud"] = time_ms(lambda: describe(*inp), iters=10, warmup=2,
+                                                                   gc_off=False)
+        flips = 0
+        for c in subset:
+            pad, feats, mask = eval_suite.sparse_input(c, (1.0, 45.0), SPARSE_MAX_POINTS)
+            on = {}
+            for dev in (DEVICE, "cpu"):
+                p, f, m = (torch.as_tensor(a, device=dev) for a in (pad, feats, mask))
+                on[dev] = voxelize(p + 0.5 * 0.05, 0.05, m, SPARSE_MAX_POINTS)[:3:2] + \
+                    voxelize_mean(p + 0.5 * 0.05, f, 0.05, m, SPARSE_MAX_POINTS)[1:3]
+            flips += sum(not torch.equal(a.cpu(), b) for a, b in zip(on[DEVICE], on["cpu"]))
+        agree["level-0 voxel coords and masks (MinkowskiNet, SPVCNN)"] = {"clouds": len(subset), "differing": flips,
+                                                                          "ok": flips == 0}
+
+        # (b) Voxel R-CNN at the nuScenes range and voxel, the six head groups
+        params = VR.seeded_params(SPARSE_SEED + 2)
+        ckpt = tmp / "voxel_rcnn.pth"
+        torch.save({"model_state": to_pcdet_state_dict(params)}, ckpt)
+        det = {dev: VR.load_voxel_rcnn_from_pcdet(ckpt, device=dev) for dev in (DEVICE, "cpu")}
+        check(len(det[DEVICE].class_groups) == 6 and "roi_head" in det[DEVICE].params, "voxel rcnn head groups")
+        clouds = [evaluate_detection.padded(np.concatenate([c, np.zeros((len(c), 1), np.float32)], 1),
+                                            DET_MAX_POINTS) for c in (real + gen)[:: len(real + gen) // DET_CLOUDS]]
+        worst, det_s, kept = 0.0, [], []
+        with torch.inference_mode():
+            det[DEVICE].predict(*(torch.as_tensor(a, device=DEVICE) for a in clouds[0]))  # warm-up
+            for i, (pts, mask) in enumerate(clouds):
+                p, m = torch.as_tensor(pts, device=DEVICE), torch.as_tensor(mask, device=DEVICE)
+                t0 = time.perf_counter()
+                boxes, scores, names, valid = det[DEVICE].predict(p, m)
+                torch.cuda.synchronize()
+                det_s.append(time.perf_counter() - t0)
+                check(bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all()), f"voxel rcnn cloud {i}")
+                kept.append(int(valid.sum()))
+                order = {dev: nms(boxes.to(dev), scores.to(dev), det[DEVICE].nms_thresh) for dev in (DEVICE, "cpu")}
+                same = all(torch.equal(a.cpu(), b) for a, b in zip(order[DEVICE], order["cpu"]))
+                agree[f"NMS keep set, cloud {i} (card vs CPU on the card's boxes and scores)"] = {
+                    "boxes": len(scores), "kept": int(order["cpu"][1].sum()), "ok": same}
+                if i < DET_CPU_CLOUDS:
+                    maps = {dev: det[dev].dense_maps(p.to(dev), m.to(dev)) for dev in (DEVICE, "cpu")}
+                    coords_same = torch.equal(maps[DEVICE][2].cpu(), maps["cpu"][2]) and torch.equal(
+                        maps[DEVICE][3].cpu(), maps["cpu"][3])
+                    err = max(max_rel(hg[k], hc[k]) for hg, hc in zip(maps[DEVICE][0], maps["cpu"][0]) for k in hc)
+                    worst = max(worst, err)
+                    agree[f"voxel rcnn cloud {i}: voxel coords exact, head maps"] = {
+                        "voxels": int(maps["cpu"][3].sum()), "max_rel_err": err, "tol": SPARSE_RTOL,
+                        "ok": coords_same and err <= SPARSE_RTOL}
+        out["voxel_rcnn"] = {"s_per_cloud": float(np.mean(det_s)), "s_by_cloud": det_s, "kept": kept,
+                             "points": [int(m.sum()) for _, m in clouds], "grid_zyx": det[DEVICE].grid_zyx,
+                             "params_m": sum(v.numel() for v in to_pcdet_state_dict(params).values()) / 1e6}
+
+        # (c) the CLIs on the card, on synthetic ground truth (a box on each cloud's first points)
+        gen_dir = tmp / "gen"
+        gen_dir.mkdir()
+        infos = []
+        for i, c in enumerate(real[:CLI_CLOUDS]):
+            cloud = np.concatenate([c, np.zeros((len(c), 1), np.float32)], 1)
+            np.save(gen_dir / f"sample_tok{i}.npy", cloud)
+            infos.append({"token": f"tok{i}", "gt_boxes": np.array([[*c[0, :2], c[0, 2], 4.0, 2.0, 1.5, 0.0],
+                                                                    [*c[1, :2], c[1, 2], 0.8, 0.8, 1.7, 0.0]],
+                                                                   np.float32), "gt_names": np.array(["car", "pedestrian"])})
+        with open(tmp / "infos.pkl", "wb") as f:
+            pickle.dump(infos, f)
+        cli = {}
+        common = ["--gen-dir", str(gen_dir)]
+        for route in (["--pcdet-ckpt", str(ckpt)], ["--random-params"]):
+            tag = route[0][2:]
+            with contextlib.redirect_stdout(io.StringIO()):  # the CLIs' own reports; the results are read back
+                res = timed(f"evaluate_detection {tag}", lambda: evaluate_detection.main(
+                    [*common, "--gt-infos", str(tmp / "infos.pkl"), "-o", str(tmp / f"det_{tag}"), *route]))
+                objs = timed(f"extract_foreground {tag}", lambda: extract_foreground.main(
+                    [*common, "-o", str(tmp / f"fg_{tag}"), "--min-points", "5", *route]))
+            check(res["gt_num"] == 2 * CLI_CLOUDS and np.isfinite(res["mAP"]), f"evaluate_detection {tag}: {res}")
+            check((tmp / f"fg_{tag}" / "result.pkl").exists(), f"extract_foreground {tag}")
+            cli[tag] = {"mAP": res["mAP"], "recall/rcnn_0.3": res["recall/rcnn_0.3"],
+                        "avg_pred_objects": res["avg_pred_objects"], "objects": {k: len(v) for k, v in objs.items()}}
+        out["clis"] = cli
+
+    # (d) plain PyTorch: no kernel of the port launched
+    launches = {k: c.n for k, c in counters.items()}
+    failed = {k: v for k, v in agree.items() if not v["ok"]}
+    check(not failed, f"sparse card vs CPU: {failed}")
+    check(all(n == 0 for n in launches.values()), f"sparse: a kernel of the port launched: {launches}")
+    check(all(np.isfinite(v) and v > 0 for v in card.values()), f"sparse: FSVD / FPVD {card}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "sparse", "card": smi, "clouds": {"real": len(real), "gen": len(gen)},
+          "backbones": "MinkowskiNet / SPVCNN, DEFAULT_LAYERS at cr 0.5, 4 input dims, 17 classes, seeded",
+          "detector": "Voxel R-CNN (CenterHead, 6 groups, RoI head), ±54 x [-5, 3] m at (0.075, 0.075, 0.2), seeded",
+          **out, "card_vs_cpu": agree, "device_ms": device_ms, "seconds": seconds, "launches": launches,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    torch.cuda.empty_cache()
+
+
 def probe_times(kernels) -> dict:
     """Device times of the loader's ``x·2`` probe kernel on its (8, 128)
     float32 input, of ``x * 2`` and of ``torch.mul(x, 2)``, and its bound
@@ -3154,6 +3345,8 @@ def main() -> int:
     registry_rows, registry_paths = phase_registry(smi)
     by_path.update(registry_paths)
     phase_done("registry")
+    phase_sparse(rollout_frames, smi)
+    phase_done("sparse")
     emit({"phase": "script", "check": "seconds by phase", "seconds": marks, "total_seconds": time.perf_counter() - t0})
 
     # each kernel at its largest main-path shape, float32 (the default serving

@@ -8,8 +8,9 @@ Usage::
 
 Point files: ``.txt`` / ``.npy`` (N, ≥3), ``.bin`` packed float32 rows,
 ``.pth`` range-image dumps.  ``frid`` reads the pretrained RangeNet under
-``--pretrained-root``; ``fsvd`` / ``fpvd`` need the sparse backbones, which
-the port does not have yet.
+``--pretrained-root``, ``fsvd`` / ``fpvd`` its MinkowskiNet / SPVCNN
+(``{root}/{dataset}/{minkowskinet,spvcnn}/model.ckpt``, torchsparse
+state dicts) on at most ``--sparse-max-points`` points a cloud.
 """
 
 from __future__ import annotations
@@ -39,9 +40,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--data", default="32", choices=["32", "64"])
     parser.add_argument("-o", "--output", default=None)
     parser.add_argument("--pretrained-root", default=None,
-                        help="eval-backbone checkpoints dir ({root}/{dataset}/rangenet/ for frid)")
+                        help="eval-backbone checkpoints dir ({root}/{dataset}/rangenet/ for frid, "
+                             "minkowskinet/ and spvcnn/ for fsvd and fpvd)")
     parser.add_argument("--sparse-max-points", type=int, default=32768,
-                        help="the JAX tool's cap for fsvd/fpvd; the port has no sparse backbone yet")
+                        help="points a cloud (in the depth range) that fsvd/fpvd read")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False  # float32 convolutions, as the reference computes them
@@ -49,7 +51,7 @@ def main(argv=None) -> dict:
     real = load_dir(args.real, args.limit)
     gen = load_dir(args.gen, args.limit)
     results = evaluate(real, gen, metrics=args.metrics, data=args.data,
-                       pretrained_root=args.pretrained_root, device=args.device)
+                       pretrained_root=args.pretrained_root, max_points=args.sparse_max_points, device=args.device)
     if args.output:
         with open(args.output, "w") as f:
             json.dump(results, f, indent=2)

@@ -25,7 +25,7 @@ from ..ops.projection import points_to_range_image
 from ..utils.lidar import LiDARUtility
 from .bev import compute_jsd_2d, compute_mmd_2d
 from .distribution import compute_frechet_distance, compute_squared_mmd
-from .eval_suite import compute_cd, compute_emd
+from .eval_suite import compute_cd, compute_emd, sparse_input
 
 _FEATURES = ("rangenet", "pointnet", "bev_hist", "voxel", "point_voxel")
 _FRECHET = (("frd", "rangenet"), ("fpd", "pointnet"), ("fsvd", "voxel"), ("fpvd", "point_voxel"))
@@ -85,14 +85,8 @@ class EvaluationEngine:
         """Cloud → padded (points, feats [x, y, z, -1], mask) on the device
         for the sparse backbones: points in the depth range, at most
         ``max_points_sparse``."""
-        pts = points[:, :3]
-        depth = np.linalg.norm(pts, 2, axis=1)
-        pts = pts[(depth > self.depth_range[0]) & (depth < self.depth_range[1])][: self.max_points_sparse]
-        P, n = self.max_points_sparse, len(pts)
-        pad = np.zeros((P, 3), np.float32)
-        pad[:n] = pts
-        feats = np.concatenate([pad, -np.ones((P, 1), np.float32)], 1)
-        return tuple(torch.as_tensor(a, device=self.device) for a in (pad, feats, np.arange(P) < n))
+        arrays = sparse_input(points, self.depth_range, self.max_points_sparse)
+        return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
 
     def extract_features(self, clouds: Iterable[np.ndarray], tag: str) -> dict:
         """Per-set features (numpy, one row a cloud; None where no

@@ -4,10 +4,10 @@
 ``evaluate(reference, samples, metrics, data)`` takes the same metric names:
 ``cd``, ``emd``, ``jsd`` and ``mmd`` run on ``device`` from the raw point
 lists; ``frid``, ``fsvd`` and ``fpvd`` (Fréchet distances of perceptual
-descriptors) take precomputed features through ``features``, and ``frid``
-also runs the pretrained RangeNet of ``pretrained_root``.  The sparse
-backbones behind ``fsvd`` / ``fpvd`` (MinkowskiNet, SPVCNN) are not in the
-port yet: with only a ``pretrained_root`` those two raise.
+descriptors) take precomputed features through ``features``, or run the
+pretrained backbones of ``pretrained_root``: RangeNet for ``frid``,
+MinkowskiNet for ``fsvd`` and SPVCNN for ``fpvd``
+(``{root}/{dataset}/{rangenet,minkowskinet,spvcnn}``).
 """
 
 from __future__ import annotations
@@ -25,7 +25,10 @@ from . import DATASET_CONFIG, OUTPUT_TEMPLATE, TYPE2DATASET
 from .bev import bev_occupancy_grid, jensen_shannon_distance
 from .distribution import compute_frechet_distance
 from .extractor.rangenet import rangenet_frid_descriptor, preprocess_range_input
-from .pretrained import load_rangenet_folder
+from .extractor.sparse_unet import make_sparse_descriptor_fn
+from .pretrained import load_rangenet_folder, load_sparse_backbone
+
+SPARSE_BACKBONES = {"fsvd": "minkowskinet", "fpvd": "spvcnn"}
 
 
 def _clouds(clouds, device, dims=None) -> list[torch.Tensor]:
@@ -89,6 +92,34 @@ def _range_descriptors(clouds, data, root, agg_type="depth", device: str | torch
     return torch.stack(out)
 
 
+def sparse_input(cloud, depth_range: tuple, max_points: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A cloud as the sparse backbones take it: its points inside
+    ``depth_range`` (in the order given, at most ``max_points``), padded to
+    (max_points, 3), their features [x, y, z, -1] (no remission) and the
+    mask of the real rows."""
+    pts = np.asarray(cloud, np.float32)[:, :3]
+    depth = np.linalg.norm(pts, 2, axis=1)
+    pts = pts[(depth > depth_range[0]) & (depth < depth_range[1])][:max_points]
+    pad = np.zeros((max_points, 3), np.float32)
+    pad[: len(pts)] = pts
+    feats = np.concatenate([pad, -np.ones((max_points, 1), np.float32)], 1)
+    return pad, feats, np.arange(max_points) < len(pts)
+
+
+def _sparse_descriptors(clouds, model_name: str, data: str, root, max_points: int,
+                        device: str | torch.device = "cuda") -> torch.Tensor:
+    """(len(clouds), 16·C) depth-shell descriptors on ``device`` from the
+    pretrained sparse backbone ``{root}/{dataset}/{model_name}/model.ckpt``."""
+    dataset = TYPE2DATASET[data]
+    depth_range = tuple(DATASET_CONFIG[dataset]["depth_range"])
+    model = load_sparse_backbone(Path(root) / dataset / model_name, model_name, max_points, device)
+    describe = make_sparse_descriptor_fn(model, agg_type="depth", depth_range=depth_range)
+    out = []
+    for pts in clouds:
+        out.append(describe(*(torch.as_tensor(a, device=device) for a in sparse_input(pts, depth_range, max_points))))
+    return torch.stack(out)
+
+
 def evaluate(
     reference,
     samples,
@@ -97,12 +128,15 @@ def evaluate(
     features: dict | None = None,
     verbose: bool = True,
     pretrained_root: str | None = None,
+    max_points: int = 32768,
     device: str | torch.device = "cuda",
 ) -> dict:
     """Each metric of ``metrics`` between two lists of (N, ≥3) clouds, on
     ``device``.  ``features`` may carry precomputed descriptors ``{'range':
     (ref, gen), 'voxel': ..., 'point_voxel': ...}`` for frid / fsvd / fpvd;
-    without them frid runs the RangeNet of ``pretrained_root``."""
+    without them frid runs the RangeNet of ``pretrained_root`` and fsvd /
+    fpvd its MinkowskiNet / SPVCNN on at most ``max_points`` points a
+    cloud."""
     device = resolve_device(device)
     results = {}
     features = features or {}
@@ -111,11 +145,12 @@ def evaluate(
         if name in modality:
             feats = features.get(modality[name])
             if feats is None and pretrained_root:
-                if name != "frid":
-                    raise NotImplementedError(
-                        f"{name} from --pretrained-root needs the sparse backbones (MinkowskiNet, SPVCNN), "
-                        "which the port does not have yet; pass precomputed features")
-                feats = tuple(_range_descriptors(c, data, pretrained_root, device=device) for c in (reference, samples))
+                if name in SPARSE_BACKBONES:
+                    feats = tuple(_sparse_descriptors(c, SPARSE_BACKBONES[name], data, pretrained_root, max_points,
+                                                      device) for c in (reference, samples))
+                else:
+                    feats = tuple(_range_descriptors(c, data, pretrained_root, device=device)
+                                  for c in (reference, samples))
             if feats is None:
                 raise ValueError(
                     f"{name} needs precomputed '{modality[name]}' features "

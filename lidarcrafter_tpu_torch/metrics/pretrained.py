@@ -5,6 +5,7 @@ Port of the JAX package's ``metrics/pretrained.py``.  Layout under
 ``pretrained_root`` (upstream's ``pretrained_models/evaluation`` tree):
 
   {root}/{dataset}/rangenet/{backbone,segmentation_decoder}   torch pickles
+  {root}/{dataset}/{minkowskinet,spvcnn}/model.ckpt           torchsparse v1.4
   {root}/**/pointnet*.pth                                     ShapeNet PointNet
 
 Each loader returns ``apply(x) -> (B, F)`` on ``device``, or None when its
@@ -21,8 +22,12 @@ import torch
 
 from .. import resolve_device
 from ..weights import init_random_
+from . import DATASET_CONFIG
 from .extractor.pointnet import PointNetFeatureExtractor, convert_pointnet_state_dict
 from .extractor.rangenet import RangeNet, backbone_of, convert_rangenet_folder, preprocess_range_input
+from .extractor.sparse_unet import backbone_from_state_dict, make_sparse_descriptor_fn
+
+EVAL_VOXEL_SIZE = 0.05  # the voxel of upstream's FSVD / FPVD backbones
 
 
 def rangenet_lidargen(model: RangeNet) -> Callable:
@@ -80,6 +85,30 @@ def load_pointnet(pretrained_root, device: str | torch.device = "cuda"):
     model = PointNetFeatureExtractor()
     model.load_state_dict(convert_pointnet_state_dict(sd))
     return pointnet_features(model.to(resolve_device(device)))
+
+
+def load_sparse_backbone(folder, name: str, max_points: int = 32768, device: str | torch.device = "cuda"):
+    """The MinkowskiNet (``name`` 'minkowskinet') or SPVCNN ('spvcnn') of
+    ``{folder}/model.ckpt``, a torchsparse state dict (or one under
+    ``'state_dict'``), with the widths it holds, on ``device``."""
+    path = Path(folder) / "model.ckpt"
+    if not path.exists():
+        raise FileNotFoundError(f"no {name} eval checkpoint: {path}")
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    model = backbone_from_state_dict(ckpt.get("state_dict", ckpt), name, EVAL_VOXEL_SIZE, max_points)
+    return model.to(resolve_device(device))
+
+
+def load_sparse_descriptor(pretrained_root, name: str, dataset: str = "nuscenes", max_points: int = 32768,
+                           device: str | torch.device = "cuda"):
+    """``EvaluationEngine``'s ``voxel_apply`` (``name`` 'minkowskinet') or
+    ``point_voxel_apply`` ('spvcnn') from ``{root}/{dataset}/{name}``: the
+    backbone's 16 depth shells, or None when that folder does not exist."""
+    folder = Path(pretrained_root) / dataset / name
+    if not folder.exists():
+        return None
+    depth_range = tuple(DATASET_CONFIG[dataset]["depth_range"])
+    return make_sparse_descriptor_fn(load_sparse_backbone(folder, name, max_points, device), depth_range=depth_range)
 
 
 def random_rangenet_lidargen(seed: int = 0, backbone: int = 21, device: str | torch.device = "cuda"):

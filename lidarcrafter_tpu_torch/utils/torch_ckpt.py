@@ -848,3 +848,185 @@ def convert_clip_text(sd: Mapping, module: nn.Module | None = None) -> dict[str,
         with torch.device("meta"):
             module = CLIPTextEncoder(**CLIPTextEncoder.dims_of(sd))
     return convert(clip_text, sd, module.state_dict(), "clip text tower")
+
+
+# -------------------------------------------------- pcdet Voxel R-CNN (CenterHead)
+#
+# The detector is a function of a parameter tree (``metrics/models/voxel_rcnn.py``),
+# not an ``nn.Module``, so its reader builds the tree as the JAX
+# ``convert_voxel_rcnn`` does, in the port's layouts: sparse kernels
+# (taps, Cin, Cout), 2D conv kernels (O, I, kh, kw) as pcdet stores them,
+# transposed-conv kernels (I, O, kh, kw), 1×1 and Linear kernels (I, O).
+
+
+def _np(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _spconv_kernel(w: np.ndarray, out_ch: int) -> torch.Tensor:
+    """An spconv weight → (k³, Cin, Cout): spconv 2.x's (out, kz, ky, kx,
+    in) or 1.x's (kz, ky, kx, in, out)."""
+    if w.ndim != 5:
+        raise ValueError(f"spconv weight of rank {w.ndim}")
+    if not (w.shape[-1] == out_ch and w.shape[0] != out_ch) and w.shape[0] == out_ch:  # 2.x, as JAX reads a tie
+        w = np.transpose(w, (1, 2, 3, 4, 0))
+    return torch.as_tensor(np.ascontiguousarray(w.reshape(-1, w.shape[-2], w.shape[-1])))
+
+
+def convert_voxel_rcnn(sd: Mapping, layer_strides=(1, 2), upsample_strides=(1, 2)) -> dict:
+    """A pcdet Voxel R-CNN (CenterHead) state dict → the parameter tree of
+    ``VoxelRCNNCenterHead``: ``backbone_3d`` (conv_input, conv1..4,
+    conv_out), ``backbone_2d`` (blocks, deblocks), ``dense_head``
+    (shared_conv, heads_list) and, when present, ``roi_head``.  It reads
+    the keys the JAX converter reads; ``layer_strides`` /
+    ``upsample_strides`` come from the config (the weights do not hold
+    them), the defaults being the nuScenes config's."""
+    sd = {k: _np(v) for k, v in sd.items() if "num_batches_tracked" not in k}
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a))
+
+    def bn(prefix):
+        return {"scale": t(sd[f"{prefix}.weight"]), "bias": t(sd[f"{prefix}.bias"]),
+                "mean": t(sd[f"{prefix}.running_mean"]), "var": t(sd[f"{prefix}.running_var"])}
+
+    def conv2d(prefix):
+        out = {"kernel": t(sd[f"{prefix}.weight"])}
+        if f"{prefix}.bias" in sd:
+            out["bias"] = t(sd[f"{prefix}.bias"])
+        return out
+
+    def spconv_block(conv, norm):
+        b = bn(norm)
+        return {"conv": {"kernel": _spconv_kernel(sd[f"{conv}.weight"], len(b["scale"]))}, "bn": b}
+
+    b3 = {"conv_input": spconv_block("backbone_3d.conv_input.0", "backbone_3d.conv_input.1")}
+    for stage in ("conv1", "conv2", "conv3", "conv4"):
+        b3[stage] = []
+        i = 0
+        while f"backbone_3d.{stage}.{i}.0.weight" in sd:
+            b3[stage].append(spconv_block(f"backbone_3d.{stage}.{i}.0", f"backbone_3d.{stage}.{i}.1"))
+            i += 1
+    b3["conv_out"] = spconv_block("backbone_3d.conv_out.0", "backbone_3d.conv_out.1")
+
+    b2 = {"blocks": [], "deblocks": []}
+    bi = 0
+    while any(k.startswith(f"backbone_2d.blocks.{bi}.") for k in sd):
+        idxs = sorted({int(k.split(".")[3]) for k in sd if k.startswith(f"backbone_2d.blocks.{bi}.")
+                       and k.endswith(".weight") and sd[k].ndim == 4})
+        b2["blocks"].append([{"conv": conv2d(f"backbone_2d.blocks.{bi}.{ci}"),
+                              "bn": bn(f"backbone_2d.blocks.{bi}.{ci + 1}"),
+                              "stride": layer_strides[bi] if j == 0 else 1} for j, ci in enumerate(idxs)])
+        bi += 1
+    for di in range(bi):
+        s = upsample_strides[di]
+        w = t(sd[f"backbone_2d.deblocks.{di}.0.weight"])
+        b2["deblocks"].append({"conv": {"tkernel": w} if s > 1 else {"kernel": w},
+                               "bn": bn(f"backbone_2d.deblocks.{di}.1"), "stride": s, "transpose": s > 1})
+
+    dh = {"shared_conv": {"conv": conv2d("dense_head.shared_conv.0"), "bn": bn("dense_head.shared_conv.1")},
+          "heads_list": []}
+    g = 0
+    while any(k.startswith(f"dense_head.heads_list.{g}.") for k in sd):
+        head = {}
+        for name in sorted({k.split(".")[3] for k in sd if k.startswith(f"dense_head.heads_list.{g}.")}):
+            p = f"dense_head.heads_list.{g}.{name}"
+            layers, j = [], 0
+            while f"{p}.{j}.0.weight" in sd:  # Sequential(conv, BN, ReLU)
+                layers.append({"conv": conv2d(f"{p}.{j}.0"), "bn": bn(f"{p}.{j}.1")})
+                j += 1
+            layers.append({"conv": conv2d(f"{p}.{j}")})
+            head[name] = layers
+        dh["heads_list"].append(head)
+        g += 1
+    out = {"backbone_3d": b3, "backbone_2d": b2, "dense_head": dh}
+
+    if any(k.startswith("roi_head.") for k in sd):
+        def conv1x1(prefix):  # Conv1d / Conv2d of kernel 1 (no bias) → (I, O)
+            w = sd[f"{prefix}.weight"]
+            return {"kernel": t(w.reshape(w.shape[0], w.shape[1]).T)}
+
+        def fc_stack(prefix):
+            idxs = sorted({int(k[len(prefix) + 1:].split(".")[0]) for k in sd if k.startswith(prefix + ".")
+                           and k.endswith(".weight") and sd[k].ndim == 2})
+            return [{"conv": {"kernel": t(sd[f"{prefix}.{i}.weight"].T)}, "bn": bn(f"{prefix}.{i + 1}")} for i in idxs]
+
+        def linear(prefix):
+            return {"kernel": t(sd[f"{prefix}.weight"].T), "bias": t(sd[f"{prefix}.bias"])}
+
+        rh = {"roi_grid_pool_layers": []}
+        lvl = 0
+        while f"roi_head.roi_grid_pool_layers.{lvl}.mlps_in.0.0.weight" in sd:
+            base = f"roi_head.roi_grid_pool_layers.{lvl}"
+            rh["roi_grid_pool_layers"].append({m: {"conv": conv1x1(f"{base}.mlps_{n}.0.0"),
+                                                   "bn": bn(f"{base}.mlps_{n}.0.1")}
+                                               for m, n in (("mlp_in", "in"), ("mlp_pos", "pos"), ("mlp_out", "out"))})
+            lvl += 1
+        for name in ("shared_fc_layer", "cls_fc_layers", "reg_fc_layers"):
+            rh[name] = fc_stack(f"roi_head.{name}")
+        rh["cls_pred_layer"] = linear("roi_head.cls_pred_layer")
+        rh["reg_pred_layer"] = linear("roi_head.reg_pred_layer")
+        out["roi_head"] = rh
+    return out
+
+
+def to_pcdet_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`convert_voxel_rcnn`: a tree → a pcdet state
+    dict under the module names of pcdet's nuScenes Voxel R-CNN, spconv
+    2.x kernels (out, kz, ky, kx, in), each BEV block's ``ZeroPad2d`` at
+    index 0 and the RoI FC stacks' dropouts between their layers."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def put_bn(prefix, b):
+        for a, k in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"), ("var", "running_var")):
+            sd[f"{prefix}.{k}"] = b[a]
+
+    def put_conv(prefix, c):
+        sd[f"{prefix}.weight"] = c["kernel"]
+        if "bias" in c:
+            sd[f"{prefix}.bias"] = c["bias"]
+
+    def put_spconv(prefix, blk, k=(3, 3, 3)):
+        w = blk["conv"]["kernel"]
+        sd[f"{prefix}.0.weight"] = w.reshape(*k, w.shape[1], w.shape[2]).permute(4, 0, 1, 2, 3)
+        put_bn(f"{prefix}.1", blk["bn"])
+
+    b3 = params["backbone_3d"]
+    put_spconv("backbone_3d.conv_input", b3["conv_input"])
+    for stage in ("conv1", "conv2", "conv3", "conv4"):
+        for i, blk in enumerate(b3[stage]):
+            put_spconv(f"backbone_3d.{stage}.{i}", blk)
+    put_spconv("backbone_3d.conv_out", b3["conv_out"], (3, 1, 1))
+    for bi, blk in enumerate(params["backbone_2d"]["blocks"]):
+        for j, layer in enumerate(blk):
+            put_conv(f"backbone_2d.blocks.{bi}.{1 + 3 * j}", layer["conv"])
+            put_bn(f"backbone_2d.blocks.{bi}.{2 + 3 * j}", layer["bn"])
+    for di, deblk in enumerate(params["backbone_2d"]["deblocks"]):
+        sd[f"backbone_2d.deblocks.{di}.0.weight"] = deblk["conv"]["tkernel" if deblk["transpose"] else "kernel"]
+        put_bn(f"backbone_2d.deblocks.{di}.1", deblk["bn"])
+    dh = params["dense_head"]
+    put_conv("dense_head.shared_conv.0", dh["shared_conv"]["conv"])
+    put_bn("dense_head.shared_conv.1", dh["shared_conv"]["bn"])
+    for g, head in enumerate(dh["heads_list"]):
+        for name, layers in head.items():
+            p = f"dense_head.heads_list.{g}.{name}"
+            for j, layer in enumerate(layers[:-1]):
+                put_conv(f"{p}.{j}.0", layer["conv"])
+                put_bn(f"{p}.{j}.1", layer["bn"])
+            put_conv(f"{p}.{len(layers) - 1}", layers[-1]["conv"])
+    if "roi_head" in params:
+        rh = params["roi_head"]
+        for lvl, pool in enumerate(rh["roi_grid_pool_layers"]):
+            base = f"roi_head.roi_grid_pool_layers.{lvl}"
+            for m, n, dims in (("mlp_in", "in", 1), ("mlp_pos", "pos", 2), ("mlp_out", "out", 1)):
+                w = pool[m]["conv"]["kernel"].T
+                sd[f"{base}.mlps_{n}.0.0.weight"] = w.reshape(*w.shape, *([1] * dims))
+                put_bn(f"{base}.mlps_{n}.0.1", pool[m]["bn"])
+        for name in ("shared_fc_layer", "cls_fc_layers", "reg_fc_layers"):
+            for j, layer in enumerate(rh[name]):  # Linear, BN, ReLU, Dropout
+                sd[f"roi_head.{name}.{4 * j}.weight"] = layer["conv"]["kernel"].T
+                put_bn(f"roi_head.{name}.{4 * j + 1}", layer["bn"])
+        for name in ("cls_pred_layer", "reg_pred_layer"):
+            sd[f"roi_head.{name}.weight"] = rh[name]["kernel"].T
+            sd[f"roi_head.{name}.bias"] = rh[name]["bias"]
+    return {k: v.detach().cpu().contiguous().clone() for k, v in sd.items()}

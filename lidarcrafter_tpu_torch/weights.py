@@ -17,6 +17,8 @@ onto a key one to one; the leaves convert as
 - ``conv_kernel`` (H, W, O, I) of a transposed conv (the metric extractors'
   ``lax.conv_transpose``) → ``conv.weight`` (I, O, H, W) of a
   ``ConvTranspose2d`` named ``conv``; its ``conv_bias`` → ``conv.bias``
+- a ``kernel`` that the port's module keeps under that name (the sparse
+  convs' (taps, Cin, Cout), the detector's transposed conv) stays as it is
 - ``bias`` → ``bias``; any other leaf keeps its name (HDiT's
   ``rff_freqs`` buffer, ``spatial_pe`` and ``expand_{i}_alpha``).
 
@@ -96,7 +98,11 @@ def flax_to_state_dict(params: Mapping, module: nn.Module) -> dict[str, torch.Te
     out: dict[str, torch.Tensor] = {}
     extra = []
     for path, value, stats in leaves:
-        key, arr = _convert_leaf(path, value, stats)
+        kept = ".".join([m.lower() for m in path[:-1]] + ["kernel"])
+        if path[-1] == "kernel" and kept in expected:  # a kernel the port keeps in its flax layout
+            key, arr = kept, np.array(value, order="C")
+        else:
+            key, arr = _convert_leaf(path, value, stats)
         if key not in expected:
             extra.append("/".join(path))
             continue

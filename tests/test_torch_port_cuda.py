@@ -1104,3 +1104,137 @@ def test_clip_on_the_card_matches_the_cpu(tmp_path):
     cpu = load_clip_text_encoder(tmp_path / "clip.pt", tmp_path / "bpe.txt.gz", device="cpu")[0](words)
     assert card.device.type == "cuda" and card.shape == (len(words), 512)
     assert float((card.cpu() - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+
+
+# ------------------------------------------- the sparse 3D stack
+#
+# The voxel table ops, MinkowskiNet / SPVCNN at upstream's eval widths and
+# Voxel R-CNN on the reduced grid, on the card against the CPU: voxel
+# coordinates and NMS keep sets exactly, features to 1e-4 (ops) and 1e-3
+# (networks) of the largest output; plain PyTorch, so no kernel of the
+# port launches.
+
+
+def _scan(n, seed, spread=40.0):
+    g = torch.Generator().manual_seed(seed)
+    r = torch.rand(n, generator=g) * spread + 2.0
+    az, el = (torch.rand(n, generator=g) * 2 - 1) * math.pi, torch.rand(n, generator=g) * 0.6 - 0.5
+    return torch.stack([r * el.cos() * az.cos(), r * el.cos() * az.sin(), r * el.sin()], 1)
+
+
+def _no_launch():
+    for c in (oaca.launches, groupnorm.launches, attention.launches):
+        c.n = 0
+    return lambda: (oaca.launches.n, groupnorm.launches.n, attention.launches.n) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("voxel_size,max_voxels", [(0.05, 32768), (0.05, 4096), (0.3, 16384)])
+def test_voxelize_on_the_card_matches_the_cpu_exactly(voxel_size, max_voxels):
+    from lidarcrafter_tpu_torch.ops.sparse import voxelize
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pts = _scan(32768, 0) + 0.5 * voxel_size
+    mask = torch.arange(32768) < 30000
+    want = voxelize(pts, voxel_size, mask, max_voxels)
+    got = voxelize(pts.cuda(), voxel_size, mask.cuda(), max_voxels)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_sparse_ops_on_the_card_match_the_cpu():
+    from lidarcrafter_tpu_torch.ops import sparse as S
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(1)
+    pts, mask = _scan(20000, 2, 20.0), torch.arange(20000) < 19000
+    feats = torch.randn(20000, 4, generator=g)
+    k27, k8, k8u = (torch.randn(*s, generator=g) / 8 for s in ((27, 4, 16), (8, 16, 32), (8, 32, 16)))
+    cpu = {}
+    for dev in ("cpu", "cuda"):
+        to = [x.to(dev) for x in (pts, feats, mask, k27, k8, k8u)]
+        vf, vc, vm, pv, _ = S.voxelize_mean(to[0], to[1], 0.1, to[2], 16384)
+        f = S.submanifold_conv3d(vf[:, :4], vc, vm, to[3])
+        d, dc, dm = S.sparse_downsample2(f, vc, vm, to[4], 16384)
+        u = S.sparse_upsample2(d, dc, dm, vc, vm, to[5])
+        s, sc, sm = S.sparse_conv3d_strided(f, vc, vm, torch.cat([to[3]] * 4, 1)[:, :16, :16], max_voxels=16384,
+                                            out_spatial=(800, 800, 800))
+        z = S.voxel_to_point_trilinear(u, vc, vm, pv, to[2], level=0)
+        p = S.point_to_voxel_mean(z, pv, to[2], dc, dm, level=1)
+        out = {"vf": vf, "vc": vc, "vm": vm, "f": f, "d": d, "dc": dc, "u": u, "s": s, "sc": sc, "z": z, "p": p}
+        if dev == "cpu":
+            cpu = out
+    for k, v in out.items():
+        if v.dtype.is_floating_point:
+            assert float((v.cpu() - cpu[k]).abs().max()) <= 1e-4 * max(1.0, float(cpu[k].abs().max())), k
+        else:
+            assert torch.equal(v.cpu(), cpu[k]), k
+
+
+@pytest.mark.parametrize("name", ["minkowskinet", "spvcnn"])
+def test_sparse_backbones_on_the_card_match_the_cpu(tmp_path, name):
+    """Upstream's eval widths (``DEFAULT_LAYERS`` at cr 0.5, 4 input dims,
+    17 classes) from a torchsparse ``model.ckpt``, 32,768 points: the
+    level-0 coordinates exactly, the descriptor to 1e-3 of the largest."""
+    from lidarcrafter_tpu_torch.metrics.extractor import sparse_unet as SU
+    from lidarcrafter_tpu_torch.metrics.pretrained import load_sparse_backbone, load_sparse_descriptor
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = init_random_((SU.MinkowskiNet if name == "minkowskinet" else SU.SPVCNN)(), 3)
+    (tmp_path / "nuscenes" / name).mkdir(parents=True)
+    torch.save(SU.to_torchsparse_state_dict(model.state_dict()), tmp_path / "nuscenes" / name / "model.ckpt")
+    pts = _scan(32768, 4)
+    feats, mask = torch.cat([pts, -torch.ones(32768, 1)], 1), torch.ones(32768, dtype=torch.bool)
+    on = {}
+    check = _no_launch()
+    for dev in ("cpu", "cuda"):
+        describe = load_sparse_descriptor(tmp_path, name, max_points=32768, device=dev)
+        on[dev] = describe(pts.to(dev), feats.to(dev), mask.to(dev)).cpu()
+        if name == "minkowskinet":
+            m = load_sparse_backbone(tmp_path / "nuscenes" / name, name, 32768, dev)
+            with torch.inference_mode():
+                on[dev + " coords"] = m(pts.to(dev) + 0.025, feats.to(dev), mask.to(dev))["coords"].cpu()
+    assert on["cuda"].shape == (16 * 48,)
+    assert float((on["cuda"] - on["cpu"]).abs().max()) <= 1e-3 * float(on["cpu"].abs().max())
+    if name == "minkowskinet":
+        assert torch.equal(on["cuda coords"], on["cpu coords"])
+    assert check()
+
+
+def test_voxel_rcnn_on_the_card_matches_the_cpu(tmp_path):
+    """A pcdet file of seeded weights (nuScenes head groups) on the reduced
+    grid: voxel coordinates exactly, the CenterHead maps to 1e-3 of the
+    largest, and NMS keeps the same boxes on the card and on the CPU from
+    the same boxes and scores."""
+    from lidarcrafter_tpu_torch.metrics.models import voxel_rcnn as VR
+    from lidarcrafter_tpu_torch.ops.iou3d import nms
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lidarcrafter_tpu_torch.utils.torch_ckpt import to_pcdet_state_dict
+
+    params = VR.seeded_params(5, bev_filters=(32, 64), bev_up=(32, 32), shared=16, roi_fc=64)
+    torch.save({"model_state": to_pcdet_state_dict(params)}, tmp_path / "vr.pth")
+    kw = dict(point_range=(-8.0, -8.0, -3.0, 8.0, 8.0, 1.0), voxel_size=(0.1, 0.1, 0.1), max_voxels=8192,
+              topk_per_head=32)
+    pts = torch.cat([_scan(4096, 6, 7.0), torch.rand(4096, 1, generator=torch.Generator().manual_seed(7))], 1)
+    mask = torch.ones(4096, dtype=torch.bool)
+    on = {}
+    check = _no_launch()
+    for dev in ("cpu", "cuda"):
+        det = VR.load_voxel_rcnn_from_pcdet(tmp_path / "vr.pth", device=dev, **kw)
+        with torch.inference_mode():
+            heads, _, coords, vmask = det.dense_maps(pts.to(dev), mask.to(dev))
+            on[dev] = (heads, coords.cpu(), vmask.cpu(), det.predict(pts.to(dev), mask.to(dev)))
+    assert torch.equal(on["cuda"][1], on["cpu"][1]) and torch.equal(on["cuda"][2], on["cpu"][2])
+    for hg, hc in zip(on["cuda"][0], on["cpu"][0]):
+        for k in hc:
+            assert float((hg[k].cpu() - hc[k]).abs().max()) <= 1e-3 * float(hc[k].abs().max()), k
+    boxes, scores = on["cuda"][3][0], on["cuda"][3][1]
+    order_g, keep_g = nms(boxes, scores, 0.2)
+    order_c, keep_c = nms(boxes.cpu(), scores.cpu(), 0.2)
+    assert torch.equal(order_g.cpu(), order_c) and torch.equal(keep_g.cpu(), keep_c)
+    assert check()

@@ -4,7 +4,8 @@ pretrained RangeNet folder), ``EvaluationEngine.evaluate`` with RangeNet-21
 and PointNet through the weight bridge and its feature cache, and the two
 entry points (``evaluate``, ``evaluate_temporal``) with ``--device cpu``
 on a ``tmp_path`` of sample files against the JAX package's tools run on
-the same files.
+the same files; FSVD / FPVD through MinkowskiNet / SPVCNN checkpoints of a
+pretrained root.
 
 Limits: chamfer, EMD, JSD and MMD 1e-5 relative (the engine's RBF-kernel
 ``mmd`` of histograms, a difference of kernel means near 1, 1e-6
@@ -43,10 +44,11 @@ from lidarcrafter_tpu_torch.metrics import evaluate
 from lidarcrafter_tpu_torch.metrics.engine import EvaluationEngine
 from lidarcrafter_tpu_torch.metrics.extractor import pointnet as TPN
 from lidarcrafter_tpu_torch.metrics.extractor import rangenet as TRN
+from lidarcrafter_tpu_torch.metrics.extractor import sparse_unet as TSU
 from lidarcrafter_tpu_torch.metrics.pretrained import pointnet_features, rangenet_lidargen
 from lidarcrafter_tpu_torch.utils.lidar import LiDARUtility
 from lidarcrafter_tpu_torch.utils.sample_io import save_pth_sample
-from lidarcrafter_tpu_torch.weights import load_flax_params
+from lidarcrafter_tpu_torch.weights import init_random_, load_flax_params
 
 REPO = Path(__file__).resolve().parent.parent
 RTOL, FEATURE_RTOL = 1e-5, 1e-4
@@ -86,8 +88,8 @@ def test_evaluate_matches_jax(clouds, capsys):
 
 def test_evaluate_refuses_what_it_cannot_compute(clouds, tmp_path):
     real, gen = clouds
-    for name in ("fsvd", "fpvd"):
-        with pytest.raises(NotImplementedError, match="sparse backbones"):
+    for name, folder in (("fsvd", "minkowskinet"), ("fpvd", "spvcnn")):
+        with pytest.raises(FileNotFoundError, match=f"nuscenes/{folder}/model.ckpt"):
             evaluate(real, gen, [name], pretrained_root=str(tmp_path), device="cpu")
         with pytest.raises(ValueError, match="precomputed"):
             evaluate(real, gen, [name], device="cpu")
@@ -139,6 +141,42 @@ def test_frid_from_a_pretrained_folder_matches_jax(clouds, rangenet_folder, smal
     frid = evaluate(real, gen, ["frid"], pretrained_root=root, verbose=False, device="cpu")["frid"]
     with jax.enable_x64():  # what the JAX evaluate computes from these descriptors, in float64
         np.testing.assert_allclose(frid, JES.compute_fd(*want), rtol=FEATURE_RTOL)
+
+
+SPARSE_WIDTHS = (8, 8, 12, 8, 16, 8, 8, 12, 8)
+
+
+def test_fsvd_fpvd_from_a_pretrained_root_match_jax(clouds, tmp_path, capsys):
+    """``evaluate -m fsvd fpvd --pretrained-root`` (the CLI, on the CPU)
+    against what the JAX ``evaluate`` computes from the same torchsparse
+    checkpoints: its descriptors of both sets, then the Fréchet distance
+    in float64."""
+    real, gen = clouds
+    for folder, cls in (("minkowskinet", TSU.MinkowskiNet), ("spvcnn", TSU.SPVCNN)):
+        model = init_random_(cls(layer_num=SPARSE_WIDTHS, cr=1.0), 11)
+        (tmp_path / "nuscenes" / folder).mkdir(parents=True)
+        torch.save(TSU.to_torchsparse_state_dict(model.state_dict()), tmp_path / "nuscenes" / folder / "model.ckpt")
+    dirs = {}
+    for tag, cs in (("real", real), ("gen", gen)):
+        dirs[tag] = tmp_path / tag
+        dirs[tag].mkdir()
+        for i, c in enumerate(cs):
+            np.save(dirs[tag] / f"{i:03d}.npy", c[:, :3])
+    P = 256
+    got = evaluate_cli.main(["--real", str(dirs["real"]), "--gen", str(dirs["gen"]), "-m", "fsvd", "fpvd",
+                             "--pretrained-root", str(tmp_path), "--sparse-max-points", str(P), "--device", "cpu",
+                             "-o", str(tmp_path / "out.json")])
+    assert json.loads((tmp_path / "out.json").read_text()) == got and list(got) == ["fsvd", "fpvd"]
+    clouds3 = [c[:, :3] for c in real + gen]
+    for name, folder in (("fsvd", "minkowskinet"), ("fpvd", "spvcnn")):
+        want = JES._sparse_descriptors(clouds3, folder, "32", str(tmp_path), P)  # one load and one compile
+        mine = torch.cat([TES._sparse_descriptors(c, folder, "32", str(tmp_path), P, device="cpu")
+                          for c in (real, gen)]).numpy()
+        assert mine.shape == (6, 16 * SPARSE_WIDTHS[-1])
+        np.testing.assert_allclose(mine, want, rtol=0, atol=FEATURE_RTOL * np.abs(want).max())
+        with jax.enable_x64():  # what the JAX evaluate computes from these descriptors, in float64
+            np.testing.assert_allclose(got[name], JES.compute_fd(want[:3], want[3:]), rtol=FEATURE_RTOL)
+        assert got[name] > 0
 
 
 @pytest.fixture(scope="module")
