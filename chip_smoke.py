@@ -69,7 +69,7 @@ Phases, each printing one JSON line:
    ``nuscenes-unet-uncond`` at B=8, float32 and bf16 AMP, 3 warm-up and 5
    timed steps: steps/s, frames/s, peak memory, and exactly 11 OACA + 101
    GroupNorm launches a layout step, 2 attention + 50 GroupNorm an uncond
-   step; (d) ``nuscenes-auto-reg-v2`` at full width, B=2, float32, 50
+   step; (d) ``nuscenes-auto-reg-v2`` at full width, B=2, float32, 30
    steps on banded synthetic range images (lr 1e-4, warm-up 20): the mean
    of the last 10 losses must lie below that of the first 10; (e) its
    checkpoint read back through ``sample_temporal``'s ``--autoreg-ckpt``
@@ -104,7 +104,7 @@ Phases, each printing one JSON line:
    relative, every gradient to 1e-3 relative L2; (c) each trainer at B=8 (8
    scenes for the layout), float32 and bf16 AMP, as phase 7 (c), with
    exactly 56 GroupNorm launches a layout step, 2 attention + 50 GroupNorm
-   a MeanFlow step and none an object step; (d) a 50-step loss gate of
+   a MeanFlow step and none an object step; (d) a 30-step loss gate of
    each (lr 1e-4, warm-up 20; 8 scenes, 96 objects, MeanFlow at B=2) and
    its checkpoint served
    through the branch's generator (EMA weights and running statistics bit
@@ -236,6 +236,36 @@ Phases, each printing one JSON line:
    ``extract_foreground`` on the card (``--pcdet-ckpt`` and
    ``--random-params``) over 2 clouds with synthetic ground truth; (d)
    every kernel counter at 0.
+16. the object-level metrics ("objects"), plain PyTorch, seeded weights at
+   full width: (a) CGF: PointMLP (``point_mlp(4)``, 1,024 points) over 512
+   synthetic box-normalised crops at B = 32; card vs CPU on 16 crops: the
+   first stage's FPS indices, the logits (1e-4 of the largest) and the CGF
+   dictionary; one batch traced (kernels, busy ms, idle share, the sorts'
+   share); (b) RGF: GLENet at exp20 (latent 8, 512 points), 10 folds ×
+   30 passes over the same crops at B = 64, the normal draws from a CPU
+   generator on both sides; fold 0's 30 passes card vs CPU (variances and
+   overlaps to 1e-4), and traced; (c) DCF on phase 15's Voxel R-CNN
+   detections; (d) 20 steps of each trainer through its CLI
+   (``train_pointmlp`` B = 32, ``train_glenet`` one fold B = 64,
+   ``train_rangenet`` RangeNet-53 B = 8 at 32 × 1,024): finite losses that
+   fall (PointMLP at lr 0.02: the default 0.1 does not fall in 20 steps;
+   GLENet's reconstruction loss, the total being annealed), steps/s; one
+   step of each card vs CPU (PointMLP B = 4 and GLENet in float64,
+   RangeNet-53 B = 1 in float32), every parameter and running statistic
+   to 1e-4; one float32 step of PointMLP (B = 32) and GLENet (B = 64) card
+   vs CPU: loss and running statistics to 1e-4, the update in relative L2
+   to 2e-2 / 1e-3 (GLENet without the biases its loss's data term does
+   not reach); (e) ``extract_foreground --gt-infos`` on the card over the
+   rollout clouds (scenes 0-3 the ``ori`` arm, 4-7 the ``our`` arm; two
+   car boxes and a truck box at the densest places of each cloud), then
+   ``evaluate_our -m dcf cgf rgf obj --random-extractors`` on those crops
+   (every ``obj`` number finite; the car crops' PointMLP features card vs
+   CPU on 8, 1e-4; its Fréchet distance and squared MMD on the CPU from the
+   card's features, 1e-3), and ``evaluate_r2dm --random-extractors`` on
+   the rollout frames written as ``.pth`` dumps (generated) and point
+   files (real); each writes its JSON; ms a batch of PointMLP and of
+   GLENet, RGF seconds, the CLIs' seconds, each section's seconds;
+   (f) every kernel counter at 0.
 
 Every phase ends with a ``phase seconds`` line, and the script with the
 seconds of each.  Then a ``kernels`` JSON line (OACA, GroupNorm, attention
@@ -301,11 +331,11 @@ GEOMETRY_RTOL, GEOMETRY_PIXEL_SHARE = 1e-5, 0.999  # card vs CPU condition maps
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3  # one v6 step, card vs CPU
 TRAIN_WARMUP, TRAIN_TIMED = 3, 5  # steps of the B=8 training runs
 # the loss gates' steps (nuscenes-auto-reg-v2 on banded range images at B=2):
-# 50 (100 up to PR 12; in a 100-step run the losses at step 40 already lay
-# 20-60% below the mean of the first 10 on auto-reg-v2, layout and
-# MeanFlow); the object branch, whose loss falls by ~10% in 100 steps of
+# 30 (in a 40-step run the losses at step 31 lay 38%, 65% and 11% below the
+# mean of the first 10 on auto-reg-v2, layout and MeanFlow, at step 21 4%,
+# 45% and 7%); the object branch, whose loss falls by ~10% in 100 steps of
 # ~13 ms each, keeps 100
-GATE_STEPS, GATE_BATCH = 50, 2
+GATE_STEPS, GATE_BATCH = 30, 2
 GATE_STEPS_BY_CONFIG = {"nuscenes-object": 100}
 # the layout and object branches: 8 scenes of ego + 12 objects (13 nodes, the
 # frame stack's layout_length; N = 104), and the 96 objects of those scenes
@@ -3084,7 +3114,9 @@ def phase_sparse(frames, smi: str) -> None:
     eval widths, on phase 6's float32 rollout, card against CPU; (b) Voxel
     R-CNN (CenterHead + RoI head) from a pcdet file of seeded weights at the
     full nuScenes range and voxel, card against CPU; (c) the two detection
-    CLIs on the card; (d) no kernel of the port launched."""
+    CLIs on the card; (d) no kernel of the port launched.  Returns (b)'s
+    detections: each cloud's real points and its kept boxes, scores and
+    class names."""
     import torch
 
     from lidarcrafter_tpu_torch import evaluate_detection, extract_foreground
@@ -3160,7 +3192,7 @@ def phase_sparse(frames, smi: str) -> None:
         check(len(det[DEVICE].class_groups) == 6 and "roi_head" in det[DEVICE].params, "voxel rcnn head groups")
         clouds = [evaluate_detection.padded(np.concatenate([c, np.zeros((len(c), 1), np.float32)], 1),
                                             DET_MAX_POINTS) for c in (real + gen)[:: len(real + gen) // DET_CLOUDS]]
-        worst, det_s, kept = 0.0, [], []
+        worst, det_s, kept, detections = 0.0, [], [], []
         with torch.inference_mode():
             det[DEVICE].predict(*(torch.as_tensor(a, device=DEVICE) for a in clouds[0]))  # warm-up
             for i, (pts, mask) in enumerate(clouds):
@@ -3171,6 +3203,9 @@ def phase_sparse(frames, smi: str) -> None:
                 det_s.append(time.perf_counter() - t0)
                 check(bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all()), f"voxel rcnn cloud {i}")
                 kept.append(int(valid.sum()))
+                keep = valid.cpu().numpy()
+                detections.append({"points": pts[mask], "boxes": boxes.cpu().numpy()[keep],
+                                   "scores": scores.cpu().numpy()[keep], "names": np.asarray(names, object)[keep]})
                 order = {dev: nms(boxes.to(dev), scores.to(dev), det[DEVICE].nms_thresh) for dev in (DEVICE, "cpu")}
                 same = all(torch.equal(a.cpu(), b) for a, b in zip(order[DEVICE], order["cpu"]))
                 agree[f"NMS keep set, cloud {i} (card vs CPU on the card's boxes and scores)"] = {
@@ -3226,6 +3261,419 @@ def phase_sparse(frames, smi: str) -> None:
           "backbones": "MinkowskiNet / SPVCNN, DEFAULT_LAYERS at cr 0.5, 4 input dims, 17 classes, seeded",
           "detector": "Voxel R-CNN (CenterHead, 6 groups, RoI head), ±54 x [-5, 3] m at (0.075, 0.075, 0.2), seeded",
           **out, "card_vs_cpu": agree, "device_ms": device_ms, "seconds": seconds, "launches": launches,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    torch.cuda.empty_cache()
+    return detections
+
+
+# ------------------------------------------------------------------ phase 16
+# the object-level metrics ("objects"): CGF (PointMLP), RGF (GLENet's folds),
+# DCF, the three auxiliary trainers and the evaluation CLIs, plain PyTorch
+
+OBJ_SEED = 16
+OBJ_CROPS = 512  # synthetic box-normalised crops through CGF and RGF
+OBJ_POINTS = 1024  # PointMLP's input
+OBJ_CLASSES = ("car", "truck", "bus", "pedestrian")
+OBJ_BOX = {"car": (4.2, 1.9, 1.7), "truck": (7.0, 2.5, 3.0), "bus": (11.0, 2.9, 3.5), "pedestrian": (0.8, 0.8, 1.7)}
+CGF_BATCH, RGF_BATCH = 32, 64
+CGF_CPU_CROPS = 16  # crops whose FPS indices, logits and CGF dictionary are held card vs CPU
+RGF_CPU_FOLDS = 1  # folds (× 30 passes) held card vs CPU
+OBJ_RTOL = 1e-4
+TRAIN_CLI_STEPS = 20
+POINTMLP_GATE_LR = ("--lr", "0.02", "--min-lr", "0.001")  # the CLI's 0.1 (a 300-epoch recipe) does not fall in 20
+MLP_STEP_BATCH = 4  # crops of the float64 PointMLP step held card vs CPU
+# a float32 PointMLP step's update parts from float64's by 3.4e-3 (relative
+# L2) at 4 clouds, ReLU and max-pool switches of values within rounding of a
+# tie carrying most of it (``python -m lidarcrafter_tpu_torch.step_precision``);
+# two float32 steps, card and CPU, each carry such an error
+PM_F32_UPDATE_TOL = 2e-2
+# Adam's first update is lr · g / (|g| + 1e-8), about lr · sign(g) for each
+# element, so a weight whose gradient lies within rounding of 0 moves up to
+# 2 · lr apart; over the update's norm such weights stay far below this
+GL_F32_UPDATE_TOL = 1e-3
+EVAL_BOXES = ("car", "car", "truck")  # ground-truth boxes a cloud of each evaluate_our arm
+OBJ_KEYS = ("frechet_distance", "squared_mmd", "jsd", "mmd")  # evaluate_our's obj section, each finite
+OBJ_CPU_CARS = 8  # car crops of the obj features held card vs CPU
+
+
+def object_crops(n: int, seed: int) -> list:
+    """``n`` crop records as ``extract_foreground`` writes them (points in
+    the box frame, x y z intensity), classes in turn, 20-800 points uniform
+    in each box, a box at a random place and heading."""
+    rnd = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        name = OBJ_CLASSES[i % len(OBJ_CLASSES)]
+        size = np.asarray(OBJ_BOX[name]) * rnd.uniform(0.9, 1.1, 3)
+        m = int(rnd.randint(20, 800))
+        pts = np.concatenate([(rnd.rand(m, 3) - 0.5) * size, rnd.rand(m, 1)], 1).astype(np.float32)
+        box = np.array([*rnd.uniform(-40, 40, 2), rnd.uniform(-2, 0), *size, rnd.uniform(-np.pi, np.pi)],
+                       np.float32)
+        out.append({"name": name, "points": pts, "num_points_in_gt": m, "box3d_lidar": box,
+                    "score": float(rnd.uniform(0.3, 1.0))})
+    return out
+
+
+def state_err(a: dict, b: dict) -> tuple[float, str]:
+    """The largest |a − b| over max(1, max |b|) across two state dicts, and its key."""
+    return max((float((a[k].detach().cpu().double() - v.double()).abs().max()) / max(1.0, float(v.abs().max())), k)
+               for k, v in b.items())
+
+
+def falls(losses) -> bool:
+    """The last 5 losses average below the first 5."""
+    return all(np.isfinite(losses)) and float(np.mean(losses[-5:])) < float(np.mean(losses[:5]))
+
+
+def car_boxes_on_points(cloud: np.ndarray, names: tuple) -> np.ndarray:
+    """A ground-truth box (``OBJ_BOX`` size, heading 0) for each class of
+    ``names`` at the densest places of ``cloud``: centred at the mean of the
+    points within ±0.8 m (x, y, z) of the point (of at most 2,048 spread
+    over the cloud) with most such neighbours, each place 5 m or more from
+    those taken before, so that a crop holds points inside the ±1 m field
+    of the ``obj`` BEV histograms."""
+    import torch
+
+    xyz = torch.as_tensor(cloud[:, :3], device=DEVICE)
+    cand = xyz[:: max(1, len(xyz) // 2048)]
+    near = torch.cdist(cand, xyz, p=float("inf")) < 0.8
+    counts = near.sum(1)
+    boxes = []
+    for name in names:
+        centre = xyz[near[int(counts.argmax())]].mean(0)
+        boxes.append([*centre.tolist(), *OBJ_BOX[name], 0.0])
+        counts = torch.where((cand[:, :2] - centre[:2]).norm(dim=1) < 5.0, -1, counts)
+    return np.asarray(boxes, np.float32)
+
+
+def trace_summary(kernels: list, wall_ms: float) -> dict:
+    """One traced call's device kernels (``_trace``): their count, busy ms,
+    the idle share against the call's ``wall_ms``, the share of the busy
+    time in sort kernels, and the five kernel names that take longest."""
+    by_name = {}
+    for e in kernels:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    return {"device_kernels": len(kernels), "device_busy_ms": busy, "wall_ms": wall_ms,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "sort_share_of_busy": sum(v for k, v in by_name.items() if "sort" in k.lower()) / max(busy, 1e-9),
+            "top_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:5]}
+
+
+def phase_objects(frames, detections: list, smi: str) -> None:
+    """Phase 16: CGF, RGF, DCF, the auxiliary trainers and the evaluation
+    CLIs ``evaluate_our`` / ``evaluate_r2dm``."""
+    import torch
+
+    from lidarcrafter_tpu_torch import (
+        evaluate_our,
+        evaluate_r2dm,
+        extract_foreground,
+        train_glenet,
+        train_pointmlp,
+        train_rangenet,
+    )
+    from lidarcrafter_tpu_torch.datasets import transforms as T
+    from lidarcrafter_tpu_torch.datasets.object_uncertainty import ObjectUncertaintyDataset
+    from lidarcrafter_tpu_torch.metrics import fg_object as FG
+    from lidarcrafter_tpu_torch.metrics.distribution import compute_frechet_distance, compute_squared_mmd
+    from lidarcrafter_tpu_torch.metrics.extractor.pointmlp import point_mlp
+    from lidarcrafter_tpu_torch.metrics.extractor.rangenet import RangeNet
+    from lidarcrafter_tpu_torch.metrics.models import glenet as GL
+    from lidarcrafter_tpu_torch.ops.points import farthest_point_sampling
+    from lidarcrafter_tpu_torch.ops.projection import points_to_range_image
+    from lidarcrafter_tpu_torch.training import classifier as CL
+    from lidarcrafter_tpu_torch.training import segmentation as SG
+    from lidarcrafter_tpu_torch.utils.sample_io import save_pth_sample
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    agree, device_ms, seconds, out = {}, {}, {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    def record(name, err, tol=OBJ_RTOL, **extra):
+        agree[name] = {"max_rel_err": err, "tol": tol, "ok": err <= tol, **extra}
+
+    laps = [t_phase]
+
+    def lap(section):
+        """The seconds of ``section``: since the last lap."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[f"section {section}"], laps[0] = now - laps[0], now
+
+    crops = object_crops(OBJ_CROPS, OBJ_SEED)
+    rnd = np.random.RandomState(OBJ_SEED)
+    clouds = np.stack([T.sample_points(c["points"], OBJ_POINTS, rnd)[:, :3] for c in crops])
+    labels = np.asarray([OBJ_CLASSES.index(c["name"]) for c in crops])
+    npts = np.asarray([c["num_points_in_gt"] for c in crops])
+
+    # (a) CGF: PointMLP at full width over the 512 crops, B = 32
+    mlp = init_random_(point_mlp(4), OBJ_SEED).to(DEVICE).eval()
+    apply = FG.pointmlp_logits(mlp)
+    apply(torch.as_tensor(clouds[:CGF_BATCH], device=DEVICE))  # warm-up
+    cgf = timed("cgf", lambda: FG.compute_cgf(apply, list(clouds), labels, npts, OBJ_CLASSES, CGF_BATCH, DEVICE))
+    x = torch.as_tensor(clouds[:CGF_BATCH], device=DEVICE)
+    device_ms["pointmlp_ms_per_batch"] = time_ms(lambda: apply(x), iters=5, warmup=1, gc_off=False)
+    out["pointmlp_batch_trace"] = trace_summary(_trace(lambda: apply(x), TRACE_SLEEP_CYCLES)[0],
+                                                device_ms["pointmlp_ms_per_batch"])
+    sub = clouds[:CGF_CPU_CROPS]
+    mlp_cpu = copy.deepcopy(mlp).cpu()
+    with torch.inference_mode():
+        fps = {dev: farthest_point_sampling(torch.as_tensor(sub, device=dev), OBJ_POINTS // 2).cpu()
+               for dev in (DEVICE, "cpu")}
+        logits = {DEVICE: apply(torch.as_tensor(sub, device=DEVICE)).cpu(), "cpu": mlp_cpu(torch.as_tensor(sub))}
+    differing = int((fps[DEVICE] != fps["cpu"]).any(dim=1).sum())
+    agree["FPS indices, first stage (crops without ties)"] = {"crops": len(sub), "differing_crops": differing,
+                                                              "ok": True}
+    record(f"PointMLP logits ({len(sub)} crops)", max_rel(logits[DEVICE], logits["cpu"]))
+    sub_args = (list(sub), labels[: len(sub)], npts[: len(sub)], OBJ_CLASSES, len(sub))
+    same = FG.compute_cgf(lambda _: logits[DEVICE], *sub_args, "cpu") == FG.compute_cgf(lambda _: logits["cpu"],
+                                                                                        *sub_args, "cpu")
+    agree[f"CGF dictionary ({len(sub)} crops)"] = {"ok": same}
+    out["cgf"] = {"overall_accuracy": cgf["overall"]["accuracy"], "partitions": sorted(cgf["partitions"])}
+    lap("a cgf")
+
+    # (b) RGF: GLENet at exp20, 10 folds × 30 passes, B = 64
+    glenet = init_random_(GL.GLENet(**GL.EXP20_KWARGS), OBJ_SEED + 1).to(DEVICE).eval()
+    latent = GL.EXP20_KWARGS["latent_size"]
+
+    def rgf(model, folds, device):
+        return FG.compute_rgf_folds(crops, lambda f: FG.glenet_apply(model), FG.seeded_draws(OBJ_SEED), num_passes=30,
+                                    num_folds=folds, batch_size=RGF_BATCH, latent_size=latent, device=device)
+
+    rgf_card = timed("rgf_10x30", lambda: rgf(glenet, 10, DEVICE))
+    folds_card = timed(f"rgf_{RGF_CPU_FOLDS}x30", lambda: rgf(glenet, RGF_CPU_FOLDS, DEVICE))
+    out["rgf_fold_trace"] = trace_summary(_trace(lambda: rgf(glenet, RGF_CPU_FOLDS, DEVICE), 0)[0],
+                                          seconds[f"rgf_{RGF_CPU_FOLDS}x30"] * 1e3)
+    folds_cpu = timed(f"rgf_{RGF_CPU_FOLDS}x30_cpu", lambda: rgf(copy.deepcopy(glenet).cpu(), RGF_CPU_FOLDS, "cpu"))
+    for part in ("overall", *folds_cpu["partitions"]):
+        c = folds_cpu[part] if part == "overall" else folds_cpu["partitions"][part]
+        g = folds_card[part] if part == "overall" else folds_card["partitions"].get(part)
+        check(g is not None, f"rgf partition {part} missing on the card")
+        err = max(max(abs(a - b) for a, b in zip(g["variance"], c["variance"])) / max(1.0, max(c["variance"])),
+                  abs(g["overlap"] - c["overlap"]))
+        record(f"RGF variance and overlap, {RGF_CPU_FOLDS} fold(s) × 30 passes ({part})", err)
+    val = ObjectUncertaintyDataset(crops, 0, {c: np.zeros((1, 512), np.float32) for c in OBJ_CLASSES},
+                                   rng=np.random.RandomState(OBJ_SEED))
+    gl_batch = {k: torch.as_tensor(v) for k, v in next(val.batches(RGF_BATCH)).items()}  # a training batch
+    gb = {k: v.to(DEVICE) for k, v in gl_batch.items()}
+    eps = torch.randn(len(gb["points"]), latent, device=DEVICE)
+    gapply = FG.glenet_apply(glenet)
+    device_ms["glenet_ms_per_batch"] = time_ms(lambda: gapply(gb, eps), iters=10, warmup=2, gc_off=False)
+    out["rgf"] = {"overall": rgf_card["overall"], "partitions": sorted(rgf_card["partitions"])}
+    lap("b rgf")
+
+    # (c) DCF on phase 15's detections
+    by_class = {}
+    for d in detections:
+        for name, score in zip(d["names"], d["scores"]):
+            by_class.setdefault(str(name), []).append({"name": str(name), "score": float(score)})
+    out["dcf"] = FG.compute_dcf(by_class)
+    out["dcf_detections"] = {k: len(v) for k, v in by_class.items()}
+
+    # (d) the trainers: 20 steps of each CLI on the card, then one step card vs CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        quiet = contextlib.redirect_stdout(io.StringIO())
+        with quiet:
+            pm = timed("train_pointmlp", lambda: train_pointmlp.main(
+                ["--synthetic-data", "--epochs", str(TRAIN_CLI_STEPS), "--batch-size", "32", "--seed", str(OBJ_SEED),
+                 *POINTMLP_GATE_LR, "-o", str(tmp / "pointmlp")]))
+            gl = timed("train_glenet", lambda: train_glenet.main(
+                ["--synthetic-data", "640", "--folds", "0", "--epochs", str(TRAIN_CLI_STEPS), "--steps-per-epoch",
+                 "1", "--batch-size", "64", "--seed", str(OBJ_SEED), "-o", str(tmp / "glenet")]))
+            rn = timed("train_rangenet", lambda: train_rangenet.main(
+                ["--synthetic-data", "--backbone", "53", "-b", "8", "--resolution", "32", "1024", "--num-steps",
+                 str(TRAIN_CLI_STEPS), "--warmup-steps", "2", "--eval-every", "10",
+                 "--output-dir", str(tmp / "rangenet")]))
+        gl_reg = [r["reg"] for r in gl["history"][0]]
+        train = {
+            "pointmlp": {"losses": pm["losses"], "steps_per_s": TRAIN_CLI_STEPS / pm["train_seconds"],
+                         "falls": falls(pm["losses"])},
+            "glenet": {"reg": gl_reg, "loss": [r["loss"] for r in gl["history"][0]],
+                       "steps_per_s": TRAIN_CLI_STEPS / gl["train_seconds"][0], "falls": falls(gl_reg)},
+            "rangenet53": {"losses": rn["losses"], "miou": rn["mious"],
+                           "steps_per_s": TRAIN_CLI_STEPS / rn["train_seconds"], "falls": falls(rn["losses"])},
+        }
+        for k, v in train.items():
+            check(v["falls"], f"{k}: the loss did not fall over {TRAIN_CLI_STEPS} steps: {v}")
+        out["train"] = train
+        lap("d trainer CLIs")
+
+        g = torch.Generator().manual_seed(OBJ_SEED)
+        # PointMLP and GLENet in float64 (their float32 steps follow)
+        mlp0 = init_random_(point_mlp(4, dropout=0.0), OBJ_SEED + 2)
+        mlp_batch = {"points": torch.as_tensor(clouds[:MLP_STEP_BATCH]).double(),
+                     "labels": torch.as_tensor(labels[:MLP_STEP_BATCH])}
+        pm_pts, pm_labels = next(train_pointmlp.synthetic_batches(CGF_BATCH, OBJ_POINTS, 4,
+                                                                  np.random.RandomState(OBJ_SEED)))
+        mlp_batch32 = {"points": torch.as_tensor(pm_pts), "labels": torch.as_tensor(pm_labels)}
+        gl0 = init_random_(GL.GLENet(**GL.EXP20_KWARGS), OBJ_SEED + 3)
+        gl_batch64 = {k: v.double() for k, v in gl_batch.items()}
+        gl_eps = torch.randn(len(gl_batch["points"]), latent, generator=g, dtype=torch.float64)
+        rn0 = init_random_(RangeNet(num_classes=17, backbone=53), OBJ_SEED + 4)
+        img = torch.rand(1, 5, 32, 1024, generator=g)
+        rn_batch = {"image": img, "labels": (1 + (img[:, 0] * 15.999).long())}
+
+        def mlp_step(dtype, batch, dev):
+            m = copy.deepcopy(mlp0).to(dev, dtype)
+            tx = CL.make_classifier_optimizer(epochs=TRAIN_CLI_STEPS)
+            loss, _ = CL.make_classifier_train_step(m, tx)(tx.init(list(m.parameters())), {
+                "points": batch["points"].to(dev, dtype), "labels": batch["labels"].to(dev)})
+            return float(loss), m.state_dict()
+
+        def gl_step(dtype, dev):
+            m = copy.deepcopy(gl0).to(dev, dtype)
+            tx = GL.make_glenet_optimizer(total_steps=TRAIN_CLI_STEPS)
+            out = GL.make_glenet_train_step(m, tx)(tx.init(list(m.parameters())),
+                                                   {k: v.to(dev, dtype) for k, v in gl_batch64.items()}, 0.05,
+                                                   eps=gl_eps.to(dev, dtype))
+            return float(out["loss"]), m.state_dict()
+
+        def rn_step(dev):
+            r = copy.deepcopy(rn0).to(dev)
+            SG.train_frozen_statistics_(r)
+            rtx = SG.make_rangenet_optimizer(warmup_steps=1)
+            rstate = rtx.init(SG.trained_tensors(r))
+            rstate["count"] = 1  # the LR at the first update is 0
+            SG.make_segmentation_train_step(r, rtx, SG.rangenet_class_weights(17).to(dev), ignore_index=0)(
+                rstate, {k: v.to(dev) for k, v in rn_batch.items()})
+            return r.state_dict()
+
+        states, f32 = {}, {}
+        for dev in (DEVICE, "cpu"):
+            on = "card" if dev == DEVICE else "cpu"
+            states[dev] = {
+                f"PointMLP (float64, B = {MLP_STEP_BATCH})": timed(f"step_pointmlp_f64_{on}",
+                                                                   lambda: mlp_step(torch.float64, mlp_batch, dev))[1],
+                "GLENet (float64, B = 64)": timed(f"step_glenet_f64_{on}", lambda: gl_step(torch.float64, dev))[1],
+                "RangeNet-53 (B = 1, 32 x 1024)": timed(f"step_rangenet53_{on}", lambda: rn_step(dev))}
+            f32[dev] = {"pointmlp": timed(f"step_pointmlp_f32_{on}", lambda: mlp_step(torch.float32, mlp_batch32, dev)),
+                        "glenet": timed(f"step_glenet_f32_{on}", lambda: gl_step(torch.float32, dev))}
+            torch.cuda.empty_cache()
+        for name, cpu_state in states["cpu"].items():
+            err, key = state_err(states[DEVICE][name], cpu_state)
+            record(f"one train step, {name}: parameters and running statistics", err, worst=key)
+
+        # float32 at the trainers' batches: the loss and the running
+        # statistics (forward quantities) to OBJ_RTOL, the parameters' update
+        # card vs CPU in relative L2.  PointMLP (the CLI's synthetic batch of
+        # 32, dropout off) to PM_F32_UPDATE_TOL.  GLENet (B = 64) to
+        # GL_F32_UPDATE_TOL without the tensors that the loss's data term
+        # does not reach (their float64 gradient on the CPU is 0 to rounding:
+        # the biases in front of a train-mode BatchNorm), whose rounding noise
+        # Adam scales into LR-sized steps
+        ref = copy.deepcopy(gl0).double()
+        reg, lat, _ = ref(gl_batch64, eps=gl_eps, train=True)
+        grads = torch.autograd.grad(reg + 0.05 * lat, list(ref.parameters()))
+        gmax = max(float(v.abs().max()) for v in grads)
+        unreached = [k for (k, _), v in zip(ref.named_parameters(), grads) if float(v.abs().max()) <= 1e-10 * gmax]
+        for model0, key, batch, tol in ((mlp0, "pointmlp", CGF_BATCH, PM_F32_UPDATE_TOL),
+                                        (gl0, "glenet", RGF_BATCH, GL_F32_UPDATE_TOL)):
+            name = f"one float32 train step, {model0.__class__.__name__} (B = {batch})"
+            (loss_g, sg), (loss_c, sc) = f32[DEVICE][key], f32["cpu"][key]
+            record(f"{name}: loss", abs(loss_g - loss_c) / abs(loss_c))
+            err, worst = state_err(sg, {k: v for k, v in sc.items() if "running" in k})
+            record(f"{name}: running statistics", err, worst=worst)
+            init = model0.state_dict()
+            kept = [k for k, _ in model0.named_parameters() if k not in unreached or key == "pointmlp"]
+            gap = {k: float((sg[k].cpu().double() - sc[k].double()).square().sum()) for k in kept}
+            norm = sum(float((sc[k].double() - init[k]).square().sum()) for k in kept)
+            err, worst = state_err(sg, {k: sc[k] for k in kept})
+            record(f"{name}: parameter update (relative L2)", (sum(gap.values()) / norm) ** 0.5, tol,
+                   worst=max(gap, key=gap.get), max_abs_err=err, max_abs_err_at=worst,
+                   **({"left_out": unreached} if key == "glenet" else {}))
+
+        lap("d one-step parity")
+        # (e) evaluate_our over crops of the rollout clouds that
+        # extract_foreground cuts with ground-truth boxes (a seeded
+        # detector's boxes hold no points, phase 15), then evaluate_r2dm
+        scenes = rollout_clouds(frames)
+        half = len(scenes) // 2
+        real, gen = [c for s in scenes[:half] for c in s], [c for s in scenes[half:] for c in s]
+        sample_dir = tmp / "generated_results"
+        for arm, arm_clouds in (("ori", real), ("our", gen)):
+            (tmp / arm).mkdir()
+            infos = []
+            for i, c in enumerate(arm_clouds):
+                np.save(tmp / arm / f"sample_tok{i}.npy", np.concatenate([c, np.zeros((len(c), 1), np.float32)], 1))
+                infos.append({"token": f"tok{i}", "gt_boxes": car_boxes_on_points(c, EVAL_BOXES),
+                              "gt_names": np.asarray(EVAL_BOXES)})
+            with open(tmp / f"infos_{arm}.pkl", "wb") as f:
+                pickle.dump(infos, f)
+            with quiet:
+                timed(f"extract_foreground {arm}", lambda: extract_foreground.main(
+                    ["--gen-dir", str(tmp / arm), "--gt-infos", str(tmp / f"infos_{arm}.pkl"), "--min-points", "5",
+                     "-o", str(sample_dir / arm / "inference_results")]))
+        fg_info = {arm: evaluate_our._load_fg_info(sample_dir / arm / "inference_results" /
+                                                   "foreground_samples_info.pkl") for arm in ("ori", "our")}
+        out["eval_crops"] = {arm: {k: len(v) for k, v in info.items()} for arm, info in fg_info.items()}
+        with quiet:
+            res = timed("evaluate_our", lambda: evaluate_our.main(
+                ["--method", "our", "--sample-dir", str(sample_dir), "-m", "dcf", "cgf", "rgf", "obj",
+                 "--random-extractors", "--num-obj-points", str(OBJ_POINTS), "--batch-size", "32",
+                 "-o", str(tmp / "our.json")]))
+        obj = res.get("obj", {})
+        check((tmp / "our.json").exists() and "dcf" in res["object"] and "cgf" in res["object"]
+              and "rgf" in res["object"] and all(np.isfinite(obj.get(k, np.nan)) for k in OBJ_KEYS),
+              f"evaluate_our: {res}")
+        lap("e crops and evaluate_our")
+        out["evaluate_our"] = {"dcf": res["object"]["dcf"], "cgf_accuracy": res["object"]["cgf"]["overall"]["accuracy"],
+                               "rgf_overall": res["object"]["rgf"]["overall"], "obj": obj}
+        # the obj section's PointMLP (--random-extractors) card vs CPU on
+        # OBJ_CPU_CARS car crops, and its Fréchet distance and squared MMD on
+        # the CPU from the card's features of every car crop
+        model = init_random_(point_mlp(num_classes=4, points=OBJ_POINTS), 0).eval()
+        cars = {}
+        for arm, info in fg_info.items():
+            crops_, labels_, _, _ = evaluate_our._fg_crops(info, OBJ_POINTS)
+            cars[arm] = torch.as_tensor(crops_[labels_ == OBJ_CLASSES.index("car")][..., :3])
+        with torch.inference_mode():
+            card_model = copy.deepcopy(model).to(DEVICE)
+            feats = {arm: card_model(c.to(DEVICE), return_features=True).cpu() for arm, c in cars.items()}
+            err = max_rel(feats["our"][:OBJ_CPU_CARS], model(cars["our"][:OBJ_CPU_CARS], return_features=True))
+        record(f"obj: PointMLP features of {OBJ_CPU_CARS} car crops", err)
+        agrees(agree, "obj: Fréchet distance (CPU from the card's features)", obj["frechet_distance"],
+               compute_frechet_distance(feats["ori"], feats["our"], device="cpu"), EVAL_RTOL["frechet"])
+        agrees(agree, "obj: squared MMD (CPU from the card's features)", obj["squared_mmd"],
+               compute_squared_mmd(feats["ori"], feats["our"], device="cpu"), EVAL_RTOL["frechet"])
+        lap("e obj card vs cpu")
+        r2 = tmp / "r2dm"
+        (r2 / "gen").mkdir(parents=True)
+        (r2 / "real").mkdir()
+        for i, c in enumerate(gen):
+            img = points_to_range_image(torch.as_tensor(np.concatenate([c, np.zeros((len(c), 1), np.float32)], 1),
+                                                        device=DEVICE)).cpu().numpy()  # x y z 0, depth, valid
+            save_pth_sample(r2 / "gen" / f"{i:05d}.pth", img[..., 4] * img[..., 5], img[..., :3])
+        for i, c in enumerate(real):
+            np.save(r2 / "real" / f"{i:05d}.npy", c)
+        with quiet:
+            res = timed("evaluate_r2dm", lambda: evaluate_r2dm.main(
+                ["--sample-dir", str(r2 / "gen"), "--real-dir", str(r2 / "real"), "--random-extractors",
+                 "--cache-dir", str(r2), "-o", str(r2 / "results.json")]))
+        check((r2 / "results.json").exists() and res["info"]["#fake"] == len(gen)
+              and all(np.isfinite(v) for sec in ("img", "pts", "bev") for v in res[sec].values()),
+              f"evaluate_r2dm: {res}")
+        out["evaluate_r2dm"] = res
+
+    # (f) plain PyTorch: no kernel of the port launched
+    launches = {k: c.n for k, c in counters.items()}
+    failed = {k: v for k, v in agree.items() if not v["ok"]}
+    check(not failed, f"objects card vs CPU: {failed}")
+    check(all(n == 0 for n in launches.values()), f"objects: a kernel of the port launched: {launches}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "objects", "card": smi, "crops": OBJ_CROPS, "points": OBJ_POINTS,
+          "models": "PointMLP point_mlp(4) and GLENet exp20 (latent 8), seeded", **out, "card_vs_cpu": agree,
+          "device_ms": device_ms, "seconds": seconds, "launches": launches,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     torch.cuda.empty_cache()
 
@@ -3345,8 +3793,10 @@ def main() -> int:
     registry_rows, registry_paths = phase_registry(smi)
     by_path.update(registry_paths)
     phase_done("registry")
-    phase_sparse(rollout_frames, smi)
+    detections = phase_sparse(rollout_frames, smi)
     phase_done("sparse")
+    phase_objects(rollout_frames, detections, smi)
+    phase_done("objects")
     emit({"phase": "script", "check": "seconds by phase", "seconds": marks, "total_seconds": time.perf_counter() - t0})
 
     # each kernel at its largest main-path shape, float32 (the default serving

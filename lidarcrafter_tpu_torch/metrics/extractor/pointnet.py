@@ -22,7 +22,9 @@ from torch import nn
 class FrozenBN(nn.Module):
     """BatchNorm in eval mode: over dim 1 of an NCHW map, over the last dim
     otherwise.  ``weight`` / ``bias`` are the flax ``scale`` / ``bias``, the
-    buffers ``running_mean`` / ``running_var`` its ``mean`` / ``var``."""
+    buffers ``running_mean`` / ``running_var`` its ``mean`` / ``var``.  The
+    statistics take gradients where they require them
+    (``training/segmentation.py::train_frozen_statistics_``)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -34,7 +36,14 @@ class FrozenBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim == 4:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+            if not self.running_mean.requires_grad:
+                return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0,
+                                    self.eps)
+            # trained statistics (the RangeNet trainer): written out, since
+            # batch_norm passes no gradient to them
+            stats = [t[:, None, None] for t in (self.running_mean, self.running_var, self.weight, self.bias)]
+            mean, var, weight, bias = stats
+            return (x - mean) / torch.sqrt(var + self.eps) * weight + bias
         return (x - self.running_mean) / torch.sqrt(self.running_var + self.eps) * self.weight + self.bias
 
 

@@ -1,4 +1,4 @@
-"""Optimizer and LR schedule of the trainer.
+"""Optimizers and LR schedules of the trainers.
 
 Port of the JAX package's ``training/optim.py``: ``clip_by_global_norm``
 → AdamW on the cosine-warmup schedule, with ``optax.MultiSteps`` gradient
@@ -6,6 +6,10 @@ accumulation, written as optax computes them, over a list of tensors with
 ``torch._foreach_*`` ops (a handful of launches per update, whatever the
 number of tensors).  The update count, the bias corrections and the LR are
 host numbers, so an update never reads the device back.
+
+The auxiliary trainers' pieces sit beside them: optax's cosine one-cycle
+and cosine-decay schedules (GLENet, PointMLP) and :class:`SGD`, optax's
+``add_decayed_weights`` → ``sgd`` with momentum (PointMLP, RangeNet).
 """
 
 from __future__ import annotations
@@ -34,6 +38,78 @@ def cosine_warmup_schedule(
         return base_lr * max(0.0, 0.5 * (1.0 + math.cos(math.pi * num_cycles * 2.0 * progress)))
 
     return schedule
+
+
+def cosine_onecycle_schedule(
+    transition_steps: int,
+    peak_value: float,
+    pct_start: float = 0.3,
+    div_factor: float = 25.0,
+    final_div_factor: float = 1e4,
+) -> Callable[[int], float]:
+    """``optax.cosine_onecycle_schedule``: from ``peak / div_factor`` up to
+    ``peak`` over the first ``int(pct_start · T)`` counts, then down to
+    ``peak / (div_factor · final_div_factor)`` at ``T``, each leg a half
+    cosine; constant after ``T``.  Where the first leg is empty
+    (``int(pct_start · T) = 0``) optax returns NaN at every count; this
+    starts on the second leg."""
+    if transition_steps <= 0:
+        raise ValueError("a one-cycle schedule needs a positive transition_steps")
+    bounds = (0, int(pct_start * transition_steps), int(transition_steps))
+    init = peak_value / div_factor
+    values = (init, init * div_factor, init * div_factor / (div_factor * final_div_factor))
+
+    def schedule(count: int) -> float:
+        if count >= bounds[2]:
+            return values[2]
+        i = 0 if count < bounds[1] else 1
+        pct = (count - bounds[i]) / (bounds[i + 1] - bounds[i])
+        return values[i + 1] + (values[i] - values[i + 1]) / 2.0 * (math.cos(math.pi * pct) + 1)
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule``: ``init · ((1 − alpha) · ½(1 +
+    cos(π · min(count, T) / T)) + alpha)``."""
+    if decay_steps <= 0:
+        raise ValueError("a cosine decay needs a positive decay_steps")
+
+    def schedule(count: int) -> float:
+        c = min(count, decay_steps)
+        return init_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay_steps)) + alpha)
+
+    return schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    """``optax.chain(add_decayed_weights(weight_decay), sgd(schedule,
+    momentum))``: ``trace = g + weight_decay·p + momentum·trace``, then
+    ``p −= lr(count) · trace``, the LR at the update count before this
+    update.  The state (:meth:`init`): ``count`` and ``trace``."""
+
+    schedule: Callable[[int], float]
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+
+    def init(self, params: Sequence[torch.Tensor]) -> dict:
+        return {"count": 0, "trace": [torch.zeros_like(p) for p in params]}
+
+    def lr(self, count: int) -> float:
+        return self.schedule(count)
+
+    @torch.no_grad()
+    def update_(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict) -> None:
+        """One update: ``params`` and ``state`` change in place; ``grads``
+        may be overwritten."""
+        if self.weight_decay:
+            torch._foreach_add_(grads, params, alpha=self.weight_decay)
+        trace = state["trace"]
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, grads)
+        torch._foreach_add_(params, trace, alpha=-self.lr(state["count"]))
+        state["count"] += 1
 
 
 @dataclasses.dataclass(frozen=True)

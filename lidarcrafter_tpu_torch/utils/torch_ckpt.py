@@ -873,6 +873,58 @@ def _spconv_kernel(w: np.ndarray, out_ch: int) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(w.reshape(-1, w.shape[-2], w.shape[-1])))
 
 
+def convert_glenet(sd: Mapping) -> dict:
+    """Upstream GLENet ``Generator`` state dict → the flax-named variable
+    dict of ``metrics/models/glenet.py::GLENet`` (``{'params',
+    'batch_stats'}``, numpy leaves; ``weights.load_flax_params`` loads it).
+    It reads the keys the JAX converter reads: kernel-size-1 Conv1d point
+    layers as Dense kernels, BatchNorm1d split into ``scale`` / ``bias`` and
+    ``mean`` / ``var``, and the bias-free ``*2`` head Linears."""
+    sd = {k: _np(v) for k, v in sd.items()}
+
+    def lin(prefix, bias=True):
+        out = {"kernel": np.ascontiguousarray(sd[f"{prefix}.weight"].T)}
+        if bias:
+            out["bias"] = sd[f"{prefix}.bias"]
+        return out
+
+    def dense_from_conv1(prefix):
+        out = {"kernel": np.ascontiguousarray(sd[f"{prefix}.weight"][:, :, 0].T)}
+        if f"{prefix}.bias" in sd:
+            out["bias"] = sd[f"{prefix}.bias"]
+        return out
+
+    def bn(prefix):
+        return ({"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]},
+                {"mean": sd[f"{prefix}.running_mean"], "var": sd[f"{prefix}.running_var"]})
+
+    def pointnet_feat(prefix):
+        params, stats = {}, {}
+        for i in (1, 2, 3):
+            params[f"conv{i}"] = dense_from_conv1(f"{prefix}.conv{i}")
+            params[f"bn{i}"], stats[f"bn{i}"] = bn(f"{prefix}.bn{i}")
+        params["seq0"] = lin(f"{prefix}.output_sequential.0")
+        params["seq1"] = lin(f"{prefix}.output_sequential.2")
+        return params, stats
+
+    params, stats = {}, {}
+    for enc in ("x_encoder", "xy_encoder"):
+        fe_p, fe_s = pointnet_feat(f"{enc}.fe")
+        params[enc] = {"fe": fe_p, "fc1": lin(f"{enc}.fc1"), "fc2": lin(f"{enc}.fc2")}
+        stats[enc] = {"fe": fe_s}
+    fe_p, fe_s = pointnet_feat("obj_encoder.fe")
+    obj = {"fe": fe_p, "fc1": lin("obj_encoder.fc1"), "fc2": lin("obj_encoder.fc2")}
+    obj_stats = {"fe": fe_s}
+    for i in (1, 2):
+        obj[f"bn{i}"], obj_stats[f"bn{i}"] = bn(f"obj_encoder.bn{i}")
+    for head in ("fc_s", "fc_ce", "fc_hr", "fc_dir"):
+        obj[f"{head}1"] = lin(f"obj_encoder.{head}1")
+        obj[f"{head}2"] = lin(f"obj_encoder.{head}2", bias=False)
+    params["obj_encoder"] = obj
+    stats["obj_encoder"] = obj_stats
+    return {"params": params, "batch_stats": stats}
+
+
 def convert_voxel_rcnn(sd: Mapping, layer_strides=(1, 2), upsample_strides=(1, 2)) -> dict:
     """A pcdet Voxel R-CNN (CenterHead) state dict → the parameter tree of
     ``VoxelRCNNCenterHead``: ``backbone_3d`` (conv_input, conv1..4,
@@ -1030,3 +1082,19 @@ def to_pcdet_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             sd[f"roi_head.{name}.weight"] = rh[name]["kernel"].T
             sd[f"roi_head.{name}.bias"] = rh[name]["bias"]
     return {k: v.detach().cpu().contiguous().clone() for k, v in sd.items()}
+
+
+def to_glenet_state_dict(state: Mapping) -> dict[str, torch.Tensor]:
+    """A port GLENet's ``state_dict`` → upstream's ``Generator`` names, the
+    inverse of :func:`convert_glenet` (point layers as kernel-size-1
+    Conv1d); tests write upstream-format files from seeded port modules
+    with it."""
+    out = {}
+    for k, v in state.items():
+        v = v.detach().cpu()
+        if re.search(r"\.fe\.conv\d\.weight$", k):
+            v = v[:, :, None]
+        k = re.sub(r"\.fe\.seq0\.", ".fe.output_sequential.0.", k)
+        k = re.sub(r"\.fe\.seq1\.", ".fe.output_sequential.2.", k)
+        out[k] = v.clone()
+    return out

@@ -12,6 +12,7 @@ max(1, max |plain|), and the error's norm to 1e-3 (float32) and 1e-2
 percent of the keys where most outputs are far below 1.
 """
 
+import copy
 import itertools
 import math
 
@@ -1237,4 +1238,132 @@ def test_voxel_rcnn_on_the_card_matches_the_cpu(tmp_path):
     order_g, keep_g = nms(boxes, scores, 0.2)
     order_c, keep_c = nms(boxes.cpu(), scores.cpu(), 0.2)
     assert torch.equal(order_g.cpu(), order_c) and torch.equal(keep_g.cpu(), keep_c)
+    assert check()
+
+
+# ------------------------------------------------------- object-level metrics
+
+
+def _object_crops(n, points, seed):
+    """Box-normalised crops without ties: points of a scaled normal."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(n, points, 3, generator=g) * torch.tensor([1.0, 0.5, 0.3])
+
+
+def test_pointmlp_on_the_card_matches_the_cpu():
+    """Full width (1,024 points, embed 64, 4 stages, k = 24), seeded: the
+    FPS indices of every stage equal, the logits and features to 1e-4 of
+    the largest, no kernel launched."""
+    from lidarcrafter_tpu_torch.metrics.extractor.pointmlp import point_mlp
+    from lidarcrafter_tpu_torch.ops.points import farthest_point_sampling
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = init_random_(point_mlp(4), 5).eval()
+    x = _object_crops(8, 1024, 6)
+    check = _no_launch()
+    on = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(model).to(dev)
+            fps = [farthest_point_sampling(x.to(dev), 512)]
+            on[dev] = (m(x.to(dev)).cpu(), m(x.to(dev), return_features=True).cpu(), fps[0].cpu())
+    assert torch.equal(on["cuda"][2], on["cpu"][2])
+    for i in (0, 1):
+        assert float((on["cuda"][i] - on["cpu"][i]).abs().max()) <= 1e-4 * float(on["cpu"][i].abs().max())
+    assert check()
+
+
+def test_glenet_on_the_card_matches_the_cpu():
+    """exp20 widths (latent 8), 512-point crops, the draws injected: the
+    eval boxes to 1e-4 of the largest; one float64 train step's parameters
+    and running statistics to 1e-4; one float32 step's running statistics
+    to 1e-4 and its update to 1e-3 in relative L2, without the tensors whose
+    float64 gradient of the loss's data term is 0 to rounding on the CPU
+    (the biases in front of a train-mode BatchNorm).  Adam's first update
+    is about lr · sign(g) for each weight, so rounding noise in a gradient
+    at or near 0 moves a weight by up to 2 · lr."""
+    from lidarcrafter_tpu_torch.metrics.models import glenet as GL
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = init_random_(GL.GLENet(**GL.EXP20_KWARGS), 7)
+    g = torch.Generator().manual_seed(8)
+    batch = {"points": _object_crops(16, 512, 9), "text_feat": torch.randn(16, 512, generator=g),
+             "gt_boxes_input": torch.randn(16, 8, generator=g), "gt_boxes": torch.randn(16, 7, generator=g) * 0.5}
+    eps = torch.randn(16, 8, generator=g)
+    ref = copy.deepcopy(model).double()
+    reg, lat, _ = ref({k: v.double() for k, v in batch.items()}, eps=eps.double(), train=True)
+    grads = torch.autograd.grad(reg + 0.5 * lat, list(ref.parameters()))
+    gmax = max(float(g.abs().max()) for g in grads)
+    unreached = {k for (k, _), g in zip(ref.named_parameters(), grads) if float(g.abs().max()) <= 1e-10 * gmax}
+    assert unreached and all(k.endswith("bias") for k in unreached)
+    check = _no_launch()
+    boxes, states = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev).eval()
+        with torch.inference_mode():
+            boxes[dev] = m({k: v.to(dev) for k, v in batch.items()}, eps=eps.to(dev)).cpu()
+        for dtype in (torch.float64, torch.float32):
+            m = copy.deepcopy(model).to(dev, dtype)
+            tx = GL.make_glenet_optimizer(total_steps=10)
+            state = tx.init(list(m.parameters()))
+            GL.make_glenet_train_step(m, tx)(state, {k: v.to(dev, dtype) for k, v in batch.items()}, 0.5,
+                                              eps=eps.to(dev, dtype))
+            states[dev, dtype] = {k: v.cpu() for k, v in m.state_dict().items()}
+    assert float((boxes["cuda"] - boxes["cpu"]).abs().max()) <= 1e-4 * float(boxes["cpu"].abs().max())
+    for k, v in states["cpu", torch.float64].items():
+        assert float((states["cuda", torch.float64][k] - v).abs().max()) <= 1e-4 * max(1.0, float(v.abs().max())), k
+    card, cpu, init = states["cuda", torch.float32], states["cpu", torch.float32], model.state_dict()
+    for k in (k for k in cpu if "running" in k):
+        assert float((card[k] - cpu[k]).abs().max()) <= 1e-4 * max(1.0, float(cpu[k].abs().max())), k
+    kept = [k for k, _ in model.named_parameters() if k not in unreached]
+    gap = sum(float((card[k] - cpu[k]).double().square().sum()) for k in kept)
+    norm = sum(float((cpu[k] - init[k]).double().square().sum()) for k in kept)
+    assert (gap / norm) ** 0.5 <= 1e-3
+    assert check()
+
+
+def test_object_trainers_step_on_the_card_like_the_cpu(float32_convolutions):
+    """One PointMLP step (1,024 points, B = 8, dropout off; float64: in
+    float32 ReLUs and max-pools that switch on values within rounding of a
+    tie move one lr-0.1 step's update by about 3e-3 of its size, which
+    ``chip_smoke.py`` phase 16 holds at B = 32) and
+    one RangeNet-21 step (32 × 1,024, B = 2, trained statistics, float32)
+    card vs CPU: every parameter and running statistic to 1e-4 of its
+    largest."""
+    from lidarcrafter_tpu_torch.metrics.extractor.pointmlp import point_mlp
+    from lidarcrafter_tpu_torch.metrics.extractor.rangenet import RangeNet
+    from lidarcrafter_tpu_torch.training import classifier as CL
+    from lidarcrafter_tpu_torch.training import segmentation as SG
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(10)
+    mlp = init_random_(point_mlp(4, dropout=0.0), 11).double()
+    mlp_batch = {"points": _object_crops(8, 1024, 12).double(), "labels": torch.randint(0, 4, (8,), generator=g)}
+    rn = init_random_(RangeNet(num_classes=17, backbone=21), 13)
+    rn_batch = {"image": torch.rand(2, 5, 32, 1024, generator=g), "labels": torch.randint(0, 17, (2, 32, 1024),
+                                                                                          generator=g)}
+    check = _no_launch()
+    states = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(mlp).to(dev)
+        tx = CL.make_classifier_optimizer(epochs=10)
+        CL.make_classifier_train_step(m, tx)(tx.init(list(m.parameters())), {k: v.to(dev) for k, v in
+                                                                              mlp_batch.items()})
+        r = copy.deepcopy(rn).to(dev)
+        SG.train_frozen_statistics_(r)
+        rtx = SG.make_rangenet_optimizer(warmup_steps=1)
+        rstate = rtx.init(SG.trained_tensors(r))
+        step = SG.make_segmentation_train_step(r, rtx, SG.rangenet_class_weights(17).to(dev), ignore_index=0)
+        for _ in range(2):  # the LR is 0 at the first update
+            step(rstate, {k: v.to(dev) for k, v in rn_batch.items()})
+        states[dev] = {**{f"mlp.{k}": v.detach().cpu() for k, v in m.state_dict().items()},
+                       **{f"rn.{k}": v.detach().cpu() for k, v in r.state_dict().items()}}
+    for k, v in states["cpu"].items():
+        assert float((states["cuda"][k] - v).abs().max()) <= 1e-4 * max(1.0, float(v.abs().max())), k
     assert check()
