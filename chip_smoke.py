@@ -66,10 +66,11 @@ Phases, each printing one JSON line:
    float32, card (kernels) against CPU (plain), same weights, x_0, t, noise
    and conditions: loss to 1e-4 relative, every gradient to 1e-3 relative
    L2; (c) ``Trainer`` on ``nuscenes-box-layout-v6`` and
-   ``nuscenes-unet-uncond`` at B=8, float32 and bf16 AMP, 3 warm-up and 5
+   ``nuscenes-unet-uncond`` at B=8, float32 and bf16 AMP, 2 warm-up and 3
    timed steps: steps/s, frames/s, peak memory, and exactly 11 OACA + 101
    GroupNorm launches a layout step, 2 attention + 50 GroupNorm an uncond
-   step; (d) ``nuscenes-auto-reg-v2`` at full width, B=2, float32, 30
+   step, and a profile of one float32 step (the AMP steps' launches are
+   counted, not traced; phase 9's trainers alike); (d) ``nuscenes-auto-reg-v2`` at full width, B=2, float32, 30
    steps on banded synthetic range images (lr 1e-4, warm-up 20): the mean
    of the last 10 losses must lie below that of the first 10; (e) its
    checkpoint read back through ``sample_temporal``'s ``--autoreg-ckpt``
@@ -171,7 +172,10 @@ Phases, each printing one JSON line:
    conditioning the converted v6 stack in one DPM++(2M)@15 request (11 +
    101 a call), finite frames; conversion seconds per config, CLIP ms a
    batch of words and the request seconds, beside the card's name and
-   power limit;
+   power limit; ``build_clip_cache`` on the card with that archive:
+   ``obj-text`` (the 9 class names' features against the CPU tower to
+   1e-4) and ``warm-cache`` over a small synthetic tree's val split into
+   an empty cache (its ``CLIP_%07d.pkl`` files written, finite);
 13. training from nuScenes-format files ("data"): a synthetic tree
    (``utils/synthetic.py::write_nuscenes_tree``: 2 scenes x 4 frames a
    split, 35,000-point clouds at uniform random angles and depths, lidarseg
@@ -189,7 +193,10 @@ Phases, each printing one JSON line:
    (2 + 50, 56 and no launches a step); and ``torchrun --nproc-per-node 1``
    (NCCL) for 2 steps of ``nuscenes-box-layout-v6`` with
    ``--deterministic``, at once with the same 2 steps without a process
-   group, whose losses it must equal bit for bit.
+   group, whose losses it must equal bit for bit; and
+   ``sample_and_save_cond --synthetic 15`` (``nuscenes-auto-reg-v2`` at
+   full width, two batches of 8, DDIM@2: exactly 11 OACA + 101 GroupNorm a
+   call, 15 dumps named as the JAX tool names them, read back as points).
 
 14. the rest of the model registry ("registry"), at full width (32x1024,
    64 model channels, multipliers (1, 2, 4, 8), 2 residual blocks,
@@ -252,7 +259,7 @@ Phases, each printing one JSON line:
    GLENet's reconstruction loss, the total being annealed), steps/s; one
    step of each card vs CPU (PointMLP B = 4 and GLENet in float64,
    RangeNet-53 B = 1 in float32), every parameter and running statistic
-   to 1e-4; one float32 step of PointMLP (B = 32) and GLENet (B = 64) card
+   to 1e-4; one float32 step of PointMLP (B = 8) and GLENet (B = 64) card
    vs CPU: loss and running statistics to 1e-4, the update in relative L2
    to 2e-2 / 1e-3 (GLENet without the biases its loss's data term does
    not reach); (e) ``extract_foreground --gt-infos`` on the card over the
@@ -266,6 +273,26 @@ Phases, each printing one JSON line:
    files (real); each writes its JSON; ms a batch of PointMLP and of
    GLENet, RGF seconds, the CLIs' seconds, each section's seconds;
    (f) every kernel counter at 0.
+
+17. serving export ("export"): ``serving/export.py`` at full width, B=8,
+   for ``nuscenes-box-layout-v6`` and ``nuscenes-auto-reg-v2`` (DPM++(2M))
+   and ``nuscenes-unet-uncond`` (DDIM), in float32 (2 steps) and served in
+   bfloat16 (1 step): the sampler traced on the card (the kernels are
+   ``torch.library`` operators in the graph: exactly 112 / 52 a denoiser
+   call), saved, loaded and replayed as ``fn(seed[, condition])`` with the
+   counters set to 0 just before and read just after (one launch per
+   operator call); its frames against the eager generator's for the same
+   seed and condition (float32 1e-5 of the largest, bfloat16 5e-2; bit for
+   bit expected); then the uncond float32 sampler traced on the CPU and
+   moved to the card at load, whose replay launches the kernels and equals
+   the card generator's frames to 1e-5; export, save and load seconds and
+   artifact bytes.
+
+Phase 4 also serves ``viewer.py`` on the card (full width, float32): one
+``POST /api/sample`` of each of its four configs over HTTP (DDIM@2,
+MeanFlow one step, v6 with two edited boxes) with exact launches.  Phase 8
+also runs ``generate_box_condition --random-params --synthetic-scenes 2
+--num-steps 8`` (no kernel launched; finite (3, 32, 1024) conditions).
 
 Every phase ends with a ``phase seconds`` line, and the script with the
 seconds of each.  Then a ``kernels`` JSON line (OACA, GroupNorm, attention
@@ -329,7 +356,7 @@ BATCH = 8
 ROLLOUT_SCENES, ROLLOUT_FRAMES, ROLLOUT_STEPS = 8, 7, 15  # 1 + 7 frames, DPM++(2M)@15
 GEOMETRY_RTOL, GEOMETRY_PIXEL_SHARE = 1e-5, 0.999  # card vs CPU condition maps
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3  # one v6 step, card vs CPU
-TRAIN_WARMUP, TRAIN_TIMED = 3, 5  # steps of the B=8 training runs
+TRAIN_WARMUP, TRAIN_TIMED = 2, 3  # steps of the B=8 training runs
 # the loss gates' steps (nuscenes-auto-reg-v2 on banded range images at B=2):
 # 30 (in a 40-step run the losses at step 31 lay 38%, 65% and 11% below the
 # mean of the first 10 on auto-reg-v2, layout and MeanFlow, at step 21 4%,
@@ -942,18 +969,22 @@ def phase_profile(what: str, call, smi: str, inference: bool = True, expect: dic
     sleep), so each traced call is queued behind a ~20 ms sleep, and a trace
     that still misses some shows whether the sleep itself was recorded.
     Also reported, not checked: the call's time with the collector off
-    (timed in turns with it on, on / off / on / off) and the kernels a trace
-    sees when the call is not queued behind a sleep."""
+    (timed in turns with it on, on / off / on / off; a train step, which
+    the speed runs also time, one turn of 3 calls each) and, for a
+    denoiser call, the kernels a trace sees when the call is not queued
+    behind a sleep."""
     import torch
 
     expect = expect or {}
     attempts = []
+    t_profile = time.perf_counter()
     with torch.inference_mode(inference):
         on, off = [], []
-        for _ in range(2):
-            on.append(time_ms(call, iters=5, warmup=1, gc_off=False))
-            off.append(time_ms(call, iters=5, warmup=1, gc_off=True))
-        step_ms, step_ms_gc_off = sum(on) / 2, sum(off) / 2
+        turns, iters = (2, 5) if inference else (1, 3)
+        for _ in range(turns):
+            on.append(time_ms(call, iters=iters, warmup=1, gc_off=False))
+            off.append(time_ms(call, iters=iters, warmup=1, gc_off=True))
+        step_ms, step_ms_gc_off = sum(on) / turns, sum(off) / turns
         for _ in range(TRACE_ATTEMPTS):
             events, seen = _trace(call, TRACE_SLEEP_CYCLES)
             counts = {}
@@ -965,7 +996,7 @@ def phase_profile(what: str, call, smi: str, inference: bool = True, expect: dic
                 check(counts.get(c, 0) <= n, f"{what}: {counts.get(c, 0)} {c}s traced, more than {n}")
             if all(counts.get(c, 0) == n for c, n in expect.items()):
                 break
-        unslept, unslept_seen = _trace(call, 0)
+        unslept, unslept_seen = _trace(call, 0) if inference else ([], {})
     check(len(events) > 0, "the profiler saw no device kernels")
     for c, n in expect.items():
         check(counts.get(c, 0) == n, f"{what}: {counts.get(c, 0)} {c}s traced in each of {TRACE_ATTEMPTS} traces "
@@ -991,7 +1022,8 @@ def phase_profile(what: str, call, smi: str, inference: bool = True, expect: dic
                           sorted(by_cat.items(), key=lambda kv: -kv[1][0])},
           "top_kernels": [{"name": n[:90], "ms": ms} for n, ms in top],
           "trace_without_lead_sleep": {"device_kernels": len(unslept), "by_category": unslept_cats,
-                                       **unslept_seen}})
+                                       **unslept_seen} if inference else "not taken for a train step",
+          "profile_seconds": time.perf_counter() - t_profile})
     return {k: v[1] for k, v in by_cat.items()}
 
 
@@ -1333,10 +1365,13 @@ def phase_train_speed(cfg_name: str, amp: bool, per_step: dict, smi: str, out_di
           "card": smi, "timed_steps": TRAIN_TIMED, "seconds": seconds, "steps_per_s": TRAIN_TIMED / seconds,
           "frames_per_s": TRAIN_TIMED * BATCH / seconds, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches": launches, "loss": loss})
-    # where a step's device time goes; its forward holds every GroupNorm kernel
-    batch = trainer.prepare_batch(next(trainer.data_iter))
-    phase_profile(f"one train step ({cfg_name}), B=8, {dname}", lambda: trainer.step_fn(state, batch, 0), smi,
-                  inference=False, expect={f"{k} kernel": per_step.get(k, 0) for k in ("groupnorm", "attention", "oaca")})
+    # where a float32 step's device time goes; its forward holds every
+    # GroupNorm kernel (the AMP steps' launches are counted above, untraced)
+    if not amp:
+        batch = trainer.prepare_batch(next(trainer.data_iter))
+        phase_profile(f"one train step ({cfg_name}), B=8, {dname}", lambda: trainer.step_fn(state, batch, 0), smi,
+                      inference=False,
+                      expect={f"{k} kernel": per_step.get(k, 0) for k in ("groupnorm", "attention", "oaca")})
     del trainer, state
     torch.cuda.empty_cache()
     return {k: n for k, n in launches.items() if n}
@@ -1550,11 +1585,15 @@ def phase_layout(smi: str) -> dict:
     return {k: n for k, n in launches.items() if n}
 
 
+BOX_CONDITION_SCENES, BOX_CONDITION_STEPS = 2, 8  # generate_box_condition --synthetic-scenes, DDPM steps
+
+
 def phase_object(smi: str) -> None:
     """Phase 8b: box + class → object points (``nuscenes-object``, float32)
     through ``ObjectGenerator``, for the 96 objects of the layout phase's
-    scenes.  No kernel of the port runs on this path (Linears and pointwise
-    ops); the launch counters must stay at 0."""
+    scenes; then ``generate_box_condition`` on ``BOX_CONDITION_SCENES``
+    synthetic scenes.  No kernel of the port runs on this path (Linears and
+    pointwise ops); the launch counters must stay at 0."""
     import torch
 
     from lidarcrafter_tpu_torch.configs import get_config
@@ -1602,6 +1641,25 @@ def phase_object(smi: str) -> None:
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     del gen
     torch.cuda.empty_cache()
+
+    # generate_box_condition on synthetic scenes: each scene's objects
+    # sampled with DDPM on the card, placed, projected, normalised
+    from lidarcrafter_tpu_torch import generate_box_condition
+
+    with tempfile.TemporaryDirectory() as tmp:
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            generate_box_condition.main(["--random-params", "--synthetic-scenes", str(BOX_CONDITION_SCENES),
+                                         "--num-steps", str(BOX_CONDITION_STEPS), "-o", tmp])
+        seconds = time.perf_counter() - t0
+        check(all(c.n == 0 for c in counters.values()), "generate_box_condition: a kernel launched")
+        conds = [np.load(f) for f in sorted((Path(tmp) / "train").glob("sample_*.npy"))]
+        check(len(conds) == BOX_CONDITION_SCENES and all(c.shape == (3, 32, 1024) and np.isfinite(c).all()
+                                                         for c in conds), "generate_box_condition: conditions")
+    emit({"phase": "object", "check": "generate_box_condition --synthetic-scenes", "card": smi,
+          "scenes": BOX_CONDITION_SCENES, "ddpm_steps": BOX_CONDITION_STEPS, "seconds": seconds,
+          "condition_shape": [3, 32, 1024]})
 
 
 # ------------------------------------------------------------------ phase 9
@@ -2585,6 +2643,39 @@ def phase_ingest(smi: str) -> dict:
         encode_fn(vocab)
         times["vocabulary"] = {"words": len(vocab), "ms": timed(vocab)}
 
+        # build_clip_cache on the card: obj-text against the CPU tower,
+        # warm-cache over a small synthetic tree's val split into an empty cache
+        from lidarcrafter_tpu_torch import build_clip_cache
+        from lidarcrafter_tpu_torch.utils.synthetic import write_nuscenes_tree
+
+        names = list(build_clip_cache.CLASS_NAMES)
+        clip_args = ["--clip", str(archive), "--bpe", str(bpe)]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            build_clip_cache.main(["obj-text", *clip_args, "--save_path", str(tmp / "obj_text_feat.pkl")])
+        obj_text_s = time.perf_counter() - t0
+        with open(tmp / "obj_text_feat.pkl", "rb") as f:
+            table = pickle.load(f)
+        check(list(table) == names and all(isinstance(v, np.ndarray) and v.shape == (1, CLIP_DIMS["embed_dim"])
+                                           for v in table.values()), "build_clip_cache obj-text: the table")
+        check_forward("build_clip_cache obj-text (9 class names) float32",
+                      torch.as_tensor(np.concatenate([table[k] for k in names])), cpu_encode(names), CLIP_RTOL)
+        tree = write_nuscenes_tree(tmp / "nusc", num_points=3000, seed=12)
+        cache = tmp / "clip_cache"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            build_clip_cache.main(["warm-cache", *clip_args, "--pkl", tree["pkl_path"], "--data_root",
+                                   tree["data_root"], "--split", "val", "--set", f'data.clip_cache_dir="{cache}"'])
+        warm_s = time.perf_counter() - t0
+        cached = sorted((cache / "val").glob("CLIP_*.pkl"))
+        check(len(cached) > 0, "build_clip_cache warm-cache wrote no CLIP files")
+        with open(cached[0], "rb") as f:
+            entry = pickle.load(f)
+        check(np.asarray(entry["instance_feats"]).shape[1:] == (CLIP_DIMS["embed_dim"],)
+              and bool(np.isfinite(np.asarray(entry["instance_feats"])).all()), "build_clip_cache warm-cache features")
+        emit({"phase": "ingest", "check": "build_clip_cache", "card": smi, "obj_text_seconds": obj_text_s,
+              "warm_cache_seconds": warm_s, "cached_samples": len(cached)})
+
         # (d) words to frames: scene graphs → CLIP → the converted layout stack → the converted v6 stack
         t0 = time.perf_counter()
         graphs = words_to_graphs(encode_fn, seed=70)
@@ -2695,6 +2786,9 @@ def _cli_losses(cmds: list, env: dict) -> list:
     return out
 
 
+SAVE_COND_BATCHES, SAVE_COND_STEPS = 2, 2  # sample_and_save_cond --synthetic: batches of 8, DDIM steps
+
+
 def phase_data(smi: str) -> dict:
     """Phase 13 ("data"): training from nuScenes-format files.  Writes a
     synthetic tree (2 scenes x 4 frames a split, 35,000-point clouds at
@@ -2707,7 +2801,9 @@ def phase_data(smi: str) -> dict:
     the EMA weights at the last step) with exact launches, finite losses, no
     ``preview_error`` and PNGs that decode, against the same run on the
     synthetic source; trains the uncond, layout and object branches 2 steps
-    each from files; and runs ``torchrun --nproc-per-node 1`` (NCCL) for 2
+    each from files; runs ``sample_and_save_cond --synthetic`` (two
+    batches of 8 at full width, the last wrapping, exact launches, the dumps
+    read back as points); and runs ``torchrun --nproc-per-node 1`` (NCCL) for 2
     steps of ``nuscenes-box-layout-v6``, whose losses must equal those of
     the same 2 steps without a process group, bit for bit."""
     import json as _json
@@ -2832,6 +2928,33 @@ def phase_data(smi: str) -> dict:
             if any(launches.values()):
                 by_path[f"data {name} files (2 steps)"] = {k: n for k, n in launches.items() if n}
             torch.cuda.empty_cache()
+
+        # (3b) sample_and_save_cond --synthetic: zero-condition batches of
+        # nuscenes-auto-reg-v2 at full width, dumps read back as points
+        from lidarcrafter_tpu_torch import sample_and_save_cond
+        from lidarcrafter_tpu_torch.utils.sample_io import load_pth_points
+
+        out_dir = Path(tmp) / "sample_and_save_cond"
+        n_frames = SAVE_COND_BATCHES * BATCH - 1  # the last batch wraps
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            sample_and_save_cond.main(["-c", "nuscenes-auto-reg-v2", "--synthetic", str(n_frames), "-b", str(BATCH),
+                                       "--num-steps", str(SAVE_COND_STEPS), "--mode", "ddim", "-o", str(out_dir)])
+        seconds = time.perf_counter() - t0
+        launches = {k: c.n for k, c in counters.items()}
+        check_launches("sample_and_save_cond", launches, EXPORT_PER_CALL["nuscenes-auto-reg-v2"],
+                       SAVE_COND_BATCHES * SAVE_COND_STEPS)
+        dumps = sorted(out_dir.glob("samples_*.pth"))
+        check([d.name for d in dumps] == [f"samples_{i:07d}_synthetic{i}.pth" for i in range(n_frames)],
+              f"sample_and_save_cond: {len(dumps)} dumps")
+        pts = load_pth_points(dumps[-1])
+        check(pts.ndim == 2 and pts.shape[1] == 4 and bool(np.isfinite(pts).all()), "sample_and_save_cond: points")
+        emit({"phase": "data", "check": "sample_and_save_cond --synthetic", "config": "nuscenes-auto-reg-v2",
+              "card": smi, "frames": n_frames, "batch": BATCH, "ddim_steps": SAVE_COND_STEPS, "seconds": seconds,
+              "frames_per_s": n_frames / seconds, "points_in_last": len(pts), "launches": launches})
+        by_path["sample_and_save_cond nuscenes-auto-reg-v2"] = {k: n for k, n in launches.items() if n}
+        torch.cuda.empty_cache()
 
         # (4) torchrun with NCCL, one process, against no process group
         args = ["-c", "nuscenes-box-layout-v6", "--num-steps", "2", "--workers", "2", "--log-every", "1",
@@ -3282,6 +3405,7 @@ OBJ_RTOL = 1e-4
 TRAIN_CLI_STEPS = 20
 POINTMLP_GATE_LR = ("--lr", "0.02", "--min-lr", "0.001")  # the CLI's 0.1 (a 300-epoch recipe) does not fall in 20
 MLP_STEP_BATCH = 4  # crops of the float64 PointMLP step held card vs CPU
+MLP_F32_BATCH = 8  # clouds of the float32 PointMLP step held card vs CPU (at 32 its CPU side led the phase)
 # a float32 PointMLP step's update parts from float64's by 3.4e-3 (relative
 # L2) at 4 clouds, ReLU and max-pool switches of values within rounding of a
 # tie carrying most of it (``python -m lidarcrafter_tpu_torch.step_precision``);
@@ -3514,7 +3638,7 @@ def phase_objects(frames, detections: list, smi: str) -> None:
         mlp0 = init_random_(point_mlp(4, dropout=0.0), OBJ_SEED + 2)
         mlp_batch = {"points": torch.as_tensor(clouds[:MLP_STEP_BATCH]).double(),
                      "labels": torch.as_tensor(labels[:MLP_STEP_BATCH])}
-        pm_pts, pm_labels = next(train_pointmlp.synthetic_batches(CGF_BATCH, OBJ_POINTS, 4,
+        pm_pts, pm_labels = next(train_pointmlp.synthetic_batches(MLP_F32_BATCH, OBJ_POINTS, 4,
                                                                   np.random.RandomState(OBJ_SEED)))
         mlp_batch32 = {"points": torch.as_tensor(pm_pts), "labels": torch.as_tensor(pm_labels)}
         gl0 = init_random_(GL.GLENet(**GL.EXP20_KWARGS), OBJ_SEED + 3)
@@ -3564,10 +3688,10 @@ def phase_objects(frames, detections: list, smi: str) -> None:
             err, key = state_err(states[DEVICE][name], cpu_state)
             record(f"one train step, {name}: parameters and running statistics", err, worst=key)
 
-        # float32 at the trainers' batches: the loss and the running
-        # statistics (forward quantities) to OBJ_RTOL, the parameters' update
-        # card vs CPU in relative L2.  PointMLP (the CLI's synthetic batch of
-        # 32, dropout off) to PM_F32_UPDATE_TOL.  GLENet (B = 64) to
+        # float32: the loss and the running statistics (forward quantities)
+        # to OBJ_RTOL, the parameters' update card vs CPU in relative L2.
+        # PointMLP (a synthetic batch of the CLI's, MLP_F32_BATCH clouds,
+        # dropout off) to PM_F32_UPDATE_TOL.  GLENet (B = 64) to
         # GL_F32_UPDATE_TOL without the tensors that the loss's data term
         # does not reach (their float64 gradient on the CPU is 0 to rounding:
         # the biases in front of a train-mode BatchNorm), whose rounding noise
@@ -3577,7 +3701,7 @@ def phase_objects(frames, detections: list, smi: str) -> None:
         grads = torch.autograd.grad(reg + 0.05 * lat, list(ref.parameters()))
         gmax = max(float(v.abs().max()) for v in grads)
         unreached = [k for (k, _), v in zip(ref.named_parameters(), grads) if float(v.abs().max()) <= 1e-10 * gmax]
-        for model0, key, batch, tol in ((mlp0, "pointmlp", CGF_BATCH, PM_F32_UPDATE_TOL),
+        for model0, key, batch, tol in ((mlp0, "pointmlp", MLP_F32_BATCH, PM_F32_UPDATE_TOL),
                                         (gl0, "glenet", RGF_BATCH, GL_F32_UPDATE_TOL)):
             name = f"one float32 train step, {model0.__class__.__name__} (B = {batch})"
             (loss_g, sg), (loss_c, sc) = f32[DEVICE][key], f32["cpu"][key]
@@ -3703,6 +3827,205 @@ def probe_times(kernels) -> dict:
             "probe_bound_by": by, "probe_bytes": nbytes}
 
 
+# ----------------------------------------------------------------- phase 17
+
+EXPORT_CONFIGS = {  # config → the solver of its artifacts, B = 8
+    "nuscenes-box-layout-v6": "dpmpp_2m",
+    "nuscenes-unet-uncond": "ddim",
+    "nuscenes-auto-reg-v2": "dpmpp_2m",
+}
+# solver steps of an artifact: tracing, saving and loading take seconds per
+# denoiser call unrolled into the graph (~1,700 nodes each)
+EXPORT_STEPS = {"float32": 2, "bfloat16": 1}
+EXPORT_PER_CALL = {
+    "nuscenes-box-layout-v6": {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD},
+    "nuscenes-unet-uncond": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
+    "nuscenes-auto-reg-v2": {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD},
+}
+# an artifact's frames against the eager generator's for the same seed and
+# dtype, of the largest |eager| value: the same operators on the same draws
+# (bit for bit expected), so both dtypes are held to 1e-5; the bfloat16
+# serving limit is for bfloat16 against float32, not for a replay
+EXPORT_RTOL = {"float32": 1e-5, "bfloat16": 1e-5}
+EXPORT_SEED = 17
+
+
+def replay_error(got: dict, want: dict) -> float:
+    """The largest |artifact − eager| over the postprocessed outputs, of
+    the largest |eager| value."""
+    return max(float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-30) for k in want)
+
+
+def check_launches(what: str, launches: dict, per_call: dict, calls: int) -> None:
+    for k, n in launches.items():
+        check(n == per_call.get(k, 0) * calls, f"{what}: {k} launches {n} != {per_call.get(k, 0)} x {calls}")
+
+
+def export_replay(name: str, gen, dname: str, steps: int, art_dir: Path, batch=None) -> tuple[dict, dict]:
+    """Trace ``gen``'s sampler (``EXPORT_CONFIGS[name]`` at ``steps``,
+    B = 8, condition ``batch``) on the device its weights lie on, save it
+    under ``art_dir``, load it onto the card and replay it once after a
+    warm-up, with the launch counters set to 0 just before and read just
+    after (exactly ``EXPORT_PER_CALL[name]`` a denoiser call); returns the
+    replay's frames and the seconds, sizes and launches."""
+    import torch
+
+    from lidarcrafter_tpu_torch.serving import export_sampler, load_artifact, save_artifact
+
+    mode, cond = EXPORT_CONFIGS[name], batch is not None
+    t0 = time.perf_counter()
+    exported = export_sampler(gen.engine, gen.lidar_utils, batch_size=BATCH, num_steps=steps, mode=mode,
+                              condition_example=batch)
+    export_s = time.perf_counter() - t0
+    ops = sum(str(n.target).startswith("lidarcrafter_torch.") for n in exported.graph.nodes)
+    per_call = EXPORT_PER_CALL[name]
+    check(ops == sum(per_call.values()) * steps, f"export {name} {dname}: {ops} operator nodes")
+    t0 = time.perf_counter()
+    art = save_artifact(art_dir, exported, {
+        "config": name, "batch_size": BATCH, "num_steps": steps, "mode": mode, "dtype": dname,
+        "conditional": cond, "sampling_shape": list(gen.engine.sampling_shape)})
+    save_s = time.perf_counter() - t0
+    del exported
+    t0 = time.perf_counter()
+    fn, meta = load_artifact(art, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    args = (EXPORT_SEED, batch) if cond else (EXPORT_SEED,)
+    fn(*args)  # warm-up: the program's first call
+    counters = reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    launches = {k: c.n for k, c in counters.items()}
+    check_launches(f"replay {name} {dname} traced on {meta['device']}", launches, per_call, steps)
+    return out, {"mode": mode, "steps": steps, "batch": BATCH, "traced_on": meta["device"], "export_seconds": export_s,
+                 "save_seconds": save_s, "load_seconds": load_s,
+                 "artifact_bytes": (art / "sampler.pt2").stat().st_size, "operator_nodes": ops,
+                 "replay_seconds": replay_s, "launches": launches}
+
+
+def phase_export(smi: str) -> dict:
+    """Phase 17 ("export"): the serving artifacts of ``serving/export.py``
+    at full width, B = 8, for ``nuscenes-box-layout-v6`` and
+    ``nuscenes-auto-reg-v2`` (DPM++(2M)) and ``nuscenes-unet-uncond``
+    (DDIM), in float32 (2 steps) and then, the same generator cast to the
+    serving dtype, in bfloat16 (1 step): each traced on the card
+    (:func:`export_replay`: saved, loaded, replayed with exact launches),
+    its frames against the eager generator's for the same seed and
+    condition (``EXPORT_RTOL``).  After the float32 uncond artifact, the
+    same sampler traced on the CPU (plain versions; 1 step) and moved to
+    the card at load: its replay launches the kernels and equals the card
+    generator's eager frames.  Returns the launch counts by path."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.generate import UncondFrameGenerator
+    from lidarcrafter_tpu_torch.generate_cond import CondFrameGenerator
+    from lidarcrafter_tpu_torch.precision import to_serving_dtype_
+    from lidarcrafter_tpu_torch.training.factory import layout_condition_batch
+
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, mode in EXPORT_CONFIGS.items():
+            uncond = name == "nuscenes-unet-uncond"
+            gen = (UncondFrameGenerator if uncond else CondFrameGenerator)(get_config(name), DEVICE, 0)
+            batch = None
+            if not uncond:  # drawn on the host, so that every device gets the same condition
+                batch = {k: v.to(gen.device) for k, v in layout_condition_batch(
+                    gen.cfg, BATCH, generator=torch.Generator().manual_seed(EXPORT_SEED)).items()}
+            for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                if dtype != torch.float32:  # the bfloat16 generator: the same weights, cast
+                    to_serving_dtype_(gen.model if uncond else gen.models["model"], dtype,
+                                      cond_model=None if uncond else gen.models["cond"])
+                    gen.engine = dataclasses.replace(gen.engine, dtype=dtype)
+                steps = EXPORT_STEPS[dname]
+                out, info = export_replay(name, gen, dname, steps, Path(tmp) / f"{name}-{dname}", batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, eager = gen.generate(BATCH, steps, mode=mode, seed=EXPORT_SEED,
+                                        **({} if uncond else {"batch": batch}))
+                torch.cuda.synchronize()
+                info["eager_seconds"] = time.perf_counter() - t0
+                err = replay_error(out, eager)
+                check(err <= EXPORT_RTOL[dname], f"export {name} {dname}: replay {err} from the eager generator")
+                check(all(bool(torch.isfinite(v).all()) for v in out.values()), f"export {name} {dname}: not finite")
+                emit({"phase": "export", "config": name, "dtype": dname, "card": smi, **info,
+                      "replay_vs_eager": err, "tol": EXPORT_RTOL[dname], "bitwise": err == 0.0})
+                by_path[f"export replay {name} {dname}"] = {k: n for k, n in info["launches"].items() if n}
+                if uncond and dtype == torch.float32:
+                    # traced on the CPU, where the plain versions run, moved to the card at load
+                    cpu_gen = UncondFrameGenerator(get_config(name), "cpu", 0)
+                    out, info = export_replay(name, cpu_gen, dname, 1, Path(tmp) / f"{name}-cpu", None)
+                    del cpu_gen
+                    _, eager = gen.generate(BATCH, 1, mode=mode, seed=EXPORT_SEED)
+                    err = replay_error(out, eager)
+                    check(info["traced_on"] == "cpu", f"the CPU artifact was traced on {info['traced_on']}")
+                    check(err <= EXPORT_RTOL[dname], f"export traced on the CPU, replayed on the card: {err}")
+                    emit({"phase": "export", "config": name, "dtype": dname, "card": smi, **info,
+                          "replayed_on": DEVICE, "replay_vs_eager": err, "tol": EXPORT_RTOL[dname]})
+                    by_path[f"export replay {name} {dname}, traced on the CPU"] = {
+                        k: n for k, n in info["launches"].items() if n}
+                del out, eager
+            del gen
+            torch.cuda.empty_cache()
+    return by_path
+
+
+VIEWER_REQUEST_STEPS = 2
+
+
+def phase_viewer(smi: str) -> dict:
+    """Phase 4 (viewer): ``viewer.py``'s server on the card (full width,
+    float32, seeded weights; the server builds each config's generator at
+    its first request, which is not timed) answers one
+    ``POST /api/sample`` of each of its four configs over HTTP (DDIM@2;
+    MeanFlow one step; v6 with two edited boxes), with the launch counters
+    set to 0 before each request and read after: 11 OACA + 101 GroupNorm a
+    v6 / auto-reg-v2 call, 2 attention + 50 GroupNorm an uncond / MeanFlow
+    call.  Returns the launch counts by path."""
+    import threading
+    import urllib.request
+
+    from lidarcrafter_tpu_torch import viewer
+
+    per_call = {**EXPORT_PER_CALL, "meanflow-nusc": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET}}
+    boxes = [[10, 3, -0.5, 4.5, 2, 1.7, 0.3, 1], [18, -6, -0.4, 4.2, 1.9, 1.6, -1.2, 2]]
+    httpd = viewer.serve(port=0, device=DEVICE)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    by_path, out = {}, {}
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/api/sample"
+        for name in viewer.CONFIGS:
+            body = {"config": name, "steps": VIEWER_REQUEST_STEPS, "mode": "ddim", "seed": 1}
+            if name == "nuscenes-box-layout-v6":
+                body["boxes"] = boxes
+            req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:  # builds the config's generator
+                r.read()
+            counters = reset_counters()
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(url, data=json.dumps(body).encode(), method="POST"),
+                                        timeout=600) as r:
+                frame = json.loads(r.read())
+            seconds = time.perf_counter() - t0
+            launches = {k: c.n for k, c in counters.items()}
+            calls = 1 if name == "meanflow-nusc" else VIEWER_REQUEST_STEPS
+            check_launches(f"viewer {name}", launches, per_call[name], calls)
+            depth = np.asarray(frame["depth"])
+            check(depth.shape == (32, 1024) and bool(np.isfinite(depth).all()), f"viewer {name}: depth {depth.shape}")
+            out[name] = {"seconds": seconds, "points": len(frame["points"]), "launches": launches}
+            by_path[f"viewer {name}"] = {k: n for k, n in launches.items() if n}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    emit({"phase": "viewer", "card": smi, "steps": VIEWER_REQUEST_STEPS, "requests": out})
+    return by_path
+
+
+
 def main() -> int:
     import torch
 
@@ -3766,6 +4089,8 @@ def main() -> int:
                           expect={"groupnorm kernel": norms})
         del gens, calls
         torch.cuda.empty_cache()
+        if dtype == torch.float32:
+            by_path.update(phase_viewer(smi))
         phase_done(f"main_path and profile {dname}")
         by_path[f"rollout {dname}"], frames = phase_rollout(dtype, smi)
         if dtype == torch.float32:
@@ -3797,6 +4122,8 @@ def main() -> int:
     phase_done("sparse")
     phase_objects(rollout_frames, detections, smi)
     phase_done("objects")
+    by_path.update(phase_export(smi))
+    phase_done("export")
     emit({"phase": "script", "check": "seconds by phase", "seconds": marks, "total_seconds": time.perf_counter() - t0})
 
     # each kernel at its largest main-path shape, float32 (the default serving

@@ -15,7 +15,10 @@ of the same name:
                  trainers and their tracker.
 - ``parallel``   data parallelism across processes (``torchrun``).
 - ``kernels``    hand-written CUDA kernels for Hopper (``csrc/*.cu``) with a
-                 plain PyTorch version of each beside its wrapper.
+                 plain PyTorch version of each beside its wrapper, each a
+                 ``torch.library`` operator.
+- ``serving``    samplers exported with ``torch.export`` and loaded back.
+- ``converters`` the data pipeline's info-pickle converters (devkit-gated).
 - ``weights``    bridge from a flax parameter tree to the port's state_dict.
 
 The package imports ``torch`` and numpy only, never JAX or the JAX package.

@@ -68,23 +68,30 @@ def lambda_spaced_timesteps(
     return torch.as_tensor(t_grid, device=device)
 
 
+def dpmpp_2m_coefficients(
+    steps: torch.Tensor, log_snr_fn: Callable[[torch.Tensor], torch.Tensor]
+) -> tuple[list[float], list[float], list[float]]:
+    """λ = ½·log-SNR, α and σ at each t of the host grid ``steps``, as
+    Python floats."""
+    log_snr = log_snr_fn(steps)
+    alpha, sigma = schedules.log_snr_to_alpha_sigma(log_snr)
+    return (0.5 * log_snr).tolist(), alpha.tolist(), sigma.tolist()
+
+
 def dpmpp_2m(
     x: torch.Tensor,
-    steps: torch.Tensor,
-    log_snr_fn: Callable[[torch.Tensor], torch.Tensor],
+    coefficients: tuple[list[float], list[float], list[float]],
     x0_fn: Callable[[torch.Tensor, int], torch.Tensor],
 ) -> torch.Tensor:
     """DPM-Solver++(2M) in data-prediction form (arXiv:2211.01095, Alg. 2).
 
-    ``steps`` is the (num_steps+1,) t grid; ``x0_fn(x, i)`` evaluates x̂_0 at
-    ``t = steps[i]``.  The first step (no history) and the last step (the
+    ``coefficients`` are :func:`dpmpp_2m_coefficients` of the
+    (num_steps+1,) t grid; ``x0_fn(x, i)`` evaluates x̂_0 at the grid's
+    ``i``-th t.  The first step (no history) and the last step (the
     λ-extrapolation overshoots on the clamped jump into t=0) are first order.
     """
-    num_steps = steps.shape[0] - 1
-    log_snr = log_snr_fn(steps)
-    lam = (0.5 * log_snr).tolist()
-    alpha, sigma = schedules.log_snr_to_alpha_sigma(log_snr)
-    alpha, sigma = alpha.tolist(), sigma.tolist()
+    lam, alpha, sigma = coefficients
+    num_steps = len(lam) - 1
     x0_prev = None
     for i in range(num_steps):
         x0 = x0_fn(x, i)
@@ -97,6 +104,21 @@ def dpmpp_2m(
         x = (sigma[i + 1] / sigma[i]) * x - alpha[i + 1] * float(np.expm1(-h)) * d
         x0_prev = x0
     return x
+
+
+@dataclasses.dataclass(frozen=True)
+class ReversePlan:
+    """The host side of a reverse loop: its t grid and, for DPM++(2M), the
+    solver's (λ, α, σ) on it, all Python floats.  Computing it reads
+    tensors back, so an exported sampler computes it before tracing."""
+
+    mode: str
+    grid: list[float]
+    coefficients: tuple[list[float], list[float], list[float]] | None = None
+
+    @property
+    def num_steps(self) -> int:
+        return len(self.grid) - 1
 
 
 @dataclasses.dataclass
@@ -301,6 +323,17 @@ class ContinuousDiffusion:
             return out + c_1 * draw() if ddim_eta else out
         raise ValueError(mode)
 
+    def reverse_plan(self, num_steps: int, mode: Literal["ddpm", "ddim", "dpmpp_2m"]) -> ReversePlan:
+        """The grid of :meth:`reverse`: uniform in λ for DPM++(2M), uniform
+        in t for DDPM and DDIM.  It stays on the host: reading it back from
+        the card would wait for the work queued before."""
+        if mode == "dpmpp_2m":
+            steps = lambda_spaced_timesteps(self.log_snr, num_steps)
+            return ReversePlan(mode, steps.tolist(), dpmpp_2m_coefficients(steps, self.log_snr))
+        if mode not in ("ddpm", "ddim"):
+            raise ValueError(mode)
+        return ReversePlan(mode, linspace_timesteps(num_steps).tolist())
+
     def reverse(
         self,
         x: torch.Tensor,
@@ -309,28 +342,29 @@ class ContinuousDiffusion:
         ddim_eta: float = 0.0,
         generator: torch.Generator | None = None,
         condition=None,
+        plan: ReversePlan | None = None,
+        noise: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        """x_T → x_0: DPM-Solver++(2M) on the uniform-λ grid, DDPM and DDIM
-        on the uniform t grid."""
+        """x_T → x_0 over :meth:`reverse_plan`'s grid (or ``plan``, made
+        for this mode and ``num_steps``).  A step that draws noise (DDPM,
+        DDIM with η > 0) takes ``noise[i]`` when ``noise`` is given, else
+        draws from ``generator``."""
         B, device = x.shape[0], x.device
+        plan = plan or self.reverse_plan(num_steps, mode)
+        grid = plan.grid
 
         def t_full(v: float) -> torch.Tensor:
             return torch.full((B,), v, dtype=torch.float32, device=device)
 
         if mode == "dpmpp_2m":
-            # the grid and its coefficients stay on the host: reading them
-            # back from the card would wait for the work queued before
-            steps = lambda_spaced_timesteps(self.log_snr, num_steps)
-            grid = steps.tolist()
             return dpmpp_2m(
-                x, steps, self.log_snr,
+                x, plan.coefficients,
                 lambda xi, i: self.predict_x_0(xi, t_full(grid[i]), condition),
             )
-        grid = linspace_timesteps(num_steps).tolist()
         for i in range(num_steps):
             x = self.p_step(
                 x, t_full(grid[i]), t_full(grid[i + 1]), mode=mode, ddim_eta=ddim_eta,
-                generator=generator, condition=condition,
+                generator=generator, condition=condition, noise=None if noise is None else noise[i],
             )
         return x
 

@@ -21,6 +21,14 @@ plain version's tangent in float32 from the same recompute.  The MeanFlow
 loss takes ``torch.func.jvp`` through the attention blocks; an operand that
 carries a tangent always goes through the Function, so no tangent reaches a
 bare launch.
+
+While ``torch.export`` traces it with grad off and no tangent, the wrapper
+calls the operator ``torch.ops.lidarcrafter_torch.attention_forward``
+(:func:`attention_op`), on either device: its CUDA implementation is
+:func:`launch`, its CPU implementation the plain version, and its fake rule
+gives the kernel's output layout, so that an exported sampler carries the
+kernel (``serving/export.py``).  An eager call launches directly, with no
+dispatcher in its host time.
 """
 
 from __future__ import annotations
@@ -100,14 +108,43 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _check(q, k, v, scale: float, kv_len: int) -> None:
+    """Raise unless the kernel takes these operands (shapes, dtypes,
+    strides, head dims and scale; nothing that reads a pointer)."""
+    B, H, Lq, dqk = q.shape
+    Lkv, dv = k.shape[2], v.shape[-1]
+    ops = (q, k, v)
+    if any(t.device != q.device for t in ops) or q.device.type != "cuda":
+        raise ValueError("attention: operands must all be on one CUDA device")
+    if any(t.dtype != q.dtype for t in ops) or q.dtype not in _DTYPE_CODES:
+        raise TypeError("attention kernel needs one dtype, float32 or bfloat16")
+    if max(dqk, dv) > _MAX_HEAD_DIM:
+        raise ValueError(f"attention kernel takes head dims <= {_MAX_HEAD_DIM}, got {(dqk, dv)}")
+    if any(t.stride(-1) != 1 for t in ops):
+        raise ValueError("attention kernel needs a contiguous last dimension")
+    if Lq == 0 or B * H > 65535:
+        raise ValueError("attention kernel takes Lq >= 1 and B*heads <= 65535")
+    if not scale > 0:
+        raise ValueError(f"attention kernel takes a positive scale, got {scale}")
+
+
+def _out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An empty (B, heads, Lq, dv) result laid out (B, Lq, heads, dv) in
+    memory, as the kernel writes it."""
+    B, H, Lq, _ = q.shape
+    return q.new_empty_strided((B, H, Lq, dv), (Lq * H * dv, dv, H * dv, 1))
+
+
 def launch(q, k, v, *, scale: float, kv_len: int) -> torch.Tensor:
-    """One launch of the kernel on checked plain operands (no autograd, no
-    tangent); checks their alignment, which reads their pointers."""
+    """One launch of the kernel on plain operands (no autograd, no
+    tangent); checks them, their alignment (which reads their pointers)
+    included."""
+    _check(q, k, v, scale, kv_len)
     B, H, Lq, dqk = q.shape
     Lkv, dv = k.shape[2], v.shape[-1]
     ops = (q, k, v)
     loader.check_aligned("attention", *ops)
-    out = torch.empty((B, Lq, H, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = _out_like(q, dv)
     args = loader.AttnArgs(
         *(t.data_ptr() for t in ops), out.data_ptr(),
         *((ctypes.c_int64 * 3)(*_strides(t)) for t in (*ops, out)),
@@ -119,6 +156,24 @@ def launch(q, k, v, *, scale: float, kv_len: int) -> torch.Tensor:
     loader.check(err, "attention_forward")
     launches.n += 1
     return out
+
+
+@torch.library.custom_op("lidarcrafter_torch::attention_forward", mutates_args=(), device_types="cuda")
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, kv_len: int) -> torch.Tensor:
+    """The kernel as an operator that ``torch.export`` records: one
+    :func:`launch` on the card, :func:`attention_plain` on the CPU, both
+    laid out as the kernel writes its result."""
+    return launch(q, k, v, scale=scale, kv_len=kv_len)
+
+
+@attention_op.register_kernel("cpu")
+def _attention_op_cpu(q, k, v, scale, kv_len):
+    return _out_like(q, v.shape[-1]).copy_(attention_plain(q, k, v, scale=scale, kv_len=kv_len))
+
+
+@attention_op.register_fake
+def _attention_op_fake(q, k, v, scale, kv_len):
+    return _out_like(q, v.shape[-1])
 
 
 class Attention(torch.autograd.Function):
@@ -170,7 +225,9 @@ def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tens
     heads back into channels is free.  An operand that carries a
     forward-mode tangent (``torch.func.jvp``, ``forward_ad``), or, with grad
     enabled, one that requires grad, sends the call through
-    :class:`Attention`; otherwise the kernel is launched directly.
+    :class:`Attention` (on the CPU: the plain version); otherwise the kernel
+    is launched directly, or, while ``torch.export`` traces the call, the
+    operator :func:`attention_op` is recorded.
     """
     B, H, Lq, dqk = q.shape
     Lkv, dv = k.shape[2], v.shape[-1]
@@ -180,20 +237,13 @@ def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tens
     if tuple(k.shape) != (B, H, Lkv, dqk) or tuple(v.shape[:3]) != (B, H, Lkv):
         raise ValueError(f"attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     ops = (q, k, v)
+    autograd = loader.has_tangent(*ops) or (torch.is_grad_enabled() and any(t.requires_grad for t in ops))
+    if not autograd and loader.tracing():
+        return torch.ops.lidarcrafter_torch.attention_forward(q, k, v, float(scale), kv_len)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale=scale, kv_len=kv_len)
-    if any(t.device != q.device for t in ops) or q.device.type != "cuda":
+    if q.device.type != "cuda":
         raise ValueError("attention: operands must all be on one CUDA device")
-    if any(t.dtype != q.dtype for t in ops) or q.dtype not in _DTYPE_CODES:
-        raise TypeError("attention kernel needs one dtype, float32 or bfloat16")
-    if max(dqk, dv) > _MAX_HEAD_DIM:
-        raise ValueError(f"attention kernel takes head dims <= {_MAX_HEAD_DIM}, got {(dqk, dv)}")
-    if any(t.stride(-1) != 1 for t in ops):
-        raise ValueError("attention kernel needs a contiguous last dimension")
-    if Lq == 0 or B * H > 65535:
-        raise ValueError("attention kernel takes Lq >= 1 and B*heads <= 65535")
-    if not scale > 0:
-        raise ValueError(f"attention kernel takes a positive scale, got {scale}")
-    if loader.has_tangent(*ops) or (torch.is_grad_enabled() and any(t.requires_grad for t in ops)):
+    if autograd:
         return Attention.apply(float(scale), kv_len, q, k, v)
     return launch(q, k, v, scale=scale, kv_len=kv_len)

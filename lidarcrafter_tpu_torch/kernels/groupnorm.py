@@ -26,6 +26,14 @@ passed, strided views of the conditioning projection included.  The
 forward-mode rule is :func:`group_norm_jvp`, the plain version's tangent in
 float32 from recomputed statistics; an operand that carries a tangent always
 goes through the Function, so no tangent reaches a bare launch.
+
+While ``torch.export`` traces it with grad off and no tangent, the wrapper
+calls the operator ``torch.ops.lidarcrafter_torch.group_norm``
+(:func:`group_norm_op`), on either device: its CUDA implementation is
+:func:`launch`, its CPU implementation the plain version, and its fake rule
+gives the kernel's output, so that an exported sampler carries the kernel
+(``serving/export.py``).  An eager call launches directly, with no
+dispatcher in its host time.
 """
 
 from __future__ import annotations
@@ -255,27 +263,33 @@ def group_norm(
     Returns a tensor of ``x``'s shape and dtype.  An operand that carries a
     forward-mode tangent (``torch.func.jvp``, ``forward_ad``), or, with grad
     enabled, one that requires grad, sends the call through
-    :class:`GroupNorm`; otherwise the kernel is launched directly.
+    :class:`GroupNorm` (on the CPU: the plain version); otherwise the kernel
+    is launched directly, or, while ``torch.export`` traces the call, the
+    operator :func:`group_norm_op` is recorded.
     """
-    B, C = x.shape[0], x.shape[-1]
+    C = x.shape[-1]
     if C % num_groups:
         raise ValueError(f"{C} channels do not split into {num_groups} groups")
+    ops = (x, weight, bias, scale, shift)
+    autograd = loader.has_tangent(*ops) or (
+        torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ops))
+    if not autograd and loader.tracing():
+        return torch.ops.lidarcrafter_torch.group_norm(x, weight, bias, scale, shift, num_groups, float(eps),
+                                                       bool(silu))
     if x.device.type == "cpu":
         return group_norm_plain(x, weight, bias, num_groups=num_groups, eps=eps,
                                 scale=scale, shift=shift, silu=silu)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"group_norm kernel is built for float32/bfloat16, got {x.dtype}")
-    ops = (x, weight, bias, scale, shift)
-    if loader.has_tangent(*ops) or (
-            torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ops)):
+    if autograd:
         return GroupNorm.apply(num_groups, float(eps), bool(silu), x, weight, bias, scale, shift)
     return launch(x, weight, bias, scale, shift, num_groups=num_groups, eps=eps, silu=silu)
 
 
 def launch(x, weight, bias, scale, shift, *, num_groups: int, eps: float, silu: bool) -> torch.Tensor:
     """One launch of the kernel on plain operands (no autograd, no tangent)."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"group_norm kernel is built for float32/bfloat16, got {x.dtype}")
     B, C = x.shape[0], x.shape[-1]
     x = x.contiguous()
     if x.data_ptr() % 16:
@@ -290,6 +304,26 @@ def launch(x, weight, bias, scale, shift, *, num_groups: int, eps: float, silu: 
     loader.check(err, "gn_forward")
     launches.n += 1
     return y
+
+
+@torch.library.custom_op("lidarcrafter_torch::group_norm", mutates_args=(), device_types="cuda")
+def group_norm_op(x: torch.Tensor, weight: torch.Tensor | None, bias: torch.Tensor | None,
+                  scale: torch.Tensor | None, shift: torch.Tensor | None,
+                  num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+    """The kernel as an operator that ``torch.export`` records: one
+    :func:`launch` on the card, :func:`group_norm_plain` on the CPU; the
+    result is a new contiguous tensor of ``x``'s shape and dtype."""
+    return launch(x, weight, bias, scale, shift, num_groups=num_groups, eps=eps, silu=silu)
+
+
+@group_norm_op.register_kernel("cpu")
+def _group_norm_op_cpu(x, weight, bias, scale, shift, num_groups, eps, silu):
+    return group_norm_plain(x, weight, bias, num_groups=num_groups, eps=eps, scale=scale, shift=shift, silu=silu)
+
+
+@group_norm_op.register_fake
+def _group_norm_op_fake(x, weight, bias, scale, shift, num_groups, eps, silu):
+    return x.new_empty(x.shape)
 
 
 class GroupNorm(torch.autograd.Function):

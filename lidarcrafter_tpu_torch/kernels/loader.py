@@ -219,6 +219,14 @@ def has_tangent(*ops: torch.Tensor | None) -> bool:
     )
 
 
+def tracing() -> bool:
+    """Whether ``torch.export`` (or ``torch.compile``) is tracing the
+    caller: the wrappers then call their operators, which the graph
+    records, and otherwise launch or run the plain version directly, with
+    no dispatcher on an eager call."""
+    return torch.compiler.is_compiling()
+
+
 def check_aligned(what: str, *ops: torch.Tensor) -> None:
     """Raise ``ValueError`` unless every operand's pointer, (batch, head,
     row) strides and head dim are whole multiples of 16 bytes: the kernels

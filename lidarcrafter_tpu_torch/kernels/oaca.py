@@ -15,6 +15,14 @@ in float32 (the JAX package's ``_oaca_bwd``: ``pallas_call`` has no
 transpose rule, so its backward is the XLA recompute too).  No path of the
 JAX package takes OACA's forward-mode derivative, so it has no forward-mode
 rule here: an operand that carries a tangent raises.
+
+While ``torch.export`` traces it with grad off, the wrapper calls the
+operator ``torch.ops.lidarcrafter_torch.oaca_forward`` (:func:`oaca_op`), on
+either device: its CUDA implementation is :func:`launch`, its CPU
+implementation the plain version, and its fake rule gives the kernel's
+output layout, so that an exported sampler carries the kernel
+(``serving/export.py``).  An eager call launches directly, with no
+dispatcher in its host time.
 """
 
 from __future__ import annotations
@@ -73,14 +81,50 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _check(q_c, ipe, k_c, k_l, v_c, v_l, scale: float) -> None:
+    """Raise unless the kernel takes these operands (shapes, dtypes,
+    strides, head dims and scale; nothing that reads a pointer)."""
+    B, H, Lq, dc = q_c.shape
+    dp, L2, dv = ipe.shape[-1], k_l.shape[2], v_c.shape[-1]
+    ops = (q_c, ipe, k_c, k_l, v_c, v_l)
+    if any(t.device != q_c.device for t in ops) or q_c.device.type != "cuda":
+        raise ValueError("oaca_attention: operands must all be on one CUDA device")
+    if any(t.dtype != q_c.dtype for t in ops) or q_c.dtype not in _DTYPE_CODES:
+        raise TypeError("oaca_attention kernel needs one dtype, float32 or bfloat16")
+    check_head_dims(dc, dp, dv)
+    expect = {
+        "ipe": (ipe, (B, H, Lq, dp)), "k_c": (k_c, (B, H, Lq, dc)),
+        "k_l": (k_l, (B, H, L2, dc + dp)), "v_c": (v_c, (B, H, Lq, dv)),
+        "v_l": (v_l, (B, H, L2, dv)),
+    }
+    for name, (t, shape) in expect.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"oaca_attention: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if any(t.stride(-1) != 1 for t in ops):
+        raise ValueError("oaca_attention kernel needs a contiguous last dimension")
+    if L2 > _MAX_L2 or B * H > 65535:
+        raise ValueError(f"oaca_attention kernel takes L2 <= {_MAX_L2} and B*heads <= 65535")
+    if not scale > 0:
+        raise ValueError(f"oaca_attention kernel takes a positive scale, got {scale}")
+
+
+def _out_like(q_c: torch.Tensor, dv: int) -> torch.Tensor:
+    """An empty (B, heads, Lq, dv) result laid out (B, Lq, heads, dv) in
+    memory, as the kernel writes it."""
+    B, H, Lq, _ = q_c.shape
+    return q_c.new_empty_strided((B, H, Lq, dv), (Lq * H * dv, dv, H * dv, 1))
+
+
 def launch(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tensor:
-    """One launch of the kernel on checked plain operands (no autograd, no
-    tangent); checks their alignment, which reads their pointers."""
+    """One launch of the kernel on plain operands (no autograd, no
+    tangent); checks them, their alignment (which reads their pointers)
+    included."""
+    _check(q_c, ipe, k_c, k_l, v_c, v_l, scale)
     B, H, Lq, dc = q_c.shape
     dp, L2, dv = ipe.shape[-1], k_l.shape[2], v_c.shape[-1]
     ops = (q_c, ipe, k_c, k_l, v_c, v_l)
     loader.check_aligned("oaca_attention", *ops)
-    out = torch.empty((B, Lq, H, dv), dtype=q_c.dtype, device=q_c.device).transpose(1, 2)
+    out = _out_like(q_c, dv)
     args = loader.OacaArgs(
         *(t.data_ptr() for t in ops), out.data_ptr(),
         *((ctypes.c_int64 * 3)(*_strides(t)) for t in (*ops, out)),
@@ -93,6 +137,25 @@ def launch(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tensor:
     loader.check(err, "oaca_forward")
     launches.n += 1
     return out
+
+
+@torch.library.custom_op("lidarcrafter_torch::oaca_forward", mutates_args=(), device_types="cuda")
+def oaca_op(q_c: torch.Tensor, ipe: torch.Tensor, k_c: torch.Tensor, k_l: torch.Tensor,
+            v_c: torch.Tensor, v_l: torch.Tensor, scale: float) -> torch.Tensor:
+    """The kernel as an operator that ``torch.export`` records: one
+    :func:`launch` on the card, :func:`oaca_attention_plain` on the CPU,
+    both laid out as the kernel writes its result."""
+    return launch(q_c, ipe, k_c, k_l, v_c, v_l, scale=scale)
+
+
+@oaca_op.register_kernel("cpu")
+def _oaca_op_cpu(q_c, ipe, k_c, k_l, v_c, v_l, scale):
+    return _out_like(q_c, v_c.shape[-1]).copy_(oaca_attention_plain(q_c, ipe, k_c, k_l, v_c, v_l, scale=scale))
+
+
+@oaca_op.register_fake
+def _oaca_op_fake(q_c, ipe, k_c, k_l, v_c, v_l, scale):
+    return _out_like(q_c, v_c.shape[-1])
 
 
 class OacaAttention(torch.autograd.Function):
@@ -131,37 +194,25 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
     on the card its memory is laid out (B, Lq, heads, dv), so that merging
     the heads back into channels is free.  With grad enabled and an operand
     that requires grad, the result carries :class:`OacaAttention`'s
-    backward; otherwise the kernel is launched directly.  An operand that
-    carries a forward-mode tangent (``torch.func.jvp``, ``forward_ad``)
-    raises ``NotImplementedError`` on the card.
+    backward (on the CPU: autograd of the plain version); otherwise the
+    kernel is launched directly, or, while ``torch.export`` traces the
+    call, the operator :func:`oaca_op` is recorded.  An operand that
+    carries a forward-mode tangent
+    (``torch.func.jvp``, ``forward_ad``) raises ``NotImplementedError`` on
+    the card.
     """
-    B, H, Lq, dc = q_c.shape
-    dp, L2, dv = ipe.shape[-1], k_l.shape[2], v_c.shape[-1]
     ops = (q_c, ipe, k_c, k_l, v_c, v_l)
+    autograd = torch.is_grad_enabled() and any(t.requires_grad for t in ops)
+    tangent = loader.has_tangent(*ops)
+    if not (autograd or tangent) and loader.tracing():
+        return torch.ops.lidarcrafter_torch.oaca_forward(*ops, float(scale))
     if q_c.device.type == "cpu":
         return oaca_attention_plain(*ops, scale=scale)
-    if any(t.device != q_c.device for t in ops) or q_c.device.type != "cuda":
+    if q_c.device.type != "cuda":
         raise ValueError("oaca_attention: operands must all be on one CUDA device")
-    if loader.has_tangent(*ops):
+    if tangent:
         raise NotImplementedError("oaca_attention has no forward-mode rule: an operand carries a tangent "
                                   "(torch.func.jvp / forward_ad), which the kernel would drop")
-    if any(t.dtype != q_c.dtype for t in ops) or q_c.dtype not in _DTYPE_CODES:
-        raise TypeError("oaca_attention kernel needs one dtype, float32 or bfloat16")
-    check_head_dims(dc, dp, dv)
-    expect = {
-        "ipe": (ipe, (B, H, Lq, dp)), "k_c": (k_c, (B, H, Lq, dc)),
-        "k_l": (k_l, (B, H, L2, dc + dp)), "v_c": (v_c, (B, H, Lq, dv)),
-        "v_l": (v_l, (B, H, L2, dv)),
-    }
-    for name, (t, shape) in expect.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"oaca_attention: {name} has shape {tuple(t.shape)}, expected {shape}")
-    if any(t.stride(-1) != 1 for t in ops):
-        raise ValueError("oaca_attention kernel needs a contiguous last dimension")
-    if L2 > _MAX_L2 or B * H > 65535:
-        raise ValueError(f"oaca_attention kernel takes L2 <= {_MAX_L2} and B*heads <= 65535")
-    if not scale > 0:
-        raise ValueError(f"oaca_attention kernel takes a positive scale, got {scale}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+    if autograd:
         return OacaAttention.apply(float(scale), *ops)
     return launch(*ops, scale=scale)

@@ -21,11 +21,17 @@ The gradients are reduced here rather than by
 trained running statistics, buffers that DDP does not reduce).
 
 The JAX mesh's ``sp`` (azimuth) axis has no counterpart yet.
+
+The multi-host utilities of the JAX package's ``parallel/multihost.py``
+live here too: :func:`initialize_distributed` (through
+:meth:`DataParallel.join`), :func:`merge_results_dist` (the eval-result
+merge, ``all_gather_object``) and :func:`is_main_process`.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -107,3 +113,29 @@ class DataParallel:
     def leave() -> None:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def initialize_distributed(rank: int | None = None, world: int | None = None, init_method: str | None = None,
+                           device: str | torch.device = "cuda") -> DataParallel | None:
+    """Join the process group: ``torchrun``'s environment when no ``rank``
+    is given (None outside ``torchrun``: one process), else ``rank`` of
+    ``world`` at ``init_method`` (``tcp://host:port``)."""
+    if rank is None:
+        return DataParallel.from_env(device)
+    return DataParallel.join(rank, world, device, init_method)
+
+
+def merge_results_dist(local_results: Any) -> list:
+    """Every rank's list of records, concatenated in rank order, on every
+    rank; the list itself in one process.  Records are any picklable
+    objects (numpy arrays, dicts), and ranks may hold different counts."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return list(local_results)
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, list(local_results))
+    return [r for part in parts for r in part]
+
+
+def is_main_process() -> bool:
+    """Rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0

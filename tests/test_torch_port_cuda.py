@@ -1367,3 +1367,70 @@ def test_object_trainers_step_on_the_card_like_the_cpu(float32_convolutions):
     for k, v in states["cpu"].items():
         assert float((states["cuda"][k] - v).abs().max()) <= 1e-4 * max(1.0, float(v.abs().max())), k
     assert check()
+
+
+# --------------------------------------------------- operators and artifacts
+
+
+def _op_args(dtype, gen):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    s, t = r(2, 128).chunk(2, dim=-1)
+    return {
+        "oaca": (torch.ops.lidarcrafter_torch.oaca_forward.default,
+                 (r(2, 8, 2048, 32), r(2, 8, 2048, 32), r(2, 8, 2048, 32), r(2, 8, 13, 64), r(2, 8, 2048, 32),
+                  r(2, 8, 13, 32), 0.35), oaca),
+        "attention": (torch.ops.lidarcrafter_torch.attention_forward.default,
+                      (r(2, 8, 512, 64), r(2, 8, 512, 64), r(2, 8, 512, 64), 0.125, 500), attention),
+        "group_norm": (torch.ops.lidarcrafter_torch.group_norm.default,
+                       (r(2, 32 * 64, 64), r(64).float(), r(64).float(), s, t, 32, 1e-5, True), groupnorm),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["oaca", "attention", "group_norm"])
+def test_operator_on_the_card_launches_the_kernel(gen, dtype, name):
+    """The ``torch.library`` operator on CUDA tensors: one launch, the
+    plain version's values (chip limits), the fake rule's shape, dtype and
+    strides; ``torch.library.opcheck`` on the card."""
+    op, args, mod = _op_args(dtype, gen)[name]
+    n = mod.launches.n
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert mod.launches.n == n + 1
+    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+    want = op(*cpu_args)  # the CPU implementation: the plain version
+    assert got.shape == want.shape and got.dtype == want.dtype and got.stride() == want.stride()
+    _assert_close(got.cpu(), want, dtype)
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+@pytest.mark.parametrize("traced_on", ["cuda", "cpu"])
+def test_artifact_replays_on_the_card(tmp_path, traced_on):
+    """An uncond DDIM@2 artifact at reduced width (32x128, 16 channels,
+    B = 2), traced on the card or on the CPU, replayed on the card: 2
+    attention + 50 GroupNorm launches a denoiser call, frames equal to the
+    eager card generator's for the same seed (1e-5 of the largest)."""
+    from lidarcrafter_tpu_torch.configs import apply_reduced_topology, get_config
+    from lidarcrafter_tpu_torch.generate import UncondFrameGenerator
+    from lidarcrafter_tpu_torch.serving import export_sampler, load_artifact, save_artifact
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = apply_reduced_topology(get_config("nuscenes-unet-uncond"), resolution=(32, 128), model_channels=16)
+    gen = UncondFrameGenerator(cfg, traced_on)
+    exported = export_sampler(gen.engine, gen.lidar_utils, batch_size=2, num_steps=2, mode="ddim")
+    art = save_artifact(tmp_path / "art", exported, {"batch_size": 2, "num_steps": 2, "mode": "ddim",
+                                                     "sampling_shape": list(gen.engine.sampling_shape),
+                                                     "conditional": False})
+    fn, meta = load_artifact(art, device="cuda")
+    assert meta["device"].startswith(traced_on)
+    n = (attention.launches.n, groupnorm.launches.n)
+    got = fn(5)
+    torch.cuda.synchronize()
+    assert (attention.launches.n - n[0], groupnorm.launches.n - n[1]) == (2 * 2, 2 * 50)
+    want = UncondFrameGenerator(cfg, "cuda").generate(2, 2, mode="ddim", seed=5)[1]
+    for k in want:
+        assert float((got[k] - want[k]).abs().max()) <= 1e-5 * float(want[k].abs().max()), k
