@@ -7,14 +7,20 @@ Phases, each printing one JSON line:
 1. device and build: the card's name and power limit, the ``nvcc`` build of
    ``lidarcrafter_tpu_torch/csrc/*.cu`` (four sources, one ``nvcc`` each, in
    parallel) and the loader's ``x·2`` self-check, with the probe kernel's
-   device time beside its bound and ``torch.mul(x, 2)``;
+   device time beside its bound and ``torch.mul(x, 2)``; each Hopper-core
+   kernel's ptxas registers, static shared memory and spills, and the wide
+   route's plan mirror (``attention.wide_plan``) against the library's own
+   at every head-dim pair;
 2. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at ragged / masked edges, in float32 (TF32 off) and
    bfloat16, held to a limit on the largest error and one on the error's
    norm, with the kernel's, the plain version's and one PyTorch library
    call's device times, the least time the card could take (no row may
-   read below it), and the route each runs (``mma 3xTF32`` / ``mma bf16``
-   tensor cores for OACA and attention; GroupNorm on the CUDA cores as
+   read below it), and the route the wrapper took (``mma 3xTF32`` / ``mma
+   bf16`` tensor cores for OACA and attention on ``flash_mma.cuh``; ``tma mma
+   3xTF32`` / ``wgmma bf16`` on the Hopper core of ``hopper_flash.cuh`` for
+   OACA at head dims 64 and attention above head dim 128, whose rows also
+   carry the replaced route's ``earlier_ms``; GroupNorm on the CUDA cores as
    ``one-launch grid-sync``: one launch per norm, at most one block per SM
    with a grid sync, fed the modules' raw operands: weight, bias and the
    strided scale/shift halves of the conditioning projection), and
@@ -338,6 +344,20 @@ GN_ROUTE = "one-launch grid-sync"
 # (work_route), not that of the recompute
 PLAIN_ROUTE = "plain f32 recompute"
 PEAK_FLOPS = {GN_ROUTE: 67e12, "mma 3xTF32": 495e12 / 3, "mma bf16": 989e12}
+# the Hopper routes (csrc/hopper_flash.cuh: TMA producer warp, two consumer
+# warpgroups) bound the same work at the same peaks: bf16 on wgmma, f32 as
+# 3xTF32 on mma.sync
+PEAK_FLOPS |= {"wgmma bf16": PEAK_FLOPS["mma bf16"], "tma mma 3xTF32": PEAK_FLOPS["mma 3xTF32"]}
+# device ms of the routes the Hopper core replaced (PERF.md's kernel table:
+# OACA 64^3 on mma.sync and the wide heads' 128-wide chunks, H100 80GB HBM3
+# at 700 W), beside this run's rows of the same shape
+EARLIER_MS = {
+    ("oaca", "v0 ds4 B=8 h=8 L=2048 d=64"): {"float32": 2.4571, "bfloat16": 0.4251},
+    ("oaca", "v0 ragged B=8 h=8 L=1000 d=64"): {"float32": 0.6643, "bfloat16": 0.1187},
+    ("attention", "wide B=8 h=1 L=2048 d=256"): {"float32": 1.3372, "bfloat16": 0.2434},
+    ("attention", "wide B=8 h=1 L=512 d=512"): {"float32": 0.2755, "bfloat16": 0.0568},
+    ("attention", "wide ragged B=8 h=2 L=1000 kv_len=777 d=384"): {"float32": 1.0426, "bfloat16": 0.2015},
+}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel − plain| / max(1, max |plain|)
 # ‖kernel − plain‖₂ / ‖plain‖₂: attention outputs average thousands of keys
 # and are mostly far below 1, where the max-based limit is as large as a
@@ -434,7 +454,9 @@ def bound_ms(nbytes: int, flops: float, route: str) -> tuple[float, str]:
 
 
 def mma_route(dname: str) -> str:
-    """The tensor-core route of the OACA and attention kernels."""
+    """The peak that bounds tensor-core work on ``dname`` operands: 3xTF32
+    for float32, bf16 for bfloat16 (the kernel rows name the route each
+    call took from its wrapper, ``attention.route`` / ``oaca.route``)."""
     return "mma 3xTF32" if dname == "float32" else "mma bf16"
 
 
@@ -444,6 +466,85 @@ def work_route(kernel: str, dname: str) -> str:
     (their backward and tangent are matrix products too), the CUDA cores
     for GroupNorm."""
     return GN_ROUTE if kernel.startswith("groupnorm") else mma_route(dname)
+
+
+def earlier(kernel: str, label: str, dname: str, ms: float) -> dict:
+    """The replaced route's ms at this shape and the ratio of this run's to
+    it, where the Hopper core took the shape over (else nothing)."""
+    before = EARLIER_MS.get((kernel, label), {}).get(dname)
+    return {} if before is None else {"earlier_ms": before, "ms_over_earlier": ms / before}
+
+
+def hopper_ptxas(log: str) -> list:
+    """Registers, static shared memory and spills of each kernel of the
+    Hopper core (``hflash::flash_kernel`` instantiations) in nvcc's
+    ``-Xptxas -v`` output.  The registers are those of the launch; the
+    consumers raise theirs to 240 with setmaxnreg.  Dynamic shared memory
+    is the plan's (``attention.wide_plan``, ``oaca.hopper_layout``)."""
+    import re
+
+    rows, cur, source = [], None, None
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            source = ln.strip("= ")
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"source": source, "entry": m.group(1), "static_smem": 0} if "flash_kernel" in m.group(1) else None
+            if cur:
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        if m := re.search(r"Used (\d+) registers", ln):
+            cur["registers"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", ln):
+                cur["static_smem"] = int(sm.group(1))
+    return rows
+
+
+def hopper_smem() -> dict:
+    """The dynamic shared memory (bytes) a block of the Hopper core asks for
+    at the kernel table's shapes, by the plans ``check_wide_plan`` holds to
+    the library's."""
+    import torch
+
+    from lidarcrafter_tpu_torch.kernels import attention, oaca
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for d in (256, 512, 384):
+            out[f"attention wide d={d} {dname}"] = attention.wide_plan(d, d, dtype).layout.smem
+        out[f"oaca 64^3 {dname}"] = oaca.hopper_layout(dtype).smem
+    return out
+
+
+def check_wide_plan() -> dict:
+    """The wrapper's mirror of the wide route's plan (``attention.wide_plan``)
+    against the library's own (``attention_wide_plan``) at every pair of
+    head dims from 8 to 512 in steps of 8 with one above 128, both dtypes;
+    fails on any difference or on a plan over the card's shared memory."""
+    import ctypes
+
+    import torch
+
+    from lidarcrafter_tpu_torch.kernels import attention, loader
+
+    lib, out, n = loader.library("attention"), (ctypes.c_int32 * 5)(), 0
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for dqk in range(8, 513, 8):
+            for dv in range(8, 513, 8):
+                if max(dqk, dv) <= 128:
+                    continue
+                check(lib.attention_wide_plan(code, dqk, dv, out) == 0, f"attention_wide_plan {dqk} {dv}")
+                p = attention.wide_plan(dqk, dv, dtype)
+                mirror = [int(p.split), p.bk, p.nv, p.layout.stages, p.layout.smem]
+                check(list(out) == mirror, f"wide plan ({dqk}, {dv}) {dtype}: library {list(out)}, mirror {mirror}")
+                check(1 <= p.layout.stages and p.layout.smem <= loader.SMEM_LIMIT, f"wide plan ({dqk}, {dv}) {dtype}")
+                n += 1
+    return {"wide_plans_checked": n}
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -523,11 +624,13 @@ def check_oaca(label, B, H, L, dtype, gen, d=32, dp=None):
     # q_c, ipe, k_c, v_c and the output; k_l and v_l
     nbytes = elt * (B * H * L * (4 * d + dp) + B * H * L2 * (2 * d + dp))
     flops = 2.0 * B * H * L * (L + L2) * (2 * d + dp)
-    bound, by = bound_ms(nbytes, flops, mma_route(dname))
+    route = oaca.route(d, dp, d, dtype)
+    bound, by = bound_ms(nbytes, flops, route)
+    ms = time_ms(lambda: oaca.oaca_attention(*ops, scale=scale))
     return {
-        "kernel": "oaca", "shape": label, "dtype": dname, "head_dims": [d, dp, d], "route": mma_route(dname),
+        "kernel": "oaca", "shape": label, "dtype": dname, "head_dims": [d, dp, d], "route": route,
         **errors,
-        "ms": time_ms(lambda: oaca.oaca_attention(*ops, scale=scale)),
+        "ms": ms, **earlier("oaca", label, dname, ms),
         "plain_ms": time_ms(lambda: oaca.oaca_attention_plain(*ops, scale=scale), iters=5),
         "library_ms": library, "library": "F.scaled_dot_product_attention on the concatenated strips",
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
@@ -631,11 +734,13 @@ def attention_row(label, q, k, v, dtype, kv_len=None):
     elt = torch.finfo(dtype).bits // 8
     nbytes = elt * B * H * (2 * Lq * d + 2 * n * d)
     flops = 4.0 * B * H * Lq * n * d
-    bound, by = bound_ms(nbytes, flops, mma_route(dname))
+    route = attention.route(d, v.shape[-1], dtype)
+    bound, by = bound_ms(nbytes, flops, route)
+    ms = time_ms(lambda: attention.attention(q, k, v, **args))
     return {
-        "kernel": "attention", "shape": label, "dtype": dname, "route": mma_route(dname), "head_dim": d,
+        "kernel": "attention", "shape": label, "dtype": dname, "route": route, "head_dim": d,
         "lq": Lq, "lkv": Lkv, **errors,
-        "ms": time_ms(lambda: attention.attention(q, k, v, **args)),
+        "ms": ms, **earlier("attention", label, dname, ms),
         "plain_ms": time_ms(lambda: attention.attention_plain(q, k, v, **args), iters=5),
         "library_ms": library, "library": "F.scaled_dot_product_attention",
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
@@ -904,9 +1009,9 @@ def phase_main_path(cfg_name: str, gen, per_call: dict, requests, smi: str) -> d
 
 def _category(kernel_name: str) -> str:
     name = kernel_name.lower()
-    if "oaca" in name:
+    if "oaca" in name:  # the cp.async loader's oaca_fwd_kernel and the Hopper core's Oaca128
         return "oaca kernel"
-    if "attention_fwd" in name:
+    if "attention_fwd" in name or ("flash_kernel" in name and "wide" in name):  # the Hopper core's Wide
         return "attention kernel"
     if "gn_fused" in name:
         return "groupnorm kernel"
@@ -4049,6 +4154,11 @@ def main() -> int:
     emit({"phase": "build", "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc_seconds": loaded.build_seconds, "load_and_probe_seconds": load_s,
           "probe": "x*2 ok", **probe_times(loaded), "ptxas": ptxas})
+    hopper = hopper_ptxas(loaded.ptxas_log)
+    if "== attention.cu" in loaded.ptxas_log and "== oaca.cu" in loaded.ptxas_log:  # built in this process
+        check(len(hopper) == 9, f"{len(hopper)} Hopper-core kernels in the ptxas log (7 wide attention, 2 OACA)")
+    emit({"phase": "build", "check": "Hopper core kernels (ptxas -v)", "kernels": hopper, **check_wide_plan(),
+          "dynamic_smem": hopper_smem()})
 
     marks, last = {}, [t0]
 

@@ -20,13 +20,37 @@
 // row) strides: the per-head views of a fused (B, L, 3C) projection need no
 // copy and the output lands directly in (B, L, heads*dv) order.  Head dims
 // up to 128 are zero-padded to D = 32, 64 or 128 inside shared memory; dqk
-// may differ from dv.  Head dims from 129 to 512 (OpenAIUNet's one head as
-// wide as the block: 256 and 512) take a second kernel,
-// `attention_fwd_wide_kernel` below, which splits dqk into 128-wide chunks
-// and dv into 128-wide slices.  Every pointer and stride is 16-byte
-// aligned (the wrapper checks it), as cp.async needs.  The GLIDE block's
-// keys and values are its encoder's tokens followed by the image's (Lkv =
-// 13 + Lq on the layout stacks).
+// may differ from dv.  Every pointer and stride is 16-byte aligned (the
+// wrapper checks it), as cp.async and TMA need.  The GLIDE block's keys
+// and values are its encoder's tokens followed by the image's (Lkv = 13 +
+// Lq on the layout stacks).
+//
+// Head dims from 129 to 512 (OpenAIUNet's one head as wide as the block:
+// 256 and 512) take the wide route, `Wide` below, on the warp-specialised
+// Hopper core of hopper_flash.cuh: a TMA producer warp fills a ring of
+// K/V stages (tensor maps built per call over the operands' strides, rows
+// past kv_len and columns past the head dims zero-filled), and two
+// consumer warpgroups fold the key tiles into an online softmax.  Q K^T
+// runs once per (query tile, key tile) for the whole dv -- no block
+// recomputes S for a slice of dv.  Tiles and shared memory (227 KB a
+// block), by `wide_plan`:
+//
+//   * bf16, dqk and dv <= 256: 128 query rows a block, each consumer its
+//     own 64 (a q tile of 64 x dqk) and the whole dv (an m64n128 or
+//     m64n256 f32 accumulator, <= 128 registers a thread); 80-key stages
+//     of K (80 x dqk) and V (80 x 128 or 256): S is m64n80, whose
+//     operands' shared-memory reads per key are 10% below m64n64's, and
+//     two stages still fit.  S and P V on wgmma.  At d = 256: q 64 KB + 2
+//     stages x 80 KB = 224 KB.
+//   * bf16 above 256: 64 query rows shared by both consumers: each
+//     computes S over half of dqk's 64-column chunks, the halves are
+//     summed through shared memory, and each computes P V on half of dv
+//     (128 or 256 columns).  32-key stages.  At d = 512: q 64 KB + 2 x 64
+//     KB stages + 32 KB of score exchange = 224 KB.
+//   * f32 (3xTF32), every wide shape: the split block above, its products
+//     on mma.sync m16n8k8 (wgmma takes tf32 only K-major, and V is
+//     MN-major); 32-key stages where two fit, else 16.  At d = 256: q
+//     64 KB + 2 x 64 KB + 32 KB; at d = 512: q 128 KB + 1 x 64 KB + 16 KB.
 //
 // Bound on the H100 at the main shape (B=8, 8 heads, L=512, d=64), 4 *
 // 64 * 512 * 512 * 64 = 4.3 GFLOP:
@@ -40,8 +64,10 @@
 // exponentials and the per-tile synchronisation.
 
 #include <stdint.h>
+#include <string.h>
 
 #include "flash_mma.cuh"
+#include "hopper_flash.cuh"
 
 // All fields are 8 bytes wide so the ctypes mirror has no padding to match.
 struct AttnArgs {
@@ -135,103 +161,108 @@ int launch(const AttnArgs& a, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------- wide heads
-//
-// Head dims above 128 (up to kMaxHeadDim): the shared tiles of the kernel
-// above would not fit (a 64-row f32 q tile at d = 512 is 128 KB, and two
-// K/V stages of 64 x 512 would be 512 KB).  Here a block owns 64 query rows
-// and one WD-wide slice of dv (grid.z = ceil(dv / WD)).  Its whole q tile
-// sits in shared memory, dqk padded to whole WD-wide chunks; each key tile
-// comes in as a stream of items through two WD-wide buffers: the tile's K
-// in nq = ceil(dqk / WD) chunks, then the tile's V slice.  For a K chunk
-// the warps load that chunk of their Q fragments from the q tile and add
-// its products to the logits S, kept in registers across the chunks; for
-// the V slice they fold S into the online softmax and O.  Each item loads
-// while the one before it is used (cp.async, one group ahead).  So every
-// block recomputes S: the products of Q K^T run ceil(dv / WD) times.
-// This is the simple design; a wgmma / TMA route would not need it.
 
-constexpr int WD = 128;           // chunk of dqk and slice of dv
-constexpr int kMaxHeadDim = 512;  // f32: a 64 x 520 q tile + two 64 x 136 buffers, 202,752 B
+constexpr int kMaxHeadDim = 512;
 
-template <typename T>
-struct WideSmem {
-  static constexpr int BQ = block_rows<WD>(), LDB = ld_qk<WD>();  // 64 rows; K chunk and V rows
-  // q tile row stride, padded by 8 as LDQ is (no bank conflicts)
-  __host__ __device__ static int ldq(int nq) { return nq * WD + 8; }
-  static size_t bytes(int nq) { return sizeof(T) * ((size_t)BQ * ldq(nq) + 2 * BK * LDB); }
+struct WideParams {
+  CUtensorMap q, k, v;  // K and V over their first kv_len rows
+  int32_t kv_len;
+  hflash::Common c;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(NT) attention_fwd_wide_kernel(const AttnArgs a) {
-  using S = WideSmem<T>;
-  using Warp = FlashWarp<T, WD, WD>;
-  constexpr int BQ = S::BQ, LDB = S::LDB, LDV = Warp::LDV;
-  static_assert(Warp::LDQ == LDB && LDV <= LDB, "a V slice fits a K chunk's buffer");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int dqk = (int)a.dqk, nq = (dqk + WD - 1) / WD, ldq = S::ldq(nq);
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sB = sQ + BQ * ldq;
+template <typename T, bool SPLIT, int BK, int NV>
+struct Wide {
+  using Type = T;
+  using Params = WideParams;
+  static constexpr bool kSplit = SPLIT;
+  static constexpr int kBK = BK, kNV = NV, kNQ = 0, CW = hflash::CHUNK / (int)sizeof(T);
 
-  const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * BQ, v0 = blockIdx.z * WD;
-  const int Lq = (int)a.Lq, kv_len = (int)a.kv_len, dvz = min(WD, (int)a.dv - v0);
-  const T* q = (const T*)a.q + b * a.q_s[0] + h * a.q_s[1];
-  const T* k = (const T*)a.k + b * a.k_s[0] + h * a.k_s[1];
-  const T* v = (const T*)a.v + b * a.v_s[0] + h * a.v_s[1] + v0;
-
-  for (int c = 0; c < nq; ++c)
-    stage_rows<T, WD, BQ>(sQ + c * WD, ldq, q + c * WD, a.q_s[2], q0, Lq - q0, dqk - c * WD);
-  // item j: part j % (nq + 1) of key tile j / (nq + 1), K chunks first, then V
-  auto stage_item = [&](int j) {
-    const int tile = j / (nq + 1), part = j % (nq + 1);
-    const int k0 = tile * BK, n = min(BK, kv_len - k0);
-    T* dst = sB + (j & 1) * BK * LDB;
-    if (part < nq)
-      stage_rows<T, WD, BK>(dst, LDB, k + part * WD, a.k_s[2], k0, n, dqk - part * WD);
-    else
-      stage_rows<T, WD, BK>(dst, LDV, v, a.v_s[2], k0, n, dvz);
-    cp_async_commit();
-  };
-  stage_item(0);  // one group with the q tile
-
-  // the ones columns of the V rows (bf16): the K chunks write columns < WD only
-  Warp::fill_ones(sB, BK);
-  Warp::fill_ones(sB + BK * LDB, BK);
-  Warp w;
-  w.init((float)a.scale);
-  float s[1][BK / 8][4];
-  const int n_items = (kv_len + BK - 1) / BK * (nq + 1);
-  for (int j = 0; j < n_items; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // item j has landed; every warp is done with item j-1
-    if (j + 1 < n_items) stage_item(j + 1);  // overlaps the products of item j
-    const int tile = j / (nq + 1), part = j % (nq + 1);
-    const T* buf = sB + (j & 1) * BK * LDB;
-    if (part < nq) {
-      if (part == 0) Warp::template zero_scores<BK>(s);
-      w.load_q(sQ + part * WD, ldq);
-      w.template scores<BK>(s, buf);
-    } else if (kv_len - tile * BK < BK) {
-      w.template fold<BK, true>(s, buf, kv_len - tile * BK);
-    } else {
-      w.template fold<BK, false>(s, buf, BK);
-    }
+  static __device__ __forceinline__ void load_q(const Params& p, unsigned char* sQ, uint64_t* bar,
+                                                int q0, int h, int b) {
+    for (int g = 0; g < (SPLIT ? 1 : 2); ++g)
+      for (int c = 0; c < p.c.lay.nqc; ++c)
+        hflash::tma_load(sQ + g * p.c.lay.q_wg + c * hflash::ROWS * hflash::CHUNK, &p.q, bar,
+                         c * CW, q0 + hflash::ROWS * g, h, b);
   }
-  T* out = (T*)a.out + b * a.out_s[0] + h * a.out_s[1] + v0;
-  w.store(out, a.out_s[2], q0, Lq, dvz);
+
+  static __device__ __forceinline__ void load_k(const Params& p, unsigned char* sk, uint64_t* bar,
+                                                int t, int h, int b) {
+    for (int c = 0; c < p.c.lay.nqc; ++c)
+      hflash::tma_load(sk + c * BK * hflash::CHUNK, &p.k, bar, c * CW, t * BK, h, b);
+  }
+
+  static __device__ __forceinline__ void load_v(const Params& p, unsigned char* sv, uint64_t* bar,
+                                                int t, int h, int b) {
+    for (int c = 0; c < p.c.lay.nvt; ++c)
+      hflash::tma_load(sv + c * BK * hflash::CHUNK, &p.v, bar, c * CW, t * BK, h, b);
+  }
+
+  static __device__ __forceinline__ int valid(const Params& p, int t) {
+    return min(BK, p.kv_len - t * BK);
+  }
+};
+
+// The wide route's tiling for (dqk, dv); `kernels/attention.py::wide_plan`
+// mirrors it.  bf16 with both dims <= 256: not split, 80-key tiles, O as
+// wide as dv (128 or 256 columns).  Otherwise split, each consumer's O
+// half as wide (128 or 256 columns); 32-key tiles, except in f32 where a
+// 256-column half or fewer than two stages of 32 keys take 16.
+struct WidePlan {
+  int split, bk, nv;
+  hflash::Layout lay;
+};
+
+inline WidePlan wide_plan(bool f32, int dqk, int dv) {
+  const int cw = hflash::CHUNK / (f32 ? 4 : 2), nqc = (dqk + cw - 1) / cw;
+  WidePlan w{};
+  if (!f32 && dqk <= 256 && dv <= 256) {
+    w.split = 0;
+    w.nv = dv <= 128 ? 128 : 256;
+    w.bk = 80;
+  } else {
+    w.split = 1;
+    w.nv = (dv + 1) / 2 <= 128 ? 128 : 256;
+    w.bk = f32 && (w.nv == 256 ||
+                   hflash::plan_layout(true, 32, nqc, 2 * w.nv / cw, 2 * w.nv / cw).stages < 2)
+               ? 16
+               : 32;
+  }
+  w.lay = hflash::plan_layout(w.split, w.bk, nqc, (w.split ? 2 : 1) * w.nv / cw, 2 * w.nv / cw);
+  return w;
 }
 
 template <typename T>
 int launch_wide(const AttnArgs& a, cudaStream_t s) {
-  using S = WideSmem<T>;
-  const size_t bytes = S::bytes((int)((a.dqk + WD - 1) / WD));
-  const dim3 grid((unsigned)((a.Lq + S::BQ - 1) / S::BQ), (unsigned)(a.B * a.H),
-                  (unsigned)((a.dv + WD - 1) / WD));
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_wide_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  attention_fwd_wide_kernel<T><<<grid, NT, bytes, s>>>(a);
-  return (int)cudaGetLastError();
+  constexpr bool f32 = is_f32<T>();
+  const WidePlan w = wide_plan(f32, (int)a.dqk, (int)a.dv);
+  if (w.lay.stages < 1) return (int)cudaErrorInvalidValue;
+  WideParams p;
+  memset(&p, 0, sizeof(p));
+  int err = hflash::make_map(&p.q, a.q, f32, a.dqk, a.Lq, a.H, a.B, a.q_s, hflash::ROWS);
+  if (!err) err = hflash::make_map(&p.k, a.k, f32, a.dqk, a.kv_len, a.H, a.B, a.k_s, w.bk);
+  if (!err) err = hflash::make_map(&p.v, a.v, f32, a.dv, a.kv_len, a.H, a.B, a.v_s, w.bk);
+  if (!err) err = hflash::make_map(&p.c.out, a.out, f32, a.dv, a.Lq, a.H, a.B, a.out_s, hflash::ROWS);
+  if (err) return err;
+  p.kv_len = (int32_t)a.kv_len;
+  p.c.H = (int32_t)a.H;
+  p.c.Lq = (int32_t)a.Lq;
+  p.c.dv = (int32_t)a.dv;
+  p.c.n_tiles = (int32_t)((a.kv_len + w.bk - 1) / w.bk);
+  p.c.n_full = (int32_t)(a.kv_len / w.bk);
+  p.c.scale = (float)a.scale;
+  p.c.lay = w.lay;
+  const int64_t BH = a.B * a.H;
+  if constexpr (!f32) {
+    if (!w.split)
+      return w.nv == 128 ? hflash::launch_flash<Wide<T, false, 80, 128>>(p, a.Lq, BH, s)
+                         : hflash::launch_flash<Wide<T, false, 80, 256>>(p, a.Lq, BH, s);
+    return w.nv == 128 ? hflash::launch_flash<Wide<T, true, 32, 128>>(p, a.Lq, BH, s)
+                       : hflash::launch_flash<Wide<T, true, 32, 256>>(p, a.Lq, BH, s);
+  } else {
+    if (w.nv == 256) return hflash::launch_flash<Wide<T, true, 16, 256>>(p, a.Lq, BH, s);
+    return w.bk == 32 ? hflash::launch_flash<Wide<T, true, 32, 128>>(p, a.Lq, BH, s)
+                      : hflash::launch_flash<Wide<T, true, 16, 128>>(p, a.Lq, BH, s);
+  }
 }
 
 template <typename T>
@@ -260,4 +291,20 @@ extern "C" int attention_forward(AttnArgs a, int dtype, void* stream) {
   if (dtype == kFloat32) return launch_dim<float>(a, s);
   if (dtype == kBFloat16) return launch_dim<__nv_bfloat16>(a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The wide route's plan for (dtype, dqk, dv), for `kernels/attention.py`'s
+// mirror to be held against: out = {split, bk, nv, stages, smem bytes}.
+// Returns 0, or cudaErrorInvalidValue for dims the wide route does not take.
+extern "C" int attention_wide_plan(int dtype, int dqk, int dv, int32_t* out) {
+  if ((dqk <= 128 && dv <= 128) || dqk > kMaxHeadDim || dv > kMaxHeadDim || dqk < 1 || dv < 1 ||
+      (dtype != kFloat32 && dtype != kBFloat16))
+    return (int)cudaErrorInvalidValue;
+  const WidePlan w = wide_plan(dtype == kFloat32, dqk, dv);
+  out[0] = w.split;
+  out[1] = w.bk;
+  out[2] = w.nv;
+  out[3] = w.lay.stages;
+  out[4] = w.lay.smem;
+  return 0;
 }

@@ -28,28 +28,39 @@
 //     masked past L2 (L2 = 0 skips them);
 //   * the scale^2 goes onto the f32 logits.
 //
-// Three head-dim instantiations, (DC, DP, DV) = (32, 32, 32) for the v1-v6
-// and auto-reg stacks, (64, 64, 64) for the v0 LayoutUnet (512 channels
-// at ds=4, 8 heads, a positional strip as wide as the content), and
-// (32, 64, 32) for a positional strip twice as wide as the content
-// (`channels_scale_for_positional_embedding` = 2 on 32-channel heads).
-// A strip half as wide (scale 0.5, DP = 16) runs in the (32, 32, 32) build:
-// columns DC + 16 .. DC + 31 of every q, k_img and k_l row are zero-filled
-// in shared memory, and zeros change no logit.  The tile
-// sizes follow the q/k width DC+DP as in csrc/attention.cu: 128 query rows
-// a block (two m16 tiles a warp) at width 64, 64 rows (one a warp) at
-// width 128, where the Q fragments of two tiles would not fit the
-// registers.  In f32 at width 128 the block then holds a 64-row q tile,
-// two stages of 64 [k_c|ipe] and v_c rows and a layout strip of up to 64
-// rows: 191,488 of the 232,448 bytes a block may use (152,320 with the
-// 13 layout keys of the nuScenes stacks).
+// Two head-dim instantiations of that loader, (DC, DP, DV) = (32, 32, 32)
+// for the v1-v6 and auto-reg stacks and (32, 64, 32) for a positional
+// strip twice as wide as the content (`channels_scale_for_positional_
+// embedding` = 2 on 32-channel heads).  A strip half as wide (scale 0.5,
+// DP = 16) runs in the (32, 32, 32) build: columns DC + 16 .. DC + 31 of
+// every q, k_img and k_l row are zero-filled in shared memory, and zeros
+// change no logit.  128 query rows a block (two m16 tiles a warp) at
+// width 64, 64 (one a warp) at width 96.  The (32, 64, 32) build stays on
+// this loader: its q/k rows would be a 64-byte k_c box beside a 128-byte
+// ipe box, and a TMA box lands as a dense tile of its own width, so the
+// two cannot share the 128-byte swizzled rows of the route below.
+//
+// (64, 64, 64), the v0 LayoutUnet (512 channels at ds=4, 8 heads, a
+// positional strip as wide as the content), runs on the warp-specialised
+// Hopper core of hopper_flash.cuh (`Oaca128` below): a TMA producer warp
+// builds each image key tile from two boxes per 128-byte chunk -- k_c into
+// q/k columns 0-63 and ipe into 64-127 (one 128B-swizzle span each in
+// bf16) -- with v_c beside them, and the q tile [q_c | ipe] the same way;
+// the layout strip k_l / v_l (L2 <= 64 rows, the rest zero-filled) is one
+// more key tile after the image tiles, masked past L2.  Two consumer
+// warpgroups own 64 query rows each (128 a block).  bf16 on wgmma: 128-key
+// tiles, the q tile's fragments held in registers so that S = Q K^T
+// (m64n128) reads only K from shared memory, P V m64n64 with P in
+// registers; shared memory q 32 KB + 4 stages x 48 KB = 224 KB.  f32 on
+// 3xTF32 mma.sync from the swizzled tiles, 64-key tiles; q 64 KB + 3
+// stages x 48 KB = 208 KB.
 
 // No concatenation, padding or scale pre-multiply is materialised in device
 // memory: operands are read and the output written through their (batch,
 // head, row) strides, so the per-head views of the fused qkv projection
 // need no copy and the output can land directly in (batch, row, head)
 // order.  Every pointer and stride is 16-byte aligned (the wrapper checks
-// it), as cp.async needs.
+// it), as cp.async and TMA need.
 //
 // Bound on the H100 at ds=4, B=8, both bound by operations:
 //   * 32^3 (64 heads, 2048 queries, 2048 + 13 keys, 2 * 64 * 2048 * 2061 *
@@ -60,11 +71,15 @@
 //     104 GFLOP): bf16 0.105 ms against 84 MB; f32 0.63 ms against 168 MB.
 // Every product runs on the tensor cores with P kept in registers; the
 // exponentials of the online softmax (one per logit, on the special
-// function units) are what the design leaves beside them.
+// function units) are what the design leaves beside them.  The 64^3
+// route also takes every load off the consumers (TMA) and, in bf16,
+// every product onto wgmma, the only path to the tensor cores' full rate.
 
 #include <stdint.h>
+#include <string.h>
 
 #include "flash_mma.cuh"
+#include "hopper_flash.cuh"
 
 // All fields are 8 bytes wide so the ctypes mirror has no padding to match.
 struct OacaArgs {
@@ -182,13 +197,106 @@ int launch(const OacaArgs& a, int dp, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------- (64, 64, 64)
+
+struct OacaParams {
+  CUtensorMap qc, ipe_q, kc, ipe_k, kl, vc, vl;  // kl / vl over their L2 rows (unset if L2 = 0)
+  int32_t L2, n_img;
+  hflash::Common c;
+};
+
+// bf16 takes 128-key tiles and keeps its q tile in registers (S reads only
+// K from shared memory); f32 64-key tiles
+template <typename T>
+struct Oaca128 {
+  using Type = T;
+  using Params = OacaParams;
+  static constexpr bool kF32 = is_f32<T>();
+  static constexpr bool kSplit = false;
+  static constexpr int kBK = kF32 ? 64 : 128, kNV = 64, kNQ = kF32 ? 0 : 8;
+  static constexpr int CW = hflash::CHUNK / (int)sizeof(T);
+  static constexpr int HC = 64 / CW;  // chunks of a 64-wide operand
+  static constexpr int QC = hflash::ROWS * hflash::CHUNK, KC = kBK * hflash::CHUNK;
+
+  // [q_c | ipe] for both consumers' 64 rows
+  static __device__ __forceinline__ void load_q(const Params& p, unsigned char* sQ, uint64_t* bar,
+                                                int q0, int h, int b) {
+    for (int g = 0; g < 2; ++g) {
+      unsigned char* dst = sQ + g * p.c.lay.q_wg;
+      const int row = q0 + hflash::ROWS * g;
+      for (int c = 0; c < HC; ++c) {
+        hflash::tma_load(dst + c * QC, &p.qc, bar, c * CW, row, h, b);
+        hflash::tma_load(dst + (HC + c) * QC, &p.ipe_q, bar, c * CW, row, h, b);
+      }
+    }
+  }
+
+  // image tile t: K = [k_c | ipe], V = v_c; the tile after them: k_l, v_l
+  static __device__ __forceinline__ void load_k(const Params& p, unsigned char* sk, uint64_t* bar,
+                                                int t, int h, int b) {
+    if (t < p.n_img) {
+      for (int c = 0; c < HC; ++c) {
+        hflash::tma_load(sk + c * KC, &p.kc, bar, c * CW, t * kBK, h, b);
+        hflash::tma_load(sk + (HC + c) * KC, &p.ipe_k, bar, c * CW, t * kBK, h, b);
+      }
+    } else {
+      for (int c = 0; c < 2 * HC; ++c) hflash::tma_load(sk + c * KC, &p.kl, bar, c * CW, 0, h, b);
+    }
+  }
+
+  static __device__ __forceinline__ void load_v(const Params& p, unsigned char* sv, uint64_t* bar,
+                                                int t, int h, int b) {
+    const CUtensorMap* map = t < p.n_img ? &p.vc : &p.vl;
+    const int row = t < p.n_img ? t * kBK : 0;
+    for (int c = 0; c < HC; ++c) hflash::tma_load(sv + c * KC, map, bar, c * CW, row, h, b);
+  }
+
+  static __device__ __forceinline__ int valid(const Params& p, int t) {
+    return t < p.n_img ? min(kBK, p.c.Lq - t * kBK) : p.L2;
+  }
+};
+
+// The 128-wide route's shared-memory plan; `kernels/oaca.py` mirrors it.
+template <typename T>
+hflash::Layout oaca128_layout() {
+  constexpr int cw = Oaca128<T>::CW;
+  return hflash::plan_layout(false, Oaca128<T>::kBK, 128 / cw, 64 / cw, 2 * 64 / cw);
+}
+
+template <typename T>
+int launch_128(const OacaArgs& a, cudaStream_t s) {
+  constexpr bool f32 = is_f32<T>();
+  constexpr int BK = Oaca128<T>::kBK, R = hflash::ROWS;
+  OacaParams p;
+  memset(&p, 0, sizeof(p));
+  p.c.lay = oaca128_layout<T>();
+  int err = hflash::make_map(&p.qc, a.qc, f32, 64, a.Lq, a.H, a.B, a.qc_s, R);
+  if (!err) err = hflash::make_map(&p.ipe_q, a.ipe, f32, 64, a.Lq, a.H, a.B, a.ipe_s, R);
+  if (!err) err = hflash::make_map(&p.kc, a.kc, f32, 64, a.Lq, a.H, a.B, a.kc_s, BK);
+  if (!err) err = hflash::make_map(&p.ipe_k, a.ipe, f32, 64, a.Lq, a.H, a.B, a.ipe_s, BK);
+  if (!err) err = hflash::make_map(&p.vc, a.vc, f32, 64, a.Lq, a.H, a.B, a.vc_s, BK);
+  if (!err && a.L2 > 0) err = hflash::make_map(&p.kl, a.kl, f32, 128, a.L2, a.H, a.B, a.kl_s, BK);
+  if (!err && a.L2 > 0) err = hflash::make_map(&p.vl, a.vl, f32, 64, a.L2, a.H, a.B, a.vl_s, BK);
+  if (!err) err = hflash::make_map(&p.c.out, a.out, f32, 64, a.Lq, a.H, a.B, a.out_s, R);
+  if (err) return err;
+  p.L2 = (int32_t)a.L2;
+  p.n_img = (int32_t)((a.Lq + BK - 1) / BK);
+  p.c.H = (int32_t)a.H;
+  p.c.Lq = (int32_t)a.Lq;
+  p.c.dv = 64;
+  p.c.n_tiles = p.n_img + (a.L2 > 0 ? 1 : 0);
+  p.c.n_full = (int32_t)(a.Lq / BK);  // the layout tile is always masked
+  p.c.scale = (float)a.scale2;
+  return hflash::launch_flash<Oaca128<T>>(p, a.Lq, a.B * a.H, s);
+}
+
 template <typename T>
 int launch_dims(const OacaArgs& a, int dc, int dp, int dv, cudaStream_t s) {
   // DP = 16 (channels_scale_for_positional_embedding 0.5) runs in the
   // 32-wide build: its zero-filled columns change no logit
   if (dc == 32 && (dp == 16 || dp == 32) && dv == 32) return launch<T, 32, 32, 32>(a, dp, s);
   if (dc == 32 && dp == 64 && dv == 32) return launch<T, 32, 64, 32>(a, dp, s);
-  if (dc == 64 && dp == 64 && dv == 64) return launch<T, 64, 64, 64>(a, dp, s);
+  if (dc == 64 && dp == 64 && dv == 64) return launch_128<T>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -34,6 +34,7 @@ dispatcher in its host time.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -42,9 +43,48 @@ from . import loader
 launches = loader.LaunchCounter("attention")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims up to 128 run in one padded shared tile; up to 512 in 128-wide
-# chunks of dqk and slices of dv (csrc/attention.cu, attention_fwd_wide_kernel)
-_MAX_HEAD_DIM = 512
+# head dims up to 128 run in one padded shared tile (mma.sync, cp.async);
+# up to 512 on the warp-specialised TMA + wgmma core (csrc/attention.cu, Wide)
+_NARROW_HEAD_DIM, _MAX_HEAD_DIM = 128, 512
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """Mirror of ``csrc/attention.cu::wide_plan``: whether the two consumer
+    warpgroups split a 64-row query tile (else each owns 64 of 128 rows),
+    the key tile ``bk``, a consumer's O width ``nv`` and the shared-memory
+    plan."""
+
+    split: bool
+    bk: int
+    nv: int
+    layout: loader.HopperLayout
+
+
+def wide_plan(dqk: int, dv: int, dtype: torch.dtype) -> WidePlan:
+    """The wide route's tiling for head dims (dqk, dv), one above 128."""
+    f32 = dtype == torch.float32
+    cw = 32 if f32 else 64  # values in a 128-byte chunk row
+    nqc = -(-dqk // cw)
+    if not f32 and dqk <= 256 and dv <= 256:
+        split, nv, bk = False, 128 if dv <= 128 else 256, 80
+    else:
+        split, nv, bk = True, 128 if (dv + 1) // 2 <= 128 else 256, 32
+        if f32 and (nv == 256 or loader.hopper_layout(True, 32, nqc, 2 * nv // cw, 2 * nv // cw).stages < 2):
+            bk = 16
+    out_chunks = 2 * nv // cw  # both consumers' O, staged for the TMA store
+    return WidePlan(split, bk, nv, loader.hopper_layout(split, bk, nqc, (2 if split else 1) * nv // cw, out_chunks))
+
+
+def route(dqk: int, dv: int, dtype: torch.dtype) -> str:
+    """The route the kernel takes for head dims (dqk, dv) in ``dtype``:
+    ``mma bf16`` / ``mma 3xTF32`` (one padded tile, cp.async) up to 128,
+    ``wgmma bf16`` / ``tma mma 3xTF32`` (the warp-specialised TMA core)
+    above it."""
+    f32 = dtype == torch.float32
+    if max(dqk, dv) <= _NARROW_HEAD_DIM:
+        return "mma 3xTF32" if f32 else "mma bf16"
+    return "tma mma 3xTF32" if f32 else "wgmma bf16"
 
 
 def attention_plain(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tensor:
@@ -124,6 +164,8 @@ def _check(q, k, v, scale: float, kv_len: int) -> None:
         raise ValueError("attention kernel needs a contiguous last dimension")
     if Lq == 0 or B * H > 65535:
         raise ValueError("attention kernel takes Lq >= 1 and B*heads <= 65535")
+    if max(dqk, dv) > _NARROW_HEAD_DIM and not all(map(loader.tma_addressable, ops)):
+        raise ValueError("attention kernel's TMA route takes rows < 2^31 and strides < 2^40 bytes")
     if not scale > 0:
         raise ValueError(f"attention kernel takes a positive scale, got {scale}")
 
@@ -217,12 +259,13 @@ def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tens
     the pointers, strides and head dims are whole 16-byte pieces (else
     ``ValueError``), so per-head views of a fused projection need no copy.
     Head dims go up to 512 (``ValueError`` above): up to 128 in one padded
-    tile, above it (OpenAIUNet's single heads of 256 and 512) in 128-wide
-    chunks, which recompute the logits once per 128 columns of dv.
-    The kernel runs its products on the tensor cores: bf16 ``mma.sync``, or
-    3xTF32 for float32.  Returns (B, heads, Lq, dv) in q's dtype; on the
-    card its memory is laid out (B, Lq, heads, dv), so that merging the
-    heads back into channels is free.  An operand that carries a
+    tile, on bf16 ``mma.sync`` or 3xTF32 for float32; above it (OpenAIUNet's
+    single heads of 256 and 512) on the warp-specialised TMA core, bf16 on
+    ``wgmma`` and float32 on 3xTF32 ``mma.sync`` (:func:`route`,
+    :func:`wide_plan`), the logits computed once for the whole dv.
+    Returns (B, heads, Lq, dv) in q's dtype; on the card its memory is laid
+    out (B, Lq, heads, dv), so that merging the heads back into channels is
+    free.  An operand that carries a
     forward-mode tangent (``torch.func.jvp``, ``forward_ad``), or, with grad
     enabled, one that requires grad, sends the call through
     :class:`Attention` (on the CPU: the plain version); otherwise the kernel

@@ -5,6 +5,10 @@ shared library with a plain C interface, loaded with ``ctypes``.  The build
 runs at first use, one ``nvcc`` per source, all started together, into
 ``lidarcrafter_tpu_torch/build/`` (listed in ``.gitignore``); a library is
 named after a hash of its sources and flags, so a changed source rebuilds.
+The Hopper routes (``csrc/hopper_flash.cuh``) build their TMA tensor maps on
+the host per call with libcuda's ``cuTensorMapEncodeTiled``, reached through
+the runtime's entry-point query, so no library links ``libcuda`` and the
+``nvcc`` line is the same for every source.
 
 After loading, the trivial ``probe_x2`` kernel runs once on the card and the
 loader raises if it fails or disagrees.  This replaces the JAX package's
@@ -95,8 +99,38 @@ _SIGNATURES = {
     "probe": {"probe_x2": [_P, _P, _I, _P]},
     "groupnorm": {"gn_forward": [GnArgs, _P]},
     "oaca": {"oaca_forward": [OacaArgs, _I, _I, _I, _I, _P]},
-    "attention": {"attention_forward": [AttnArgs, _I, _P]},
+    "attention": {"attention_forward": [AttnArgs, _I, _P],
+                  "attention_wide_plan": [_I, _I, _I, ctypes.POINTER(ctypes.c_int32)]},
 }
+
+# csrc/hopper_flash.cuh: the warp-specialised TMA + wgmma core's shared-memory plan
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90 (227 KB)
+_ALIGN, _MAX_STAGES, _ROWS, _CHUNK = 1024, 4, 64, 128
+
+
+@dataclasses.dataclass(frozen=True)
+class HopperLayout:
+    """Mirror of ``hflash::plan_layout``: the shared memory of one block of
+    the Hopper core (q tiles, a ring of ``stages`` K/V stages, the split
+    route's score exchange, the barriers); ``stages`` 0 when none fits."""
+
+    stages: int
+    smem: int
+
+
+def hopper_layout(split: bool, bk: int, nqc: int, nvt: int, out_chunks: int) -> HopperLayout:
+    """The plan for key tiles of ``bk`` rows, ``nqc`` 128-byte chunks of a
+    q / k row and ``nvt`` of a V row, one consumer's 64 query rows (split)
+    or both consumers' 128; the block's output, ``out_chunks`` chunks of 64
+    rows staged at the end, must fit below the barriers."""
+    q_bytes = _ROWS * _CHUNK * nqc * (1 if split else 2)
+    stage = bk * _CHUNK * (nqc + nvt)
+    x_bytes = 2 * 2 * 128 * (bk // 2) * 4 if split else 0
+    bars = 8 * (4 * _MAX_STAGES + 1)  # K and V full / empty rings, the q barrier
+    room = SMEM_LIMIT - _ALIGN - q_bytes - x_bytes - bars
+    stages = 0 if room < stage else min(room // stage, _MAX_STAGES)
+    bar = q_bytes + stages * stage + x_bytes
+    return HopperLayout(stages if bar >= out_chunks * _ROWS * _CHUNK else 0, bar + bars + _ALIGN)
 
 
 @dataclasses.dataclass
@@ -225,6 +259,15 @@ def tracing() -> bool:
     records, and otherwise launch or run the plain version directly, with
     no dispatcher on an eager call."""
     return torch.compiler.is_compiling()
+
+
+def tma_addressable(t: torch.Tensor) -> bool:
+    """Whether a TMA tensor map can address a (B, heads, rows, d) operand:
+    int32 row coordinates, and strides below 2^40 bytes on its batch, head
+    and row dims of more than one element (``hflash::make_map`` gives a
+    size-1 dim a stride of its own)."""
+    return t.shape[2] < 2**31 and all(
+        n == 1 or abs(st) * t.element_size() < 2**40 for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
 def check_aligned(what: str, *ops: torch.Tensor) -> None:

@@ -42,6 +42,28 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (channels_scale_for_positional_embedding 0.5 and 2)
 HEAD_DIMS = ((32, 32, 32), (64, 64, 64), (32, 16, 32), (32, 64, 32))
 _MAX_L2 = 64  # layout tokens: one shared-memory key tile
+# q/k width 128, (64, 64, 64): the warp-specialised TMA core (csrc/oaca.cu, Oaca128)
+_HOPPER_DIMS = (64, 64, 64)
+
+
+def route(dc: int, dp: int, dv: int, dtype: torch.dtype) -> str:
+    """The route the kernel takes for head dims (dc, dp, dv) in ``dtype``:
+    ``wgmma bf16`` / ``tma mma 3xTF32`` (the warp-specialised TMA core) at
+    (64, 64, 64), ``mma bf16`` / ``mma 3xTF32`` (cp.async loader) at the
+    others."""
+    f32 = dtype == torch.float32
+    if (dc, dp, dv) == _HOPPER_DIMS:
+        return "tma mma 3xTF32" if f32 else "wgmma bf16"
+    return "mma 3xTF32" if f32 else "mma bf16"
+
+
+def hopper_layout(dtype: torch.dtype) -> loader.HopperLayout:
+    """Mirror of ``csrc/oaca.cu::oaca128_layout``: 128 query rows a block,
+    key tiles of [k_c | ipe] and v_c (128 keys in bf16, 64 in float32), as
+    many stages as fit."""
+    f32 = dtype == torch.float32
+    cw = 32 if f32 else 64  # values in a 128-byte chunk row
+    return loader.hopper_layout(False, 64 if f32 else 128, 128 // cw, 64 // cw, 2 * 64 // cw)
 
 
 def oaca_attention_plain(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tensor:
@@ -104,6 +126,8 @@ def _check(q_c, ipe, k_c, k_l, v_c, v_l, scale: float) -> None:
         raise ValueError("oaca_attention kernel needs a contiguous last dimension")
     if L2 > _MAX_L2 or B * H > 65535:
         raise ValueError(f"oaca_attention kernel takes L2 <= {_MAX_L2} and B*heads <= 65535")
+    if (dc, dp, dv) == _HOPPER_DIMS and not all(map(loader.tma_addressable, ops)):
+        raise ValueError("oaca_attention kernel's TMA route takes rows < 2^31 and strides < 2^40 bytes")
     if not scale > 0:
         raise ValueError(f"oaca_attention kernel takes a positive scale, got {scale}")
 
@@ -189,9 +213,11 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
     ``ValueError``).
     Any strides are taken as long as the last dimension is contiguous and
     the pointers and strides are whole 16-byte pieces (else ``ValueError``).
-    The kernel runs its products on the tensor cores: bf16 ``mma.sync``, or
-    3xTF32 for float32.  Returns (B, heads, Lq, dv) in the operands' dtype;
-    on the card its memory is laid out (B, Lq, heads, dv), so that merging
+    The kernel runs its products on the tensor cores (:func:`route`): at
+    (64, 64, 64) on the warp-specialised TMA core, bf16 on ``wgmma`` and
+    float32 on 3xTF32 ``mma.sync``; at the other head dims on ``mma.sync``
+    (bf16, or 3xTF32 for float32) fed by ``cp.async``.  Returns (B, heads,
+    Lq, dv) in the operands' dtype; on the card its memory is laid out (B, Lq, heads, dv), so that merging
     the heads back into channels is free.  With grad enabled and an operand
     that requires grad, the result carries :class:`OacaAttention`'s
     backward (on the CPU: autograd of the plain version); otherwise the

@@ -211,15 +211,24 @@ def test_attention_kernel_matches_plain(gen, dtype, B, H, Lq, Lkv, kv_len, dqk, 
     "B,H,Lq,Lkv,kv_len,dqk,dv",
     [(2, 1, 300, 300, None, 256, 256), (1, 2, 77, 130, 100, 384, 384), (2, 1, 200, 513, 9, 512, 512),
      (1, 1, 64, 64, None, 512, 128), (1, 2, 100, 70, None, 128, 256), (1, 1, 1, 1, None, 160, 160),
-     (2, 2, 130, 143, 140, 256, 384)],
+     (2, 2, 130, 143, 140, 256, 384),
+     # the Hopper core's tiling edges: query tiles of 128 (bf16 up to 256) or
+     # 64 rows cut by Lq; kv_len ending inside a key tile and on its edge (80
+     # / 32 / 16 keys a tile by route); dqk != dv across the 256 split
+     (1, 2, 300, 256, None, 256, 256), (2, 1, 77, 200, 160, 256, 256), (1, 1, 129, 200, 100, 256, 256),
+     (1, 1, 200, 96, 64, 512, 512), (2, 1, 65, 100, 96, 512, 512), (1, 2, 191, 150, 130, 384, 384),
+     (1, 1, 257, 160, None, 256, 384), (2, 1, 100, 129, 128, 384, 512), (1, 1, 70, 80, 33, 384, 256),
+     (1, 1, 50, 64, 17, 512, 256)],
 )
 def test_attention_kernel_wide_heads_match_plain(gen, dtype, B, H, Lq, Lkv, kv_len, dqk, dv):
-    """Head dims above 128 (the wide route: 128-wide chunks of dqk, slices
-    of dv), ragged query and key tiles and a ``kv_len`` mask."""
+    """Head dims above 128 (the wide route on the Hopper core: TMA tiles,
+    S once per key tile for the whole dv), ragged query and key tiles and a
+    ``kv_len`` mask."""
     def r(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     q, k, v = r(B, H, Lq, dqk), r(B, H, Lkv, dqk), r(B, H, Lkv, dv)
+    assert attention.route(dqk, dv, dtype) == ("tma mma 3xTF32" if dtype == torch.float32 else "wgmma bf16")
     scale = 1 / math.sqrt(dqk)
     n = attention.launches.n
     got = attention.attention(q, k, v, scale=scale, kv_len=kv_len)
@@ -228,6 +237,23 @@ def test_attention_kernel_wide_heads_match_plain(gen, dtype, B, H, Lq, Lkv, kv_l
     want = attention.attention_plain(q, k, v, scale=scale, kv_len=kv_len)
     assert got.shape == want.shape and got.dtype == dtype
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 512])
+def test_attention_wide_route_reads_packed_glide_views_at_one_head(gen, dtype, d):
+    """``OpenAIUNet``'s GLIDE block at one head as wide as the block: q, k
+    and v are views of one (B, L, 3d) projection packed as [q|k|v], which
+    the tensor maps address through their row stride 3d; the same output as
+    contiguous copies, and as the plain version."""
+    B, L = 2, 300
+    qkv = torch.randn(B, L, 3 * d, generator=gen, device="cuda").to(dtype).view(B, L, 1, 3 * d)
+    q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
+    got = attention.attention(q, k, v, scale=d**-0.5)
+    same = attention.attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=d**-0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, same, rtol=0, atol=0)
+    _assert_close(got, attention.attention_plain(q, k, v, scale=d**-0.5), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -944,6 +970,33 @@ def test_oaca_kernel_at_head_dims_64_matches_plain(gen, dtype, B, H, L, L2):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     ops = (r(B, H, L, 64), r(B, H, L, 64), r(B, H, L, 64), r(B, H, L2, 128), r(B, H, L, 64), r(B, H, L2, 64))
+    scale = 1 / math.sqrt(math.sqrt(128))
+    n = oaca.launches.n
+    got = oaca.oaca_attention(*ops, scale=scale)
+    torch.cuda.synchronize()
+    assert oaca.launches.n == n + 1
+    want = oaca.oaca_attention_plain(*ops, scale=scale)
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,L,L2", [(2, 2, 300, 0), (1, 3, 191, 13), (2, 1, 128, 13), (1, 1, 64, 0),
+                                      (1, 2, 257, 64)])
+def test_oaca_hopper_route_edges_match_plain(gen, dtype, B, H, L, L2):
+    """OACA's (64, 64, 64) route on the Hopper core: query tiles of 128 rows
+    cut by L, image strips ending inside and on a 64-key tile, the layout
+    strip absent (L2 = 0), of the nuScenes stacks' 13 tokens, and full;
+    operands as the v0 block hands them (per-head views of one fused qkv
+    projection)."""
+    C = H * 64
+    qkv = torch.randn(B, L, 3 * C, generator=gen, device="cuda").to(dtype)
+    q_c, k_c, v_c = (t.reshape(B, L, H, 64).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    ipe = torch.randn(B, L, C, generator=gen, device="cuda").to(dtype).reshape(B, L, H, 64).transpose(1, 2)
+    k_l = torch.randn(B, H, L2, 128, generator=gen, device="cuda").to(dtype)
+    v_l = torch.randn(B, H, L2, 64, generator=gen, device="cuda").to(dtype)
+    ops = (q_c, ipe, k_c, k_l, v_c, v_l)
+    assert oaca.route(64, 64, 64, dtype) == ("tma mma 3xTF32" if dtype == torch.float32 else "wgmma bf16")
     scale = 1 / math.sqrt(math.sqrt(128))
     n = oaca.launches.n
     got = oaca.oaca_attention(*ops, scale=scale)
