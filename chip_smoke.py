@@ -294,6 +294,26 @@ Phases, each printing one JSON line:
    the card generator's frames to 1e-5; export, save and load seconds and
    artifact bytes.
 
+18. the azimuth axis ("sp"; ``parallel/mesh.py``): two ranks share card 0
+   (``torchrun --nproc-per-node 2`` of this script as ``chip_smoke.py
+   sp-rank DIR CONFIG``, one pair of ranks a config, both pairs at once;
+   each rank joins its group on card 0 over gloo: NCCL takes one rank a
+   card) on a (1, 2) mesh.  For ``nuscenes-unet-uncond`` and ``nuscenes-auto-reg-v2``
+   at full width, B=2, seeded weights: one forward and a DDIM@2 sample in
+   float32 and served in bfloat16, each rank on its 512 columns, gathered,
+   against the same in this process (forwards to 1e-3 / 5e-2 of the
+   largest; the samples as ``SP_SAMPLE_SHARE`` says), with exact launches
+   on each rank (a norm of image activations two GroupNorm launches,
+   ``partials`` and ``apply``; OACA's token norms one; every OACA over
+   gathered keys; 2 attention a uncond call); then ``train.py --sp 2``'s
+   ``main`` on the ranks' group and the train CLI in one process, 2 float32
+   steps each from a synthetic nuScenes tree with ``--deterministic``:
+   losses to 1e-5, the parameters and Adam's first moments after the steps
+   to 1e-4 relative L2, exact launches; step seconds (all runs share the
+   card at once: not a speed comparison).  Phase 2 holds the two GroupNorm
+   launches at rank 0's half of the uncond level-0 AdaGN and OACA over
+   gathered keys at the ds4 shard (Lq 1,024, Lk 2,048).
+
 Phase 4 also serves ``viewer.py`` on the card (full width, float32): one
 ``POST /api/sample`` of each of its four configs over HTTP (DDIM@2,
 MeanFlow one step, v6 with two edited boxes) with exact launches.  Phase 8
@@ -301,9 +321,11 @@ also runs ``generate_box_condition --random-params --synthetic-scenes 2
 --num-steps 8`` (no kernel launched; finite (3, 32, 1024) conditions).
 
 Every phase ends with a ``phase seconds`` line, and the script with the
-seconds of each.  Then a ``kernels`` JSON line (OACA, GroupNorm, attention
-and the probe, which runs once when the kernels load; attention with its
-``glide`` and ``wide_heads`` rows, OACA with its ``positional_dims`` rows),
+seconds of each.  Then a ``kernels`` JSON line (OACA, GroupNorm, attention,
+the sharded ``groupnorm_partials`` / ``groupnorm_apply`` / ``oaca_gathered``
+launches and the probe, which runs once when the kernels load; attention
+with its ``glide`` and ``wide_heads`` rows, OACA with its
+``positional_dims`` rows),
 the ``nvidia-smi`` name/power-limit line and, last, ``{"ok": true,
 "device": {...}}``.  Any failed check raises, so the
 script exits non-zero; so does a machine without CUDA or a directory without
@@ -339,11 +361,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # f32 on the CUDA cores (bf16 is widened on load); OACA and attention on the
 # tensor cores, f32 as 3xTF32 (three TF32 products each)
 GN_ROUTE = "one-launch grid-sync"
+# the azimuth-sharded GroupNorm's two launches (sp > 1): a shard's
+# partials, then the norm from every shard's partials; CUDA cores as GN_ROUTE
+GN_PARTIALS_ROUTE, GN_APPLY_ROUTE = "partials (grid-sync merge)", "apply (merge S partials)"
 # the routes' backward and tangent: the plain version recomputed in float32
 # (TF32 off); their bound is the same work at the peak of the operands' type
 # (work_route), not that of the recompute
 PLAIN_ROUTE = "plain f32 recompute"
-PEAK_FLOPS = {GN_ROUTE: 67e12, "mma 3xTF32": 495e12 / 3, "mma bf16": 989e12}
+PEAK_FLOPS = {GN_ROUTE: 67e12, GN_PARTIALS_ROUTE: 67e12, GN_APPLY_ROUTE: 67e12, "mma 3xTF32": 495e12 / 3,
+              "mma bf16": 989e12}
 # the Hopper routes (csrc/hopper_flash.cuh: TMA producer warp, two consumer
 # warpgroups) bound the same work at the same peaks: bf16 on wgmma, f32 as
 # 3xTF32 on mma.sync
@@ -566,13 +592,24 @@ def kernel_errors(what: str, dname: str, got, want) -> dict:
 
 
 def reset_counters() -> dict:
-    """Every kernel's launch counter, set to 0."""
+    """Every kernel's launch counter, set to 0: the one-launch GroupNorm,
+    the azimuth-sharded GroupNorm's two (``groupnorm_partials``,
+    ``groupnorm_apply``), OACA (all launches; ``oaca_gathered`` counts again
+    those whose image keys are gathered from the ``sp`` ranks, Lk != Lq) and
+    attention."""
     from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
 
-    counters = {"oaca": oaca.launches, "groupnorm": groupnorm.launches, "attention": attention.launches}
+    counters = {"oaca": oaca.launches, "oaca_gathered": oaca.gathered_launches, "groupnorm": groupnorm.launches,
+                "groupnorm_partials": groupnorm.partials_launches, "groupnorm_apply": groupnorm.apply_launches,
+                "attention": attention.launches}
     for c in counters.values():
         c.n = 0
     return counters
+
+
+def with_zeros(expected: dict, launches: dict) -> dict:
+    """``expected`` with 0 for every other counter that ``launches`` reads."""
+    return {k: expected.get(k, 0) for k in launches}
 
 
 # ------------------------------------------------------------------ phase 2
@@ -635,6 +672,112 @@ def check_oaca(label, B, H, L, dtype, gen, d=32, dp=None):
         "library_ms": library, "library": "F.scaled_dot_product_attention on the concatenated strips",
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
     }
+
+
+def check_oaca_gathered(label, B, H, Lq, sp, dtype, gen, d=32):
+    """One row of OACA with gathered image keys, as a rank of an ``sp``-way
+    mesh runs it: its Lq queries (per-head views of its fused projection)
+    with their positional rows, over the Lk = sp·Lq keys and values of every
+    rank (gathered, contiguous) with the whole positional strip, and the
+    13-token layout strip."""
+    import torch
+    import torch.nn.functional as F
+
+    from lidarcrafter_tpu_torch.kernels import oaca
+
+    L2, Lk, C = 13, sp * Lq, H * d
+    heads = lambda t: t.reshape(B, t.shape[1], H, -1).transpose(1, 2)  # noqa: E731
+    q_c = heads(torch.randn(B, Lq, 3 * C, generator=gen, device=DEVICE).to(dtype)[..., :C])
+    kv = torch.randn(B, Lk, 2 * C, generator=gen, device=DEVICE).to(dtype)
+    k_c, v_c = (heads(t) for t in kv.chunk(2, dim=-1))
+    ipe_k = heads(torch.randn(B, Lk, C, generator=gen, device=DEVICE).to(dtype))
+    ipe = heads(torch.randn(B, Lq, C, generator=gen, device=DEVICE).to(dtype))
+    k_l = torch.randn(B, H, L2, 2 * d, generator=gen, device=DEVICE).to(dtype)
+    v_l = torch.randn(B, H, L2, d, generator=gen, device=DEVICE).to(dtype)
+    ops = (q_c, ipe, k_c, k_l, v_c, v_l)
+    scale = 1.0 / math.sqrt(math.sqrt(2 * d))
+    got = oaca.oaca_attention(*ops, scale=scale, ipe_k=ipe_k)
+    want = oaca.oaca_attention_plain(*ops, scale=scale, ipe_k=ipe_k)
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    errors = kernel_errors(f"oaca_gathered {label}", dname, got, want)
+    q_img = torch.cat([q_c, ipe], -1)
+    k_mix = torch.cat([torch.cat([k_c, ipe_k], -1), k_l], 2)
+    v_mix = torch.cat([v_c, v_l], 2)
+    library = time_ms(lambda: F.scaled_dot_product_attention(q_img, k_mix, v_mix, scale=scale ** 2))
+    elt = torch.finfo(dtype).bits // 8
+    # the queries' q_c and ipe and the output; the keys' k_c, ipe_k and v_c; k_l and v_l
+    nbytes = elt * (B * H * Lq * 3 * d + B * H * Lk * 3 * d + B * H * L2 * 3 * d)
+    flops = 2.0 * B * H * Lq * (Lk + L2) * 3 * d
+    route = oaca.route(d, d, d, dtype)
+    bound, by = bound_ms(nbytes, flops, route)
+    return {
+        "kernel": "oaca_gathered", "shape": label, "dtype": dname, "head_dims": [d, d, d], "route": route,
+        "Lq": Lq, "Lk": Lk, **errors,
+        "ms": time_ms(lambda: oaca.oaca_attention(*ops, scale=scale, ipe_k=ipe_k)),
+        "plain_ms": time_ms(lambda: oaca.oaca_attention_plain(*ops, scale=scale, ipe_k=ipe_k), iters=5),
+        "library_ms": library, "library": "F.scaled_dot_product_attention on the concatenated strips (Lq, Lk + 13)",
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
+    }
+
+
+def check_groupnorm_split(label, shape, sp, dtype, scale_shift, silu, gen, groups=8, eps=1e-6, affine=False):
+    """Two rows, ``groupnorm_partials`` and ``groupnorm_apply``: the
+    azimuth-sharded GroupNorm on rank 0's shard of ``shape`` split into
+    ``sp`` along W, its partials exchanged as the mesh does (every shard's
+    partials from the kernel, stacked); each launch against its plain
+    version on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from lidarcrafter_tpu_torch.kernels import groupnorm
+
+    B, C = shape[0], shape[-1]
+    whole = (torch.randn(shape, generator=gen, device=DEVICE) * 2 + 1).to(dtype)
+    shards = [t.contiguous() for t in whole.chunk(sp, dim=2)]
+    x = shards[0]
+    w = b = s = t = None
+    if affine:
+        w = (1 + 0.1 * torch.randn(C, generator=gen, device=DEVICE)).to(dtype)
+        b = (0.1 * torch.randn(C, generator=gen, device=DEVICE)).to(dtype)
+    if scale_shift:
+        s, t = (0.3 * torch.randn(B, 2 * C, generator=gen, device=DEVICE)).to(dtype).chunk(2, dim=-1)
+    parts = torch.stack([groupnorm.launch_partials(z, groups) for z in shards])
+    plain_parts = torch.stack([groupnorm.group_norm_partials_plain(z, groups) for z in shards])
+    check(torch.equal(parts[:, :, 0], plain_parts[:, :, 0]), f"groupnorm_partials {label}: counts differ")
+
+    def mean_var(p):  # a shard's (B, 3, G) partials as its groups' means and variances
+        return torch.stack([p[:, 1], p[:, 2] / p[:, 0]])
+
+    args = dict(num_groups=groups, eps=eps, silu=silu)
+    got = groupnorm.launch_apply(x, parts, w, b, s, t, **args)
+    want = groupnorm.group_norm_apply_plain(x, plain_parts, w, b, scale=s, shift=t, **args)
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    elt = torch.finfo(dtype).bits // 8
+    rows = []
+    x_nchw = x.reshape(B, -1, 1, C).permute(0, 3, 1, 2)
+    for kernel, route, err, n_bytes, ops_per, ms, plain_ms, library in (
+        ("groupnorm_partials", GN_PARTIALS_ROUTE, kernel_errors(f"groupnorm_partials {label}", dname,
+                                                                 mean_var(parts[0]), mean_var(plain_parts[0])),
+         elt * x.numel() + 4 * 3 * B * groups, 4.0,
+         time_ms(lambda: groupnorm.launch_partials(x, groups)),
+         time_ms(lambda: groupnorm.group_norm_partials_plain(x, groups)), None),
+        ("groupnorm_apply", GN_APPLY_ROUTE, kernel_errors(f"groupnorm_apply {label}", dname, got, want),
+         elt * (2 * x.numel() + 2 * C * affine + 2 * B * C * scale_shift) + 4 * parts.numel(), 10.0,
+         time_ms(lambda: groupnorm.launch_apply(x, parts, w, b, s, t, **args)),
+         time_ms(lambda: groupnorm.group_norm_apply_plain(x, parts, w, b, scale=s, shift=t, **args)),
+         time_ms(lambda: F.group_norm(x_nchw, groups, w, b, eps))),
+    ):
+        bound, by = bound_ms(n_bytes, ops_per * x.numel(), route)
+        rows.append({
+            "kernel": kernel, "shape": label, "dtype": dname, "route": route, "sp": sp, "groups": groups,
+            "scale_shift": scale_shift, "silu": silu, "affine": affine, **err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library,
+            "library": None if library is None else "F.group_norm on the shard (its own statistics; affine only)",
+            "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+        })
+    return rows
 
 
 def check_groupnorm(label, shape, dtype, scale_shift, silu, gen, groups=32, eps=1e-5, affine=True):
@@ -793,6 +936,12 @@ def phase_kernels():
                                     affine=False))
         rows.append(check_attention("kitti-360 d_block4 B=8 h=8 L=1024 d=64", BATCH, 8, 1024, 1024, 64, dtype, gen))
         rows.append(check_attention("kitti-360 u_block4 B=8 h=8 L=1024 d=32", BATCH, 8, 1024, 1024, 32, dtype, gen))
+        # the sp = 2 path (phase 18): rank 0's half of the level-0 AdaGN of
+        # the uncond stack, and OACA at ds4 over the keys of both halves
+        rows.extend(check_groupnorm_split(f"unet level0 shard 1/{SP} (8,32,{1024 // SP},64) AdaGN scale-shift+SiLU",
+                                          (BATCH, 32, 1024, 64), SP, dtype, True, True, gen))
+        rows.append(check_oaca_gathered(f"ds4 shard 1/{SP} B=8 h=8 Lq={2048 // SP} Lk=2048", BATCH, 8, 2048 // SP,
+                                        SP, dtype, gen))
     # the layout branch's UNet1D norms: N = 104 one-row images; float32 as the
     # branch serves, bfloat16 as it trains under AMP
     N = LAYOUT_SCENES * (LAYOUT_OBJECTS + 1)
@@ -1646,7 +1795,7 @@ def phase_layout(smi: str) -> dict:
     cond, got = _branch_call(gen, lambda d: layout_request(batch, d), x, t)
     torch.cuda.synchronize()
     launches = {k: c.n for k, c in counters.items()}
-    check(launches == {"oaca": 0, "groupnorm": GN_PER_UNET1D, "attention": 0},
+    check(launches == with_zeros({"groupnorm": GN_PER_UNET1D}, launches),
           f"nuscenes-layout: one denoiser call launched {launches}")
     cpu = _on_cpu(gen)
     t0 = time.perf_counter()
@@ -2801,7 +2950,7 @@ def phase_ingest(smi: str) -> dict:
         torch.cuda.synchronize()
         layout_s = time.perf_counter() - t0
         launches = {k: c.n for k, c in counters.items()}
-        check(launches == {"oaca": 0, "groupnorm": GN_PER_UNET1D * WORDS_STEPS, "attention": 0},
+        check(launches == with_zeros({"groupnorm": GN_PER_UNET1D * WORDS_STEPS}, launches),
               f"words to frames, layout: launches {launches}")
         check(bool(torch.isfinite(raw).all()) and float(raw.std()) > 1e-3, "words to frames: layout not finite")
         by_path[f"words-to-frames layout {WORDS_MODE}@{WORDS_STEPS}"] = {"groupnorm": launches["groupnorm"]}
@@ -2815,7 +2964,8 @@ def phase_ingest(smi: str) -> dict:
         torch.cuda.synchronize()
         frame_s = time.perf_counter() - t0
         launches = {k: c.n for k, c in counters.items()}
-        check(launches == {"oaca": OACA_PER_FORWARD * steps, "groupnorm": GN_PER_FORWARD * steps, "attention": 0},
+        check(launches == with_zeros({"oaca": OACA_PER_FORWARD * steps, "groupnorm": GN_PER_FORWARD * steps},
+                                     launches),
               f"words to frames, v6: launches {launches}")
         check(bool(torch.isfinite(sample).all()) and bool(torch.isfinite(post["xyz"]).all()),
               "words to frames: frames not finite")
@@ -3279,7 +3429,8 @@ def phase_registry(smi: str) -> tuple[list, dict]:
             torch.cuda.synchronize()
             launches = {k: c.n for k, c in counters.items()}
             ms = time_ms(lambda: model(*args), iters=5, warmup=1, gc_off=False)
-        check(launches == openai_call, f"openai_unet {dname}: launches {launches} != {openai_call}")
+        check(launches == with_zeros(openai_call, launches),
+              f"openai_unet {dname}: launches {launches} != {openai_call}")
         check(bool(torch.isfinite(out).all()), f"openai_unet {dname}: not finite")
         emit({"phase": "registry", "what": f"openai_unet glide B=8 {dname} forward", "card": smi, "ms": ms,
               "launches": launches, "heads": heads})
@@ -4131,6 +4282,329 @@ def phase_viewer(smi: str) -> dict:
 
 
 
+# ------------------------------------------------------------------ phase 18
+
+
+SP = 2  # ranks that split the azimuth in phase 18, on the one card
+SP_CONFIGS = ("nuscenes-unet-uncond", "nuscenes-auto-reg-v2")
+SP_BATCH, SP_STEPS, SP_TRAIN_STEPS = 2, 2, 2  # images; DDIM steps of the sample; train steps
+SP_POINTS = 8000  # points a cloud of the phase's synthetic tree (only B=2 x 2 steps read it)
+SP_FRAME_RTOL = {"float32": FORWARD_RTOL, "bfloat16": BF16_FORWARD_RTOL}  # sp vs one process, of max |one|
+# The DDIM@2 sample is an ill-conditioned function of the denoiser's output:
+# its first step's x̂_0 = (x − σε)/α at t = 1 multiplies ε's rounding by
+# σ/α ≈ 1800 on the pixels that it leaves inside the clip (a few per 10^4),
+# so two sums of the GroupNorm statistics in another order move those
+# pixels by ~1e-3 in float32 and flip some from one clip side to the other
+# in bfloat16 (the CPU control in tests/test_torch_port_sp.py: with the
+# statistics summed as in one process the sample is equal bit for bit).
+# float32: at least 99.9% of the values within SP_FRAME_RTOL, and the norm
+# of the difference within SP_FRAME_RTOL of the sample's; bfloat16: the
+# sample on the mesh at most 1.5 times as far from the float32 sample (in
+# norm) as the one-process bfloat16 sample is
+SP_SAMPLE_SHARE, SP_BF16_SAMPLE_FACTOR = 0.999, 1.5
+SP_LOSS_RTOL, SP_PARAM_RTOL = 1e-5, 1e-4
+
+
+def sp_paths(cfg_name: str, device, mesh=None) -> tuple[dict, dict, dict]:
+    """One forward (the engine's ``denoise`` at log-SNR (-3, 5)) and a DDIM@2
+    sample of ``cfg_name`` at full width, B=2, seeded weights and inputs, in
+    float32 and then served in bfloat16, on ``device``; on ``mesh`` each rank takes its
+    share (rows over ``dp``, columns over ``sp``) and the results are
+    gathered.  Returns the outputs (on the CPU), each path's launches
+    (counters set to 0 just before it, read just after) and those a
+    denoiser call makes at sp > 1 (:func:`sp_per_call`)."""
+    import torch
+
+    from lidarcrafter_tpu_torch.configs import get_config
+    from lidarcrafter_tpu_torch.diffusion.conditional import AZIMUTH_KEYS
+    from lidarcrafter_tpu_torch.parallel.mesh import batch_sharding
+    from lidarcrafter_tpu_torch.precision import to_serving_dtype_
+    from lidarcrafter_tpu_torch.training.factory import build_diffusion_training
+    from lidarcrafter_tpu_torch.weights import init_random_
+
+    cfg = get_config(cfg_name)
+    models, engine, _ = build_diffusion_training(cfg, device)
+    mods = models if isinstance(models, dict) else {"model": models}
+    for i, k in enumerate(sorted(mods)):
+        init_random_(mods[k], 30 + i)
+    H, W = cfg.data.resolution
+    gen = torch.Generator(device=device).manual_seed(31)
+    x = torch.randn(SP_BATCH, H, W, 2, generator=gen, device=device)
+    x_T = torch.randn(SP_BATCH, H, W, 2, generator=gen, device=device)
+    t = torch.tensor([-3.0, 5.0], device=device)
+    batch = None if cfg.condition_model is None else condition_batch(cfg, SP_BATCH, gen, device)
+    sharding = batch_sharding(mesh, 4, sp_axis=2) if mesh is not None else None
+    outs, launches = {}, {}
+
+    def run(what, fn):
+        torch.cuda.synchronize()
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        outs[what] = out.float().cpu()
+        launches[what] = {k: c.n for k, c in counters.items()}
+        launches[what]["seconds"] = time.perf_counter() - t0
+
+    def forward(eng):
+        with torch.inference_mode():
+            if mesh is None:
+                cond = None if batch is None else eng.get_network_condition(batch)
+                return eng.denoise(x, t, cond)
+            local = None if batch is None else mesh.cut_batch(batch, AZIMUTH_KEYS)
+            with mesh.active():
+                cond = None if local is None else eng.get_network_condition(local)
+                out = eng.denoise(sharding.cut(x), batch_sharding(mesh, 1).cut(t), cond)
+            return sharding.gather(out)
+
+    def sample(eng):
+        args = () if batch is None else ((batch if mesh is None else mesh.cut_batch(batch, AZIMUTH_KEYS)),)
+        return eng.sample(*args, SP_BATCH, SP_STEPS, mode="ddim", x_T=x_T, mesh=mesh)
+
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        if dtype == torch.bfloat16:
+            to_serving_dtype_(mods["model"], dtype, cond_model=mods.get("cond"))
+            engine = dataclasses.replace(engine, dtype=dtype)
+        run(f"forward {dname}", lambda: forward(engine))
+        run(f"ddim@{SP_STEPS} {dname}", lambda: sample(engine))
+    per_call = sp_per_call(mods["model"])
+    del models, mods, engine
+    torch.cuda.empty_cache()
+    return outs, launches, per_call
+
+
+def sp_train_args(cfg_name: str, files: list, out_dir: Path, sp: int) -> list:
+    """``train.py`` for ``SP_TRAIN_STEPS`` float32 steps at B=2 from files,
+    deterministic, checkpointing the last step; ``--sp`` with ``sp`` > 1."""
+    args = ["-c", cfg_name, "-b", str(SP_BATCH), "--num-steps", str(SP_TRAIN_STEPS), "--workers", "2",
+            "--log-every", "1", "--checkpoint-every", str(SP_TRAIN_STEPS), "--deterministic",
+            "--set", 'training.mixed_precision="no"', "--set", "training.steps_save_image=0", *files,
+            "--output-dir", str(out_dir)]
+    if sp > 1:
+        args += ["--sp", str(sp)]
+    return args
+
+
+def sp_rank_main(out_dir: Path, name: str) -> int:
+    """A rank of phase 18 (``chip_smoke.py sp-rank DIR CONFIG`` under
+    ``torchrun --nproc-per-node 2``): both ranks on card 0, a gloo group on
+    an (1, SP) mesh; :func:`sp_paths` of the config, then ``train.main``
+    with ``--sp`` on the same group (stdout captured); each rank writes its
+    outputs and launches to ``DIR/sp_rank{r}-CONFIG.pt``."""
+    import ast
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from lidarcrafter_tpu_torch import train as train_cli
+    from lidarcrafter_tpu_torch.kernels import loader
+    from lidarcrafter_tpu_torch.parallel.ddp import DataParallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    loader.load_kernels()
+    # every rank on card 0 (``DataParallel.from_env`` would take card
+    # LOCAL_RANK), over gloo: NCCL takes one rank a card
+    torch.cuda.set_device(0)
+    group = DataParallel.join(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), "cuda:0", "env://",
+                              backend="gloo", sp=SP)
+    files = json.loads((out_dir / "files.json").read_text())
+    result = {"rank": group.rank, "device": str(group.device)}
+    try:
+        result["paths"] = sp_paths(name, group.device, group.mesh)
+        text = io.StringIO()
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            train_cli.main(sp_train_args(name, files, out_dir / "sp" / name, SP), parallel=group)
+        torch.cuda.synchronize()
+        records = [ast.literal_eval(ln) for ln in text.getvalue().splitlines() if ln.startswith("{'step'")]
+        result["train"] = {"records": records, "seconds": time.perf_counter() - t0,
+                           "launches": {k: c.n for k, c in counters.items()}}
+        torch.save(result, out_dir / f"sp_rank{group.rank}-{name}.pt")
+    finally:
+        group.leave()
+    return 0
+
+
+def sp_per_call(model) -> dict:
+    """Kernel launches a denoiser call of ``model`` makes at sp > 1: two
+    GroupNorm launches (partials, apply) a norm of image activations, one
+    a norm of the tokens every rank holds whole (OACA's layout and
+    positional strips); every OACA over gathered keys; the attention
+    blocks as in one process."""
+    from lidarcrafter_tpu_torch.models.layout_unet import ObjectAwareCrossAttention
+    from lidarcrafter_tpu_torch.models.ops import FusedGN, SelfAttention2d
+
+    norms = [m for m in model.modules() if isinstance(m, FusedGN)]
+    oaca = sum(isinstance(m, ObjectAwareCrossAttention) for m in model.modules())
+    spatial = sum(m.spatial for m in norms)
+    return {"oaca": oaca, "oaca_gathered": oaca, "groupnorm": len(norms) - spatial, "groupnorm_partials": spatial,
+            "groupnorm_apply": spatial, "attention": sum(isinstance(m, SelfAttention2d) for m in model.modules())}
+
+
+def phase_sp(smi: str) -> dict:
+    """Phase 18 ("sp"): the azimuth axis on the card.  Two ranks share card 0
+    over gloo (NCCL takes one rank a card) on an (1, 2) mesh: for ``nuscenes-unet-uncond`` and
+    ``nuscenes-auto-reg-v2`` at full width (32x1024, B=2, seeded weights) one
+    forward and a DDIM@2 sample in float32 and served in bfloat16, gathered,
+    against the same in this process (frames to ``SP_FRAME_RTOL`` of the
+    largest), with exact launches; then ``train.py --sp 2`` for 2 float32
+    steps from a synthetic nuScenes tree with ``--deterministic`` against
+    the same command in one process (all of them at once, beside this
+    process's forwards): losses to 1e-5, the parameters after the steps and
+    Adam's first moments to 1e-4 relative L2, exact launches (each
+    rank's)."""
+    import ast
+
+    import torch
+
+    from lidarcrafter_tpu_torch.utils.synthetic import write_nuscenes_tree
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    env = dict(os.environ, PYTHONPATH=str(REPO), NVIDIA_TF32_OVERRIDE="0")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tree = write_nuscenes_tree(tmp / "nusc", num_points=SP_POINTS, seed=18)
+        files = ["--set", f'data.data_root="{tree["data_root"]}"', "--set", f'data.pkl_path="{tree["pkl_path"]}"']
+        (tmp / "files.json").write_text(json.dumps(files))
+        # each config's two ranks and the one-process train CLIs, all at
+        # once, beside this process's one-process forwards and samples
+        # (every run on card 0; the seconds are not a speed comparison)
+        t0 = time.perf_counter()
+        ranks_procs = {}
+        for name in SP_CONFIGS:
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            ranks_procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(SP), "--master-addr",
+                 "localhost", "--master-port", str(port), str(REPO / "chip_smoke.py"), "sp-rank", str(tmp), name],
+                env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        one_train = {name: subprocess.Popen(
+            [sys.executable, "-m", "lidarcrafter_tpu_torch.train", *sp_train_args(name, files, tmp / "one" / name, 1)],
+            env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for name in SP_CONFIGS}
+        try:
+            one = {name: sp_paths(name, DEVICE) for name in SP_CONFIGS}
+            one_records = {}
+            for name, proc in one_train.items():
+                stdout, stderr = proc.communicate(timeout=600)
+                check(proc.returncode == 0, f"sp: one-process train {name}: exit {proc.returncode}\n{stderr[-3000:]}")
+                one_records[name] = [ast.literal_eval(ln) for ln in stdout.splitlines() if ln.startswith("{'step'")]
+            ranks_s = {}
+            for name, proc in ranks_procs.items():
+                stdout, stderr = proc.communicate(timeout=900)
+                ranks_s[name] = time.perf_counter() - t0
+                check(proc.returncode == 0, f"sp: the {SP} ranks of {name}: exit {proc.returncode}\n"
+                                            f"{stdout[-3000:]}\n{stderr[-5000:]}")
+        finally:  # a failed check leaves no process behind
+            for proc in (*ranks_procs.values(), *one_train.values()):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+        for name in SP_CONFIGS:
+            ranks = [torch.load(tmp / f"sp_rank{r}-{name}.pt", weights_only=False) for r in range(SP)]
+            outs, launches, per_call = ranks[0]["paths"]
+            want, one_launches, _ = one[name]
+            lines = {}
+            for what in want:
+                dname = what.split()[-1]
+                calls = SP_STEPS if what.startswith("ddim") else 1
+                for r in ranks:
+                    got_launches = r["paths"][1][what]
+                    for k in per_call:
+                        check(got_launches[k] == per_call[k] * calls,
+                              f"sp {name} {what} rank {r['rank']}: {k} launches {got_launches[k]} != "
+                              f"{per_call[k]} x {calls}")
+                got = outs[what]
+                scale = float(want[what].abs().max())
+                diff = (got - want[what]).abs()
+                err, norm_rel = float(diff.max()), float(diff.norm() / want[what].norm())
+                within = float((diff <= SP_FRAME_RTOL[dname] * scale).float().mean())
+                extra = {}
+                check(bool(torch.isfinite(got).all()) and got.shape == want[what].shape, f"sp {name} {what}: shape")
+                if what.startswith("forward"):
+                    check(err <= SP_FRAME_RTOL[dname] * scale,
+                          f"sp {name} {what}: max |sp - one| {err:.3g} > {SP_FRAME_RTOL[dname]} x {scale:.3g}")
+                elif dname == "float32":
+                    check(within >= SP_SAMPLE_SHARE and norm_rel <= SP_FRAME_RTOL[dname],
+                          f"sp {name} {what}: {within:.5f} of the values within {SP_FRAME_RTOL[dname]} of the "
+                          f"largest, norm-relative difference {norm_rel:.3g}")
+                else:
+                    f32 = f"ddim@{SP_STEPS} float32"
+                    spread = float((want[what] - want[f32]).norm())
+                    extra = {"norm_rel_to_float32_sample": float((got - want[f32]).norm() / want[f32].norm()),
+                             "one_process_norm_rel_to_float32_sample": spread / float(want[f32].norm())}
+                    check(float((got - want[f32]).norm()) <= SP_BF16_SAMPLE_FACTOR * spread,
+                          f"sp {name} {what}: farther from the float32 sample than {SP_BF16_SAMPLE_FACTOR} x the "
+                          f"one-process bfloat16 sample")
+                lines[what] = {"max_abs_err": err, "scale": scale, "rel_err": err / scale,
+                               "tol": SP_FRAME_RTOL[dname], "share_within_tol": within,
+                               "norm_rel_err": norm_rel, **extra,
+                               "seconds_sp": launches[what]["seconds"], "seconds_one": one_launches[what]["seconds"],
+                               "launches_sp_per_rank": {k: v for k, v in launches[what].items() if k != "seconds"},
+                               "launches_one": {k: v for k, v in one_launches[what].items() if k != "seconds"}}
+                by_path[f"sp={SP} {name} {what}"] = {k: v * SP for k, v in launches[what].items()
+                                                     if k != "seconds" and v}
+            # training: losses, parameters and first moments after the steps
+            sp_records = ranks[0]["train"]["records"]
+            losses, one_losses = [r["loss"] for r in sp_records], [r["loss"] for r in one_records[name]]
+            check(len(losses) == len(one_losses) == SP_TRAIN_STEPS, f"sp {name}: losses {losses} / {one_losses}")
+            for a, b in zip(losses, one_losses):
+                check(abs(a - b) <= SP_LOSS_RTOL * max(1.0, abs(b)), f"sp {name}: loss {a} != {b}")
+            ckpt = f"ckpt_{SP_TRAIN_STEPS:010d}"
+            sp_state, one_state = (torch.load(tmp / side / name / ckpt / "state.pt", weights_only=True)
+                                   for side in ("sp", "one"))
+            param_err = flat_rel(sp_state["models"], one_state["models"])
+            mu_err = flat_rel(sp_state["opt_state"]["mu"], one_state["opt_state"]["mu"])
+            check(param_err <= SP_PARAM_RTOL, f"sp {name}: parameters after the steps {param_err:.3g} rel L2")
+            check(mu_err <= SP_PARAM_RTOL, f"sp {name}: Adam's first moments {mu_err:.3g} rel L2")
+            train_launches = [r["train"]["launches"] for r in ranks]
+            for r, got_launches in zip(ranks, train_launches):
+                for k in per_call:  # the forward of each step; the backward launches nothing
+                    check(got_launches[k] == per_call[k] * SP_TRAIN_STEPS,
+                          f"sp {name} train rank {r['rank']}: {k} launches {got_launches[k]} != "
+                          f"{per_call[k]} x {SP_TRAIN_STEPS}")
+            by_path[f"sp={SP} {name} train"] = {k: v * SP for k, v in train_launches[0].items() if v}
+            emit({"phase": "sp", "config": name, "card": smi, "sp": SP, "ranks_on_one_card": SP, "backend": "gloo",
+                  "batch": SP_BATCH, "per_call_sp": per_call, "paths": lines,
+                  "train": {"losses_sp": losses, "losses_one": one_losses, "param_rel_l2": param_err,
+                            "first_moment_rel_l2": mu_err,
+                            "step_seconds_sp_ranks": step_seconds(sp_records),
+                            "step_seconds_one_process": step_seconds(one_records[name]),
+                            "seconds_sp_run": ranks[0]["train"]["seconds"],
+                            "launches_per_rank": train_launches[0]}})
+            emit({"phase": "sp", "check": "ranks", "config": name, "card": smi,
+                  "seconds_to_the_ranks_end": ranks_s[name], "devices": [r["device"] for r in ranks]})
+    emit({"phase": "sp", "check": "phase seconds", "card": smi, "seconds": time.perf_counter() - t_phase})
+    return by_path
+
+
+def step_seconds(records: list) -> list:
+    """Each step's wall seconds, from the trainer's running means
+    (``sec_per_step`` of step n averages steps 1..n)."""
+    means = [r["sec_per_step"] for r in records]
+    return [n * m - (n - 1) * p for n, (m, p) in enumerate(zip(means, [0.0] + means), start=1)]
+
+
+def flat_rel(a, b) -> float:
+    """‖a − b‖ / ‖b‖ over every tensor of two matching nests (dicts of
+    state dicts, or lists), flattened."""
+    import torch
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, (list, tuple)):
+            return [x for v in t for x in leaves(v)]
+        return [t.float().flatten()]
+
+    fa, fb = torch.cat(leaves(a)), torch.cat(leaves(b))
+    return float((fa - fb).norm() / fb.norm())
+
+
 def main() -> int:
     import torch
 
@@ -4234,6 +4708,8 @@ def main() -> int:
     phase_done("objects")
     by_path.update(phase_export(smi))
     phase_done("export")
+    by_path.update(phase_sp(smi))
+    phase_done("sp")
     emit({"phase": "script", "check": "seconds by phase", "seconds": marks, "total_seconds": time.perf_counter() - t0})
 
     # each kernel at its largest main-path shape, float32 (the default serving
@@ -4286,6 +4762,26 @@ def main() -> int:
                      if r["kernel"] == k and r["sub"] == sub]
                for sub in {r["sub"] for r in registry_rows if r["kernel"] == k}},
         })
+    # the azimuth-sharded launches (phase 18's two ranks; phase 2's rows at
+    # rank 0's shard of the sp = 2 path)
+    for k, source, replaces in (
+        ("groupnorm_partials", "lidarcrafter_tpu_torch/csrc/groupnorm.cu", "lidarcrafter_tpu/ops/pallas_groupnorm.py:49"),
+        ("groupnorm_apply", "lidarcrafter_tpu_torch/csrc/groupnorm.cu", "lidarcrafter_tpu/ops/pallas_groupnorm.py:49"),
+        ("oaca_gathered", "lidarcrafter_tpu_torch/csrc/oaca.cu", "lidarcrafter_tpu/ops/pallas_attention.py:183"),
+    ):
+        first = next(r for r in rows if r["kernel"] == k and r["dtype"] == "float32")
+        bf16 = next(r for r in rows if r["kernel"] == k and r["dtype"] == "bfloat16")
+        paths = {p: n[k] for p, n in by_path.items() if k in n}
+        check(bool(paths) and all(n > 0 for n in paths.values()), f"{k}: no path launched it: {paths}")
+        kernels.append({
+            "name": k, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            **{key: first[key] for key in ("max_abs_err", "tol", "norm_rel_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms", "shape")},
+            "dtype": "float32", "core_route": first["route"],
+            "bf16": {key: bf16[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                "max_abs_err", "tol", "norm_rel_err", "route")},
+        })
     # the probe: launched once per process, when the kernels load (this
     # process's load; the train CLI processes of phase 13 load their own)
     probe = probe_times(loaded)
@@ -4304,4 +4800,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["sp-rank"]:
+        sys.exit(sp_rank_main(Path(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -13,7 +13,8 @@ of the same name:
                  prefetch loader, and the rollout's geometry.
 - ``training``   pre/post-processing, the model/engine factory, the
                  trainers and their tracker.
-- ``parallel``   data parallelism across processes (``torchrun``).
+- ``parallel``   data parallelism across processes (``torchrun``) on a
+                 (dp, sp) mesh, ``sp`` splitting the azimuth.
 - ``kernels``    hand-written CUDA kernels for Hopper (``csrc/*.cu``) with a
                  plain PyTorch version of each beside its wrapper, each a
                  ``torch.library`` operator.

@@ -40,6 +40,21 @@
 //
 // Bound on the H100: bytes, one read and one write of the slab; the
 // arithmetic is ~10 operations per element on the CUDA cores.
+//
+// The azimuth-sharded norms (parallel/mesh.py, sp > 1) hold a slab whose
+// statistics span every shard, so the same kernel runs as two launches
+// around an exchange of B * 3 * G floats between the ranks:
+//
+//   * gn_partials: this shard's per-(image, group) count, mean and M2,
+//     computed as above (the blocks of an image merged after a grid sync),
+//     written to `stats` (B, 3, G) instead of normalising;
+//   * gn_apply: every block merges the S shards' partials (S, B, 3, G), in
+//     rank order, with the same two-pass merge, then normalises its rows
+//     with the folded affine, scale-shift and SiLU as above.  Every rank
+//     merges the same partials in the same order, so all of them get the
+//     same statistics, bit for bit; with `work` given, block 0 of an image
+//     writes the merged mean and 1/sigma there (B, 2, G).  No grid sync:
+//     the rows are re-read from HBM (nothing is staged).
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -64,6 +79,8 @@ struct GnArgs {
   int64_t dtype, B, HW, C, G;
   int64_t k, rows_par, stage_rows, silu;  // blocks an image, rows in flight a block
   double eps;
+  void* stats;      // gn_partials: (B, 3, G) out; gn_apply: (n_parts, B, 3, G) in
+  int64_t n_parts;  // gn_apply: the shards whose partials `stats` holds
 };
 
 namespace {
@@ -73,6 +90,10 @@ constexpr int kMaxParts = 8;      // parts a lane holds in the two-pass merges
 constexpr int kMaxThreads = 512;
 constexpr int kFoldPer = 8;       // channels a thread folds: C <= 8 * threads
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use
+
+// what a launch does: the one-launch norm, a shard's partials, or the norm
+// from every shard's partials
+enum Mode { kFused = 0, kPartials = 1, kApply = 2 };
 
 struct Params {
   const void* x;
@@ -84,7 +105,8 @@ struct Params {
   int64_t w_bs, b_bs, s_bs, t_bs;
   int w_dt, b_dt, s_dt, t_dt;
   float* work;
-  int HW, C, G, k, rows_per_block, stage_rows;
+  float* stats;
+  int B, HW, C, G, k, rows_per_block, stage_rows, n_parts;
   float eps;
 };
 
@@ -291,7 +313,7 @@ __device__ __forceinline__ void accumulate(State<VEC>& st, int r_first, int a, i
   }
 }
 
-template <typename T, int VEC, bool SILU>
+template <typename T, int VEC, bool SILU, int MODE>
 __global__ void __launch_bounds__(kMaxThreads) gn_fused_kernel(const Params p) {
   using R = Raw<T, VEC>;
   const int C = p.C, G = p.G, HW = p.HW, cpr = C / VEC, cpg = C / G;
@@ -320,15 +342,17 @@ __global__ void __launch_bounds__(kMaxThreads) gn_fused_kernel(const Params p) {
   const int r_first = r0 + lane;
   auto from_stage = [&](int r) { return stage[(r - r0) * cpr + cv]; };
 
-  // ---- the staged rows all in flight
-  issue_staging(stage, xv, bar, r0, rs, r_first, rows_par, cpr, cv, active);
-  // ---- meanwhile the other rows' statistics, streamed through registers
   State<VEC> st;
-  if (active) accumulate<T, VEC, R>(st, r_first, rs, r1, rows_par, [&](int r) { return __ldcg(xv + r * cpr); });
+  if constexpr (MODE != kApply) {
+    // ---- the staged rows all in flight
+    issue_staging(stage, xv, bar, r0, rs, r_first, rows_par, cpr, cv, active);
+    // ---- meanwhile the other rows' statistics, streamed through registers
+    if (active) accumulate<T, VEC, R>(st, r_first, rs, r1, rows_par, [&](int r) { return __ldcg(xv + r * cpr); });
+  }
   // ---- and the per-batch affine, folded in f32 in the plain version's
   // order: gamma = w * (1 + s), beta = b * (1 + s) + t; all of a thread's
   // loads first, then the arithmetic (C <= kFoldPer * threads)
-  {
+  if constexpr (MODE != kPartials) {
     float w[kFoldPer], b[kFoldPer], s[kFoldPer], tt[kFoldPer];
 #pragma unroll
     for (int u = 0; u < kFoldPer; ++u) {
@@ -356,64 +380,94 @@ __global__ void __launch_bounds__(kMaxThreads) gn_fused_kernel(const Params p) {
       }
     }
   }
-  if (sizeof(R) == 16) __syncthreads();  // the barrier's init before anyone waits on it
-  if (active) {
-    wait_staged<R>(bar, rs > r0);
-    accumulate<T, VEC, R>(st, r_first, r0, rs, rows_par, from_stage);
-  }
-
-  // ---- the block's groups: a warp segment a group merges its (thread,
-  // channel) parts
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    p_mean[j * nt + t] = st.mean[j];
-    p_m2[j * nt + t] = st.m2[j];
-  }
-  p_n[t] = st.n;
-  __syncthreads();
-  // part e is (thread row e / cpg, channel e % cpg of the group); e < 2^21,
-  // so the quotient by a float reciprocal is exact
-  const int parts = rows_par * cpg;
-  const float inv_cpg = 1.0f / (float)cpg;
-  const int width = min(32, max(pow2_at_least((parts + kMaxParts - 1) / kMaxParts), pow2_at_most(nt / G)));
-  for (int base = 0; base < G; base += nt / width) {
-    const int g = base + t / width;
-    const float3 r = seg_merge(g < G ? parts : 0, width, [&](int e) {
-      const int l = (int)(((float)e + 0.5f) * inv_cpg), c = g * cpg + e - l * cpg;
-      const int tt = l * cpr + c / VEC, j = c % VEC;
-      return make_float3(p_n[tt], p_mean[j * nt + tt], p_m2[j * nt + tt]);
-    });
-    if (g < G && t % width == 0) {
-      if (p.k > 1) {
-        float* w = p.work + (int64_t)blockIdx.x * 3 * G;
-        w[g] = r.x;
-        w[G + g] = r.y;
-        w[2 * G + g] = r.z;
-      } else {  // the block is the whole image
-        s_mean[g] = r.y;
-        s_rstd[g] = 1.0f / sqrtf(r.z / r.x + p.eps);
-      }
-    }
-  }
-
-  // ---- the image's groups: after the grid sync a warp segment a group
-  // merges the image's k blocks' parts, in block order
-  if (p.k > 1) {
-    __threadfence();
-    cg::this_grid().sync();
-    const int wb = min(32, max(pow2_at_least((p.k + kMaxParts - 1) / kMaxParts), pow2_at_most(nt / G)));
-    const float* w0 = p.work + (int64_t)img * p.k * 3 * G;
-    for (int base = 0; base < G; base += nt / wb) {
-      const int g = base + t / wb;
-      const float3 r = seg_merge(g < G ? p.k : 0, wb, [&](int e) {
-        const float* w = w0 + e * 3 * G + g;
-        return make_float3(__ldcg(w), __ldcg(w + G), __ldcg(w + 2 * G));
+  if constexpr (MODE == kApply) {
+    // ---- the image's groups from every shard's partials, in rank order
+    const int ws = min(32, max(pow2_at_least((p.n_parts + kMaxParts - 1) / kMaxParts), pow2_at_most(nt / G)));
+    for (int base = 0; base < G; base += nt / ws) {
+      const int g = base + t / ws;
+      const float3 r = seg_merge(g < G ? p.n_parts : 0, ws, [&](int e) {
+        const float* w = p.stats + ((int64_t)e * p.B + img) * 3 * G + g;
+        return make_float3(w[0], w[G], w[2 * G]);
       });
-      if (g < G && t % wb == 0) {
+      if (g < G && t % ws == 0) {
         s_mean[g] = r.y;
         s_rstd[g] = 1.0f / sqrtf(r.z / r.x + p.eps);
+        if (p.work && part == 0) {
+          p.work[(int64_t)img * 2 * G + g] = s_mean[g];
+          p.work[(int64_t)img * 2 * G + G + g] = s_rstd[g];
+        }
       }
     }
+  } else {
+    if (sizeof(R) == 16) __syncthreads();  // the barrier's init before anyone waits on it
+    if (active) {
+      wait_staged<R>(bar, rs > r0);
+      accumulate<T, VEC, R>(st, r_first, r0, rs, rows_par, from_stage);
+    }
+
+    // ---- the block's groups: a warp segment a group merges its (thread,
+    // channel) parts
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      p_mean[j * nt + t] = st.mean[j];
+      p_m2[j * nt + t] = st.m2[j];
+    }
+    p_n[t] = st.n;
+    __syncthreads();
+    // part e is (thread row e / cpg, channel e % cpg of the group); e < 2^21,
+    // so the quotient by a float reciprocal is exact
+    const int parts = rows_par * cpg;
+    const float inv_cpg = 1.0f / (float)cpg;
+    const int width = min(32, max(pow2_at_least((parts + kMaxParts - 1) / kMaxParts), pow2_at_most(nt / G)));
+    for (int base = 0; base < G; base += nt / width) {
+      const int g = base + t / width;
+      const float3 r = seg_merge(g < G ? parts : 0, width, [&](int e) {
+        const int l = (int)(((float)e + 0.5f) * inv_cpg), c = g * cpg + e - l * cpg;
+        const int tt = l * cpr + c / VEC, j = c % VEC;
+        return make_float3(p_n[tt], p_mean[j * nt + tt], p_m2[j * nt + tt]);
+      });
+      if (g < G && t % width == 0) {
+        if (p.k > 1 || MODE == kPartials) {  // a block's parts, or the shard's partials
+          float* w = p.k > 1 ? p.work + (int64_t)blockIdx.x * 3 * G : p.stats + (int64_t)img * 3 * G;
+          w[g] = r.x;
+          w[G + g] = r.y;
+          w[2 * G + g] = r.z;
+        } else {  // the block is the whole image
+          s_mean[g] = r.y;
+          s_rstd[g] = 1.0f / sqrtf(r.z / r.x + p.eps);
+        }
+      }
+    }
+
+    // ---- the image's groups: after the grid sync a warp segment a group
+    // merges the image's k blocks' parts, in block order
+    if (p.k > 1) {
+      __threadfence();
+      cg::this_grid().sync();
+      const int wb = min(32, max(pow2_at_least((p.k + kMaxParts - 1) / kMaxParts), pow2_at_most(nt / G)));
+      const float* w0 = p.work + (int64_t)img * p.k * 3 * G;
+      for (int base = 0; base < G; base += nt / wb) {
+        const int g = base + t / wb;
+        const float3 r = seg_merge(g < G ? p.k : 0, wb, [&](int e) {
+          const float* w = w0 + e * 3 * G + g;
+          return make_float3(__ldcg(w), __ldcg(w + G), __ldcg(w + 2 * G));
+        });
+        if (g < G && t % wb == 0) {
+          if (MODE == kPartials) {
+            if (part == 0) {
+              float* w = p.stats + (int64_t)img * 3 * G;
+              w[g] = r.x;
+              w[G + g] = r.y;
+              w[2 * G + g] = r.z;
+            }
+          } else {
+            s_mean[g] = r.y;
+            s_rstd[g] = 1.0f / sqrtf(r.z / r.x + p.eps);
+          }
+        }
+      }
+    }
+    if constexpr (MODE == kPartials) return;
   }
   __syncthreads();
   if (!active) return;
@@ -453,9 +507,9 @@ __global__ void __launch_bounds__(kMaxThreads) gn_fused_kernel(const Params p) {
   }
 }
 
-template <typename T, int VEC, bool SILU>
+template <typename T, int VEC, bool SILU, int MODE>
 int launch(const GnArgs& a, cudaStream_t stream) {
-  auto kernel = gn_fused_kernel<T, VEC, SILU>;
+  auto kernel = gn_fused_kernel<T, VEC, SILU, MODE>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
@@ -468,7 +522,8 @@ int launch(const GnArgs& a, cudaStream_t stream) {
   const int64_t smem = a.stage_rows * C * (int64_t)sizeof(T) + scratch_bytes(threads, VEC, C, G);
   if (threads > kMaxThreads || smem > kSmemMax || a.stage_rows > rows_per_block || a.HW > INT32_MAX / C ||
       C > kFoldPer * threads ||
-      (a.k > 1 && !a.work))
+      (MODE != kApply && a.k > 1 && !a.work) || (MODE != kFused && !a.stats) ||
+      (MODE == kApply && (a.n_parts < 1 || a.stage_rows != 0)))
     return (int)cudaErrorInvalidValue;
 
   Params p;
@@ -476,13 +531,15 @@ int launch(const GnArgs& a, cudaStream_t stream) {
   p.w_bs = a.w_bs; p.b_bs = a.b_bs; p.s_bs = a.s_bs; p.t_bs = a.t_bs;
   p.w_dt = (int)a.w_dt; p.b_dt = (int)a.b_dt; p.s_dt = (int)a.s_dt; p.t_dt = (int)a.t_dt;
   p.work = static_cast<float*>(a.work);
-  p.HW = (int)a.HW; p.C = C; p.G = G; p.k = (int)a.k;
+  p.stats = static_cast<float*>(a.stats);
+  p.n_parts = (int)a.n_parts;
+  p.B = (int)a.B; p.HW = (int)a.HW; p.C = C; p.G = G; p.k = (int)a.k;
   p.rows_per_block = (int)rows_per_block;
   p.stage_rows = (int)a.stage_rows;
   p.eps = (float)a.eps;
 
   const dim3 grid((unsigned)(a.B * a.k)), block((unsigned)threads);
-  if (a.k > 1) {  // every block resident at once: the caller keeps B * k <= SMs
+  if (a.k > 1 && MODE != kApply) {  // every block resident at once: the caller keeps B * k <= SMs
     void* args[] = {&p};
     const cudaError_t err = cudaLaunchCooperativeKernel((const void*)kernel, grid, block, args, (size_t)smem, stream);
     if (err != cudaSuccess) return (int)err;
@@ -492,11 +549,16 @@ int launch(const GnArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool SILU>
+template <bool SILU, int MODE>
 int dispatch(const GnArgs& a, cudaStream_t stream) {
-  if (a.dtype == kFloat32) return launch<float, 4, SILU>(a, stream);
-  if (a.C % 8 == 0) return launch<__nv_bfloat16, 8, SILU>(a, stream);
-  return launch<__nv_bfloat16, 4, SILU>(a, stream);
+  if (a.dtype == kFloat32) return launch<float, 4, SILU, MODE>(a, stream);
+  if (a.C % 8 == 0) return launch<__nv_bfloat16, 8, SILU, MODE>(a, stream);
+  return launch<__nv_bfloat16, 4, SILU, MODE>(a, stream);
+}
+
+bool valid(const GnArgs& a) {
+  return a.B > 0 && a.HW > 0 && a.C > 0 && a.G > 0 && a.C % a.G == 0 && a.C % 4 == 0 && a.k >= 1 && a.k <= a.HW &&
+         a.rows_par >= 1 && a.stage_rows >= 0 && (a.dtype == kFloat32 || a.dtype == kBFloat16);
 }
 
 }  // namespace
@@ -504,9 +566,23 @@ int dispatch(const GnArgs& a, cudaStream_t stream) {
 // x, y: (B, HW, C) contiguous, 16-byte aligned; B * k blocks, k to an image
 // (k > 1: cooperative, at most one block per SM).  Returns a cudaError_t code.
 extern "C" int gn_forward(GnArgs a, void* stream) {
-  if (a.B <= 0 || a.HW <= 0 || a.C <= 0 || a.G <= 0 || a.C % a.G != 0 || a.C % 4 != 0) return (int)cudaErrorInvalidValue;
-  if (a.k < 1 || a.k > a.HW || a.rows_par < 1 || a.stage_rows < 0) return (int)cudaErrorInvalidValue;
-  if (a.dtype != kFloat32 && a.dtype != kBFloat16) return (int)cudaErrorInvalidValue;
+  if (!valid(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return a.silu ? dispatch<true>(a, s) : dispatch<false>(a, s);
+  return a.silu ? dispatch<true, kFused>(a, s) : dispatch<false, kFused>(a, s);
+}
+
+// A shard's partials: x (B, HW, C) as gn_forward takes it, `stats` (B, 3, G)
+// float32 out (count, mean, M2 of each group); y and the affine unused.
+extern "C" int gn_partials(GnArgs a, void* stream) {
+  if (!valid(a)) return (int)cudaErrorInvalidValue;
+  return dispatch<false, kPartials>(a, (cudaStream_t)stream);
+}
+
+// The norm of a shard from every shard's partials, `stats` (n_parts, B, 3, G)
+// float32 in rank order; nothing staged (stage_rows 0), no grid sync; `work`,
+// when given, takes the merged mean and 1/sigma (B, 2, G).
+extern "C" int gn_apply(GnArgs a, void* stream) {
+  if (!valid(a)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return a.silu ? dispatch<true, kApply>(a, s) : dispatch<false, kApply>(a, s);
 }

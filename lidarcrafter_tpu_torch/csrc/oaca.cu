@@ -5,10 +5,17 @@
 // called through `oaca_attention` / `_oaca_call`).  For each (batch, head):
 //
 //   q     = [q_c | ipe]                       (Lq, DC+DP)   image queries
-//   k_img = [k_c | ipe]                       (Lq, DC+DP)   image keys
+//   k_img = [k_c | ipe_k]                     (Lk, DC+DP)   image keys
 //   k_l                                       (L2, DC+DP)   layout keys
 //   s     = scale^2 * q . [k_img ; k_l]^T     f32 logits
 //   out   = softmax(s) . [v_c ; v_l]          (Lq, DV)
+//
+// In one process the image keys are the queries' own tokens: Lk = Lq and
+// ipe_k is ipe.  Under the azimuth axis (parallel/mesh.py, sp > 1) a rank's
+// queries are its columns of the image, and its keys k_c, v_c are every
+// rank's columns gathered in the global token order, with the whole
+// positional strip as ipe_k (Lk = sp * Lq).  The 32-wide loader below takes
+// any Lk; the (64, 64, 64) route takes Lk = Lq only.
 //
 // The TPU kernel kept the whole K/V strip in VMEM and took one plain
 // softmax.  On Hopper the strip does not fit a block's shared memory (at
@@ -100,6 +107,9 @@ struct OacaArgs {
   int64_t out_s[3];
   int64_t B, H, Lq, L2;
   double scale2;
+  const void* ipe_k;  // the image keys' positional rows (Lk of them)
+  int64_t ipe_k_s[3];
+  int64_t Lk;
 };
 
 namespace {
@@ -134,20 +144,21 @@ __global__ void __launch_bounds__(NT) oaca_fwd_kernel(const OacaArgs a, const in
 
   const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int q0 = blockIdx.x * BQ;
-  const int Lq = (int)a.Lq;
+  const int Lq = (int)a.Lq, Lk = (int)a.Lk;
   const T* qc = (const T*)a.qc + b * a.qc_s[0] + h * a.qc_s[1];
   const T* ipe = (const T*)a.ipe + b * a.ipe_s[0] + h * a.ipe_s[1];
+  const T* ipe_k = (const T*)a.ipe_k + b * a.ipe_k_s[0] + h * a.ipe_k_s[1];
   const T* kc = (const T*)a.kc + b * a.kc_s[0] + h * a.kc_s[1];
   const T* kl = (const T*)a.kl + b * a.kl_s[0] + h * a.kl_s[1];
   const T* vc = (const T*)a.vc + b * a.vc_s[0] + h * a.vc_s[1];
   const T* vl = (const T*)a.vl + b * a.vl_s[0] + h * a.vl_s[1];
 
-  // image tile t: keys [k_c | ipe], values v_c
+  // image tile t: keys [k_c | ipe_k], values v_c
   auto stage_image = [&](int t) {
-    const int k0 = t * BK, n = min(BK, Lq - k0);
+    const int k0 = t * BK, n = min(BK, Lk - k0);
     T* dk = sK + (t & 1) * BK * LDQ;
     stage_rows<T, DC, BK>(dk, LDQ, kc, a.kc_s[2], k0, n, DC);
-    stage_rows<T, DP, BK>(dk + DC, LDQ, ipe, a.ipe_s[2], k0, n, dp);
+    stage_rows<T, DP, BK>(dk + DC, LDQ, ipe_k, a.ipe_k_s[2], k0, n, dp);
     stage_rows<T, DV, BK>(sV + (t & 1) * BK * LDV, LDV, vc, a.vc_s[2], k0, n, DV);
     cp_async_commit();
   };
@@ -164,7 +175,7 @@ __global__ void __launch_bounds__(NT) oaca_fwd_kernel(const OacaArgs a, const in
   Warp::fill_ones(sVl, l2p);
   Warp w;
   w.init((float)a.scale2);
-  const int n_tiles = (Lq + BK - 1) / BK;
+  const int n_tiles = (Lk + BK - 1) / BK;
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait_all();
     __syncthreads();  // tile t has landed; every warp is done with tile t-1
@@ -172,8 +183,8 @@ __global__ void __launch_bounds__(NT) oaca_fwd_kernel(const OacaArgs a, const in
     if (t + 1 < n_tiles) stage_image(t + 1);  // overlaps the products of tile t
     const T* k_t = sK + (t & 1) * BK * LDQ;
     const T* v_t = sV + (t & 1) * BK * LDV;
-    if (Lq - t * BK < BK)
-      w.template attend<BK, true>(k_t, v_t, Lq - t * BK);
+    if (Lk - t * BK < BK)
+      w.template attend<BK, true>(k_t, v_t, Lk - t * BK);
     else
       w.template attend<BK, false>(k_t, v_t, BK);
   }
@@ -273,7 +284,7 @@ int launch_128(const OacaArgs& a, cudaStream_t s) {
   int err = hflash::make_map(&p.qc, a.qc, f32, 64, a.Lq, a.H, a.B, a.qc_s, R);
   if (!err) err = hflash::make_map(&p.ipe_q, a.ipe, f32, 64, a.Lq, a.H, a.B, a.ipe_s, R);
   if (!err) err = hflash::make_map(&p.kc, a.kc, f32, 64, a.Lq, a.H, a.B, a.kc_s, BK);
-  if (!err) err = hflash::make_map(&p.ipe_k, a.ipe, f32, 64, a.Lq, a.H, a.B, a.ipe_s, BK);
+  if (!err) err = hflash::make_map(&p.ipe_k, a.ipe_k, f32, 64, a.Lq, a.H, a.B, a.ipe_k_s, BK);
   if (!err) err = hflash::make_map(&p.vc, a.vc, f32, 64, a.Lq, a.H, a.B, a.vc_s, BK);
   if (!err && a.L2 > 0) err = hflash::make_map(&p.kl, a.kl, f32, 128, a.L2, a.H, a.B, a.kl_s, BK);
   if (!err && a.L2 > 0) err = hflash::make_map(&p.vl, a.vl, f32, 64, a.L2, a.H, a.B, a.vl_s, BK);
@@ -296,17 +307,17 @@ int launch_dims(const OacaArgs& a, int dc, int dp, int dv, cudaStream_t s) {
   // 32-wide build: its zero-filled columns change no logit
   if (dc == 32 && (dp == 16 || dp == 32) && dv == 32) return launch<T, 32, 32, 32>(a, dp, s);
   if (dc == 32 && dp == 64 && dv == 32) return launch<T, 32, 64, 32>(a, dp, s);
-  if (dc == 64 && dp == 64 && dv == 64) return launch_128<T>(a, s);
+  if (dc == 64 && dp == 64 && dv == 64 && a.Lk == a.Lq) return launch_128<T>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns a cudaError_t code; cudaErrorInvalidValue for head dims other than
-// (32, 16, 32), (32, 32, 32), (32, 64, 32) and (64, 64, 64), a layout length
-// this build does not cover, or a scale that is not positive.
+// (32, 16, 32), (32, 32, 32), (32, 64, 32) and (64, 64, 64) (Lk = Lq only), a
+// layout length this build does not cover, or a scale that is not positive.
 extern "C" int oaca_forward(OacaArgs a, int dtype, int dc, int dp, int dv, void* stream) {
-  if (a.L2 < 0 || a.L2 > BK || a.Lq <= 0 || a.B <= 0 || a.H <= 0 || a.B * a.H > 65535 ||
+  if (a.L2 < 0 || a.L2 > BK || a.Lq <= 0 || a.Lk <= 0 || a.B <= 0 || a.H <= 0 || a.B * a.H > 65535 ||
       !(a.scale2 > 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

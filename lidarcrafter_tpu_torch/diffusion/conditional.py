@@ -26,8 +26,13 @@ import torch
 from torch import nn
 
 from ..draws import Rows
+from ..parallel.mesh import Mesh
 from ..precision import cast_tree
 from .continuous import ContinuousDiffusion
+
+# the keys of an engine input dict that hold range-image maps (B, H, W[, C]):
+# under the azimuth axis a rank holds its columns of them
+AZIMUTH_KEYS = ("x_0", "concat_cond", "autoregressive_cond", "scene_loss_weight_map")
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -99,11 +104,21 @@ class CondContinuousDiffusion(ContinuousDiffusion):
         ddim_eta: float = 0.0,
         x_T: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        mesh: Mesh | None = None,
     ) -> torch.Tensor:
         """Conditioned sampling from ``x_T`` (drawn from ``generator`` when
         not given); returns x_0 (B, *sampling_shape): (B, H, W, C) frames,
-        or (B, num_points, point_dim) object clouds."""
+        or (B, num_points, point_dim) object clouds.  On a ``mesh`` (range
+        images) ``batch_dict`` holds this rank's share of the batch (rows
+        over ``dp``; the image maps, ``concat_cond`` and
+        ``autoregressive_cond``, cut to its columns), each rank denoises its
+        share (:meth:`reverse_on_mesh`) and every rank returns the whole
+        x_0."""
         x = self.start(batch_size, x_T, generator)
+        if mesh is not None:
+            with mesh.active():
+                condition = self.get_network_condition(batch_dict)
+            return self.reverse_on_mesh(mesh, x, num_steps, mode, ddim_eta, generator, condition)
         condition = self.get_network_condition(batch_dict)
         return self.reverse(x, num_steps, mode, ddim_eta, generator, condition)
 

@@ -23,6 +23,12 @@ called.
 package's ``build_sampler_fn`` sets it: the image and the time input go in
 as ``dtype`` and the prediction comes back float32, so the schedules, the
 sampler's carry and the clipping stay float32.
+
+Under the mesh's ``sp`` axis (``parallel/mesh.py``) the loss's per-sample
+sums are summed over the ranks before the division, so that a sample's
+masked mean spans every rank's columns; ``sample(..., mesh=)`` runs the
+reverse loop on this rank's share of the whole x_T (and of each step's
+draws) and gathers the frames at the end.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from torch import nn
 
 from ..draws import Rows
+from ..parallel.mesh import Mesh, azimuth, batch_sharding
 from . import schedules
 
 
@@ -228,7 +235,11 @@ class ContinuousDiffusion:
         prediction = self.denoise(x_t, self.log_snr(t), condition)
         loss = self.criterion(prediction, self.get_target(x_0, t, noise))
         axes = tuple(range(1, x_0.ndim))
-        loss = torch.sum(loss * loss_mask, dim=axes) / (torch.sum(loss_mask, dim=axes) + 1e-8)
+        total, count = torch.sum(loss * loss_mask, dim=axes), torch.sum(loss_mask, dim=axes)
+        mesh = azimuth()
+        if mesh is not None:  # the sample's sums over every rank's columns
+            total, count = mesh.sum_sp(torch.stack([total, count])).unbind(0)
+        loss = total / (count + 1e-8)
         return torch.mean(loss * self.get_loss_weight(t))
 
     def p_loss(
@@ -294,9 +305,11 @@ class ContinuousDiffusion:
         generator: torch.Generator | None = None,
         condition=None,
         noise: torch.Tensor | None = None,
+        rows: Rows | None = None,
     ) -> torch.Tensor:
         """One reverse step p(z_s | z_t); its noise is drawn from
-        ``generator`` unless given."""
+        ``generator`` unless given (at the whole batch's size, cut to
+        ``rows``, when given)."""
         log_snr_t = _bcast(self.log_snr(t), x_t.ndim)
         log_snr_s = _bcast(self.log_snr(s), x_t.ndim)
         alpha_t, sigma_t = schedules.log_snr_to_alpha_sigma(log_snr_t)
@@ -306,6 +319,8 @@ class ContinuousDiffusion:
         def draw():
             if noise is not None:
                 return noise
+            if rows is not None:
+                return rows.randn(generator, x_t.device, x_t.shape[1:], x_t.dtype)
             return torch.randn(
                 x_t.shape, generator=generator, device=x_t.device, dtype=x_t.dtype
             )
@@ -344,11 +359,13 @@ class ContinuousDiffusion:
         condition=None,
         plan: ReversePlan | None = None,
         noise: torch.Tensor | None = None,
+        rows: Rows | None = None,
     ) -> torch.Tensor:
         """x_T → x_0 over :meth:`reverse_plan`'s grid (or ``plan``, made
         for this mode and ``num_steps``).  A step that draws noise (DDPM,
         DDIM with η > 0) takes ``noise[i]`` when ``noise`` is given, else
-        draws from ``generator``."""
+        draws from ``generator`` (this rank's ``rows`` of the whole draw,
+        when given)."""
         B, device = x.shape[0], x.device
         plan = plan or self.reverse_plan(num_steps, mode)
         grid = plan.grid
@@ -365,8 +382,21 @@ class ContinuousDiffusion:
             x = self.p_step(
                 x, t_full(grid[i]), t_full(grid[i + 1]), mode=mode, ddim_eta=ddim_eta,
                 generator=generator, condition=condition, noise=None if noise is None else noise[i],
+                rows=rows,
             )
         return x
+
+    def reverse_on_mesh(self, mesh: Mesh, x: torch.Tensor, num_steps: int, mode, ddim_eta: float = 0.0,
+                        generator: torch.Generator | None = None, condition=None) -> torch.Tensor:
+        """:meth:`reverse` of the whole x_T ``x`` (B, H, W, C) on ``mesh``:
+        this rank's rows and columns of it, and of each step's draws, with
+        the layers sharded over ``sp``; the whole x_0 gathered on every
+        rank.  ``condition`` is this rank's share of the network condition."""
+        sharding = batch_sharding(mesh, x.ndim, sp_axis=2)
+        with mesh.active():
+            x_0 = self.reverse(sharding.cut(x), num_steps, mode, ddim_eta, generator, condition,
+                               rows=sharding.rows(x.shape[0], x.shape[2]))
+        return sharding.gather(x_0)
 
     def start(
         self,
@@ -393,10 +423,15 @@ class ContinuousDiffusion:
         ddim_eta: float = 0.0,
         x_T: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        mesh: Mesh | None = None,
     ) -> torch.Tensor:
         """Unconditional sampling from ``x_T`` (drawn from ``generator`` when
-        not given); returns x_0 (B, *sampling_shape)."""
+        not given); returns x_0 (B, *sampling_shape).  On a ``mesh`` each
+        rank denoises its share (:meth:`reverse_on_mesh`) and every rank
+        returns the whole x_0."""
         x = self.start(batch_size, x_T, generator)
+        if mesh is not None:
+            return self.reverse_on_mesh(mesh, x, num_steps, mode, ddim_eta, generator)
         return self.reverse(x, num_steps, mode, ddim_eta, generator)
 
     def repaint_loop(

@@ -27,6 +27,19 @@ forward-mode rule is :func:`group_norm_jvp`, the plain version's tangent in
 float32 from recomputed statistics; an operand that carries a tangent always
 goes through the Function, so no tangent reaches a bare launch.
 
+Under the azimuth axis (``parallel/mesh.py``, ``sp`` > 1) an image's
+statistics span every rank's columns, and the caller passes ``exchange``:
+the norm is then two launches, :func:`launch_partials` (this shard's
+per-(image, group) count, mean and M2) and :func:`launch_apply` (every
+shard's partials merged in rank order by the same Chan merge, then the
+norm as above), around ``exchange``, which gathers the (B, 3, G) partials
+of every rank.  The plain versions split alike
+(:func:`group_norm_partials_plain`, :func:`group_norm_apply_plain`); on the
+card each launch is differentiable through its own Function, whose
+backward is autograd of its plain version recomputed in float32, so that
+the gradients of the statistics flow back through ``exchange`` to every
+shard.
+
 While ``torch.export`` traces it with grad off and no tangent, the wrapper
 calls the operator ``torch.ops.lidarcrafter_torch.group_norm``
 (:func:`group_norm_op`), on either device: its CUDA implementation is
@@ -40,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +61,8 @@ import torch.nn.functional as F
 from . import loader
 
 launches = loader.LaunchCounter("groupnorm")
+partials_launches = loader.LaunchCounter("groupnorm_partials")
+apply_launches = loader.LaunchCounter("groupnorm_apply")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256  # threads a block aims for
@@ -145,12 +161,69 @@ def group_norm_plain(
     ``bias`` are (C,) or (B, C), ``scale`` and ``shift`` hold B·C values
     ((B, C), (B, 1, 1, C), ...), any of them None."""
     B, C = x.shape[0], x.shape[-1]
-    y = _normalized(x, num_groups, eps)[0].reshape(B, -1, C)
-    gamma, beta = _fold(weight, bias, scale, shift, C, x.device)
+    return _affine(_normalized(x, num_groups, eps)[0].reshape(B, -1, C), x, weight, bias, scale, shift, silu)
+
+
+def _affine(y: torch.Tensor, x: torch.Tensor, weight, bias, scale, shift, silu: bool) -> torch.Tensor:
+    """The normalised (B, L, C) float32 ``y`` of ``x`` times γ plus β (folded
+    in f32), then the optional SiLU, cast to ``x``'s dtype and shape."""
+    gamma, beta = _fold(weight, bias, scale, shift, x.shape[-1], x.device)
     y = y * gamma[:, None, :] + beta[:, None, :]
     if silu:
         y = F.silu(y)
     return y.to(x.dtype).reshape(x.shape)
+
+
+def group_norm_partials_plain(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """This shard's statistics of each (image, group): (B, 3, G) float32
+    rows of count, mean and M2 (the sum of squared deviations), direct
+    two-pass."""
+    B, C = x.shape[0], x.shape[-1]
+    g = x.reshape(B, -1, num_groups, C // num_groups).float()
+    mean = g.mean(dim=(1, 3))
+    m2 = (g - mean[:, None, :, None]).square().sum(dim=(1, 3))
+    return torch.stack([torch.full_like(mean, g.shape[1] * g.shape[3]), mean, m2], dim=1)
+
+
+def merge_partials(parts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mean and variance (B, G) of the union of the shards whose
+    partials ``parts`` (S, B, 3, G) holds, in rank order (Chan's merge):
+    mean = Σ n_s mean_s / n, M2 = Σ M2_s + n_s (mean_s - mean)²."""
+    n, mean_s, m2_s = parts.float().unbind(2)
+    total = n.sum(0)
+    mean = (n * mean_s).sum(0) / total
+    return mean, (m2_s + n * (mean_s - mean).square()).sum(0) / total
+
+
+def group_norm_apply_plain(
+    x: torch.Tensor,
+    parts: torch.Tensor,
+    weight: torch.Tensor | None,
+    bias: torch.Tensor | None,
+    *,
+    num_groups: int,
+    eps: float,
+    scale: torch.Tensor | None = None,
+    shift: torch.Tensor | None = None,
+    silu: bool = False,
+) -> torch.Tensor:
+    """:func:`group_norm_plain` of a shard with the statistics of every
+    shard's partials ``parts`` (S, B, 3, G) (:func:`merge_partials`)."""
+    B, C = x.shape[0], x.shape[-1]
+    mean, var = merge_partials(parts)
+    g = x.reshape(B, -1, num_groups, C // num_groups).float()
+    y = ((g - mean[:, None, :, None]) * torch.rsqrt(var + eps)[:, None, :, None]).reshape(B, -1, C)
+    return _affine(y, x, weight, bias, scale, shift, silu)
+
+
+def _recomputed_grads(fn, saved, g: torch.Tensor) -> tuple:
+    """Gradients of ``fn(*saved)`` for the output gradient ``g``: autograd
+    of a plain version recomputed in float32, each gradient cast to its
+    operand's dtype (None for a None operand)."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().float().requires_grad_() for t in saved]
+        grads = iter(torch.autograd.grad(fn(*ins), [t for t in ins if t is not None], g.float()))
+    return tuple(None if t is None else next(grads).to(t.dtype) for t in saved)
 
 
 def group_norm_backward(saved, g: torch.Tensor, *, num_groups: int, eps: float, silu: bool = False):
@@ -159,13 +232,10 @@ def group_norm_backward(saved, g: torch.Tensor, *, num_groups: int, eps: float, 
     gradient ``g``: autograd of the plain version recomputed in float32, each
     gradient cast to its operand's dtype and shaped as it (None for a None
     operand)."""
-    with torch.enable_grad():
-        ins = [None if t is None else t.detach().float().requires_grad_() for t in saved]
-        x, weight, bias, scale, shift = ins
-        y = group_norm_plain(x, weight, bias, num_groups=num_groups, eps=eps,
-                             scale=scale, shift=shift, silu=silu)
-        grads = iter(torch.autograd.grad(y, [t for t in ins if t is not None], g.float()))
-    return tuple(None if t is None else next(grads).to(t.dtype) for t in saved)
+    def plain(x, weight, bias, scale, shift):
+        return group_norm_plain(x, weight, bias, num_groups=num_groups, eps=eps, scale=scale, shift=shift, silu=silu)
+
+    return _recomputed_grads(plain, saved, g)
 
 
 def group_norm_jvp(saved, tangents, *, num_groups: int, eps: float, silu: bool = False) -> torch.Tensor:
@@ -225,15 +295,20 @@ def _operand(t: torch.Tensor | None, x: torch.Tensor, B: int, C: int, what: str)
     return t.data_ptr(), stride[0] if rows > 1 else 0, code
 
 
-def _args(x, y, weight, bias, scale, shift, work, num_groups, eps, silu, p: Plan) -> loader.GnArgs:
+def _args(x, y, weight, bias, scale, shift, work, num_groups, eps, silu, p: Plan,
+          stats: torch.Tensor | None = None) -> loader.GnArgs:
+    """The kernel's arguments; with ``stats`` (the split launches) nothing
+    is staged and ``stats`` holds the partials (its first dim the shards
+    for :func:`launch_apply`)."""
     B, C = x.shape[0], x.shape[-1]
     ops = [_operand(t, x, B, C, what) for t, what in
            ((weight, "weight"), (bias, "bias"), (scale, "scale"), (shift, "shift"))]
     (w, w_bs, w_dt), (b, b_bs, b_dt), (s, s_bs, s_dt), (t, t_bs, t_dt) = ops
     return loader.GnArgs(
-        x.data_ptr(), y.data_ptr(), w, b, s, t, w_bs, b_bs, s_bs, t_bs, w_dt, b_dt, s_dt, t_dt,
+        x.data_ptr(), 0 if y is None else y.data_ptr(), w, b, s, t, w_bs, b_bs, s_bs, t_bs, w_dt, b_dt, s_dt, t_dt,
         0 if work is None else work.data_ptr(), _DTYPE_CODES[x.dtype], B, x.numel() // (B * C), C, num_groups,
-        p.k, p.rows_par, p.stage_rows, int(silu), float(eps),
+        p.k, p.rows_par, p.stage_rows if stats is None else 0, int(silu), float(eps),
+        0 if stats is None else stats.data_ptr(), 0 if stats is None or stats.ndim < 4 else stats.shape[0],
     )
 
 
@@ -247,6 +322,7 @@ def group_norm(
     scale: torch.Tensor | None = None,
     shift: torch.Tensor | None = None,
     silu: bool = False,
+    exchange: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """GroupNorm(+per-batch affine)(+SiLU) of a channels-last tensor.
 
@@ -259,6 +335,10 @@ def group_norm(
         they are), or None; the output is ``GN(x)·w(1+s) + b(1+s) + t``.
       num_groups, eps: the GroupNorm's groups and epsilon.
       silu: apply SiLU before the single write.
+      exchange: for a shard of images whose statistics span every rank's
+        shard (the azimuth axis), the differentiable gather of the (B, 3, G)
+        partials of every rank, stacked in rank order; the norm is then
+        :func:`group_norm_partials` and :func:`group_norm_apply` around it.
 
     Returns a tensor of ``x``'s shape and dtype.  An operand that carries a
     forward-mode tangent (``torch.func.jvp``, ``forward_ad``), or, with grad
@@ -270,6 +350,10 @@ def group_norm(
     C = x.shape[-1]
     if C % num_groups:
         raise ValueError(f"{C} channels do not split into {num_groups} groups")
+    if exchange is not None:
+        parts = exchange(group_norm_partials(x, num_groups))
+        return group_norm_apply(x, parts, weight, bias, num_groups=num_groups, eps=eps, scale=scale, shift=shift,
+                                silu=silu)
     ops = (x, weight, bias, scale, shift)
     autograd = loader.has_tangent(*ops) or (
         torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ops))
@@ -286,8 +370,9 @@ def group_norm(
     return launch(x, weight, bias, scale, shift, num_groups=num_groups, eps=eps, silu=silu)
 
 
-def launch(x, weight, bias, scale, shift, *, num_groups: int, eps: float, silu: bool) -> torch.Tensor:
-    """One launch of the kernel on plain operands (no autograd, no tangent)."""
+def _plan(x: torch.Tensor, num_groups: int) -> tuple[torch.Tensor, Plan]:
+    """``x`` contiguous, and the kernel's plan for it; raises where the
+    kernel does not take it."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"group_norm kernel is built for float32/bfloat16, got {x.dtype}")
     B, C = x.shape[0], x.shape[-1]
@@ -297,6 +382,13 @@ def launch(x, weight, bias, scale, shift, *, num_groups: int, eps: float, silu: 
     p = plan(B, x.numel() // (B * C), C, num_groups, x.element_size(), _num_sms(x.device.index))
     if C % 4 or p.threads > _MAX_THREADS or p.smem > _SMEM_MAX:
         raise ValueError(f"group_norm kernel needs C % 4 == 0 and C <= {_MAX_THREADS * 4}, got {C}")
+    return x, p
+
+
+def launch(x, weight, bias, scale, shift, *, num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+    """One launch of the kernel on plain operands (no autograd, no tangent)."""
+    x, p = _plan(x, num_groups)
+    B = x.shape[0]
     y = torch.empty_like(x)
     work = torch.empty(B * p.k * 3 * num_groups, device=x.device) if p.k > 1 else None
     args = _args(x, y, weight, bias, scale, shift, work, num_groups, eps, silu, p)
@@ -304,6 +396,115 @@ def launch(x, weight, bias, scale, shift, *, num_groups: int, eps: float, silu: 
     loader.check(err, "gn_forward")
     launches.n += 1
     return y
+
+
+def launch_partials(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """One launch of ``gn_partials``: this shard's (B, 3, G) float32
+    partials (count, mean, M2), as :func:`group_norm_partials_plain`."""
+    x, p = _plan(x, num_groups)
+    B = x.shape[0]
+    stats = torch.empty(B, 3, num_groups, device=x.device)
+    work = torch.empty(B * p.k * 3 * num_groups, device=x.device) if p.k > 1 else None
+    args = _args(x, None, None, None, None, None, work, num_groups, 0.0, False, p, stats)
+    loader.check(loader.library("groupnorm").gn_partials(args, torch.cuda.current_stream(x.device).cuda_stream),
+                 "gn_partials")
+    partials_launches.n += 1
+    return stats
+
+
+def launch_apply(x, parts, weight, bias, scale, shift, *, num_groups: int, eps: float, silu: bool,
+                 merged: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of ``gn_apply``: the norm of the shard ``x`` from every
+    shard's partials ``parts`` (S, B, 3, G) float32, as
+    :func:`group_norm_apply_plain`; ``merged`` (B, 2, G) float32, when
+    given, takes the merged mean and 1/σ."""
+    x, p = _plan(x, num_groups)
+    B = x.shape[0]
+    if parts.dtype != torch.float32 or parts.ndim != 4 or tuple(parts.shape[1:]) != (B, 3, num_groups):
+        raise ValueError(f"group_norm partials: expected (S, {B}, 3, {num_groups}) float32, got "
+                         f"{tuple(parts.shape)} {parts.dtype}")
+    parts = parts.contiguous()
+    y = torch.empty_like(x)
+    args = _args(x, y, weight, bias, scale, shift, merged, num_groups, eps, silu, p, parts)
+    loader.check(loader.library("groupnorm").gn_apply(args, torch.cuda.current_stream(x.device).cuda_stream),
+                 "gn_apply")
+    apply_launches.n += 1
+    return y
+
+
+def _grad_needed(*ops) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ops)
+
+
+def _on_card(x: torch.Tensor, ops) -> bool:
+    """Whether the split norm launches its kernels (``x`` on the card) or
+    runs its plain version (on the CPU); raises on a tangent, which no sharded
+    path takes."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"group_norm: unsupported device {x.device}")
+    if x.device.type == "cuda" and loader.has_tangent(*ops):
+        raise NotImplementedError("the sharded group_norm has no forward-mode rule")
+    return x.device.type == "cuda"
+
+
+def group_norm_partials(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """This shard's (B, 3, G) partials: :func:`launch_partials` on the card
+    (through :class:`GroupNormPartials` when ``x`` requires grad), the plain
+    version on the CPU."""
+    if not _on_card(x, (x,)):
+        return group_norm_partials_plain(x, num_groups)
+    if _grad_needed(x):
+        return GroupNormPartials.apply(num_groups, x)
+    return launch_partials(x, num_groups)
+
+
+def group_norm_apply(x, parts, weight, bias, *, num_groups: int, eps: float, scale=None, shift=None,
+                     silu: bool = False) -> torch.Tensor:
+    """The norm of the shard ``x`` from every shard's partials ``parts``:
+    :func:`launch_apply` on the card (through :class:`GroupNormApply` when
+    an operand requires grad), the plain version on the CPU."""
+    ops = (x, parts, weight, bias, scale, shift)
+    if not _on_card(x, ops):
+        return group_norm_apply_plain(x, parts, weight, bias, num_groups=num_groups, eps=eps, scale=scale,
+                                      shift=shift, silu=silu)
+    if _grad_needed(*ops):
+        return GroupNormApply.apply(num_groups, float(eps), bool(silu), *ops)
+    return launch_apply(*ops, num_groups=num_groups, eps=eps, silu=silu)
+
+
+class GroupNormPartials(torch.autograd.Function):
+    """:func:`launch_partials` with autograd of
+    :func:`group_norm_partials_plain` as its backward; ``apply(num_groups,
+    x)``."""
+
+    @staticmethod
+    def forward(ctx, num_groups, x):
+        ctx.num_groups = num_groups
+        ctx.save_for_backward(x)
+        return launch_partials(x, num_groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, *_recomputed_grads(lambda x: group_norm_partials_plain(x, ctx.num_groups), ctx.saved_tensors, g)
+
+
+class GroupNormApply(torch.autograd.Function):
+    """:func:`launch_apply` with autograd of :func:`group_norm_apply_plain`
+    as its backward; ``apply(num_groups, eps, silu, x, parts, weight, bias,
+    scale, shift)``."""
+
+    @staticmethod
+    def forward(ctx, num_groups, eps, silu, *ops):
+        ctx.norm = dict(num_groups=num_groups, eps=eps, silu=silu)
+        ctx.save_for_backward(*ops)
+        return launch_apply(*ops, **ctx.norm)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(x, parts, weight, bias, scale, shift):
+            return group_norm_apply_plain(x, parts, weight, bias, scale=scale, shift=shift, **ctx.norm)
+
+        return None, None, None, *_recomputed_grads(plain, ctx.saved_tensors, g)
 
 
 @torch.library.custom_op("lidarcrafter_torch::group_norm", mutates_args=(), device_types="cuda")

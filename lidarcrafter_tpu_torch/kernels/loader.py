@@ -56,6 +56,7 @@ class OacaArgs(ctypes.Structure):
         ("B", ctypes.c_int64), ("H", ctypes.c_int64),
         ("Lq", ctypes.c_int64), ("L2", ctypes.c_int64),
         ("scale2", ctypes.c_double),
+        ("ipe_k", ctypes.c_void_p), ("ipe_k_s", ctypes.c_int64 * 3), ("Lk", ctypes.c_int64),
     ]
 
 
@@ -91,13 +92,14 @@ class GnArgs(ctypes.Structure):
         ("k", ctypes.c_int64), ("rows_par", ctypes.c_int64),
         ("stage_rows", ctypes.c_int64), ("silu", ctypes.c_int64),
         ("eps", ctypes.c_double),
+        ("stats", ctypes.c_void_p), ("n_parts", ctypes.c_int64),
     ]
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "probe": {"probe_x2": [_P, _P, _I, _P]},
-    "groupnorm": {"gn_forward": [GnArgs, _P]},
+    "groupnorm": {"gn_forward": [GnArgs, _P], "gn_partials": [GnArgs, _P], "gn_apply": [GnArgs, _P]},
     "oaca": {"oaca_forward": [OacaArgs, _I, _I, _I, _I, _P]},
     "attention": {"attention_forward": [AttnArgs, _I, _P],
                   "attention_wide_plan": [_I, _I, _I, ctypes.POINTER(ctypes.c_int32)]},

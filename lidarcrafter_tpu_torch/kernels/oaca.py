@@ -16,6 +16,13 @@ transpose rule, so its backward is the XLA recompute too).  No path of the
 JAX package takes OACA's forward-mode derivative, so it has no forward-mode
 rule here: an operand that carries a tangent raises.
 
+Under the azimuth axis (``parallel/mesh.py``) a rank's queries are its
+columns of the image and its image keys every rank's, gathered: the image
+keys then have a length Lk of their own and positional rows ``ipe_k`` of
+their own (the whole strip), while the queries keep ``ipe``, their own
+columns of it.  Without ``ipe_k`` the keys are the queries' tokens (Lk =
+Lq, ``ipe_k`` = ``ipe``) and the launch is the one-process launch.
+
 While ``torch.export`` traces it with grad off, the wrapper calls the
 operator ``torch.ops.lidarcrafter_torch.oaca_forward`` (:func:`oaca_op`), on
 either device: its CUDA implementation is :func:`launch`, its CPU
@@ -34,6 +41,8 @@ import torch
 from . import loader
 
 launches = loader.LaunchCounter("oaca")
+# the launches among those whose image keys are not the queries' tokens (Lk != Lq)
+gathered_launches = loader.LaunchCounter("oaca_gathered")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (content, positional, value) head dims the kernel runs: 32^3 for the
@@ -66,11 +75,12 @@ def hopper_layout(dtype: torch.dtype) -> loader.HopperLayout:
     return loader.hopper_layout(False, 64 if f32 else 128, 128 // cw, 64 // cw, 2 * 64 // cw)
 
 
-def oaca_attention_plain(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tensor:
-    """softmax([q_c|ipe]·s · [[k_c|ipe]; k_l]ᵀ·s) · [v_c; v_l] in float32,
-    cast to ``q_c.dtype``.  Operands are (B, heads, L, d)."""
+def oaca_attention_plain(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float, ipe_k=None) -> torch.Tensor:
+    """softmax([q_c|ipe]·s · [[k_c|ipe_k]; k_l]ᵀ·s) · [v_c; v_l] in float32,
+    cast to ``q_c.dtype``.  Operands are (B, heads, L, d); ``ipe_k`` is
+    ``ipe`` when None."""
     q_img = torch.cat([q_c, ipe], dim=-1)
-    k_img = torch.cat([k_c, ipe], dim=-1)
+    k_img = torch.cat([k_c, ipe if ipe_k is None else ipe_k], dim=-1)
     k_mix = torch.cat([k_img, k_l], dim=2).float() * scale
     v_mix = torch.cat([v_c, v_l], dim=2).float()
     logits = torch.einsum("bhtc,bhsc->bhts", q_img.float() * scale, k_mix)
@@ -79,14 +89,14 @@ def oaca_attention_plain(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch
 
 
 def oaca_attention_backward(ops, g: torch.Tensor, *, scale: float) -> tuple[torch.Tensor, ...]:
-    """Gradients of :func:`oaca_attention` with respect to its six operands
-    ``ops`` = (q_c, ipe, k_c, k_l, v_c, v_l) for the output gradient ``g``
-    (any strides): autograd of the plain version recomputed in float32 from
-    the operands, each gradient cast to its operand's dtype.  Nothing of
-    the recompute outlives the call."""
+    """Gradients of :func:`oaca_attention` with respect to its operands
+    ``ops`` = (q_c, ipe, k_c, k_l, v_c, v_l[, ipe_k]) for the output gradient
+    ``g`` (any strides): autograd of the plain version recomputed in float32
+    from the operands, each gradient cast to its operand's dtype.  Nothing
+    of the recompute outlives the call."""
     with torch.enable_grad():
         xs = [t.detach().float().requires_grad_() for t in ops]
-        out = oaca_attention_plain(*xs, scale=scale)
+        out = oaca_attention_plain(*xs[:6], scale=scale, ipe_k=xs[6] if len(xs) > 6 else None)
         grads = torch.autograd.grad(out, xs, g.float())
     return tuple(d.to(t.dtype) for d, t in zip(grads, ops))
 
@@ -103,21 +113,21 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _check(q_c, ipe, k_c, k_l, v_c, v_l, scale: float) -> None:
+def _check(q_c, ipe, k_c, k_l, v_c, v_l, scale: float, ipe_k) -> None:
     """Raise unless the kernel takes these operands (shapes, dtypes,
     strides, head dims and scale; nothing that reads a pointer)."""
     B, H, Lq, dc = q_c.shape
-    dp, L2, dv = ipe.shape[-1], k_l.shape[2], v_c.shape[-1]
-    ops = (q_c, ipe, k_c, k_l, v_c, v_l)
+    dp, L2, dv, Lk = ipe.shape[-1], k_l.shape[2], v_c.shape[-1], k_c.shape[2]
+    ops = (q_c, ipe, k_c, k_l, v_c, v_l, ipe_k)
     if any(t.device != q_c.device for t in ops) or q_c.device.type != "cuda":
         raise ValueError("oaca_attention: operands must all be on one CUDA device")
     if any(t.dtype != q_c.dtype for t in ops) or q_c.dtype not in _DTYPE_CODES:
         raise TypeError("oaca_attention kernel needs one dtype, float32 or bfloat16")
     check_head_dims(dc, dp, dv)
     expect = {
-        "ipe": (ipe, (B, H, Lq, dp)), "k_c": (k_c, (B, H, Lq, dc)),
-        "k_l": (k_l, (B, H, L2, dc + dp)), "v_c": (v_c, (B, H, Lq, dv)),
-        "v_l": (v_l, (B, H, L2, dv)),
+        "ipe": (ipe, (B, H, Lq, dp)), "k_c": (k_c, (B, H, Lk, dc)),
+        "k_l": (k_l, (B, H, L2, dc + dp)), "v_c": (v_c, (B, H, Lk, dv)),
+        "v_l": (v_l, (B, H, L2, dv)), "ipe_k": (ipe_k, (B, H, Lk, dp)),
     }
     for name, (t, shape) in expect.items():
         if tuple(t.shape) != shape:
@@ -128,6 +138,9 @@ def _check(q_c, ipe, k_c, k_l, v_c, v_l, scale: float) -> None:
         raise ValueError(f"oaca_attention kernel takes L2 <= {_MAX_L2} and B*heads <= 65535")
     if (dc, dp, dv) == _HOPPER_DIMS and not all(map(loader.tma_addressable, ops)):
         raise ValueError("oaca_attention kernel's TMA route takes rows < 2^31 and strides < 2^40 bytes")
+    if (dc, dp, dv) == _HOPPER_DIMS and Lk != Lq:
+        raise ValueError(f"oaca_attention kernel's (64, 64, 64) route takes image keys of the queries' own "
+                         f"length, got Lk={Lk} for Lq={Lq} (head dims 32 take any Lk)")
     if not scale > 0:
         raise ValueError(f"oaca_attention kernel takes a positive scale, got {scale}")
 
@@ -139,20 +152,22 @@ def _out_like(q_c: torch.Tensor, dv: int) -> torch.Tensor:
     return q_c.new_empty_strided((B, H, Lq, dv), (Lq * H * dv, dv, H * dv, 1))
 
 
-def launch(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tensor:
+def launch(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float, ipe_k=None) -> torch.Tensor:
     """One launch of the kernel on plain operands (no autograd, no
     tangent); checks them, their alignment (which reads their pointers)
-    included."""
-    _check(q_c, ipe, k_c, k_l, v_c, v_l, scale)
+    included.  ``ipe_k`` is ``ipe`` when None."""
+    ipe_k = ipe if ipe_k is None else ipe_k
+    _check(q_c, ipe, k_c, k_l, v_c, v_l, scale, ipe_k)
     B, H, Lq, dc = q_c.shape
-    dp, L2, dv = ipe.shape[-1], k_l.shape[2], v_c.shape[-1]
+    dp, L2, dv, Lk = ipe.shape[-1], k_l.shape[2], v_c.shape[-1], k_c.shape[2]
     ops = (q_c, ipe, k_c, k_l, v_c, v_l)
-    loader.check_aligned("oaca_attention", *ops)
+    loader.check_aligned("oaca_attention", *ops, ipe_k)
     out = _out_like(q_c, dv)
     args = loader.OacaArgs(
         *(t.data_ptr() for t in ops), out.data_ptr(),
         *((ctypes.c_int64 * 3)(*_strides(t)) for t in (*ops, out)),
         B, H, Lq, L2, float(scale) ** 2,
+        ipe_k.data_ptr(), (ctypes.c_int64 * 3)(*_strides(ipe_k)), Lk,
     )
     err = loader.library("oaca").oaca_forward(
         args, _DTYPE_CODES[q_c.dtype], dc, dp, dv,
@@ -160,50 +175,63 @@ def launch(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tensor:
     )
     loader.check(err, "oaca_forward")
     launches.n += 1
+    if Lk != Lq:
+        gathered_launches.n += 1
     return out
+
+
+def _launch(ops: tuple, scale: float) -> torch.Tensor:
+    """:func:`launch` of (q_c, ipe, k_c, k_l, v_c, v_l[, ipe_k])."""
+    if len(ops) == 6:
+        return launch(*ops, scale=scale)
+    return launch(*ops[:6], scale=scale, ipe_k=ops[6])
 
 
 @torch.library.custom_op("lidarcrafter_torch::oaca_forward", mutates_args=(), device_types="cuda")
 def oaca_op(q_c: torch.Tensor, ipe: torch.Tensor, k_c: torch.Tensor, k_l: torch.Tensor,
-            v_c: torch.Tensor, v_l: torch.Tensor, scale: float) -> torch.Tensor:
+            v_c: torch.Tensor, v_l: torch.Tensor, scale: float, ipe_k: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel as an operator that ``torch.export`` records: one
     :func:`launch` on the card, :func:`oaca_attention_plain` on the CPU,
     both laid out as the kernel writes its result."""
-    return launch(q_c, ipe, k_c, k_l, v_c, v_l, scale=scale)
+    return _launch((q_c, ipe, k_c, k_l, v_c, v_l) + (() if ipe_k is None else (ipe_k,)), scale)
 
 
 @oaca_op.register_kernel("cpu")
-def _oaca_op_cpu(q_c, ipe, k_c, k_l, v_c, v_l, scale):
-    return _out_like(q_c, v_c.shape[-1]).copy_(oaca_attention_plain(q_c, ipe, k_c, k_l, v_c, v_l, scale=scale))
+def _oaca_op_cpu(q_c, ipe, k_c, k_l, v_c, v_l, scale, ipe_k=None):
+    return _out_like(q_c, v_c.shape[-1]).copy_(
+        oaca_attention_plain(q_c, ipe, k_c, k_l, v_c, v_l, scale=scale, ipe_k=ipe_k))
 
 
 @oaca_op.register_fake
-def _oaca_op_fake(q_c, ipe, k_c, k_l, v_c, v_l, scale):
+def _oaca_op_fake(q_c, ipe, k_c, k_l, v_c, v_l, scale, ipe_k=None):
     return _out_like(q_c, v_c.shape[-1])
 
 
 class OacaAttention(torch.autograd.Function):
     """The kernel's forward with :func:`oaca_attention_backward` as its
-    backward; ``apply(scale, q_c, ipe, k_c, k_l, v_c, v_l)``."""
+    backward; ``apply(scale, q_c, ipe, k_c, k_l, v_c, v_l[, ipe_k])``."""
 
     @staticmethod
     def forward(ctx, scale, *ops):
         ctx.scale = scale
         ctx.save_for_backward(*ops)
-        return launch(*ops, scale=scale)
+        return _launch(ops, scale)
 
     @staticmethod
     def backward(ctx, g):
         return (None, *oaca_attention_backward(ctx.saved_tensors, g, scale=ctx.scale))
 
 
-def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tensor:
+def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float, ipe_k=None) -> torch.Tensor:
     """Joint softmax attention of image queries over image and layout keys.
 
     Args (all (B, heads, L, d), one dtype):
-      q_c, k_c, v_c: per-head image content projections, L = Lq = H·W.
-      ipe: per-head image-patch positional embedding, concatenated onto both
-        q_c and k_c.
+      q_c: per-head image content queries, L = Lq (H·W in one process).
+      k_c, v_c: per-head image content keys and values, L = Lk (Lq in one
+        process; every rank's tokens under the azimuth axis).
+      ipe: per-head image-patch positional embedding of the queries,
+        concatenated onto q_c, and onto k_c unless ``ipe_k`` is given.
+      ipe_k: the image keys' positional rows (Lk), or None.
       k_l, v_l: layout strip, L2 tokens; k_l is already [k_content | pe].
       scale: the per-operand 1/√√(dc + dp) factor (applied as scale² to the
         logits).
@@ -218,7 +246,8 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
     float32 on 3xTF32 ``mma.sync``; at the other head dims on ``mma.sync``
     (bf16, or 3xTF32 for float32) fed by ``cp.async``.  Returns (B, heads,
     Lq, dv) in the operands' dtype; on the card its memory is laid out (B, Lq, heads, dv), so that merging
-    the heads back into channels is free.  With grad enabled and an operand
+    the heads back into channels is free.  At (64, 64, 64) the card takes
+    Lk = Lq only (else ``ValueError``).  With grad enabled and an operand
     that requires grad, the result carries :class:`OacaAttention`'s
     backward (on the CPU: autograd of the plain version); otherwise the
     kernel is launched directly, or, while ``torch.export`` traces the
@@ -227,13 +256,13 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
     (``torch.func.jvp``, ``forward_ad``) raises ``NotImplementedError`` on
     the card.
     """
-    ops = (q_c, ipe, k_c, k_l, v_c, v_l)
+    ops = (q_c, ipe, k_c, k_l, v_c, v_l) + (() if ipe_k is None else (ipe_k,))
     autograd = torch.is_grad_enabled() and any(t.requires_grad for t in ops)
     tangent = loader.has_tangent(*ops)
     if not (autograd or tangent) and loader.tracing():
-        return torch.ops.lidarcrafter_torch.oaca_forward(*ops, float(scale))
+        return torch.ops.lidarcrafter_torch.oaca_forward(*ops[:6], float(scale), *ops[6:])
     if q_c.device.type == "cpu":
-        return oaca_attention_plain(*ops, scale=scale)
+        return oaca_attention_plain(*ops[:6], scale=scale, ipe_k=ipe_k)
     if q_c.device.type != "cuda":
         raise ValueError("oaca_attention: operands must all be on one CUDA device")
     if tangent:
@@ -241,4 +270,4 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float) -> torch.Tenso
                                   "(torch.func.jvp / forward_ad), which the kernel would drop")
     if autograd:
         return OacaAttention.apply(float(scale), *ops)
-    return launch(*ops, scale=scale)
+    return _launch(ops, scale)

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import azimuth
 from ..utils.lidar import get_linear_ray_angles_np
 from . import encoding as enc
 from .ops import (
@@ -59,6 +60,16 @@ def _n_tuple(x, n: int) -> tuple:
             raise ValueError(f"expected {n} values, got {x}")
         return x
     return (x,) * n
+
+
+def coords_of(coords: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The coordinate encoding (H, W, n) for the images ``h``: broadcast over
+    the batch in ``h``'s dtype, cut to this rank's columns under the azimuth
+    axis."""
+    mesh = azimuth()
+    if mesh is not None:
+        coords = coords[:, mesh.columns(coords.shape[1])]
+    return coords.to(h.dtype)[None].expand(h.shape[0], -1, -1, -1)
 
 
 class UNetBlock(nn.Module):
@@ -183,8 +194,7 @@ class EfficientUNet(nn.Module):
 
     def unet_body(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         if self.coords is not None:
-            cenc = self.coords.to(h.dtype)[None].expand(h.shape[0], -1, -1, -1)
-            h = torch.cat([h, cenc], dim=-1)
+            h = torch.cat([h, coords_of(self.coords, h)], dim=-1)
         h = self.in_conv(h)
         h1 = self.d_block1(h, temb)
         h2 = self.d_block2(h1, temb)

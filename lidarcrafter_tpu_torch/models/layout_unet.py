@@ -9,6 +9,15 @@ axis or v0's zero-padded convs with ADM nearest / average-pool
 resampling.  Submodules carry the JAX package's names, so a flax parameter
 path maps onto a ``state_dict`` key one to one (``weights.py``).  Tokens
 flatten row-major (h·W + w).
+
+``LayoutUnetV1`` with OACA runs under the mesh's ``sp`` axis
+(``parallel/mesh.py``): the ring convs, FIR resampling and GroupNorms as
+``ops.py`` says, the coordinate encoding and the queries' positional rows
+cut to this rank's columns, and OACA attending from this rank's queries
+over every rank's image keys (gathered in the global token order, with the
+whole positional strip) and the layout strip every rank holds.  Average
+pooling and nearest up-sampling are local on even shards.  The v0 stack
+(zero-padded convs) and GLIDE's block are not sp-aware.
 """
 
 from __future__ import annotations
@@ -23,9 +32,10 @@ from torch import nn
 
 from ..kernels.attention import attention
 from ..kernels.oaca import oaca_attention
+from ..parallel.mesh import azimuth
 from ..utils.lidar import get_linear_ray_angles_np
 from . import encoding as enc
-from .efficient_unet import TimeEmbedding
+from .efficient_unet import TimeEmbedding, coords_of
 from .ops import GroupNorm32, Resample, RingConv, merge_heads, split_heads, to_nchw, to_nhwc
 
 
@@ -140,6 +150,8 @@ class GLIDEAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: dict | None = None) -> torch.Tensor:
         B, H, W, C = x.shape
+        if azimuth() is not None:
+            raise NotImplementedError("GLIDE's attention block is not sp-aware")
         nh = self.num_heads
         dh = C // nh
         tokens = x.reshape(B, H * W, C)
@@ -187,10 +199,13 @@ class ObjectAwareCrossAttention(nn.Module):
         self.qkv_projector = nn.Linear(C, 3 * C)
         self.layout_position_embedding_projector = nn.Linear(layout_channels, pe)
         pe_norm = layout_channels if norm_first else pe
-        self.norm_for_image_patch_positional_embedding = GroupNorm32(pe_norm)
-        self.norm_for_layout_positional_embedding = GroupNorm32(pe_norm)
-        self.norm_for_obj_class_embedding = GroupNorm32(layout_channels)
-        self.norm_for_obj_embedding_gn = GroupNorm32(layout_channels) if norm_for_obj_embedding else None
+        # the positional and layout strips are whole on every rank: their
+        # norms take no statistics from the other ranks
+        self.norm_for_image_patch_positional_embedding = GroupNorm32(pe_norm, spatial=False)
+        self.norm_for_layout_positional_embedding = GroupNorm32(pe_norm, spatial=False)
+        self.norm_for_obj_class_embedding = GroupNorm32(layout_channels, spatial=False)
+        self.norm_for_obj_embedding_gn = (
+            GroupNorm32(layout_channels, spatial=False) if norm_for_obj_embedding else None)
         self.layout_content_embedding_projector = nn.Linear(layout_channels, 2 * C)
         self.proj_out = nn.Linear(C, C)
         self.scale = float(1.0 / np.sqrt(np.sqrt(int((1 + s) * C) // num_heads)))
@@ -203,7 +218,8 @@ class ObjectAwareCrossAttention(nn.Module):
         B, H, W, C = x.shape
         nh = self.num_heads
         tokens = x.reshape(B, H * W, C)
-        qkv = self.qkv_projector(self.norm_for_qkv(tokens))
+        # the norm of the (h, w) map, whatever its columns: the tokens' statistics
+        qkv = self.qkv_projector(self.norm_for_qkv(x).reshape(B, H * W, C))
         q_c, k_c, v_c = (split_heads(t, nh) for t in qkv.chunk(3, dim=-1))
 
         ipe = self._position(self.norm_for_image_patch_positional_embedding,
@@ -217,10 +233,15 @@ class ObjectAwareCrossAttention(nn.Module):
         k_lc, v_lc = self.layout_content_embedding_projector(layout_content).chunk(2, dim=-1)
         k_l = torch.cat([split_heads(k_lc, nh), split_heads(lpe, nh)], dim=-1)
 
-        out = oaca_attention(
-            q_c, split_heads(ipe, nh), k_c, k_l, v_c, split_heads(v_lc, nh),
-            scale=self.scale,
-        )
+        mesh = azimuth()
+        if mesh is None:
+            out = oaca_attention(q_c, split_heads(ipe, nh), k_c, k_l, v_c, split_heads(v_lc, nh), scale=self.scale)
+        else:  # this rank's queries and their positional rows; every rank's image keys, in the global order
+            kv = mesh.gather_w(qkv[..., C:].reshape(B, H, W, 2 * C)).reshape(B, -1, 2 * C)
+            k_c, v_c = (split_heads(t, nh) for t in kv.chunk(2, dim=-1))
+            ipe_q = ipe.reshape(B, H, W * mesh.sp, -1)[:, :, mesh.columns(W * mesh.sp)].reshape(B, H * W, -1)
+            out = oaca_attention(q_c, split_heads(ipe_q, nh), k_c, k_l, v_c, split_heads(v_lc, nh),
+                                 scale=self.scale, ipe_k=split_heads(ipe, nh))
         out = self.proj_out(merge_heads(out))
         return (tokens + out).reshape(B, H, W, C)
 
@@ -395,8 +416,7 @@ class LayoutUnetV1(nn.Module):
         if self.use_concat_cond and "concat_cond" in layout:
             h = torch.cat([h, layout["concat_cond"].to(h.dtype)], dim=-1)
         if self.coords is not None:
-            cenc = self.coords.to(h.dtype)[None].expand(B, -1, -1, -1)
-            h = torch.cat([h, cenc], dim=-1)
+            h = torch.cat([h, coords_of(self.coords, h)], dim=-1)
 
         h = self.in_conv(h)
         hs = [h]

@@ -8,6 +8,15 @@ stay NHWC in memory: a conv sees ``x.permute(0, 3, 1, 2)``, which PyTorch
 treats as a channels-last NCHW tensor, so the port itself makes no layout
 copy (cuDNN may still convert to the layout of the algorithm it picks).  The
 azimuth axis (W) is periodic, so horizontal padding is circular ("ring").
+
+Under the mesh's ``sp`` axis (``parallel/mesh.py``) each rank holds some
+columns of every activation.  Inside ``Mesh.active`` the ring pad, the ring
+convs and the FIR resampling take their W halo from the neighbouring ranks
+(:func:`ring_wrap`), the GroupNorms of image activations merge their
+statistics over the ranks, and the self-attention keeps its queries and
+attends over every rank's keys and values, gathered in the global token
+order.  Shards are even at every level, so the resampling's crops and
+strides fall as in one process.
 """
 
 from __future__ import annotations
@@ -21,8 +30,20 @@ from torch import nn
 
 from ..kernels.attention import attention
 from ..kernels.groupnorm import group_norm
+from ..parallel.mesh import azimuth
 
 _RSQRT2 = 1.0 / math.sqrt(2.0)  # the residual blocks' output scale
+
+
+def ring_wrap(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """NHWC ``x`` with ``left`` and ``right`` columns of the periodic W
+    around it: its own far edges in one process, the neighbouring ranks'
+    edges under the azimuth axis."""
+    mesh = azimuth()
+    if mesh is None:
+        return torch.cat([x[:, :, x.shape[2] - left:], x, x[:, :, :right]], dim=2)
+    halo_left, halo_right = mesh.ring_halo(x, left, right)
+    return torch.cat([halo_left, x, halo_right], dim=2)
 
 
 def ring_pad(x: torch.Tensor, pad: int | tuple[int, int, int, int], ring: bool = True) -> torch.Tensor:
@@ -32,7 +53,9 @@ def ring_pad(x: torch.Tensor, pad: int | tuple[int, int, int, int], ring: bool =
     """
     left, right, top, bottom = (pad,) * 4 if isinstance(pad, int) else pad
     if ring:
-        x = torch.cat([x[:, :, x.shape[2] - left:], x, x[:, :, :right]], dim=2)
+        x = ring_wrap(x, left, right)
+    elif azimuth() is not None:
+        raise NotImplementedError("zero W padding of an azimuth-sharded tensor (ring=False) is not sp-aware")
     else:
         x = F.pad(x, (0, 0, left, right))
     return F.pad(x, (0, 0, 0, 0, top, bottom))
@@ -106,7 +129,9 @@ class RingConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.padding
         if p and self.ring:
-            x = torch.cat([x[:, :, x.shape[2] - p:], x, x[:, :, :p]], dim=2)
+            x = ring_wrap(x, p, p)
+        elif p and azimuth() is not None:
+            raise NotImplementedError("a zero-padded conv over an azimuth-sharded tensor (ring=False) is not sp-aware")
         return to_nhwc(self.conv_0(to_nchw(x)))
 
 
@@ -169,6 +194,9 @@ class FusedGN(nn.Module):
     Every call is one :func:`kernels.groupnorm.group_norm`, which takes the
     parameters and the conditioning as they are and folds them itself: its
     CUDA kernel for a tensor on the card, its plain version on the CPU.
+    Under the azimuth axis a norm of image activations (``spatial``) merges
+    its statistics over the ranks; a norm of tokens every rank holds whole
+    (``spatial=False``: OACA's layout and positional strips) does not.
     """
 
     def __init__(
@@ -178,9 +206,10 @@ class FusedGN(nn.Module):
         eps: float = 1e-6,
         use_scale: bool = True,
         use_bias: bool = True,
+        spatial: bool = True,
     ):
         super().__init__()
-        self.num_groups, self.eps = num_groups, eps
+        self.num_groups, self.eps, self.spatial = num_groups, eps, spatial
         self.weight = nn.Parameter(torch.ones(channels)) if use_scale else None
         self.bias = nn.Parameter(torch.zeros(channels)) if use_bias else None
 
@@ -193,15 +222,16 @@ class FusedGN(nn.Module):
         """``scale_shift=(s, t)`` (each with B·C values, unit channel
         stride) gives ``GN(x)·(1+s) + t``."""
         s, t = (None, None) if scale_shift is None else scale_shift
+        mesh = azimuth() if self.spatial else None
         return group_norm(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps,
-                          scale=s, shift=t, silu=silu)
+                          scale=s, shift=t, silu=silu, exchange=None if mesh is None else mesh.gather_sp)
 
 
 class GroupNorm32(FusedGN):
     """The layout UNet's GroupNorm: 32 groups, eps 1e-5, scale and bias."""
 
-    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
-        super().__init__(channels, num_groups, eps)
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5, spatial: bool = True):
+        super().__init__(channels, num_groups, eps, spatial=spatial)
 
 
 class AdaGN(nn.Module):
@@ -297,6 +327,10 @@ class SelfAttention2d(nn.Module):
             torch.cat([mha.query.bias, mha.key.bias, mha.value.bias]),
         )
         q, k, v = (split_heads(t, self.num_heads) for t in qkv.split(C, dim=-1))
+        mesh = azimuth()
+        if mesh is not None:  # this rank's queries over every rank's keys and values
+            kv = mesh.gather_w(qkv[..., C:].reshape(B, H, W, 2 * C)).reshape(B, -1, 2 * C)
+            k, v = (split_heads(t, self.num_heads) for t in kv.split(C, dim=-1))
         out = attention(q, k, v, scale=1.0 / math.sqrt(C // self.num_heads))
         out = mha.out(merge_heads(out)).reshape(B, H, W, C)
         return (x + out) * _RSQRT2
@@ -322,6 +356,8 @@ class MFSelfAttention2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
+        if azimuth() is not None:
+            raise NotImplementedError("the MeanFlow attention block is not sp-aware")
         nh = self.num_heads
         dh = C // nh
         h = self.groupnorm_0(x).reshape(B, H * W, C)

@@ -1,1 +1,2 @@
-"""Data parallelism across processes (``ddp.py``)."""
+"""Data parallelism across processes (``ddp.py``) on a (dp, sp) mesh whose
+``sp`` axis splits the range images' azimuth (``mesh.py``)."""

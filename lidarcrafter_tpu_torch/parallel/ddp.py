@@ -20,7 +20,11 @@ The gradients are reduced here rather than by
 ``torch.autograd.grad`` (which also yields those of the layout branch's
 trained running statistics, buffers that DDP does not reduce).
 
-The JAX mesh's ``sp`` (azimuth) axis has no counterpart yet.
+The group is a (dp, sp) mesh (``mesh.py``): with ``sp`` > 1 the ranks of
+one ``dp`` index share its rows of the batch and each holds its columns of
+the range images (the JAX mesh's azimuth axis); the gradients are averaged
+over the whole world all the same.  With ``sp`` = 1 (the default) it is the
+data parallelism above and no subgroup is made.
 
 The multi-host utilities of the JAX package's ``parallel/multihost.py``
 live here too: :func:`initialize_distributed` (through
@@ -38,24 +42,28 @@ import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..draws import Rows
+from .mesh import batch_sharding, make_mesh
 
 
 class DataParallel:
-    """This process's rank in a ``world``-process group on ``device``."""
+    """This process's rank in a ``world``-process group on ``device``, on a
+    (world / sp, sp) mesh (:attr:`mesh`)."""
 
-    def __init__(self, rank: int, world: int, device: torch.device):
+    def __init__(self, rank: int, world: int, device: torch.device, sp: int = 1):
         self.rank, self.world, self.device = rank, world, device
+        self.mesh = make_mesh(world=world, sp=sp, rank=rank)
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
     @classmethod
-    def from_env(cls, device: str | torch.device = "cuda") -> "DataParallel | None":
+    def from_env(cls, device: str | torch.device = "cuda", sp: int = 1) -> "DataParallel | None":
         """The group ``torchrun`` describes in the environment (``RANK``,
         ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``),
         joined here (NCCL on ``cuda``: the process takes card
-        ``LOCAL_RANK``; gloo on the CPU); None outside ``torchrun``."""
+        ``LOCAL_RANK``; gloo on the CPU) on a (world / sp, sp) mesh; None
+        outside ``torchrun``."""
         if "WORLD_SIZE" not in os.environ:
             return None
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
@@ -63,21 +71,27 @@ class DataParallel:
         if device.type == "cuda":
             device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
             torch.cuda.set_device(device)
-        return cls.join(rank, world, device, "env://")
+        return cls.join(rank, world, device, "env://", sp=sp)
 
     @classmethod
-    def join(cls, rank: int, world: int, device: str | torch.device, init_method: str) -> "DataParallel":
+    def join(cls, rank: int, world: int, device: str | torch.device, init_method: str, backend: str | None = None,
+             sp: int = 1) -> "DataParallel":
         """Join the group at ``init_method`` (``env://`` or
-        ``tcp://host:port``) as ``rank`` of ``world``."""
+        ``tcp://host:port``) as ``rank`` of ``world``, over ``backend``
+        (NCCL on ``cuda`` and gloo on the CPU by default; gloo for ranks
+        that share one card, which NCCL refuses), on a (world / sp, sp)
+        mesh."""
         device = torch.device(device)
         if not dist.is_initialized():
-            dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=init_method,
-                                    rank=rank, world_size=world)
-        return cls(rank, world, device)
+            backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+            dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
+        return cls(rank, world, device, sp)
 
-    def rows(self, local: int) -> Rows:
-        """This rank's rows of a global batch of ``local · world`` rows."""
-        return Rows(self.rank * local, local, local * self.world)
+    def rows(self, local: int, width: int | None = None) -> Rows:
+        """This rank's rows of a global batch of ``local · dp`` rows (all of
+        them ``local · world`` with ``sp`` = 1), and under ``sp`` > 1 its
+        window of the ``width`` columns of the range images."""
+        return batch_sharding(self.mesh, 4, sp_axis=2).rows(local * self.mesh.dp, width)
 
     @torch.no_grad()
     def broadcast_(self, tensors: list[torch.Tensor]) -> None:

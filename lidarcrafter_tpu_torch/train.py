@@ -34,6 +34,13 @@ either; ``training.steps_save_image=0``: none); ``--profile-dir`` a
 Under ``torchrun --nproc-per-node N`` the run is data-parallel
 (``parallel/ddp.py``): the global batch stays ``batch_size_train`` (``-b``),
 each process trains on its rows of it, and rank 0 logs and checkpoints.
+``--sp S`` makes the group a (N / S, S) mesh (``parallel/mesh.py``): the S
+ranks of one ``dp`` index share its rows and each takes its columns of the
+range images (the JAX CLI's ``--sp``).  Only the stacks whose layers are
+sp-aware take it (:data:`SP_ARCHITECTURES`: ``EfficientUNet`` and
+``LayoutUnetV1`` with ``ObjectAwareCrossAttention``); the others are
+refused by name, and W must split into S shards that stay even down to
+the deepest level.
 
 Usage::
 
@@ -41,6 +48,7 @@ Usage::
       --set data.data_root='"data/nuscenes"' --set data.pkl_path='"data/infos/train.pkl"' \\
       --num-steps 1000 --output-dir runs/ar --log-dir runs/ar/log [--resume]
   torchrun --nproc-per-node 4 -m lidarcrafter_tpu_torch.train -c nuscenes-box-layout-v6 -b 8 ...
+  torchrun --nproc-per-node 4 -m lidarcrafter_tpu_torch.train -c nuscenes-auto-reg-v2 --sp 2 -b 4 ...
   python -m lidarcrafter_tpu_torch.train -c nuscenes-box-layout-v6 --synthetic-data --num-steps 1000
 """
 
@@ -121,7 +129,7 @@ def file_batches(cfg, seed: int, workers: int = 2, parallel: DataParallel | None
         def collate(items):
             return collate_scene_graphs(items, text_encode_fn=text_encode_fn)
 
-    rank, world = (0, 1) if parallel is None else (parallel.rank, parallel.world)
+    rank, world = (0, 1) if parallel is None else (parallel.mesh.dp_index, parallel.mesh.dp)
     return iter(PrefetchLoader(ds, cfg.training.batch_size_train, collate=collate, num_workers=workers, seed=seed,
                                rank=rank, world=world))
 
@@ -163,6 +171,43 @@ def build_trainer(cfg, seed: int, device: str | torch.device = "cuda", text_feat
     return cls(cfg, data, device=device, **kw)
 
 
+# the denoisers whose layers are sp-aware (ring halos, merged GroupNorm
+# statistics, gathered attention keys), and the only attention block of
+# LayoutUnetV1 that is
+SP_ARCHITECTURES = ("efficient_unet", "layout_unet_v1")
+SP_ATTENTION = "ObjectAwareCrossAttention"
+
+
+def check_sp(cfg, sp: int) -> None:
+    """Raise ``ValueError`` unless ``cfg`` trains split over ``sp`` ranks of
+    the azimuth: an sp-aware denoiser (not HDiT, ``OpenAIUNet``, v0's
+    ``LayoutUnet``, GLIDE's attention block in ``LayoutUnetV1`` nor
+    MeanFlow, whose jvp would cross the halos) trained by the continuous
+    engine, and a width W such that W / sp is a multiple of 2^levels: each
+    shard even at every level, the deepest included."""
+    if sp == 1:
+        return
+    arch = cfg.model.architecture
+    mp = cfg.model.params
+    if getattr(cfg, "flow", None) is not None:
+        raise ValueError(f"--sp: MeanFlow ({arch}) is not sp-aware (its jvp would cross the halos)")
+    if trainer_class(cfg) is not Trainer:
+        raise ValueError(f"--sp: the {cfg.data.task} branch ({arch}) trains no range images")
+    if arch not in SP_ARCHITECTURES:
+        raise ValueError(f"--sp: {arch} is not sp-aware (sp-aware: {', '.join(SP_ARCHITECTURES)} "
+                         f"with {SP_ATTENTION})")
+    block = mp.get("attention_block_type", SP_ATTENTION)
+    if arch == "layout_unet_v1" and block != SP_ATTENTION:
+        raise ValueError(f"--sp: layout_unet_v1 with {block} (GLIDE's attention block) is not sp-aware")
+    if cfg.diffusion.timestep_type == "discrete":
+        raise ValueError("--sp: the discrete engine is not sp-aware")
+    levels = len(mp.get("channel_multiplier" if arch == "efficient_unet" else "channel_mult", (1, 2, 4, 8)))
+    H, W = cfg.data.resolution
+    if W % (sp * 2**levels):
+        raise ValueError(f"--sp {sp}: W={W} does not split into {sp} shards that stay even down to the deepest of "
+                         f"{levels} levels (W / sp must be a multiple of 2^{levels} = {2**levels})")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("-c", "--cfg", default="nuscenes-unet-uncond")
@@ -194,6 +239,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="deterministic algorithms only (cuDNN, cuBLAS, scatter adds; an op without one "
                              "raises), so that a run repeats bit for bit")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--sp", type=int, default=1,
+                        help="ranks that split the azimuth (W) of each image, under torchrun: a (N / sp, sp) mesh")
     parser.add_argument("--seed", type=int, default=None, help="default: the config's training seed")
     parser.add_argument("--resolution", type=int, nargs=2, default=None,
                         help="override H W (smoke runs)")
@@ -214,14 +261,27 @@ def config_from_args(args):
     return cfg
 
 
-def main(argv=None) -> None:
+def main(argv=None, parallel: DataParallel | None = None) -> None:
+    """Train as the arguments ``argv`` say; in the group ``parallel`` when
+    given (joined by the caller, which leaves it), else in the one that
+    ``torchrun`` describes, if any."""
     args = build_parser().parse_args(argv)
     if args.deterministic:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
     cfg = config_from_args(args)
+    try:
+        check_sp(cfg, args.sp)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
     seed = cfg.training.seed if args.seed is None else args.seed
-    parallel = DataParallel.from_env(args.device)
+    joined = parallel is None
+    if joined:
+        parallel = DataParallel.from_env(args.device, args.sp)
+    elif parallel.mesh.sp != args.sp:
+        raise SystemExit(f"--sp {args.sp} in a group whose mesh has sp={parallel.mesh.sp}")
+    if args.sp > 1 and parallel is None:
+        raise SystemExit(f"--sp {args.sp} splits the azimuth over torchrun's processes; run it under torchrun")
     device = args.device if parallel is None else parallel.device
     if args.synthetic_data and parallel is not None:
         raise SystemExit("data-parallel training reads files; --synthetic-data runs in one process")
@@ -252,7 +312,7 @@ def main(argv=None) -> None:
     finally:
         if tracker is not None:
             tracker.close()
-        if parallel is not None:
+        if joined and parallel is not None:
             parallel.leave()
 
 

@@ -19,7 +19,12 @@ EMA weights and log its renders (a preview that fails logs
 (``parallel``, ``parallel/ddp.py``) each rank trains on its rows of the
 global batch, the engine's loss keeps its rows of the global batch's draws
 (:meth:`Trainer.rank_rows`), and rank 0 alone logs, previews, profiles and
-writes checkpoints.
+writes checkpoints.  On a mesh with an ``sp`` axis (``Trainer`` only) the
+ranks of one ``dp`` index share its rows, each keeps its columns of the
+range-image maps (:meth:`Trainer.shard_columns`) and of the loss's draws,
+and the step runs with the layers sharded over ``sp``; the ranks of
+``dp`` index 0 sample the preview together and rank 0 logs the gathered
+frames.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..diffusion.conditional import AZIMUTH_KEYS
 from ..draws import Rows
 from ..models.graph import MaskedBatchNorm
 from ..utils.profiling import StepTimer, start_trace, stop_trace
@@ -76,6 +82,7 @@ class Trainer:
         self.log_fn = log_fn
         self.device = resolve_device(device) if parallel is None else parallel.device
         self.parallel = parallel
+        self.mesh = None if parallel is None else parallel.mesh
         self.is_main = parallel is None or parallel.is_main
         self.output_dir = Path(output_dir or cfg.training.output_dir)
         self.tracker = tracker
@@ -135,11 +142,25 @@ class Trainer:
             )
         return input_dict
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the run splits the azimuth over an ``sp`` axis."""
+        return self.mesh is not None and self.mesh.sp > 1
+
+    def shard_columns(self, prepared):
+        """This rank's columns of the prepared batch's range-image maps."""
+        if not self.sharded:
+            return prepared
+        if self.is_cond:
+            return self.mesh.cut_batch(prepared, AZIMUTH_KEYS, rows=False)
+        return prepared[:, :, self.mesh.columns(prepared.shape[2])]
+
     def rank_rows(self, prepared) -> dict:
         """The loss's arguments that name this rank's rows of the global
-        batch, whose draws the engine makes whole and cuts to them."""
+        batch (and columns of its images), whose draws the engine makes
+        whole and cuts to them."""
         x_0 = prepared["x_0"] if self.is_cond else prepared
-        return {"rows": self.parallel.rows(x_0.shape[0])}
+        return {"rows": self.parallel.rows(x_0.shape[0], x_0.shape[2] * self.mesh.sp)}
 
     def ema_engine(self, state: TrainState):
         """The engine on the EMA copies of the trained modules."""
@@ -151,16 +172,20 @@ class Trainer:
     def preview_images(self, state: TrainState, seed: int, batch=None) -> dict:
         """A DDIM sample on the EMA weights (``preview_num_steps`` steps;
         the conditional engines on ``batch``, the last training batch),
-        rendered by ``render_sample_images``."""
+        rendered by ``render_sample_images``.  Under ``sp`` every rank of
+        ``dp`` index 0 calls it: they sample together on their ``sp``
+        group and each gets the whole frames."""
         engine = self.ema_engine(state)
         generator = torch.Generator(device=self.device).manual_seed(seed)
+        mesh = self.mesh.sp_only() if self.sharded else None
         if self.is_cond:
             if batch is None:
                 return {}
             bs = int(batch["x_0"].shape[0]) if "x_0" in batch else self.preview_batch_size
-            sample = engine.sample(batch, bs, self.preview_num_steps, mode="ddim", generator=generator)
+            sample = engine.sample(batch, bs, self.preview_num_steps, mode="ddim", generator=generator, mesh=mesh)
         else:
-            sample = engine.sample(self.preview_batch_size, self.preview_num_steps, mode="ddim", generator=generator)
+            sample = engine.sample(self.preview_batch_size, self.preview_num_steps, mode="ddim", generator=generator,
+                                   mesh=mesh)
         return render_sample_images(sample, self.lidar_utils, train_depth=self.cfg.data.train_depth,
                                     train_reflectance=self.cfg.data.train_reflectance)
 
@@ -204,11 +229,19 @@ class Trainer:
             state = self.resume_state(resume, seed) if resume else self.init_state(seed)
         if self.parallel is not None:  # every rank starts from rank 0's state
             self.parallel.broadcast_(state.params() + state.ema_params())
+        previews = self.tracker is not None and self.is_main
+        if self.sharded:  # rank 0 has the tracker; the ranks of its sp group sample with it
+            previews = self.parallel.mean(torch.tensor(float(previews), device=self.device)) > 0
+            previews = bool(previews) and self.mesh.dp_index == 0
         timer, profiler, prepared = StepTimer(), None, None
         while state.step < num_steps:
-            prepared = self.prepare_batch(next(self.data_iter))
+            prepared = self.shard_columns(self.prepare_batch(next(self.data_iter)))
             rows = {} if self.parallel is None else self.rank_rows(prepared)
-            state, loss = self.step_fn(state, prepared, seed, **rows)
+            if self.sharded:
+                with self.mesh.active():
+                    state, loss = self.step_fn(state, prepared, seed, **rows)
+            else:
+                state, loss = self.step_fn(state, prepared, seed, **rows)
             step = state.step
             timer.tick()
             if self.profile_dir and self.is_main:  # a trace of steps 4-6, past the first steps' warm-up
@@ -225,10 +258,10 @@ class Trainer:
                 self._log(record)
                 if self.tracker is not None and self.is_main:
                     self.tracker.log({k: v for k, v in record.items() if k != "step"}, step)
-            if self.tracker is not None and self.is_main and preview_every and step % preview_every == 0:
+            if previews and preview_every and step % preview_every == 0:
                 try:
                     images = self.preview_images(state, seed, prepared)
-                    if images:
+                    if images and self.tracker is not None:
                         self.tracker.log_images(images, step)
                 except Exception as e:  # a preview never stops training
                     self._log({"step": step, "preview_error": str(e)})

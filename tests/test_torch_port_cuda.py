@@ -1487,3 +1487,129 @@ def test_artifact_replays_on_the_card(tmp_path, traced_on):
     want = UncondFrameGenerator(cfg, "cuda").generate(2, 2, mode="ddim", seed=5)[1]
     for k in want:
         assert float((got[k] - want[k]).abs().max()) <= 1e-5 * float(want[k].abs().max()), k
+
+
+# ---------------------------------------------------------------- the sp axis
+# The azimuth-sharded GroupNorm (``launch_partials`` per shard, the partials
+# stacked as the mesh's exchange stacks them, ``launch_apply`` per shard) and
+# OACA over gathered image keys (Lk != Lq, ``ipe_k``), as a rank of an
+# ``sp``-way mesh runs them (parallel/mesh.py), on synthetic shards.
+
+SPLIT_CASES = {
+    # (whole shape, shard axis, groups, eps, scale-shift, SiLU, affine)
+    "level0 AdaGN (8,32,1024,64)": ((8, 32, 1024, 64), 2, 8, 1e-6, True, True, False),
+    "level0 out_norm (8,32,1024,64)": ((8, 32, 1024, 64), 2, 32, 1e-5, True, True, True),
+    "UNet1D token rows (104,4,512)": ((104, 4, 512), 1, 32, 1e-5, False, True, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_groupnorm_partials_and_apply_match_the_one_launch_kernel(gen, dtype, shards, case):
+    shape, axis, G, eps, scale_shift, silu, affine = SPLIT_CASES[case]
+    B, C = shape[0], shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 1).to(dtype)
+    w = b = s = t = None
+    if affine:
+        w = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+        b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+    if scale_shift:
+        s, t = (0.3 * torch.randn(B, 2 * C, generator=gen, device="cuda")).to(dtype).chunk(2, dim=-1)
+    args = dict(num_groups=G, eps=eps, silu=silu)
+    pieces = [p.contiguous() for p in x.chunk(shards, dim=axis)]
+    n_parts, n_apply, n_one = groupnorm.partials_launches.n, groupnorm.apply_launches.n, groupnorm.launches.n
+    parts = torch.stack([groupnorm.group_norm_partials(p, G) for p in pieces])
+    merged = [torch.empty(B, 2, G, device="cuda") for _ in pieces]
+    got = torch.cat([groupnorm.launch_apply(p, parts, w, b, s, t, merged=m, **args)
+                     for p, m in zip(pieces, merged)], dim=axis)
+    want = groupnorm.group_norm(x, w, b, scale=s, shift=t, **args)
+    torch.cuda.synchronize()
+    assert groupnorm.partials_launches.n == n_parts + shards
+    assert groupnorm.apply_launches.n == n_apply + shards
+    assert groupnorm.launches.n == n_one + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_close(got, want, dtype)
+    for m in merged[1:]:  # every shard normalised with the same statistics, bit for bit
+        assert torch.equal(m, merged[0])
+    plain = torch.stack([groupnorm.group_norm_partials_plain(p, G) for p in pieces])
+    assert torch.equal(parts[:, :, 0], plain[:, :, 0])
+    mean, var = groupnorm.merge_partials(plain)
+    torch.testing.assert_close(merged[0][:, 0], mean, rtol=0, atol=1e-5 * max(1.0, float(mean.abs().max())))
+    torch.testing.assert_close(merged[0][:, 1], torch.rsqrt(var + eps), rtol=1e-5, atol=0)
+    plain_split = [groupnorm.group_norm_apply_plain(p, plain, w, b, scale=s, shift=t, **args) for p in pieces]
+    _assert_close(got, torch.cat(plain_split, dim=axis), dtype)
+
+
+def test_groupnorm_split_backward_matches_plain(gen):
+    """Gradients through ``partials`` → stack → ``apply`` on the card (the
+    two Functions' recomputes) against autograd through the plain split."""
+    x = torch.randn(2, 8, 64, 64, generator=gen, device="cuda")
+    w = 1 + 0.1 * torch.randn(64, generator=gen, device="cuda")
+    r = torch.randn(2, 8, 64, 64, generator=gen, device="cuda")
+
+    def run(partials, apply):
+        xs = x.clone().requires_grad_()
+        ws = w.clone().requires_grad_()
+        pieces = xs.chunk(2, dim=2)
+        parts = torch.stack([partials(p, 8) for p in pieces])
+        y = torch.cat([apply(p, parts, ws, None, num_groups=8, eps=1e-6, silu=True) for p in pieces], dim=2)
+        (y * r).sum().backward()
+        return y, xs.grad, ws.grad
+
+    got = run(groupnorm.group_norm_partials, groupnorm.group_norm_apply)
+    want = run(groupnorm.group_norm_partials_plain, groupnorm.group_norm_apply_plain)
+    for a, b in zip(got, want):
+        _assert_close(a, b, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,Lq,Lk,L2",
+    [(8, 8, 1024, 2048, 13), (8, 8, 512, 2048, 13), (2, 3, 100, 200, 13), (1, 2, 77, 308, 0), (3, 1, 130, 520, 64)],
+)
+def test_oaca_kernel_with_gathered_keys_matches_plain(gen, dtype, B, H, Lq, Lk, L2):
+    """Lk = 2·Lq and 4·Lq: the ds4 shard of an sp = 2 and of an sp = 4 mesh
+    at B=8, and ragged ones, with ``ipe_k`` other than ``ipe``."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    heads = lambda t: t.reshape(B, t.shape[1], H, -1).transpose(1, 2)  # noqa: E731
+    kv = r(B, Lk, 2 * H * 32)
+    k_c, v_c = (heads(t) for t in kv.chunk(2, dim=-1))
+    ops = (r(B, H, Lq, 32), r(B, H, Lq, 32), k_c, r(B, H, L2, 64), v_c, r(B, H, L2, 32))
+    ipe_k = r(B, H, Lk, 32)
+    scale = 1 / math.sqrt(math.sqrt(64))
+    n, n_gathered = oaca.launches.n, oaca.gathered_launches.n
+    got = oaca.oaca_attention(*ops, scale=scale, ipe_k=ipe_k)
+    torch.cuda.synchronize()
+    assert oaca.launches.n == n + 1 and oaca.gathered_launches.n == n_gathered + 1
+    want = oaca.oaca_attention_plain(*ops, scale=scale, ipe_k=ipe_k)
+    assert got.shape == want.shape == (B, H, Lq, 32) and got.dtype == dtype
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_oaca_kernel_at_equal_lengths_is_the_one_process_launch(gen, dtype):
+    """At Lk = Lq, ``ipe_k=ipe`` is the launch without it: the same output,
+    bit for bit, and no gathered launch counted."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    ops = (r(8, 8, 2048, 32), r(8, 8, 2048, 32), r(8, 8, 2048, 32), r(8, 8, 13, 64), r(8, 8, 2048, 32),
+           r(8, 8, 13, 32))
+    n_gathered = oaca.gathered_launches.n
+    one = oaca.oaca_attention(*ops, scale=0.35)
+    same = oaca.oaca_attention(*ops, scale=0.35, ipe_k=ops[1])
+    torch.cuda.synchronize()
+    assert torch.equal(one, same)
+    assert oaca.gathered_launches.n == n_gathered
+
+
+def test_oaca_hopper_route_refuses_gathered_keys(gen):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    ops = (r(1, 2, 64, 64), r(1, 2, 64, 64), r(1, 2, 128, 64), r(1, 2, 13, 128), r(1, 2, 128, 64), r(1, 2, 13, 64))
+    with pytest.raises(ValueError, match="Lk"):
+        oaca.oaca_attention(*ops, scale=0.3, ipe_k=r(1, 2, 128, 64))

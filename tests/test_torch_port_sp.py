@@ -1,0 +1,279 @@
+"""The port's ``sp`` (azimuth) axis (``parallel/mesh.py``) on the CPU.
+
+(a) The shard map: for 8 virtual devices on a (4, 2) and a (2, 4) mesh, the
+    JAX package's ``batch_sharding(mesh, 4, sp_axis=2)`` gives device r the
+    slices that the port's mesh gives rank r.
+(b) Four gloo ranks (``torch_port_sp_ranks.py``, started once for the
+    module) run every sharded case on a (2, 2) and a (1, 4) mesh:
+    ``ring_pad``, ``RingConv``, ``Resample`` up and down, ``FusedGN``,
+    ``AdaGN`` and ``SelfAttention2d`` at sp = 2 and 4, gathered, equal the
+    layer in one process to 1e-6 of max(1, max |out|), and so do the
+    input's gradient and each parameter's (summed over the ranks; 1e-6
+    relative L2).  The small ``nuscenes-unet-uncond`` and
+    ``nuscenes-auto-reg-v2`` stacks (``torch_port_harness``'s ``UncondPair``
+    / ``Pair`` weights) at sp = 2 equal the JAX forward to 1e-4 and the
+    port's one-process forward to 1e-5.  A DDIM@2 sample on the mesh equals
+    the one-process sample bit for bit when the sharded GroupNorms take
+    their statistics from the gathered activations (the control: every
+    other op of the sharded path is exact); with the merged partials it
+    agrees to 2e-2, the JAX package's own limit for its ``sp`` sample
+    (``__graft_entry__.py``): DDIM's first step divides by α(t = 1) ≈ 5.5e-4,
+    which turns the merge's float32 rounding (~1e-6 of the denoiser's
+    output) into ~1e-3 on the few pixels it leaves unclipped.  One train step
+    on the (2, 2) mesh with a loss mask whose shards hold different counts
+    equals one process: loss 1e-5, gradients 1e-4 relative L2.
+(c) The plain GroupNorm split, ``partials`` → merge → ``apply``, equals
+    ``group_norm_plain``; the plain OACA with image keys of their own length
+    and positional rows equals the JAX ``oaca_attention``'s XLA path on the
+    gathered operands, a shard of queries at a time.
+(d) ``train.py --sp`` refuses, by name, the architectures that are not
+    sp-aware, and widths that do not split into even shards.
+(e) ``draws.Rows`` with a ``Columns`` window: the ranks' cuts tile the
+    one-process draw.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_port_harness import Pair, UncondPair, condition_batch, one_torch_thread  # noqa: F401 (autouse)
+
+from lidarcrafter_tpu.ops.pallas_attention import _oaca_unfused
+from lidarcrafter_tpu.parallel import batch_sharding as jax_batch_sharding
+from lidarcrafter_tpu.parallel import make_mesh as jax_make_mesh
+from lidarcrafter_tpu_torch import train as train_cli
+from lidarcrafter_tpu_torch.kernels.groupnorm import (
+    group_norm_apply_plain,
+    group_norm_partials_plain,
+    group_norm_plain,
+)
+from lidarcrafter_tpu_torch.kernels.oaca import oaca_attention_plain
+from lidarcrafter_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+
+REPO = Path(__file__).resolve().parent.parent
+WORLD = 4
+LAYERS = ("ring_pad", "RingConv", "Resample up", "Resample down", "FusedGN", "AdaGN", "SelfAttention2d")
+STACKS = ("nuscenes-unet-uncond", "nuscenes-auto-reg-v2")
+SAMPLE_LIMIT = 2e-2  # the JAX package's own limit for its sp sample (__graft_entry__.py)
+
+
+# ------------------------------------------------------------------ (a)
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_shard_map_equals_jax(sp):
+    devices = jax.devices()[:8]
+    assert len(devices) == 8
+    jmesh = jax_make_mesh(8, sp=sp, devices=devices)
+    shape = (4, 32, 128, 2)
+    want = jax_batch_sharding(jmesh, 4, sp_axis=2).devices_indices_map(shape)
+    for r, device in enumerate(devices):
+        mesh = make_mesh(world=8, sp=sp, rank=r)
+        got = batch_sharding(mesh, 4, sp_axis=2).slices(shape)
+        norm = tuple(slice(*s.indices(n)) for s, n in zip(got, shape))
+        assert norm == tuple(slice(*s.indices(n)) for s, n in zip(want[device], shape)), (r, got, want[device])
+        assert (mesh.dp_index, mesh.sp_index) == tuple(int(i) for i in np.argwhere(jmesh.devices == device)[0])
+
+
+# ------------------------------------------------------------------ (b)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _prepare(out: Path) -> dict:
+    """Both small stacks with the harness's shared weights, their inputs,
+    the JAX forwards; the port's share written to ``out/inputs.pt``."""
+    rnd = np.random.RandomState(7)
+    inputs, jax_out = {}, {}
+    uncond = UncondPair("nuscenes-unet-uncond")
+    H, W = uncond.jcfg.data.resolution
+    x = rnd.standard_normal((2, H, W, 2)).astype(np.float32)
+    t = np.array([-3.0, 5.0], np.float32)
+    jax_out["nuscenes-unet-uncond"] = np.asarray(jax.jit(uncond.jmodel.apply)(uncond.params, jnp.asarray(x),
+                                                                             jnp.asarray(t)))
+    inputs["nuscenes-unet-uncond"] = {
+        "cfg": uncond.tcfg, "state": {"model": uncond.tmodel.state_dict()}, "x": torch.as_tensor(x),
+        "t": torch.as_tensor(t), "x_T": torch.as_tensor(rnd.standard_normal((2, H, W, 2)).astype(np.float32))}
+
+    ar = Pair("nuscenes-auto-reg-v2", small=True)
+    H, W = ar.jcfg.data.resolution
+    jbatch = {k: jnp.asarray(v) for k, v in ar.batch.items()}
+    jlayout = jax.jit(ar.jmodels["cond"].apply)(ar.params["cond"], jbatch)
+    x = rnd.standard_normal((2, H, W, 2)).astype(np.float32)
+    jax_out["nuscenes-auto-reg-v2"] = np.asarray(jax.jit(ar.jmodels["model"].apply)(
+        ar.params["model"], jnp.asarray(x), {"time_condition": jnp.asarray(t), "other_condition": jlayout}))
+    batch = {k: torch.as_tensor(v) for k, v in ar.batch.items()}
+    train_batch = {k: torch.as_tensor(v) for k, v in condition_batch(ar.jcfg, 4, seed=3).items()}
+    train_batch["x_0"] = torch.as_tensor(rnd.uniform(-1, 1, (4, H, W, 2)).astype(np.float32))
+    mask = (rnd.uniform(size=(4, H, W, 1)) < np.linspace(0.2, 0.9, W)[None, None, :, None]).astype(np.float32)
+    inputs["nuscenes-auto-reg-v2"] = {
+        "cfg": ar.tcfg, "state": {k: m.state_dict() for k, m in ar.tmodels.items()}, "x": torch.as_tensor(x),
+        "t": torch.as_tensor(t), "batch": batch,
+        "x_T": torch.as_tensor(rnd.standard_normal((2, H, W, 2)).astype(np.float32)),
+        "train_batch": train_batch, "loss_mask": torch.as_tensor(np.broadcast_to(mask, (4, H, W, 2)).copy())}
+    torch.save(inputs, out / "inputs.pt")
+    return jax_out
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    out = tmp_path_factory.mktemp("sp")
+    jax_out = _prepare(out)
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(REPO / "tests" / "torch_port_sp_ranks.py"), str(r), str(WORLD),
+                               str(port), str(out)], env=env, cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:  # a rank that failed leaves the others waiting in a collective
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(log[-3000:] for log in logs)
+    return torch.load(out / "results.pt", weights_only=False), jax_out
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("name", LAYERS)
+def test_layer_on_shards_equals_one_process(ranks, name, sp):
+    r = ranks[0]["layers"][f"{name} sp={sp}"]
+    assert r["out"] <= 1e-6, r
+    assert r["grad_x"] <= 1e-6, r
+    assert r["grad_params"] <= 1e-6, r
+
+
+@pytest.mark.parametrize("name", STACKS)
+def test_stack_forward_at_sp2_equals_jax(ranks, name):
+    results, jax_out = ranks
+    got, want = results[name]["forward"].numpy(), jax_out[name]
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    assert scale > 1e-2
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * scale)
+    one = results[name]["forward_one"].numpy()
+    np.testing.assert_allclose(got, one, rtol=0, atol=1e-5 * max(1.0, np.abs(one).max()))
+
+
+@pytest.mark.parametrize("name", STACKS)
+def test_ddim_sample_on_the_mesh(ranks, name):
+    r = ranks[0][name]
+    one = r["sample_one"]
+    assert torch.isfinite(r["sample"]).all() and r["sample"].shape == one.shape
+    assert torch.equal(r["sample_whole_stats"], one)
+    assert float((r["sample"] - one).abs().max()) <= SAMPLE_LIMIT
+
+
+def test_train_step_on_a_dp2_sp2_mesh_equals_one_process(ranks):
+    r = ranks[0]["train"]
+    assert len(set(r["mask_counts"])) == len(r["mask_counts"])  # the shards' masks differ
+    assert abs(r["loss"] - r["loss_one"]) <= 1e-5 * max(1.0, abs(r["loss_one"]))
+    assert r["grad_rel_l2"] <= 1e-4
+
+
+# ------------------------------------------------------------------ (c)
+
+
+@pytest.mark.parametrize("shards,affine", [(2, True), (4, False)])
+def test_group_norm_split_equals_plain(shards, affine):
+    gen = torch.Generator().manual_seed(0)
+    B, H, W, C, G = 2, 4, 32, 64, 8
+    x = torch.randn(B, H, W, C, generator=gen) * 3 + 1
+    w, b = (torch.randn(C, generator=gen), torch.randn(C, generator=gen)) if affine else (None, None)
+    s, t = torch.randn(B, C, generator=gen), torch.randn(B, C, generator=gen)
+    want = group_norm_plain(x, w, b, num_groups=G, eps=1e-6, scale=s, shift=t, silu=True)
+    pieces = x.chunk(shards, dim=2)
+    parts = torch.stack([group_norm_partials_plain(p, G) for p in pieces])
+    assert parts.shape == (shards, B, 3, G)
+    got = torch.cat([group_norm_apply_plain(p, parts, w, b, num_groups=G, eps=1e-6, scale=s, shift=t, silu=True)
+                     for p in pieces], dim=2)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_oaca_plain_with_gathered_keys_equals_jax(sp):
+    rnd = np.random.RandomState(sp)
+    B, nh, h, W, L2, d = 2, 2, 4, 32, 13, 32
+    L = h * W
+
+    def r(*shape):
+        return rnd.standard_normal(shape).astype(np.float32)
+
+    q_c, ipe, k_c, v_c = r(B, nh, L, d), r(B, nh, L, d), r(B, nh, L, d), r(B, nh, L, d)
+    k_l, v_l = r(B, nh, L2, 2 * d), r(B, nh, L2, d)
+    scale = 1.0 / np.sqrt(np.sqrt(2 * d))
+    want = np.asarray(_oaca_unfused(*map(jnp.asarray, (q_c, ipe, k_c, k_l, v_c, v_l)), scale))
+    T = torch.as_tensor
+    cols = W // sp
+    for j in range(sp):  # rank j's queries: its columns of every row of the (h, W) token map
+        rows = (np.arange(h)[:, None] * W + j * cols + np.arange(cols)[None, :]).reshape(-1)
+        got = oaca_attention_plain(T(q_c[:, :, rows]), T(ipe[:, :, rows]), T(k_c), T(k_l), T(v_c), T(v_l),
+                                   scale=scale, ipe_k=T(ipe)).numpy()
+        np.testing.assert_allclose(got, want[:, :, rows], rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+# ------------------------------------------------------------------ (d)
+
+
+REFUSED = {
+    "nuscenes-hdit-uncond": ["--sp", "2"],
+    "nuscenes-box-layout": ["--sp", "2"],  # v0's LayoutUnet, zero-padded convs
+    "meanflow-nusc": ["--sp", "2"],
+    "nuscenes-box-layout-v6 glide": ["--sp", "2", "--set", 'model.params.attention_block_type="GLIDE"'],
+    "openai_unet": ["--sp", "2", "--set", 'model.architecture="openai_unet"'],
+    "nuscenes-layout": ["--sp", "2"],
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_train_cli_refuses_what_is_not_sp_aware(case):
+    name = {"nuscenes-box-layout-v6 glide": "nuscenes-box-layout-v6", "openai_unet": "nuscenes-unet-uncond"}.get(
+        case, case)
+    with pytest.raises(SystemExit) as e:
+        train_cli.main(["-c", name, "--device", "cpu", *REFUSED[case]])
+    args = train_cli.build_parser().parse_args(["-c", name, *REFUSED[case]])
+    cfg = train_cli.config_from_args(args)
+    said = str(e.value)
+    assert "not sp-aware" in said or "trains no range images" in said, said
+    assert cfg.model.architecture in said, said
+
+
+@pytest.mark.parametrize("sp,resolution", [(16, "128"), (3, "1024")])
+def test_train_cli_refuses_widths_that_do_not_split_evenly(sp, resolution):
+    with pytest.raises(SystemExit) as e:
+        train_cli.main(["-c", "nuscenes-unet-uncond", "--device", "cpu", "--resolution", "32", resolution,
+                        "--sp", str(sp)])
+    assert "even down to the deepest" in str(e.value), str(e.value)
+
+
+def test_train_cli_sp_needs_torchrun():
+    with pytest.raises(SystemExit) as e:
+        train_cli.main(["-c", "nuscenes-unet-uncond", "--device", "cpu", "--resolution", "32", "128", "--sp", "2",
+                        "--synthetic-data"])
+    assert "torchrun" in str(e.value)
+
+
+def test_rank_windows_cut_the_global_draw():
+    """``draws.Rows`` with a ``Columns`` window: the (dp, sp) ranks' cuts of
+    a draw tile the one-process draw, and a per-row draw is whole."""
+    def gen():
+        return torch.Generator().manual_seed(9)
+
+    whole = torch.randn((4, 3, 16, 2), generator=gen())
+    rows = [[batch_sharding(make_mesh(world=4, sp=2, rank=2 * d + s), 4, sp_axis=2).rows(4, 16) for s in (0, 1)]
+            for d in (0, 1)]
+    got = torch.cat([torch.cat([r.randn(gen(), "cpu", (3, 8, 2)) for r in row], dim=2) for row in rows])
+    assert torch.equal(got, whole)
+    assert torch.equal(rows[1][1].rand(gen(), "cpu"), torch.rand(4, generator=gen())[2:])
