@@ -8,19 +8,23 @@ Phases, each printing one JSON line:
    ``lidarcrafter_tpu_torch/csrc/*.cu`` (four sources, one ``nvcc`` each, in
    parallel) and the loader's ``x·2`` self-check, with the probe kernel's
    device time beside its bound and ``torch.mul(x, 2)``; each Hopper-core
-   kernel's ptxas registers, static shared memory and spills, and the wide
-   route's plan mirror (``attention.wide_plan``) against the library's own
-   at every head-dim pair;
+   kernel's ptxas registers, static shared memory and spills, and the
+   core's plan mirrors (``attention.plan``, ``oaca.plan``) against the
+   library's own at every attention head-dim pair and OACA instantiation;
 2. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at ragged / masked edges, in float32 (TF32 off) and
    bfloat16, held to a limit on the largest error and one on the error's
    norm, with the kernel's, the plain version's and one PyTorch library
    call's device times, the least time the card could take (no row may
-   read below it), and the route the wrapper took (``mma 3xTF32`` / ``mma
-   bf16`` tensor cores for OACA and attention on ``flash_mma.cuh``; ``tma mma
-   3xTF32`` / ``wgmma bf16`` on the Hopper core of ``hopper_flash.cuh`` for
-   OACA at head dims 64 and attention above head dim 128, whose rows also
-   carry the replaced route's ``earlier_ms``; GroupNorm on the CUDA cores as
+   read below it), and the route the wrapper took (``wgmma bf16`` / ``tma
+   mma 3xTF32`` on the Hopper core of ``hopper_flash.cuh``: bf16 at every
+   head dim, float32 for OACA at head dims 64 and attention above 128;
+   ``mma 3xTF32`` on ``flash_mma.cuh``'s cp.async loader for float32 at
+   attention head dims up to 128 and OACA's 32-wide builds; where both
+   routes exist the row holds each, by name, against the plain version and
+   carries both times, the replaced ``mma.sync`` one as ``earlier_ms``; the
+   wide heads' and OACA 64³'s rows carry their replaced route's from the
+   kernel table (``EARLIER_MS``); GroupNorm on the CUDA cores as
    ``one-launch grid-sync``: one launch per norm, at most one block per SM
    with a grid sync, fed the modules' raw operands: weight, bias and the
    strided scale/shift halves of the conditioning projection), and
@@ -30,7 +34,9 @@ Phases, each printing one JSON line:
    shapes of phase 11: OACA at head dims 64 (the v0 stack, ds4 L=2048 and a
    ragged L=1000, 8 heads), GroupNorm on v0's (8, 32·1024, 256) and
    (8, 32·1024, 512) slabs and kitti-360's (8, 64·1024, 64) AdaGN, and
-   attention at kitti-360's 1,024 tokens (head dims 64 and 32);
+   attention at kitti-360's 1,024 tokens (head dims 64 and 32); the GLIDE
+   block's attention (ds 4 and 8, 13 encoder tokens in front) and OACA at
+   positional head dims 16 and 64, which phase 14 timed before;
 3. full-width forwards on the card with the kernels against the same
    forwards on the CPU with the plain versions, shared seeded weights: the
    layout stack (encoder + ``LayoutUnetV1``, 32x1024) and ``EfficientUNet``
@@ -206,15 +212,15 @@ Phases, each printing one JSON line:
 
 14. the rest of the model registry ("registry"), at full width (32x1024,
    64 model channels, multipliers (1, 2, 4, 8), 2 residual blocks,
-   attention at ds 4 and 8, B=8): (a) the attention kernel at the GLIDE
-   block's shapes (the v6 stack's ds 4, 8 heads of 32 over 2,048 queries
-   and 13 + 2,048 keys, and ds 8, 16 heads over 512 and 13 + 512: per-head
-   views of the [q|k|v]-packed projection, the encoder's K/V in front), at
-   OpenAIUNet's wide heads (one head of 256 over 2,048 tokens, one of 512
-   over 512, a ragged 384-wide case with a ``kv_len`` mask) and OACA at
-   positional head dims 16 and 64 on the ds 4 v6 shape, float32 and
-   bfloat16, each against its plain version at phase 2's limits, beside
-   SDPA and the bound; (b) forwards card vs CPU (float32 1e-3, bfloat16
+   attention at ds 4 and 8, B=8): (a) the attention kernel at OpenAIUNet's
+   wide heads (one head of 256 over 2,048 tokens, one of 512 over 512, a
+   ragged 384-wide case with a ``kv_len`` mask), float32 and bfloat16,
+   each against its plain version at phase 2's limits, beside SDPA and the
+   bound (phase 2 holds the GLIDE block's shapes, the v6 stack's ds 4, 8
+   heads of 32 over 2,048 queries and 13 + 2,048 keys, and ds 8, 16 heads
+   over 512 and 13 + 512: per-head views of the [q|k|v]-packed projection,
+   the encoder's K/V in front, and OACA at positional head dims 16 and 64
+   on the ds 4 v6 shape); (b) forwards card vs CPU (float32 1e-3, bfloat16
    5e-2 against the float32 CPU forward): ``OpenAIUNet`` with GLIDE blocks
    at its default heads and with ``SpatialTransformer``s of 32-channel
    heads over a (B, 13, 64) context (B=1), the v6 stack with GLIDE blocks,
@@ -504,9 +510,10 @@ def earlier(kernel: str, label: str, dname: str, ms: float) -> dict:
 def hopper_ptxas(log: str) -> list:
     """Registers, static shared memory and spills of each kernel of the
     Hopper core (``hflash::flash_kernel`` instantiations) in nvcc's
-    ``-Xptxas -v`` output.  The registers are those of the launch; the
-    consumers raise theirs to 240 with setmaxnreg.  Dynamic shared memory
-    is the plan's (``attention.wide_plan``, ``oaca.hopper_layout``)."""
+    ``-Xptxas -v`` output.  The registers are those of the launch (168, or
+    80 at two blocks an SM); the consumers raise theirs to 240 (104) with
+    setmaxnreg.  Dynamic shared memory is the plan's (``attention.plan``,
+    ``oaca.plan``)."""
     import re
 
     rows, cur, source = [], None, None
@@ -530,10 +537,16 @@ def hopper_ptxas(log: str) -> list:
     return rows
 
 
+# the Hopper core's instantiations: attention 7 bf16 (d <= 128: 3; wide: 4)
+# + 6 f32 (3 + 3), OACA 3 bf16 ((32, 32 | 64, 32), 64^3) + 4 f32 (dp 16 too)
+HOPPER_KERNELS = 20
+OACA_HEAD_DIMS = ((32, 32), (32, 16), (32, 64), (64, 64))  # (dc, dp); dv = dc
+
+
 def hopper_smem() -> dict:
     """The dynamic shared memory (bytes) a block of the Hopper core asks for
-    at the kernel table's shapes, by the plans ``check_wide_plan`` holds to
-    the library's."""
+    at the kernel table's shapes, by the plans ``check_plans`` holds to the
+    library's."""
     import torch
 
     from lidarcrafter_tpu_torch.kernels import attention, oaca
@@ -541,36 +554,46 @@ def hopper_smem() -> dict:
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for d in (256, 512, 384):
-            out[f"attention wide d={d} {dname}"] = attention.wide_plan(d, d, dtype).layout.smem
-        out[f"oaca 64^3 {dname}"] = oaca.hopper_layout(dtype).smem
+        for d in (32, 64, 128, 256, 512, 384):
+            out[f"attention d={d} {dname}"] = attention.plan(d, d, dtype).layout.smem
+        for dc, dp in OACA_HEAD_DIMS:
+            out[f"oaca ({dc}, {dp}, {dc}) {dname}"] = oaca.plan(dc, dp, dtype).layout.smem
     return out
 
 
-def check_wide_plan() -> dict:
-    """The wrapper's mirror of the wide route's plan (``attention.wide_plan``)
-    against the library's own (``attention_wide_plan``) at every pair of
-    head dims from 8 to 512 in steps of 8 with one above 128, both dtypes;
-    fails on any difference or on a plan over the card's shared memory."""
+def check_plans() -> dict:
+    """The wrappers' mirrors of the core's plans against the library's own:
+    ``attention.plan`` against ``attention_plan`` at every pair of head dims
+    from 8 to 512 in steps of 8, ``oaca.plan`` against ``oaca_plan`` at every
+    head dims OACA takes, both dtypes; fails on any difference or on a plan
+    over the card's shared memory."""
     import ctypes
 
     import torch
 
-    from lidarcrafter_tpu_torch.kernels import attention, loader
+    from lidarcrafter_tpu_torch.kernels import attention, loader, oaca
 
-    lib, out, n = loader.library("attention"), (ctypes.c_int32 * 5)(), 0
+    lib, out, n = loader.library("attention"), (ctypes.c_int32 * 6)(), 0
+    olib, oout = loader.library("oaca"), (ctypes.c_int32 * 4)()
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         for dqk in range(8, 513, 8):
             for dv in range(8, 513, 8):
-                if max(dqk, dv) <= 128:
-                    continue
-                check(lib.attention_wide_plan(code, dqk, dv, out) == 0, f"attention_wide_plan {dqk} {dv}")
-                p = attention.wide_plan(dqk, dv, dtype)
-                mirror = [int(p.split), p.bk, p.nv, p.layout.stages, p.layout.smem]
-                check(list(out) == mirror, f"wide plan ({dqk}, {dv}) {dtype}: library {list(out)}, mirror {mirror}")
-                check(1 <= p.layout.stages and p.layout.smem <= loader.SMEM_LIMIT, f"wide plan ({dqk}, {dv}) {dtype}")
+                check(lib.attention_plan(code, dqk, dv, out) == 0, f"attention_plan {dqk} {dv}")
+                p = attention.plan(dqk, dv, dtype)
+                mirror = [int(p.split), p.bk, p.nv, p.blocks, p.layout.stages, p.layout.smem]
+                check(list(out) == mirror, f"attention plan ({dqk}, {dv}) {dtype}: library {list(out)}, mirror {mirror}")
+                check(1 <= p.layout.stages and p.layout.smem <= (loader.SMEM_LIMIT if p.blocks == 1 else loader.SMEM_LIMIT2),
+                      f"attention plan ({dqk}, {dv}) {dtype}")
                 n += 1
-    return {"wide_plans_checked": n}
+        for dc, dp in OACA_HEAD_DIMS:
+            check(olib.oaca_plan(code, dc, dp, dc, oout) == 0, f"oaca_plan {dc} {dp}")
+            p = oaca.plan(dc, dp, dtype)
+            mirror = [p.bk, p.blocks, p.layout.stages, p.layout.smem]
+            check(list(oout) == mirror, f"oaca plan ({dc}, {dp}) {dtype}: library {list(oout)}, mirror {mirror}")
+            check(1 <= p.layout.stages and p.layout.smem <= (loader.SMEM_LIMIT if p.blocks == 1 else loader.SMEM_LIMIT2),
+                  f"oaca plan ({dc}, {dp}) {dtype}")
+            n += 1
+    return {"plans_checked": n}
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -664,10 +687,12 @@ def check_oaca(label, B, H, L, dtype, gen, d=32, dp=None):
     route = oaca.route(d, dp, d, dtype)
     bound, by = bound_ms(nbytes, flops, route)
     ms = time_ms(lambda: oaca.oaca_attention(*ops, scale=scale))
+    routes = {} if d != 32 else both_routes("oaca", label, dname, ms, errors, route,
+                                           lambda on: oaca.launch(*ops, scale=scale, on=on), want, bound)
     return {
         "kernel": "oaca", "shape": label, "dtype": dname, "head_dims": [d, dp, d], "route": route,
         **errors,
-        "ms": ms, **earlier("oaca", label, dname, ms),
+        "ms": ms, **(routes or earlier("oaca", label, dname, ms)),
         "plain_ms": time_ms(lambda: oaca.oaca_attention_plain(*ops, scale=scale), iters=5),
         "library_ms": library, "library": "F.scaled_dot_product_attention on the concatenated strips",
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
@@ -711,10 +736,12 @@ def check_oaca_gathered(label, B, H, Lq, sp, dtype, gen, d=32):
     flops = 2.0 * B * H * Lq * (Lk + L2) * 3 * d
     route = oaca.route(d, d, d, dtype)
     bound, by = bound_ms(nbytes, flops, route)
+    ms = time_ms(lambda: oaca.oaca_attention(*ops, scale=scale, ipe_k=ipe_k))
     return {
         "kernel": "oaca_gathered", "shape": label, "dtype": dname, "head_dims": [d, d, d], "route": route,
-        "Lq": Lq, "Lk": Lk, **errors,
-        "ms": time_ms(lambda: oaca.oaca_attention(*ops, scale=scale, ipe_k=ipe_k)),
+        "Lq": Lq, "Lk": Lk, **errors, "ms": ms,
+        **both_routes("oaca_gathered", label, dname, ms, errors, route,
+                      lambda on: oaca.launch(*ops, scale=scale, ipe_k=ipe_k, on=on), want, bound),
         "plain_ms": time_ms(lambda: oaca.oaca_attention_plain(*ops, scale=scale, ipe_k=ipe_k), iters=5),
         "library_ms": library, "library": "F.scaled_dot_product_attention on the concatenated strips (Lq, Lk + 13)",
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
@@ -854,16 +881,40 @@ def check_attention_glide(label, B, H, L, d, dtype, gen, L_enc=13):
     return attention_row(label, q, torch.cat([ek, k], dim=2), torch.cat([ev, v], dim=2), dtype)
 
 
+def both_routes(kernel: str, label: str, dname: str, ms: float, errors: dict, route: str, launch, plain,
+                bound: float) -> dict:
+    """Where the cp.async + mma.sync loader still takes a shape (attention
+    head dims <= 128, OACA's 32-wide builds): the route the wrapper did not
+    take, forced by name (``launch(on)``), held against the plain version
+    and timed in this process on the same operands, beside the taken
+    route's ``ms`` and errors; the replaced route is the mma.sync one
+    (``earlier_ms``).  Fails a route below its bound."""
+    import torch
+
+    from lidarcrafter_tpu_torch.kernels import loader
+
+    taken = "core" if route in loader.CORE_ROUTES.values() else "mma"
+    other = "mma" if taken == "core" else "core"
+    err = kernel_errors(f"{kernel} {label} ({other} route)", dname, launch(other), plain)
+    t = time_ms(lambda: launch(other))
+    check(t >= bound, f"{kernel} {label} {dname} ({other} route): {t} ms below its bound {bound} ms")
+    out = {f"{taken}_ms": ms, f"{taken}_rel_err": errors["rel_err"], f"{taken}_norm_rel_err": errors["norm_rel_err"],
+           f"{other}_ms": t, f"{other}_rel_err": err["rel_err"], f"{other}_norm_rel_err": err["norm_rel_err"]}
+    return out | {"earlier_ms": out["mma_ms"], "earlier_route": loader.MMA_ROUTES[getattr(torch, dname)],
+                  "ms_over_earlier": ms / out["mma_ms"]}
+
+
 def attention_row(label, q, k, v, dtype, kv_len=None):
     """One attention row: the kernel against its plain version, their device
-    times beside SDPA's on the same operands and the bound."""
+    times beside SDPA's on the same operands and the bound; at head dims up
+    to 128 both routes by name (``both_routes``)."""
     import torch
     import torch.nn.functional as F
 
     from lidarcrafter_tpu_torch.kernels import attention
 
     B, H, Lq, d = q.shape
-    Lkv = k.shape[2]
+    Lkv, dv = k.shape[2], v.shape[-1]
     scale = 1.0 / math.sqrt(d)
     args = dict(scale=scale, kv_len=kv_len)
     got = attention.attention(q, k, v, **args)
@@ -877,13 +928,16 @@ def attention_row(label, q, k, v, dtype, kv_len=None):
     elt = torch.finfo(dtype).bits // 8
     nbytes = elt * B * H * (2 * Lq * d + 2 * n * d)
     flops = 4.0 * B * H * Lq * n * d
-    route = attention.route(d, v.shape[-1], dtype)
+    route = attention.route(d, dv, dtype)
     bound, by = bound_ms(nbytes, flops, route)
     ms = time_ms(lambda: attention.attention(q, k, v, **args))
+    routes = {} if max(d, dv) > 128 else both_routes(
+        "attention", label, dname, ms, errors, route,
+        lambda on: attention.launch(q, k, v, scale=scale, kv_len=n, on=on), want, bound)
     return {
         "kernel": "attention", "shape": label, "dtype": dname, "route": route, "head_dim": d,
         "lq": Lq, "lkv": Lkv, **errors,
-        "ms": ms, **earlier("attention", label, dname, ms),
+        "ms": ms, **(routes or earlier("attention", label, dname, ms)),
         "plain_ms": time_ms(lambda: attention.attention_plain(q, k, v, **args), iters=5),
         "library_ms": library, "library": "F.scaled_dot_product_attention",
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
@@ -942,6 +996,16 @@ def phase_kernels():
                                           (BATCH, 32, 1024, 64), SP, dtype, True, True, gen))
         rows.append(check_oaca_gathered(f"ds4 shard 1/{SP} B=8 h=8 Lq={2048 // SP} Lk=2048", BATCH, 8, 2048 // SP,
                                         SP, dtype, gen))
+        # the GLIDE block's shapes (the v6 stack's ds 4 and ds 8, 13 encoder
+        # tokens in front) and OACA at positional head dims 16 and 64 on the
+        # ds 4 v6 shape (channels_scale_for_positional_embedding 0.5 and 2)
+        rows.append(check_attention_glide("glide ds4 B=8 h=8 L=2048+13 d=32", BATCH, 8, 2048, 32, dtype, gen)
+                    | {"sub": "glide"})
+        rows.append(check_attention_glide("glide ds8 B=8 h=16 L=512+13 d=32", BATCH, 16, 512, 32, dtype, gen)
+                    | {"sub": "glide"})
+        for dp in OACA_POSITIONAL_DIMS:
+            rows.append(check_oaca(f"ds4 B=8 h=8 L=2048 dp={dp}", BATCH, 8, 2048, dtype, gen, dp=dp)
+                        | {"sub": "positional_dims"})
     # the layout branch's UNet1D norms: N = 104 one-row images; float32 as the
     # branch serves, bfloat16 as it trains under AMP
     N = LAYOUT_SCENES * (LAYOUT_OBJECTS + 1)
@@ -1158,9 +1222,9 @@ def phase_main_path(cfg_name: str, gen, per_call: dict, requests, smi: str) -> d
 
 def _category(kernel_name: str) -> str:
     name = kernel_name.lower()
-    if "oaca" in name:  # the cp.async loader's oaca_fwd_kernel and the Hopper core's Oaca128
+    if "oaca" in name:  # the Hopper core's Oaca (and the cp.async loader's oaca_fwd_kernel)
         return "oaca kernel"
-    if "attention_fwd" in name or ("flash_kernel" in name and "wide" in name):  # the Hopper core's Wide
+    if "attention_fwd" in name or ("flash_kernel" in name and "attn" in name):  # the Hopper core's Attn
         return "attention kernel"
     if "gn_fused" in name:
         return "groupnorm kernel"
@@ -3271,27 +3335,19 @@ def adm_blocks(channel_mult, num_res_blocks: int, attention_ds, resblock_updown:
 
 
 def registry_kernel_rows(gen) -> list:
-    """Phase 14 (a): the attention kernel at the GLIDE block's shapes (the
-    v6 stack's ds 4 and ds 8, 13 encoder tokens in front) and at OpenAIUNet's
-    wide heads, and OACA at positional head dims 16 and 64 on the ds 4 v6
-    shape, float32 and bfloat16, each against its plain version."""
+    """Phase 14 (a): the attention kernel at OpenAIUNet's wide heads, float32
+    and bfloat16, each against its plain version (the GLIDE shapes and
+    OACA's positional widths are phase 2's)."""
     import torch
 
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        rows.append(check_attention_glide("glide ds4 B=8 h=8 L=2048+13 d=32", BATCH, 8, 2048, 32, dtype, gen)
-                    | {"sub": "glide"})
-        rows.append(check_attention_glide("glide ds8 B=8 h=16 L=512+13 d=32", BATCH, 16, 512, 32, dtype, gen)
-                    | {"sub": "glide"})
         rows.append(check_attention("wide B=8 h=1 L=2048 d=256", BATCH, 1, 2048, 2048, 256, dtype, gen)
                     | {"sub": "wide_heads"})
         rows.append(check_attention("wide B=8 h=1 L=512 d=512", BATCH, 1, 512, 512, 512, dtype, gen)
                     | {"sub": "wide_heads"})
         rows.append(check_attention("wide ragged B=8 h=2 L=1000 kv_len=777 d=384", BATCH, 2, 1000, 1000, 384,
                                     dtype, gen, kv_len=777) | {"sub": "wide_heads"})
-        for dp in OACA_POSITIONAL_DIMS:
-            rows.append(check_oaca(f"ds4 B=8 h=8 L=2048 dp={dp}", BATCH, 8, 2048, dtype, gen, dp=dp)
-                        | {"sub": "positional_dims"})
     for row in rows:
         emit({"phase": "registry", "check": "kernel", **row})
         check(row["ms"] >= row["bound_ms"],
@@ -4630,8 +4686,9 @@ def main() -> int:
           "probe": "x*2 ok", **probe_times(loaded), "ptxas": ptxas})
     hopper = hopper_ptxas(loaded.ptxas_log)
     if "== attention.cu" in loaded.ptxas_log and "== oaca.cu" in loaded.ptxas_log:  # built in this process
-        check(len(hopper) == 9, f"{len(hopper)} Hopper-core kernels in the ptxas log (7 wide attention, 2 OACA)")
-    emit({"phase": "build", "check": "Hopper core kernels (ptxas -v)", "kernels": hopper, **check_wide_plan(),
+        check(len(hopper) == HOPPER_KERNELS,
+              f"{len(hopper)} Hopper-core kernels in the ptxas log, not {HOPPER_KERNELS} (13 attention, 7 OACA)")
+    emit({"phase": "build", "check": "Hopper core kernels (ptxas -v)", "kernels": hopper, **check_plans(),
           "dynamic_smem": hopper_smem()})
 
     marks, last = {}, [t0]
@@ -4756,11 +4813,11 @@ def main() -> int:
             # the forward-mode route, where a path takes one (OACA has none)
             "jvp": None if jvp["float32"] is None else {key: jvp["float32"][key] for key in backward_keys}
             | {"bf16": {key: jvp["bfloat16"][key] for key in backward_keys}},
-            # phase 14: the GLIDE shapes and wide heads (attention), positional
-            # head dims 16 and 64 (OACA), float32 and bfloat16
-            **{sub: [{key: r[key] for key in sub_keys} for r in registry_rows
-                     if r["kernel"] == k and r["sub"] == sub]
-               for sub in {r["sub"] for r in registry_rows if r["kernel"] == k}},
+            # phase 2: the GLIDE shapes (attention), positional head dims 16
+            # and 64 (OACA); phase 14: the wide heads; float32 and bfloat16
+            **{sub: [{key: r[key] for key in sub_keys} for r in rows + registry_rows
+                     if r["kernel"] == k and r.get("sub") == sub]
+               for sub in {r["sub"] for r in rows + registry_rows if r["kernel"] == k and "sub" in r}},
         })
     # the azimuth-sharded launches (phase 18's two ranks; phase 2's rows at
     # rank 0's shard of the sp = 2 path)

@@ -1,5 +1,9 @@
-// Shared tensor-core flash-attention core of the port's two attention
-// kernels (csrc/attention.cu, csrc/oaca.cu).
+// The cp.async + mma.sync flash-attention loader of the port's two attention
+// kernels (csrc/attention.cu, csrc/oaca.cu): their f32 route at the narrow
+// head dims (attention up to 128, OACA's 32-wide builds), and in bf16 the
+// route the Hopper core (hopper_flash.cuh) replaced, kept reachable by name
+// for the kernel table's comparison.  The core also takes its helpers
+// (`mma_3xtf32`, `split_tf32`, `ex2`, `pack_bf16`, `ldsm_x4`).
 //
 // One block of 4 warps owns 128 query rows (32 per warp; 64 and 16 at head
 // dim 128, see `m_tiles`) of one (batch, head).  The caller stages its Q

@@ -1,6 +1,9 @@
-// Hopper flash-attention core shared by the wide-head attention route
-// (csrc/attention.cu, head dims 129-512) and OACA's 128-wide route
-// (csrc/oaca.cu, head dims (64, 64, 64)).  Built for sm_90a only.
+// Hopper flash-attention core shared by the attention kernel (csrc/
+// attention.cu: bf16 at every head dim, 8-512; f32 above 128) and OACA
+// (csrc/oaca.cu: bf16 at (32, 16 | 32 | 64, 32) and (64, 64, 64); f32 at
+// (64, 64, 64)).  f32 at the narrow head dims stays on flash_mma.cuh's
+// cp.async loader by a fixed rule (see the kernels' headers); the core's f32
+// instantiations there remain reachable by name.  Built for sm_90a only.
 //
 // One block of three warpgroups (384 threads), warp-specialised:
 //
@@ -10,43 +13,50 @@
 //     own (batch, head, row) strides.  The q tile is loaded once; the key
 //     tiles stream through `Layout::stages` K/V stages, K and V each paced
 //     by a full and an empty `mbarrier` a stage.
-//   * warpgroups 1 and 2, the consumers (`setmaxnreg.inc` to 240): each
-//     holds 64 query rows (wgmma's m64) and folds every key tile into an
-//     online softmax kept in f32 registers, with the O accumulator beside
-//     it.  K of a tile is released as soon as its S has landed, V once its
-//     P V has.  In bf16 a tile's P V is deferred by one tile: S of tile t
-//     and P V of tile t-1 go out together and the softmax of tile t
-//     runs while that P V is on the tensor cores; and, not split, the two
-//     consumers take turns starting their products (named barriers), so that one's
+//   * warpgroups 1 and 2, the consumers (`setmaxnreg.inc` to 240, or to 104
+//     where a problem asks for two blocks an SM): each holds 64
+//     query rows (wgmma's m64) and folds every key tile into an online
+//     softmax kept in f32 registers, with the O accumulator beside it.  K of
+//     a tile is released as soon as its S has landed, V once its P V has.
+//     In bf16 a tile's P V is deferred by one tile: S of tile t and P V of
+//     tile t-1 go out together and the softmax of tile t runs while that
+//     P V is on the tensor cores; and, not split, the two consumers take
+//     turns starting their products (named barriers), so that one's
 //     products run while the other's softmax does.
 //
-// Every shared tile is cut into 128-byte "chunks": a chunk holds 128 bytes
-// of each of its rows (64 bf16 or 32 f32 values), rows 128 bytes apart,
-// in TMA's 128B swizzle (the 16-byte piece j of row r sits at piece
-// j ^ (r % 8)).  A q tile is nqc chunks of 64 rows, a K tile nqc chunks of
-// BK rows, a V tile nvt chunks of BK rows; every chunk starts 1024-byte
-// aligned, as the swizzle and the wgmma descriptors need.  Columns past a
-// head dim and rows past a strip's end are zero-filled by TMA (the
-// tensor map's extents are the real ones), so no tile is ever padded in
-// device memory.
+// Every shared tile is cut into "chunks" of 128 or 64 bytes a row: a chunk
+// holds that many bytes of each of its rows, rows packed densely, in TMA's
+// swizzle of the same width (the 16-byte piece j of row r sits at piece
+// j ^ (r % 8) in a 128-byte chunk, j ^ (r / 2 % 4) in a 64-byte one: the
+// address bits 7-9, resp. 7-8, XORed into bits 4-6, resp. 4-5).  A q / k row
+// is `Layout::nqc` 128-byte chunks followed by a problem's `kQH` 64-byte ones
+// (0-2: a bf16 head of 32 is one 64-byte chunk, a dense tile of its own
+// width rather than half of a zero-filled 128-byte one); a V row is nvt
+// 128-byte chunks, or one 64-byte chunk where a consumer's O is 64 bytes
+// wide.  A q tile's chunks hold 64 rows, a K / V tile's BK rows; every 128-
+// byte chunk starts 1024-byte aligned and every 64-byte one 512-byte
+// aligned, as the swizzles and the wgmma descriptors need.  Columns past a
+// head dim and rows past a strip's end are zero-filled by TMA (the tensor
+// map's extents are the real ones), so no tile is ever padded in device
+// memory.
 //
 // Two consumer routes, by the operand type:
 //
 //   * bf16 (`ConsumerBf16`): S = Q K^T is a `wgmma` m64nBKk16 with both
 //     operands in shared memory (K-major descriptors), or, where the q
-//     tile's fragments fit the registers (OACA), with Q from registers; P
-//     is rounded to bf16 in registers, where the S accumulators of keys
-//     16k..16k+15 are exactly the A fragment of the k-th k16 step, and O
-//     += P V is a `wgmma` m64nNVk16 with P from registers and V read
-//     MN-major (the transposed-B descriptor spans the NV/64 V chunks at its
-//     leading byte offset).
+//     tile's fragments fit the registers, with Q from registers (NQ k16
+//     steps, over 128- and 64-byte chunks alike); P is rounded to bf16 in
+//     registers, where the S accumulators of keys 16k..16k+15 are exactly
+//     the A fragment of the k-th k16 step, and O += P V is a `wgmma`
+//     m64nNVk16 with P from registers and V read MN-major (the transposed-B
+//     descriptor spans the V chunks at its leading byte offset).
 //   * f32 (`ConsumerF32`, 3xTF32): `wgmma` takes tf32 only K-major, and V
 //     is MN-major in shared memory (TMA cannot transpose it), so the f32
 //     route runs 3xTF32 `mma.sync` m16n8k8 inside the same warp-
 //     specialised, TMA-fed block: each warp owns 16 of its warpgroup's 64
 //     rows, reads its fragments from the swizzled chunks (every read
-//     conflict-free) and splits each operand into big + small tf32 parts
-//     (flash_mma.cuh's `mma_3xtf32`).
+//     conflict-free in either width) and splits each operand into big +
+//     small tf32 parts (flash_mma.cuh's `mma_3xtf32`).
 //
 // Two ways to share the work of a block (`SPLIT`):
 //
@@ -80,8 +90,10 @@ using flash::split_tf32;
 
 constexpr int NTHREADS = 384;       // producer warpgroup + two consumers
 constexpr int ROWS = 64;            // query rows of a consumer (wgmma m64)
-constexpr int CHUNK = 128;          // bytes of a chunk row (one 128B-swizzle span)
+constexpr int CHUNK = 128;          // bytes of a wide chunk's row (one 128B-swizzle span)
+constexpr int HALF = 64;            // bytes of a narrow chunk's row (one 64B-swizzle span)
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use on sm_90
+constexpr int kSmemLimit2 = 115712; // each of two blocks an SM (228 KB, 1 KB of it reserved a block)
 constexpr int kAlign = 1024;        // slack to align the dynamic base to the swizzle repeat
 constexpr int kMaxStages = 4;
 constexpr int kConsumerWarps = 8;   // arrivals that release a stage
@@ -93,8 +105,8 @@ constexpr int kBarBytes = 8 * (4 * kMaxStages + 1);  // K and V full / empty rin
 // (`plan_layout`) and read by the kernel.  All fields are 32-bit.
 struct Layout {
   int32_t stages;   // K/V stages in the ring (0: the operands do not fit)
-  int32_t nqc;      // chunks of a q / k row
-  int32_t nvt;      // chunks of a V row loaded per key tile
+  int32_t nqc;      // 128-byte chunks of a q / k row (its 64-byte chunks follow them)
+  int32_t nvt;      // 128-byte chunks of a V row loaded per key tile (0: one 64-byte chunk)
   int32_t q_wg;     // bytes of one consumer's q tile (64 rows)
   int32_t q_bytes;  // bytes of the block's q tile(s)
   int32_t kv;       // offset of stage 0
@@ -105,29 +117,30 @@ struct Layout {
   int32_t smem;     // dynamic shared memory to ask for
 };
 
-// The shared-memory plan of a block: q tile(s), then the ring of as many
-// K/V stages as fit (at most kMaxStages; a stage is a K tile and then a V
-// tile), then the split route's score exchange (2 buffers x 2 consumers x
+// The shared-memory plan of a block whose q / k rows are qk_row bytes and
+// whose V rows are v_row bytes a key tile: q tile(s), then the ring of as
+// many K/V stages as fit (at most kMaxStages; a stage is a K tile and then a
+// V tile), then the split route's score exchange (2 buffers x 2 consumers x
 // 128 threads x BK/2 floats), then the barriers.  At the end the block's
-// output, out_chunks chunks of 64 rows, is staged from offset 0 and must
-// fit below the barriers.  `kernels/loader.py::
-// hopper_layout` mirrors it.
-inline Layout plan_layout(bool split, int bk, int nqc, int nvt, int out_chunks) {
+// output, out_bytes, is staged from offset 0 and must fit below the
+// barriers.  Two blocks an SM share its shared memory: `blocks` 2 halves
+// the limit.  `kernels/loader.py::hopper_layout` mirrors it.
+inline Layout plan_layout(bool split, int bk, int qk_row, int v_row, int out_bytes, int blocks = 1) {
   Layout L{};
-  L.nqc = nqc;
-  L.nvt = nvt;
-  L.q_wg = ROWS * CHUNK * nqc;
+  L.nqc = qk_row / CHUNK;
+  L.nvt = v_row / CHUNK;
+  L.q_wg = ROWS * qk_row;
   L.q_bytes = L.q_wg * (split ? 1 : 2);
-  L.k_bytes = bk * CHUNK * nqc;
-  L.stage = bk * CHUNK * (nqc + nvt);
+  L.k_bytes = bk * qk_row;
+  L.stage = bk * (qk_row + v_row);
   const int x_bytes = split ? 2 * 2 * 128 * (bk / 2) * 4 : 0;
-  const int room = kSmemLimit - kAlign - L.q_bytes - x_bytes - kBarBytes;
+  const int room = (blocks == 1 ? kSmemLimit : kSmemLimit2) - kAlign - L.q_bytes - x_bytes - kBarBytes;
   L.stages = room < L.stage ? 0 : (room / L.stage < kMaxStages ? room / L.stage : kMaxStages);
   L.kv = L.q_bytes;
   L.x = L.kv + L.stages * L.stage;
   L.bar = L.x + x_bytes;
   L.smem = L.bar + kBarBytes + kAlign;
-  if (L.bar < out_chunks * ROWS * CHUNK) L.stages = 0;  // the epilogue's staging must fit below the barriers
+  if (L.bar < out_bytes) L.stages = 0;  // the epilogue's staging must fit below the barriers
   return L;
 }
 
@@ -159,12 +172,12 @@ inline EncodeTiledFn encode_tiled() {
 
 // A tensor map over a (B, H, rows, cols) operand with (batch, head, row)
 // strides s (elements; the last dim contiguous) whose box is one chunk:
-// 128 bytes of columns by box_rows rows, 128B swizzle.  Reads past `rows`
-// or `cols` are zero-filled.  A dim of extent 1 gets a stride it never
-// uses (its natural one), so a size-1 batch or head of any stride works.
-// Returns a cudaError_t code.
+// `width` (128 or 64) bytes of columns by box_rows rows, in the swizzle of
+// that width.  Reads past `rows` or `cols` are zero-filled.  A dim of
+// extent 1 gets a stride it never uses (its natural one), so a size-1
+// batch or head of any stride works.  Returns a cudaError_t code.
 inline int make_map(CUtensorMap* map, const void* ptr, bool f32, int64_t cols, int64_t rows,
-                    int64_t H, int64_t B, const int64_t s[3], int box_rows) {
+                    int64_t H, int64_t B, const int64_t s[3], int box_rows, int width = CHUNK) {
   EncodeTiledFn encode = encode_tiled();
   if (!encode) return (int)cudaErrorSymbolNotFound;
   const int64_t elt = f32 ? 4 : 2;
@@ -176,11 +189,12 @@ inline int make_map(CUtensorMap* map, const void* ptr, bool f32, int64_t cols, i
     if (dims[i + 1] == 1) strides[i] = (cuuint64_t)extent;
     extent = (int64_t)strides[i] * (int64_t)dims[i + 1];
   }
-  cuuint32_t box[4] = {(cuuint32_t)(CHUNK / elt), (cuuint32_t)box_rows, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)(width / elt), (cuuint32_t)box_rows, 1, 1};
   cuuint32_t estride[4] = {1, 1, 1, 1};
   CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                       4, const_cast<void*>(ptr), dims, strides, box, estride,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      width == HALF ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -296,14 +310,16 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
-// wgmma shared-memory descriptor of a 128B-swizzled tile: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 (128B).
-// K-major (Q, K): 8-row groups `sbo` = 1024 bytes apart, lbo unused (1).
-// MN-major (V): 8-key groups 1024 bytes apart, 64-column chunks `lbo`
-// bytes apart.
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor of a tile of W-byte (128 or 64) swizzled
+// chunks: start address, leading and stride byte offsets (16-byte units),
+// layout type 1 (128B swizzle) or 2 (64B).  K-major (Q, K): 8-row groups
+// 8 W bytes apart, lbo unused (1).  MN-major (V): 8-key groups 8 W bytes
+// apart, chunks (W / 2 bf16 columns each) `lbo` bytes apart.
+template <int W>
+__device__ __forceinline__ uint64_t desc_sw(const void* p, uint32_t lbo) {
+  static_assert(W == CHUNK || W == HALF, "128- or 64-byte chunks");
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(8 * W >> 4) << 32) | ((W == CHUNK ? 1ull : 2ull) << 62);
 }
 
 // S (+)= Q K^T: m64nNk16, both operands K-major in shared memory
@@ -358,8 +374,21 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t a, uint6
 }
 
 // d (+)= A B: m64nNk16, A (bf16) in registers, B in shared memory (128B
-// swizzle), K-major (TRANS_B 0: K for S = Q K^T) or MN-major (1: V for
-// O += P V); acc = 0 overwrites d
+// or 64B swizzle), K-major (TRANS_B 0: K for S = Q K^T) or MN-major (1: V
+// for O += P V); acc = 0 overwrites d
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[4][4], const uint32_t (&a)[4], uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TRANS_B));
+}
+
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b, int acc) {
   asm volatile(
@@ -563,7 +592,7 @@ struct Flash {
       for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
   }
 
-  // O / l of the consumer's 64 rows, in T, into NV / CW chunks of 64 rows
+  // O / l of the consumer's 64 rows, in T, into ceil(NV / CW) chunks of 64 rows
   // x 128 bytes in the 128B swizzle, from which TMA stores them (T's pair
   // at columns 8 n + 2 t of row r lands in piece (byte / 16) ^ (r % 8):
   // a warp's rows g hit 8 distinct pieces, no bank conflict)
@@ -598,44 +627,64 @@ struct Flash {
 // tile runs while P V is still on the tensor cores.  With NQ > 0 the
 // consumer holds its q tile's NQ k16 steps in registers (`load_q`) and S
 // reads only K from shared memory (register-A wgmma), half the shared-
-// memory traffic of S; else both operands come from shared memory.
-template <int BK, int NV, int NQ = 0>
+// memory traffic of S; the q / k row is then (NQ - 2 QH) / 4 128-byte
+// chunks followed by QH 64-byte ones (4 and 2 k16 steps each).  With NQ = 0
+// both operands come from shared memory, over the layout's nqc 128-byte
+// chunks.  O's NV columns are read from V chunks of 128 bytes, or from one
+// 64-byte chunk at NV = 32.
+template <int BK, int NV, int NQ = 0, int QH = 0>
 struct ConsumerBf16 : Flash<BK, NV> {
   using Flash<BK, NV>::s;
   using Flash<BK, NV>::o;
   static_assert(NQ ? (BK == 64 || BK == 128) : (BK == 32 || BK == 64 || BK == 80), "S tiles of m64n32 to m64n128");
-  static_assert(NV == 64 || NV == 128 || NV == 256, "O tiles are m64n64, m64n128 or m64n256");
+  static_assert(NV == 32 || NV == 64 || NV == 128 || NV == 256, "O tiles are m64n32 to m64n256");
+  static_assert(NQ > 0 || QH == 0, "64-byte q / k chunks are read with the q tile in registers");
+  static constexpr int N128 = (NQ - 2 * QH) / 4;  // 128-byte chunks of a q / k row (NQ > 0)
+  static_assert(NQ == 0 || 4 * N128 + 2 * QH == NQ, "a q / k row is whole chunks");
+  static constexpr int VW = 2 * NV < CHUNK ? HALF : CHUNK;  // bytes of a V chunk's row
   uint32_t p[BK / 16][4];          // the kept tile's P, bf16: the A fragments of its P V
   uint32_t q[NQ ? NQ : 1][4];      // A fragments of the q tile (NQ > 0)
 
-  // the A fragments of the consumer's q tile (64 rows, NQ / 4 chunks):
-  // ldmatrix.x4 of rows 16 warp + lane % 16, 16-byte piece 2 k + lane / 16
-  // of a chunk's k16 step k, swizzled by the row
+  // k16 step kk of a q / k row: the offset of its chunk in a tile of `rows`
+  // rows, and its 32-byte step within the chunk's rows
+  static __device__ __forceinline__ constexpr int chunk_of(int kk, int rows) {
+    return kk < 4 * N128 ? (kk / 4) * rows * CHUNK : N128 * rows * CHUNK + (kk - 4 * N128) / 2 * rows * HALF;
+  }
+  static __device__ __forceinline__ constexpr int step_of(int kk) {
+    return kk < 4 * N128 ? kk % 4 : (kk - 4 * N128) % 2;
+  }
+
+  // the A fragments of the consumer's q tile (64 rows): ldmatrix.x4 of rows
+  // 16 warp + lane % 16, 16-byte piece 2 step + lane / 16 of the step's
+  // chunk, swizzled by the row (r % 8 in 128-byte chunks, r / 2 % 4 in 64)
   __device__ __forceinline__ void load_q(const unsigned char* sQ) {
     if constexpr (NQ > 0) {
       const int lane = threadIdx.x & 31, r = 16 * ((threadIdx.x >> 5) & 3) + (lane & 15);
 #pragma unroll
       for (int kk = 0; kk < NQ; ++kk) {
-        const int piece = (2 * (kk % 4) + (lane >> 4)) ^ (r & 7);
-        flash::ldsm_x4(q[kk], sQ + (kk / 4) * ROWS * CHUNK + r * CHUNK + piece * 16);
+        const int piece = 2 * step_of(kk) + (lane >> 4);
+        const unsigned char* c = sQ + chunk_of(kk, ROWS);
+        flash::ldsm_x4(q[kk], kk < 4 * N128 ? c + r * CHUNK + ((piece ^ (r & 7)) << 4)
+                                            : c + r * HALF + ((piece ^ ((r >> 1) & 3)) << 4));
       }
     }
   }
 
   // S = Q K^T over chunks [c0, c1) of the q tile (64 rows) and the K tile
-  // (BK rows); a k16 step is 32 bytes further along a chunk's rows.  The
-  // first product overwrites S (an empty range, a split consumer without a
-  // chunk, zeroes it).  One commit group.
+  // (BK rows), or with NQ > 0 over the whole row; a k16 step is 32 bytes
+  // further along a chunk's rows.  The first product overwrites S (an empty
+  // range, a split consumer without a chunk, zeroes it).  One commit group.
   __device__ __forceinline__ void start_scores(const unsigned char* sQ, const unsigned char* sK,
                                                int c0, int c1) {
     if (NQ == 0 && c0 >= c1) this->zero_scores();
     fence_regs(s);
     if constexpr (NQ > 0) fence_regs(q);
     wg_fence();
-    if constexpr (NQ > 0) {  // the whole q tile, K chunk kk / 4
+    if constexpr (NQ > 0) {
 #pragma unroll
       for (int kk = 0; kk < NQ; ++kk) {
-        const uint64_t dk = desc_sw128(sK + (kk / 4) * BK * CHUNK, 16, 1024) + 2 * (kk % 4);
+        const unsigned char* c = sK + chunk_of(kk, BK);
+        const uint64_t dk = (kk < 4 * N128 ? desc_sw<CHUNK>(c, 16) : desc_sw<HALF>(c, 16)) + 2 * step_of(kk);
         if constexpr (BK == 128)
           wgmma_rs_n128<0>(s, q[kk], dk, kk > 0);
         else
@@ -643,8 +692,8 @@ struct ConsumerBf16 : Flash<BK, NV> {
       }
     } else {
       for (int c = c0; c < c1; ++c) {
-        const uint64_t dq = desc_sw128(sQ + c * ROWS * CHUNK, 16, 1024);
-        const uint64_t dk = desc_sw128(sK + c * BK * CHUNK, 16, 1024);
+        const uint64_t dq = desc_sw<CHUNK>(sQ + c * ROWS * CHUNK, 16);
+        const uint64_t dk = desc_sw<CHUNK>(sK + c * BK * CHUNK, 16);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const int acc = c > c0 || kk > 0;
@@ -668,16 +717,18 @@ struct ConsumerBf16 : Flash<BK, NV> {
   }
 
   // O += P V for the kept P, over the NV columns from chunk vc of a V tile:
-  // V MN-major, 8-key groups 1024 bytes apart, chunks BK * 128 bytes apart
+  // V MN-major, 8-key groups 8 VW bytes apart, chunks BK VW bytes apart
   __device__ __forceinline__ void start_pv(const unsigned char* sV, int vc) {
     fence_regs(o);
     fence_regs(p);
     wg_fence();
-    const uint64_t dv = desc_sw128(sV + vc * BK * CHUNK, BK * CHUNK, 1024);
+    const uint64_t dv = desc_sw<VW>(sV + vc * BK * VW, BK * VW);
 #pragma unroll
     for (int k = 0; k < BK / 16; ++k) {
-      const uint64_t d = dv + k * (16 * CHUNK >> 4);
-      if constexpr (NV == 64)
+      const uint64_t d = dv + k * (16 * VW >> 4);
+      if constexpr (NV == 32)
+        wgmma_rs_n32<1>(o, p[k], d, 1);
+      else if constexpr (NV == 64)
         wgmma_rs_n64<1>(o, p[k], d, 1);
       else if constexpr (NV == 128)
         wgmma_rs_n128<1>(o, p[k], d, 1);
@@ -709,45 +760,59 @@ struct ConsumerBf16 : Flash<BK, NV> {
 
 // f32: 3xTF32 mma.sync, each warp on its 16 rows, run synchronously;
 // a tile's P V follows its softmax at once (nothing to overlap).  In a
-// chunk (32 floats a row) element (r, col) sits at float r * 32 + (((col
-// >> 2) ^ (r & 7)) << 2) + (col & 3).
-template <int BK, int NV>
+// 128-byte chunk (32 floats a row) element (r, col) sits at float r * 32 +
+// (((col >> 2) ^ (r & 7)) << 2) + (col & 3); in a 64-byte chunk (16 floats)
+// at r * 16 + (((col >> 2) ^ (r / 2 % 4)) << 2) + (col & 3).  The q / k
+// row is the range's 128-byte chunks, then (not split) QH 64-byte ones.
+template <int BK, int NV, int QH = 0>
 struct ConsumerF32 : Flash<BK, NV> {
   using Flash<BK, NV>::s;
   using Flash<BK, NV>::o;
 
   __device__ __forceinline__ void load_q(const unsigned char*) {}
 
-  // S = Q K^T over chunks [c0, c1).  A k8 step reads head dims t and t+4
-  // of a chunk's 8-column group (A columns t and t+4, B rows t and t+4):
-  // rows g..g+7 land in 8 distinct 16-byte pieces, so a warp's 32 reads
-  // hit 32 banks.
+  // S += Q K^T over one chunk of W bytes (rows W / 4 floats apart), whose
+  // swizzle of rows 16 warp + g, + 8 and of key rows 8 n + g is sw.  A k8
+  // step reads head dims t and t+4 of a chunk's 8-column group (A columns
+  // t and t+4, B rows t and t+4): rows g..g+7 land in 8 distinct 16-byte
+  // pieces of two 128-byte bank lines, so a warp's 32 reads hit 32 banks.
+  template <int W>
+  __device__ __forceinline__ void chunk_scores(const float* q, const float* k, int r0, int g, int t, int sw) {
+    constexpr int F = W / 4;
+#pragma unroll
+    for (int kk = 0; kk < W / 32; ++kk) {
+      const int lo = (((2 * kk) ^ sw) << 2) + t, hi = (((2 * kk + 1) ^ sw) << 2) + t;
+      uint32_t ab[4], as[4];
+      split_tf32(q[r0 * F + lo], ab[0], as[0]);
+      split_tf32(q[(r0 + 8) * F + lo], ab[1], as[1]);
+      split_tf32(q[r0 * F + hi], ab[2], as[2]);
+      split_tf32(q[(r0 + 8) * F + hi], ab[3], as[3]);
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        const float* kr = k + (8 * n + g) * F;
+        uint32_t bb[2], bs[2];
+        split_tf32(kr[lo], bb[0], bs[0]);
+        split_tf32(kr[hi], bb[1], bs[1]);
+        mma_3xtf32(s[n], ab, as, bb, bs);
+      }
+    }
+  }
+
+  // S = Q K^T over 128-byte chunks [c0, c1), then the QH 64-byte chunks
+  // that follow chunk c1 (not split: c1 is the row's nqc)
   __device__ __forceinline__ void start_scores(const unsigned char* sQ, const unsigned char* sK,
                                                int c0, int c1) {
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
     const int r0 = 16 * warp + g;
     this->zero_scores();
-    for (int c = c0; c < c1; ++c) {
-      const float* q = reinterpret_cast<const float*>(sQ + c * ROWS * CHUNK);
-      const float* k = reinterpret_cast<const float*>(sK + c * BK * CHUNK);
+    for (int c = c0; c < c1; ++c)
+      chunk_scores<CHUNK>(reinterpret_cast<const float*>(sQ + c * ROWS * CHUNK),
+                          reinterpret_cast<const float*>(sK + c * BK * CHUNK), r0, g, t, g);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int lo = (((2 * kk) ^ g) << 2) + t, hi = (((2 * kk + 1) ^ g) << 2) + t;
-        uint32_t ab[4], as[4];
-        split_tf32(q[r0 * 32 + lo], ab[0], as[0]);
-        split_tf32(q[(r0 + 8) * 32 + lo], ab[1], as[1]);
-        split_tf32(q[r0 * 32 + hi], ab[2], as[2]);
-        split_tf32(q[(r0 + 8) * 32 + hi], ab[3], as[3]);
-#pragma unroll
-        for (int n = 0; n < BK / 8; ++n) {
-          const float* kr = k + (8 * n + g) * 32;
-          uint32_t bb[2], bs[2];
-          split_tf32(kr[lo], bb[0], bs[0]);
-          split_tf32(kr[hi], bb[1], bs[1]);
-          mma_3xtf32(s[n], ab, as, bb, bs);
-        }
-      }
-    }
+    for (int h = 0; h < QH; ++h)
+      chunk_scores<HALF>(reinterpret_cast<const float*>(sQ + c1 * ROWS * CHUNK + h * ROWS * HALF),
+                         reinterpret_cast<const float*>(sK + c1 * BK * CHUNK + h * BK * HALF), r0, g, t,
+                         (g >> 1) & 3);
   }
 
   // O += P V for the tile's P (in S's registers), over the NV columns from
@@ -756,6 +821,7 @@ struct ConsumerF32 : Flash<BK, NV> {
   // with the same permutation: rows 2t and 2t+1, column g of an 8-column
   // group.
   __device__ __forceinline__ void start_pv(const unsigned char* sV, int vc) {
+    static_assert(NV % 32 == 0, "f32 O in whole 128-byte V chunks");
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
@@ -790,7 +856,9 @@ struct Common {
 
 // A problem P gives the operand type `Type`, `kSplit`, the key tile `kBK`,
 // a consumer's O width `kNV`, `kNQ` (the bf16 q tile's k16 steps to hold in
-// registers, 0 for none), its `Params` (tensor maps, then `Common c`)
+// registers, 0 for none), `kQH` (the 64-byte chunks that end a q / k row),
+// `kMinBlocks` (blocks an SM: 1, or 2 with the consumers' registers cut
+// from 240 to 104), its `Params` (tensor maps, then `Common c`)
 // and four device functions: `load_q(p, sQ, bar, q0, h, b)` starts the
 // q tile's boxes (both consumers' unless split), `load_k(p, sK, bar, t,
 // h, b)` / `load_v(p, sV, bar, t, h, b)` key tile t's nqc K chunks / nvt V
@@ -802,13 +870,15 @@ struct Common {
 // as it can.  In f32 without the split (OACA) they share the K ring's
 // barriers.
 template <class P>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(NTHREADS, P::kMinBlocks)
     flash_kernel(__grid_constant__ const typename P::Params p) {
   using T = typename P::Type;
   constexpr bool kSplit = P::kSplit;
   constexpr int BK = P::kBK, NV = P::kNV, CW = CHUNK / (int)sizeof(T);
-  using Consumer = typename std::conditional<flash::is_f32<T>(), ConsumerF32<BK, NV>,
-                                             ConsumerBf16<BK, NV, P::kNQ>>::type;
+  constexpr int OC = (NV + CW - 1) / CW;  // 128-byte chunks of a consumer's staged O
+  static_assert(P::kMinBlocks == 1 || P::kMinBlocks == 2, "one or two blocks an SM");
+  using Consumer = typename std::conditional<flash::is_f32<T>(), ConsumerF32<BK, NV, P::kQH>,
+                                             ConsumerBf16<BK, NV, P::kNQ, P::kQH>>::type;
   // f32 not split (OACA, 3 stages) consumes a tile's K and V in one go (S,
   // softmax, P V, all synchronous), so the two share one full / empty pair
   // a stage; the split f32 route (1-2 stages) releases K after S so that
@@ -867,7 +937,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
     }
   } else {
-    regs_inc<240>();
+    // one block an SM: 65,536 registers, 168 a thread at launch, the
+    // producer's 144 x 128 freed ones to the consumers (24 + 2 x 240 per
+    // thread triple); two: 80 at launch, 104 a consumer thread
+    regs_inc<P::kMinBlocks == 1 ? 240 : 104>();
     const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
     const bool lead = (tid & 31) == 0;  // a warp's arrival on an empty barrier
     Consumer w;
@@ -974,13 +1047,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // of 8 rows at once; with one wave of blocks (the wide heads) nothing
     // else would hide that tail.
     named_sync(4, 256);
-    unsigned char* out = base + c * (NV / CW) * ROWS * CHUNK;
+    unsigned char* out = base + c * OC * ROWS * CHUNK;
     w.template stage<T>(out);
     fence_async_shared();
     named_sync(5 + c, 128);
     if (tid == 0) {
       const int row = kSplit ? q0 : q0 + ROWS * c;
-      for (int j = 0; j < NV / CW; ++j) {
+      for (int j = 0; j < OC; ++j) {
         const int col = (kSplit ? c * NV : 0) + j * CW;
         if (col < p.c.dv) tma_store(&p.c.out, out + j * ROWS * CHUNK, col, row, h, b);
       }

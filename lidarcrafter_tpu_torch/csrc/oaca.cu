@@ -14,54 +14,47 @@
 // ipe_k is ipe.  Under the azimuth axis (parallel/mesh.py, sp > 1) a rank's
 // queries are its columns of the image, and its keys k_c, v_c are every
 // rank's columns gathered in the global token order, with the whole
-// positional strip as ipe_k (Lk = sp * Lq).  The 32-wide loader below takes
-// any Lk; the (64, 64, 64) route takes Lk = Lq only.
+// positional strip as ipe_k (Lk = sp * Lq).  Every route takes any Lk but
+// (64, 64, 64), which takes Lk = Lq only.
 //
 // The TPU kernel kept the whole K/V strip in VMEM and took one plain
 // softmax.  On Hopper the strip does not fit a block's shared memory (at
-// ds=4 it is 2048 x 96 values per head), so this kernel is a thin loader
-// around the tensor-core flash core of flash_mma.cuh: one block of 4 warps
-// per (batch*head, query tile),
+// ds=4 it is 2048 x 96 values per head), so it streams through the
+// warp-specialised Hopper core of hopper_flash.cuh (`Oaca` below): a TMA
+// producer warp builds each image key tile from separate boxes -- k_c and
+// ipe_k each into chunks of their own width (a part of 64 bytes or less is
+// one 64-byte chunk, 64B swizzle; wider parts 128-byte chunks), with v_c
+// beside them -- and the q tile [q_c | ipe] the same way; S accumulates over
+// the content and positional chunks in one f32 accumulator.  Nothing is
+// interleaved into one row: a bf16 head of 32 is one dense 64-byte chunk, so
+// (32, 64, 32) is a 128-byte ipe chunk beside a 64-byte q_c chunk, and DP =
+// 16 runs in the (32, 32, 32) build, its chunk zero-filled past 16 columns by
+// TMA (zeros change no logit).  The layout strip k_l / v_l (L2 <= 64 rows,
+// the rest zero-filled; k_l's content and positional columns through two
+// maps, each in its part's width) is one more key tile after the image
+// tiles, masked past L2, and the scale^2 goes onto the f32 logits.  Two
+// consumer warpgroups own 64 query rows each (128 a block).  bf16 on
+// wgmma with the q tile's fragments in registers (S reads only K from
+// shared memory), P V with P in registers:
 //
-//   * the q tile is assembled while it is staged: q_c goes to columns
-//     0..DC-1 and ipe to columns DC..DC+DP-1 of each shared row, by two
-//     cp.async sources;
-//   * 64-key image tiles are assembled the same way from k_c and ipe, with
-//     v_c beside them, in two stages filled with cp.async so that the next
-//     tile loads while the products of this one run;
-//   * the L2 <= 64 layout keys k_l (DC+DP wide) and values v_l (DV wide)
-//     are staged once at block start into their own buffer, rounded up to
-//     16 rows, and folded in after the image tiles, 16 keys at a time,
-//     masked past L2 (L2 = 0 skips them);
-//   * the scale^2 goes onto the f32 logits.
+//   * 32^3 (and DP = 16): 64-key tiles, two blocks an SM (80 registers at
+//     launch, 104 a consumer thread); q 16 KB + 4 stages x 12 KB;
+//   * (32, 64, 32): 128-key tiles, one block an SM;
+//   * 64^3 (the v0 LayoutUnet: 512 channels at ds=4, 8 heads): 128-key
+//     tiles; q 32 KB + 4 stages x 48 KB = 224 KB.
 //
-// Two head-dim instantiations of that loader, (DC, DP, DV) = (32, 32, 32)
-// for the v1-v6 and auto-reg stacks and (32, 64, 32) for a positional
-// strip twice as wide as the content (`channels_scale_for_positional_
-// embedding` = 2 on 32-channel heads).  A strip half as wide (scale 0.5,
-// DP = 16) runs in the (32, 32, 32) build: columns DC + 16 .. DC + 31 of
-// every q, k_img and k_l row are zero-filled in shared memory, and zeros
-// change no logit.  128 query rows a block (two m16 tiles a warp) at
-// width 64, 64 (one a warp) at width 96.  The (32, 64, 32) build stays on
-// this loader: its q/k rows would be a 64-byte k_c box beside a 128-byte
-// ipe box, and a TMA box lands as a dense tile of its own width, so the
-// two cannot share the 128-byte swizzled rows of the route below.
+// f32 on 3xTF32 mma.sync from the same swizzled tiles, 64-key tiles, at
+// 64^3 (q 64 KB + 3 stages x 48 KB = 208 KB).  f32 at the 32-wide head dims
+// stays on the cp.async + mma.sync loader of flash_mma.cuh (`launch`
+// below, by the fixed rule `takes_mma`): one block of 4 warps per
+// (batch*head, query tile), q_c / ipe and k_c / ipe_k assembled into one
+// padded shared row by two cp.async sources, the layout strip staged once
+// and folded in after the image tiles 16 keys at a time.  Its warps own 32
+// query rows, so each K / V fragment is split into its tf32 parts once for
+// two products; a core consumer's warp owns 16, and the core measured
+// 1.2-1.6x slower there.  Every route stays reachable by name
+// (`oaca_forward_on`), for the kernel table.
 //
-// (64, 64, 64), the v0 LayoutUnet (512 channels at ds=4, 8 heads, a
-// positional strip as wide as the content), runs on the warp-specialised
-// Hopper core of hopper_flash.cuh (`Oaca128` below): a TMA producer warp
-// builds each image key tile from two boxes per 128-byte chunk -- k_c into
-// q/k columns 0-63 and ipe into 64-127 (one 128B-swizzle span each in
-// bf16) -- with v_c beside them, and the q tile [q_c | ipe] the same way;
-// the layout strip k_l / v_l (L2 <= 64 rows, the rest zero-filled) is one
-// more key tile after the image tiles, masked past L2.  Two consumer
-// warpgroups own 64 query rows each (128 a block).  bf16 on wgmma: 128-key
-// tiles, the q tile's fragments held in registers so that S = Q K^T
-// (m64n128) reads only K from shared memory, P V m64n64 with P in
-// registers; shared memory q 32 KB + 4 stages x 48 KB = 224 KB.  f32 on
-// 3xTF32 mma.sync from the swizzled tiles, 64-key tiles; q 64 KB + 3
-// stages x 48 KB = 208 KB.
-
 // No concatenation, padding or scale pre-multiply is materialised in device
 // memory: operands are read and the output written through their (batch,
 // head, row) strides, so the per-head views of the fused qkv projection
@@ -76,11 +69,11 @@
 //     product) 0.31 ms at 495 / 3 TFLOP/s against 84 MB (0.025 ms);
 //   * 64^3 (the v0 stack, same token counts, 2 * 64 * 2048 * 2061 * 192 =
 //     104 GFLOP): bf16 0.105 ms against 84 MB; f32 0.63 ms against 168 MB.
-// Every product runs on the tensor cores with P kept in registers; the
-// exponentials of the online softmax (one per logit, on the special
-// function units) are what the design leaves beside them.  The 64^3
-// route also takes every load off the consumers (TMA) and, in bf16,
-// every product onto wgmma, the only path to the tensor cores' full rate.
+// Every product runs on the tensor cores with P kept in registers, every
+// load of the core's routes on TMA, and in bf16 every product on wgmma,
+// the only path to the tensor cores' full rate; the exponentials of the
+// online softmax (one per logit, on the special function units) are what
+// the design leaves beside them.
 
 #include <stdint.h>
 #include <string.h>
@@ -115,6 +108,10 @@ struct OacaArgs {
 namespace {
 
 using namespace flash;
+
+// ---------------------------------------------------------- the cp.async + mma.sync loader
+//
+// f32 at head dims (32, 16 | 32 | 64, 32) (`takes_mma`); any dtype by name.
 
 constexpr int LSLICE = 16;  // layout keys per fold
 
@@ -208,26 +205,55 @@ int launch(const OacaArgs& a, int dp, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------- (64, 64, 64)
+// ---------------------------------------------------------- the Hopper core
 
 struct OacaParams {
-  CUtensorMap qc, ipe_q, kc, ipe_k, kl, vc, vl;  // kl / vl over their L2 rows (unset if L2 = 0)
-  int32_t L2, n_img;
+  // q_c, ipe (64 query rows a box); k_c, ipe_k over Lk rows; k_l's content
+  // and positional columns (two maps: each part in its own chunk width) and
+  // v_l over L2 rows (unset if L2 = 0); v_c over Lk rows
+  CUtensorMap qc, ipe_q, kc, ipe_k, kl_c, kl_p, vc, vl;
+  int32_t L2, Lk, n_img;
   hflash::Common c;
 };
 
-// bf16 takes 128-key tiles and keeps its q tile in registers (S reads only
-// K from shared memory); f32 64-key tiles
-template <typename T>
-struct Oaca128 {
+// OACA at head dims (DC, DP, DC) on the core.  A q / k row is its content
+// part (q_c / k_c, DC columns) and its positional part (ipe / ipe_k, DP
+// columns) as separate chunks, each in its own width: a part of 64 bytes or
+// less is one 64-byte chunk (DP = 16 zero-filled past its 16 columns),
+// wider ones are 128-byte chunks.  The 128-byte chunks lead the row
+// (content's, then positional's), the 64-byte ones follow in the same
+// order, and S accumulates over all of them in one f32 accumulator (the
+// k16 steps of every chunk in bf16, the k8 steps in f32).  The image key
+// tiles come first; the layout strip k_l / v_l (L2 <= 64 rows, the rest
+// zero-filled) is one more key tile after them, masked past L2.  bf16:
+// 128-key tiles, the q tile in registers; f32: 64-key tiles.
+template <typename T, int DC, int DP, int BK = (is_f32<T>() ? 64 : 128), int MB = 1>
+struct Oaca {
   using Type = T;
   using Params = OacaParams;
   static constexpr bool kF32 = is_f32<T>();
   static constexpr bool kSplit = false;
-  static constexpr int kBK = kF32 ? 64 : 128, kNV = 64, kNQ = kF32 ? 0 : 8;
-  static constexpr int CW = hflash::CHUNK / (int)sizeof(T);
-  static constexpr int HC = 64 / CW;  // chunks of a 64-wide operand
-  static constexpr int QC = hflash::ROWS * hflash::CHUNK, KC = kBK * hflash::CHUNK;
+  static constexpr int E = (int)sizeof(T);
+  static constexpr int CB = DC * E, PB = DP * E;  // bytes of each part's row
+  static constexpr int C128 = CB / hflash::CHUNK, P128 = PB / hflash::CHUNK;  // 128-byte chunks (0: one 64-byte one)
+  static_assert(CB <= hflash::HALF ? C128 == 0 : CB % hflash::CHUNK == 0, "content: one 64-byte chunk or 128-byte ones");
+  static_assert(PB <= hflash::HALF ? P128 == 0 : PB % hflash::CHUNK == 0, "positional: one 64-byte chunk or 128-byte ones");
+  static constexpr int NQC = C128 + P128;                  // 128-byte chunks of a q / k row
+  static constexpr int kQH = (C128 ? 0 : 1) + (P128 ? 0 : 1);  // 64-byte ones after them
+  static constexpr int kBK = BK, kNV = DC, kMinBlocks = MB;
+  static constexpr int kNQ = kF32 ? 0 : 4 * NQC + 2 * kQH;
+  static constexpr int CWC = (C128 ? hflash::CHUNK : hflash::HALF) / E;  // columns of a content chunk
+  static constexpr int CWP = (P128 ? hflash::CHUNK : hflash::HALF) / E;  // of a positional chunk
+  static constexpr int VB = DC * E < hflash::CHUNK ? hflash::HALF : hflash::CHUNK;  // bytes of a V chunk's row
+  static constexpr int NVC = DC * E / VB;  // V chunks
+
+  // byte offset of chunk i of a q / k row in a tile of `rows` rows
+  static __device__ __forceinline__ int off(int i, int rows) {
+    return i < NQC ? i * rows * hflash::CHUNK : NQC * rows * hflash::CHUNK + (i - NQC) * rows * hflash::HALF;
+  }
+  // the chunk index of content chunk j / positional chunk j
+  static __device__ __forceinline__ int content(int j) { return C128 ? j : NQC; }
+  static __device__ __forceinline__ int positional(int j) { return P128 ? C128 + j : NQC + (C128 ? 0 : 1); }
 
   // [q_c | ipe] for both consumers' 64 rows
   static __device__ __forceinline__ void load_q(const Params& p, unsigned char* sQ, uint64_t* bar,
@@ -235,79 +261,118 @@ struct Oaca128 {
     for (int g = 0; g < 2; ++g) {
       unsigned char* dst = sQ + g * p.c.lay.q_wg;
       const int row = q0 + hflash::ROWS * g;
-      for (int c = 0; c < HC; ++c) {
-        hflash::tma_load(dst + c * QC, &p.qc, bar, c * CW, row, h, b);
-        hflash::tma_load(dst + (HC + c) * QC, &p.ipe_q, bar, c * CW, row, h, b);
-      }
+      for (int j = 0; j < (C128 ? C128 : 1); ++j)
+        hflash::tma_load(dst + off(content(j), hflash::ROWS), &p.qc, bar, j * CWC, row, h, b);
+      for (int j = 0; j < (P128 ? P128 : 1); ++j)
+        hflash::tma_load(dst + off(positional(j), hflash::ROWS), &p.ipe_q, bar, j * CWP, row, h, b);
     }
   }
 
-  // image tile t: K = [k_c | ipe], V = v_c; the tile after them: k_l, v_l
+  // image tile t: K = [k_c | ipe_k], V = v_c; the tile after them: k_l, v_l
   static __device__ __forceinline__ void load_k(const Params& p, unsigned char* sk, uint64_t* bar,
                                                 int t, int h, int b) {
-    if (t < p.n_img) {
-      for (int c = 0; c < HC; ++c) {
-        hflash::tma_load(sk + c * KC, &p.kc, bar, c * CW, t * kBK, h, b);
-        hflash::tma_load(sk + (HC + c) * KC, &p.ipe_k, bar, c * CW, t * kBK, h, b);
-      }
-    } else {
-      for (int c = 0; c < 2 * HC; ++c) hflash::tma_load(sk + c * KC, &p.kl, bar, c * CW, 0, h, b);
-    }
+    const bool img = t < p.n_img;
+    const int row = img ? t * kBK : 0;
+    for (int j = 0; j < (C128 ? C128 : 1); ++j)
+      hflash::tma_load(sk + off(content(j), kBK), img ? &p.kc : &p.kl_c, bar, j * CWC, row, h, b);
+    for (int j = 0; j < (P128 ? P128 : 1); ++j)
+      hflash::tma_load(sk + off(positional(j), kBK), img ? &p.ipe_k : &p.kl_p, bar, (img ? 0 : DC) + j * CWP,
+                       row, h, b);
   }
 
   static __device__ __forceinline__ void load_v(const Params& p, unsigned char* sv, uint64_t* bar,
                                                 int t, int h, int b) {
     const CUtensorMap* map = t < p.n_img ? &p.vc : &p.vl;
     const int row = t < p.n_img ? t * kBK : 0;
-    for (int c = 0; c < HC; ++c) hflash::tma_load(sv + c * KC, map, bar, c * CW, row, h, b);
+    for (int j = 0; j < NVC; ++j) hflash::tma_load(sv + j * kBK * VB, map, bar, j * (VB / E), row, h, b);
   }
 
   static __device__ __forceinline__ int valid(const Params& p, int t) {
-    return t < p.n_img ? min(kBK, p.c.Lq - t * kBK) : p.L2;
+    return t < p.n_img ? min(kBK, p.Lk - t * kBK) : p.L2;
   }
 };
 
-// The 128-wide route's shared-memory plan; `kernels/oaca.py` mirrors it.
+// (32, 32, 32): in bf16 (a q / k row of two 64-byte chunks, O 64 bytes
+// wide) 64-key tiles and two blocks an SM, the consumers at 104 registers
+// (S 32, P 16, O 16, q 16); in f32 64-key tiles, one block, as the rest.
 template <typename T>
-hflash::Layout oaca128_layout() {
-  constexpr int cw = Oaca128<T>::CW;
-  return hflash::plan_layout(false, Oaca128<T>::kBK, 128 / cw, 64 / cw, 2 * 64 / cw);
+using Oaca32 = Oaca<T, 32, 32, 64, is_f32<T>() ? 1 : 2>;
+
+// The core's shared-memory plan of problem P; `kernels/oaca.py::plan`
+// mirrors it.
+template <class P>
+hflash::Layout oaca_layout() {
+  const int qk_row = P::NQC * hflash::CHUNK + P::kQH * hflash::HALF, v_row = P::NVC * P::VB;
+  const int out = 2 * ((P::kNV * P::E + hflash::CHUNK - 1) / hflash::CHUNK) * hflash::ROWS * hflash::CHUNK;
+  return hflash::plan_layout(false, P::kBK, qk_row, v_row, out, P::kMinBlocks);
 }
 
-template <typename T>
-int launch_128(const OacaArgs& a, cudaStream_t s) {
-  constexpr bool f32 = is_f32<T>();
-  constexpr int BK = Oaca128<T>::kBK, R = hflash::ROWS;
+// One launch of problem P (head dims (DC, DP, DC)); dp <= DP is the
+// operands' positional width (its maps' extent: columns past it are
+// zero-filled, so dp = 16 runs in a DP = 32 build)
+template <class P>
+int launch_core(const OacaArgs& a, int dp, cudaStream_t s) {
+  constexpr bool f32 = P::kF32;
+  constexpr int BK = P::kBK, R = hflash::ROWS, DC = P::kNV;
+  constexpr int WC = P::C128 ? hflash::CHUNK : hflash::HALF, WP = P::P128 ? hflash::CHUNK : hflash::HALF;
   OacaParams p;
   memset(&p, 0, sizeof(p));
-  p.c.lay = oaca128_layout<T>();
-  int err = hflash::make_map(&p.qc, a.qc, f32, 64, a.Lq, a.H, a.B, a.qc_s, R);
-  if (!err) err = hflash::make_map(&p.ipe_q, a.ipe, f32, 64, a.Lq, a.H, a.B, a.ipe_s, R);
-  if (!err) err = hflash::make_map(&p.kc, a.kc, f32, 64, a.Lq, a.H, a.B, a.kc_s, BK);
-  if (!err) err = hflash::make_map(&p.ipe_k, a.ipe_k, f32, 64, a.Lq, a.H, a.B, a.ipe_k_s, BK);
-  if (!err) err = hflash::make_map(&p.vc, a.vc, f32, 64, a.Lq, a.H, a.B, a.vc_s, BK);
-  if (!err && a.L2 > 0) err = hflash::make_map(&p.kl, a.kl, f32, 128, a.L2, a.H, a.B, a.kl_s, BK);
-  if (!err && a.L2 > 0) err = hflash::make_map(&p.vl, a.vl, f32, 64, a.L2, a.H, a.B, a.vl_s, BK);
-  if (!err) err = hflash::make_map(&p.c.out, a.out, f32, 64, a.Lq, a.H, a.B, a.out_s, R);
+  p.c.lay = oaca_layout<P>();
+  const int64_t dqk = DC + dp;
+  int err = hflash::make_map(&p.qc, a.qc, f32, DC, a.Lq, a.H, a.B, a.qc_s, R, WC);
+  if (!err) err = hflash::make_map(&p.ipe_q, a.ipe, f32, dp, a.Lq, a.H, a.B, a.ipe_s, R, WP);
+  if (!err) err = hflash::make_map(&p.kc, a.kc, f32, DC, a.Lk, a.H, a.B, a.kc_s, BK, WC);
+  if (!err) err = hflash::make_map(&p.ipe_k, a.ipe_k, f32, dp, a.Lk, a.H, a.B, a.ipe_k_s, BK, WP);
+  if (!err) err = hflash::make_map(&p.vc, a.vc, f32, DC, a.Lk, a.H, a.B, a.vc_s, BK, P::VB);
+  if (!err && a.L2 > 0) err = hflash::make_map(&p.kl_c, a.kl, f32, dqk, a.L2, a.H, a.B, a.kl_s, BK, WC);
+  if (!err && a.L2 > 0) err = hflash::make_map(&p.kl_p, a.kl, f32, dqk, a.L2, a.H, a.B, a.kl_s, BK, WP);
+  if (!err && a.L2 > 0) err = hflash::make_map(&p.vl, a.vl, f32, DC, a.L2, a.H, a.B, a.vl_s, BK, P::VB);
+  if (!err) err = hflash::make_map(&p.c.out, a.out, f32, DC, a.Lq, a.H, a.B, a.out_s, R);
   if (err) return err;
   p.L2 = (int32_t)a.L2;
-  p.n_img = (int32_t)((a.Lq + BK - 1) / BK);
+  p.Lk = (int32_t)a.Lk;
+  p.n_img = (int32_t)((a.Lk + BK - 1) / BK);
   p.c.H = (int32_t)a.H;
   p.c.Lq = (int32_t)a.Lq;
-  p.c.dv = 64;
+  p.c.dv = DC;
   p.c.n_tiles = p.n_img + (a.L2 > 0 ? 1 : 0);
-  p.c.n_full = (int32_t)(a.Lq / BK);  // the layout tile is always masked
+  p.c.n_full = (int32_t)(a.Lk / BK);  // the layout tile is always masked
   p.c.scale = (float)a.scale2;
-  return hflash::launch_flash<Oaca128<T>>(p, a.Lq, a.B * a.H, s);
+  return hflash::launch_flash<P>(p, a.Lq, a.B * a.H, s);
+}
+
+// The route a call takes: the core at every head dims, except f32 at the
+// 32-wide ones, which stays on the cp.async + mma.sync loader above: its
+// warps own 32 query rows (two m16 tiles), so each K / V fragment is split
+// into its tf32 parts once for two products, where a core consumer's warp
+// owns 16 and splits it for one; the core measured 1.2-1.6x slower there
+// (`kernels/oaca.py::route` mirrors the rule).
+inline bool takes_mma(bool f32, int dc, int dp) {
+  (void)dp;
+  return f32 && dc == 32;
 }
 
 template <typename T>
-int launch_dims(const OacaArgs& a, int dc, int dp, int dv, cudaStream_t s) {
+int launch_mma(const OacaArgs& a, int dc, int dp, int dv, cudaStream_t s) {
   // DP = 16 (channels_scale_for_positional_embedding 0.5) runs in the
   // 32-wide build: its zero-filled columns change no logit
   if (dc == 32 && (dp == 16 || dp == 32) && dv == 32) return launch<T, 32, 32, 32>(a, dp, s);
   if (dc == 32 && dp == 64 && dv == 32) return launch<T, 32, 64, 32>(a, dp, s);
-  if (dc == 64 && dp == 64 && dv == 64 && a.Lk == a.Lq) return launch_128<T>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// core: the core whatever the rule says
+template <typename T>
+int launch_dims(const OacaArgs& a, int dc, int dp, int dv, cudaStream_t s, bool core = false) {
+  if (!core && dc == 32 && dv == 32 && (dp == 16 || dp == 32 || dp == 64) && takes_mma(is_f32<T>(), dc, dp))
+    return launch_mma<T>(a, dc, dp, dv, s);
+  if (dc == 32 && dp == 32 && dv == 32) return launch_core<Oaca32<T>>(a, dp, s);
+  if (dc == 32 && dp == 64 && dv == 32) return launch_core<Oaca<T, 32, 64>>(a, dp, s);
+  if (dc == 32 && dp == 16 && dv == 32) {  // bf16: 16 columns zero-filled in the 32 build's 64-byte chunk
+    if constexpr (is_f32<T>()) return launch_core<Oaca<T, 32, 16>>(a, dp, s);
+    return launch_core<Oaca32<T>>(a, dp, s);
+  }
+  if (dc == 64 && dp == 64 && dv == 64 && a.Lk == a.Lq) return launch_core<Oaca<T, 64, 64>>(a, dp, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -316,12 +381,62 @@ int launch_dims(const OacaArgs& a, int dc, int dp, int dv, cudaStream_t s) {
 // Returns a cudaError_t code; cudaErrorInvalidValue for head dims other than
 // (32, 16, 32), (32, 32, 32), (32, 64, 32) and (64, 64, 64) (Lk = Lq only), a
 // layout length this build does not cover, or a scale that is not positive.
-extern "C" int oaca_forward(OacaArgs a, int dtype, int dc, int dp, int dv, void* stream) {
+static int check_args(const OacaArgs& a, int dtype) {
   if (a.L2 < 0 || a.L2 > BK || a.Lq <= 0 || a.Lk <= 0 || a.B <= 0 || a.H <= 0 || a.B * a.H > 65535 ||
-      !(a.scale2 > 0))
+      !(a.scale2 > 0) || (dtype != kFloat32 && dtype != kBFloat16))
     return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+extern "C" int oaca_forward(OacaArgs a, int dtype, int dc, int dp, int dv, void* stream) {
+  if (int err = check_args(a, dtype)) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kFloat32) return launch_dims<float>(a, dc, dp, dv, s);
-  if (dtype == kBFloat16) return launch_dims<__nv_bfloat16>(a, dc, dp, dv, s);
+  return dtype == kFloat32 ? launch_dims<float>(a, dc, dp, dv, s) : launch_dims<__nv_bfloat16>(a, dc, dp, dv, s);
+}
+
+// One route by name, whatever `takes_mma` says (route 0: the core; 1: the
+// cp.async + mma.sync loader, head dims (32, 16 | 32 | 64, 32)): the routes
+// side by side on the same operands in one process, for the kernel table's
+// comparison.
+extern "C" int oaca_forward_on(OacaArgs a, int dtype, int dc, int dp, int dv, int route, void* stream) {
+  if (int err = check_args(a, dtype)) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (route == 0)
+    return dtype == kFloat32 ? launch_dims<float>(a, dc, dp, dv, s, true)
+                             : launch_dims<__nv_bfloat16>(a, dc, dp, dv, s, true);
+  if (route == 1)
+    return dtype == kFloat32 ? launch_mma<float>(a, dc, dp, dv, s) : launch_mma<__nv_bfloat16>(a, dc, dp, dv, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The core's plan for (dtype, dc, dp, dv), for `kernels/oaca.py`'s mirror
+// to be held against: out = {bk, blocks an SM, stages, smem bytes}.
+// Returns 0, or cudaErrorInvalidValue for head dims the kernel does not
+// take.
+extern "C" int oaca_plan(int dtype, int dc, int dp, int dv, int32_t* out) {
+  const bool f32 = dtype == kFloat32;
+  if ((dtype != kFloat32 && dtype != kBFloat16) || dv != dc) return (int)cudaErrorInvalidValue;
+  using B = __nv_bfloat16;
+  hflash::Layout L{};
+  int bk = f32 ? 64 : 128, blocks = 1;
+  if (dc == 32 && (dp == 32 || dp == 16) && !f32) {
+    L = oaca_layout<Oaca32<B>>();
+    bk = Oaca32<B>::kBK;
+    blocks = Oaca32<B>::kMinBlocks;
+  } else if (dc == 32 && dp == 32) {
+    L = oaca_layout<Oaca32<float>>();
+  } else if (dc == 32 && dp == 64) {
+    L = f32 ? oaca_layout<Oaca<float, 32, 64>>() : oaca_layout<Oaca<B, 32, 64>>();
+  } else if (dc == 32 && dp == 16) {
+    L = oaca_layout<Oaca<float, 32, 16>>();
+  } else if (dc == 64 && dp == 64) {
+    L = f32 ? oaca_layout<Oaca<float, 64, 64>>() : oaca_layout<Oaca<B, 64, 64>>();
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  out[0] = bk;
+  out[1] = blocks;
+  out[2] = L.stages;
+  out[3] = L.smem;
+  return 0;
 }

@@ -43,48 +43,68 @@ from . import loader
 launches = loader.LaunchCounter("attention")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims up to 128 run in one padded shared tile (mma.sync, cp.async);
-# up to 512 on the warp-specialised TMA + wgmma core (csrc/attention.cu, Wide)
+# every head dim runs on the warp-specialised TMA + wgmma core
+# (csrc/hopper_flash.cuh), except where ``route`` keeps the cp.async +
+# mma.sync loader (head dims up to 128), which ``launch(on=...)`` also
+# times beside it on the same operands
 _NARROW_HEAD_DIM, _MAX_HEAD_DIM = 128, 512
 
 
 @dataclasses.dataclass(frozen=True)
-class WidePlan:
-    """Mirror of ``csrc/attention.cu::wide_plan``: whether the two consumer
+class Plan:
+    """Mirror of ``csrc/attention.cu::core_plan``: whether the two consumer
     warpgroups split a 64-row query tile (else each owns 64 of 128 rows),
-    the key tile ``bk``, a consumer's O width ``nv`` and the shared-memory
-    plan."""
+    the key tile ``bk``, a consumer's O width ``nv``, the blocks an SM and
+    the shared-memory plan."""
 
     split: bool
     bk: int
     nv: int
+    blocks: int
     layout: loader.HopperLayout
 
 
-def wide_plan(dqk: int, dv: int, dtype: torch.dtype) -> WidePlan:
-    """The wide route's tiling for head dims (dqk, dv), one above 128."""
+def plan(dqk: int, dv: int, dtype: torch.dtype) -> Plan:
+    """The core's tiling for head dims (dqk, dv).  Up to 128: not split, both
+    dims padded to d = 32, 64 or 128; bf16 at 32 in 64-byte chunks with
+    64-key tiles and two blocks an SM, at 64 and 128 128-key tiles; float32
+    64-key tiles.  Wider: bf16 up to 256 not split with 80-key tiles, the
+    rest split."""
     f32 = dtype == torch.float32
-    cw = 32 if f32 else 64  # values in a 128-byte chunk row
-    nqc = -(-dqk // cw)
+    e = 4 if f32 else 2
+    d = max(dqk, dv)
+    if d <= _NARROW_HEAD_DIM:
+        dp = 32 if d <= 32 else 64 if d <= 64 else 128
+        row = e * dp
+        bk, blocks = (64 if f32 or dp == 32 else 128), (2 if not f32 and dp == 32 else 1)
+        out = 2 * -(-row // loader.CHUNK) * 64 * loader.CHUNK  # both consumers' O, staged for the TMA store
+        return Plan(False, bk, dp, blocks, loader.hopper_layout(False, bk, row, row, out, blocks))
+    nqc = -(-dqk * e // loader.CHUNK)
     if not f32 and dqk <= 256 and dv <= 256:
         split, nv, bk = False, 128 if dv <= 128 else 256, 80
     else:
         split, nv, bk = True, 128 if (dv + 1) // 2 <= 128 else 256, 32
-        if f32 and (nv == 256 or loader.hopper_layout(True, 32, nqc, 2 * nv // cw, 2 * nv // cw).stages < 2):
+        half = 2 * nv * e  # both halves' V row
+        if f32 and (nv == 256 or loader.hopper_layout(True, 32, nqc * loader.CHUNK, half, half * 64).stages < 2):
             bk = 16
-    out_chunks = 2 * nv // cw  # both consumers' O, staged for the TMA store
-    return WidePlan(split, bk, nv, loader.hopper_layout(split, bk, nqc, (2 if split else 1) * nv // cw, out_chunks))
+    v_row = (2 if split else 1) * nv * e
+    return Plan(split, bk, nv, 1, loader.hopper_layout(split, bk, nqc * loader.CHUNK, v_row, 2 * nv * e * 64))
+
+
+def takes_mma(dqk: int, dv: int, dtype: torch.dtype) -> bool:
+    """Whether a call stays on the cp.async + mma.sync loader: a fixed rule,
+    ``csrc/attention.cu::takes_mma``, where the core measured slower:
+    float32 at head dims up to 128 (3xTF32 from the core's tiles splits each
+    K / V fragment for one m16 tile a warp, the loader's warps for two)."""
+    return dtype == torch.float32 and max(dqk, dv) <= _NARROW_HEAD_DIM
 
 
 def route(dqk: int, dv: int, dtype: torch.dtype) -> str:
     """The route the kernel takes for head dims (dqk, dv) in ``dtype``:
-    ``mma bf16`` / ``mma 3xTF32`` (one padded tile, cp.async) up to 128,
-    ``wgmma bf16`` / ``tma mma 3xTF32`` (the warp-specialised TMA core)
-    above it."""
-    f32 = dtype == torch.float32
-    if max(dqk, dv) <= _NARROW_HEAD_DIM:
-        return "mma 3xTF32" if f32 else "mma bf16"
-    return "tma mma 3xTF32" if f32 else "wgmma bf16"
+    ``wgmma bf16`` / ``tma mma 3xTF32`` (the warp-specialised TMA core), or
+    ``mma bf16`` / ``mma 3xTF32`` (the cp.async loader) where
+    :func:`takes_mma` keeps a call there."""
+    return (loader.MMA_ROUTES if takes_mma(dqk, dv, dtype) else loader.CORE_ROUTES)[dtype]
 
 
 def attention_plain(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tensor:
@@ -164,7 +184,7 @@ def _check(q, k, v, scale: float, kv_len: int) -> None:
         raise ValueError("attention kernel needs a contiguous last dimension")
     if Lq == 0 or B * H > 65535:
         raise ValueError("attention kernel takes Lq >= 1 and B*heads <= 65535")
-    if max(dqk, dv) > _NARROW_HEAD_DIM and not all(map(loader.tma_addressable, ops)):
+    if not all(loader.tma_addressable(t) for t in ops):
         raise ValueError("attention kernel's TMA route takes rows < 2^31 and strides < 2^40 bytes")
     if not scale > 0:
         raise ValueError(f"attention kernel takes a positive scale, got {scale}")
@@ -177,10 +197,12 @@ def _out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
     return q.new_empty_strided((B, H, Lq, dv), (Lq * H * dv, dv, H * dv, 1))
 
 
-def launch(q, k, v, *, scale: float, kv_len: int) -> torch.Tensor:
+def launch(q, k, v, *, scale: float, kv_len: int, on: str | None = None) -> torch.Tensor:
     """One launch of the kernel on plain operands (no autograd, no
     tangent); checks them, their alignment (which reads their pointers)
-    included."""
+    included.  The route is :func:`route`'s, or with ``on`` ("core" or
+    "mma") that one: the two side by side on the same operands, for the
+    kernel table (``chip_smoke.py``, ``scripts/kernel_pace.py``)."""
     _check(q, k, v, scale, kv_len)
     B, H, Lq, dqk = q.shape
     Lkv, dv = k.shape[2], v.shape[-1]
@@ -192,9 +214,13 @@ def launch(q, k, v, *, scale: float, kv_len: int) -> torch.Tensor:
         *((ctypes.c_int64 * 3)(*_strides(t)) for t in (*ops, out)),
         B, H, Lq, Lkv, kv_len, dqk, dv, float(scale),
     )
-    err = loader.library("attention").attention_forward(
-        args, _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream
-    )
+    lib, stream = loader.library("attention"), torch.cuda.current_stream(q.device).cuda_stream
+    if on is None:
+        err = lib.attention_forward(args, _DTYPE_CODES[q.dtype], stream)
+    elif on == "mma" and max(dqk, dv) > _NARROW_HEAD_DIM:
+        raise ValueError(f"attention's mma.sync loader takes head dims <= {_NARROW_HEAD_DIM}")
+    else:
+        err = lib.attention_forward_on(args, _DTYPE_CODES[q.dtype], ("core", "mma").index(on), stream)
     loader.check(err, "attention_forward")
     launches.n += 1
     return out
@@ -258,11 +284,10 @@ def attention(q, k, v, *, scale: float, kv_len: int | None = None) -> torch.Tens
     Any strides are taken as long as the last dimension is contiguous and
     the pointers, strides and head dims are whole 16-byte pieces (else
     ``ValueError``), so per-head views of a fused projection need no copy.
-    Head dims go up to 512 (``ValueError`` above): up to 128 in one padded
-    tile, on bf16 ``mma.sync`` or 3xTF32 for float32; above it (OpenAIUNet's
-    single heads of 256 and 512) on the warp-specialised TMA core, bf16 on
-    ``wgmma`` and float32 on 3xTF32 ``mma.sync`` (:func:`route`,
-    :func:`wide_plan`), the logits computed once for the whole dv.
+    Head dims go up to 512 (``ValueError`` above), on the warp-specialised
+    TMA core, bf16 on ``wgmma`` and float32 on 3xTF32 ``mma.sync``, the
+    logits computed once for the whole dv (:func:`plan`); float32 at head
+    dims up to 128 on the cp.async + mma.sync loader (:func:`route`).
     Returns (B, heads, Lq, dv) in q's dtype; on the card its memory is laid
     out (B, Lq, heads, dv), so that merging the heads back into channels is
     free.  An operand that carries a

@@ -5,7 +5,7 @@ shared library with a plain C interface, loaded with ``ctypes``.  The build
 runs at first use, one ``nvcc`` per source, all started together, into
 ``lidarcrafter_tpu_torch/build/`` (listed in ``.gitignore``); a library is
 named after a hash of its sources and flags, so a changed source rebuilds.
-The Hopper routes (``csrc/hopper_flash.cuh``) build their TMA tensor maps on
+The Hopper core (``csrc/hopper_flash.cuh``) builds its TMA tensor maps on
 the host per call with libcuda's ``cuTensorMapEncodeTiled``, reached through
 the runtime's entry-point query, so no library links ``libcuda`` and the
 ``nvcc`` line is the same for every source.
@@ -100,14 +100,22 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "probe": {"probe_x2": [_P, _P, _I, _P]},
     "groupnorm": {"gn_forward": [GnArgs, _P], "gn_partials": [GnArgs, _P], "gn_apply": [GnArgs, _P]},
-    "oaca": {"oaca_forward": [OacaArgs, _I, _I, _I, _I, _P]},
-    "attention": {"attention_forward": [AttnArgs, _I, _P],
-                  "attention_wide_plan": [_I, _I, _I, ctypes.POINTER(ctypes.c_int32)]},
+    "oaca": {"oaca_forward": [OacaArgs, _I, _I, _I, _I, _P], "oaca_forward_on": [OacaArgs, _I, _I, _I, _I, _I, _P],
+             "oaca_plan": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int32)]},
+    "attention": {"attention_forward": [AttnArgs, _I, _P], "attention_forward_on": [AttnArgs, _I, _I, _P],
+                  "attention_plan": [_I, _I, _I, ctypes.POINTER(ctypes.c_int32)]},
 }
 
 # csrc/hopper_flash.cuh: the warp-specialised TMA + wgmma core's shared-memory plan
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90 (227 KB)
-_ALIGN, _MAX_STAGES, _ROWS, _CHUNK = 1024, 4, 64, 128
+SMEM_LIMIT2 = 115712  # each of two blocks an SM (228 KB, 1 KB of it reserved a block)
+_ALIGN, _MAX_STAGES, _ROWS = 1024, 4, 64
+CHUNK, HALF = 128, 64  # bytes of a wide (128B-swizzled) and a narrow (64B-swizzled) chunk's row
+# the routes of attention and OACA by operand type: the Hopper core, and the
+# cp.async + mma.sync loader (csrc/flash_mma.cuh) that keeps float32 at the
+# narrow head dims
+CORE_ROUTES = {torch.float32: "tma mma 3xTF32", torch.bfloat16: "wgmma bf16"}
+MMA_ROUTES = {torch.float32: "mma 3xTF32", torch.bfloat16: "mma bf16"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,19 +128,20 @@ class HopperLayout:
     smem: int
 
 
-def hopper_layout(split: bool, bk: int, nqc: int, nvt: int, out_chunks: int) -> HopperLayout:
-    """The plan for key tiles of ``bk`` rows, ``nqc`` 128-byte chunks of a
-    q / k row and ``nvt`` of a V row, one consumer's 64 query rows (split)
-    or both consumers' 128; the block's output, ``out_chunks`` chunks of 64
-    rows staged at the end, must fit below the barriers."""
-    q_bytes = _ROWS * _CHUNK * nqc * (1 if split else 2)
-    stage = bk * _CHUNK * (nqc + nvt)
+def hopper_layout(split: bool, bk: int, qk_row: int, v_row: int, out_bytes: int, blocks: int = 1) -> HopperLayout:
+    """The plan for key tiles of ``bk`` rows, q / k rows of ``qk_row`` bytes
+    in shared memory (128-byte chunks, then 64-byte ones) and V rows of
+    ``v_row``, one consumer's 64 query rows (split) or both consumers' 128;
+    the block's output, ``out_bytes`` staged at the end, must fit below the
+    barriers; ``blocks`` 2 halves the shared memory (two blocks an SM)."""
+    q_bytes = _ROWS * qk_row * (1 if split else 2)
+    stage = bk * (qk_row + v_row)
     x_bytes = 2 * 2 * 128 * (bk // 2) * 4 if split else 0
     bars = 8 * (4 * _MAX_STAGES + 1)  # K and V full / empty rings, the q barrier
-    room = SMEM_LIMIT - _ALIGN - q_bytes - x_bytes - bars
+    room = (SMEM_LIMIT if blocks == 1 else SMEM_LIMIT2) - _ALIGN - q_bytes - x_bytes - bars
     stages = 0 if room < stage else min(room // stage, _MAX_STAGES)
     bar = q_bytes + stages * stage + x_bytes
-    return HopperLayout(stages if bar >= out_chunks * _ROWS * _CHUNK else 0, bar + bars + _ALIGN)
+    return HopperLayout(stages if bar >= out_bytes else 0, bar + bars + _ALIGN)
 
 
 @dataclasses.dataclass
@@ -264,10 +273,13 @@ def tracing() -> bool:
 
 
 def tma_addressable(t: torch.Tensor) -> bool:
-    """Whether a TMA tensor map can address a (B, heads, rows, d) operand:
-    int32 row coordinates, and strides below 2^40 bytes on its batch, head
-    and row dims of more than one element (``hflash::make_map`` gives a
-    size-1 dim a stride of its own)."""
+    """Whether a TMA tensor map (``hflash::make_map``, a box of a 128- or
+    64-byte chunk in the swizzle of that width: the same limits) can address
+    a (B, heads, rows, d) operand: int32 row coordinates, and strides below
+    2^40 bytes on its batch, head and row dims of more than one element
+    (``make_map`` gives a size-1 dim a stride of its own).  The box may
+    reach past d (zero-filled); whole 16-byte strides are
+    ``check_aligned``'s to refuse."""
     return t.shape[2] < 2**31 and all(
         n == 1 or abs(st) * t.element_size() < 2**40 for n, st in zip(t.shape[:3], t.stride()[:3]))
 

@@ -35,6 +35,7 @@ dispatcher in its host time.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -51,28 +52,54 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (channels_scale_for_positional_embedding 0.5 and 2)
 HEAD_DIMS = ((32, 32, 32), (64, 64, 64), (32, 16, 32), (32, 64, 32))
 _MAX_L2 = 64  # layout tokens: one shared-memory key tile
-# q/k width 128, (64, 64, 64): the warp-specialised TMA core (csrc/oaca.cu, Oaca128)
-_HOPPER_DIMS = (64, 64, 64)
+# every head dims' instantiation runs on the warp-specialised TMA core
+# (csrc/oaca.cu, Oaca), except where ``route`` keeps the 32-wide ones'
+# cp.async + mma.sync loader, which ``launch(on=...)`` also times beside it
+# on the same operands.  (64, 64, 64) takes Lk = Lq only.
+_SQUARE_64 = (64, 64, 64)
+
+
+def takes_mma(dc: int, dp: int, dv: int, dtype: torch.dtype) -> bool:
+    """Whether a call stays on the cp.async + mma.sync loader: a fixed rule,
+    ``csrc/oaca.cu::takes_mma``, where the core measured slower: float32 at
+    the 32-wide head dims (3xTF32 from the core's tiles splits each K / V
+    fragment for one m16 tile a warp, the loader's warps for two)."""
+    return dtype == torch.float32 and dc == 32
 
 
 def route(dc: int, dp: int, dv: int, dtype: torch.dtype) -> str:
     """The route the kernel takes for head dims (dc, dp, dv) in ``dtype``:
-    ``wgmma bf16`` / ``tma mma 3xTF32`` (the warp-specialised TMA core) at
-    (64, 64, 64), ``mma bf16`` / ``mma 3xTF32`` (cp.async loader) at the
-    others."""
-    f32 = dtype == torch.float32
-    if (dc, dp, dv) == _HOPPER_DIMS:
-        return "tma mma 3xTF32" if f32 else "wgmma bf16"
-    return "mma 3xTF32" if f32 else "mma bf16"
+    ``wgmma bf16`` / ``tma mma 3xTF32`` (the warp-specialised TMA core), or
+    ``mma bf16`` / ``mma 3xTF32`` (the cp.async loader) where
+    :func:`takes_mma` keeps a call there."""
+    return (loader.MMA_ROUTES if takes_mma(dc, dp, dv, dtype) else loader.CORE_ROUTES)[dtype]
 
 
-def hopper_layout(dtype: torch.dtype) -> loader.HopperLayout:
-    """Mirror of ``csrc/oaca.cu::oaca128_layout``: 128 query rows a block,
-    key tiles of [k_c | ipe] and v_c (128 keys in bf16, 64 in float32), as
-    many stages as fit."""
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Mirror of ``csrc/oaca.cu::oaca_plan``: the key tile ``bk``, the blocks
+    an SM and the shared-memory plan."""
+
+    bk: int
+    blocks: int
+    layout: loader.HopperLayout
+
+
+def plan(dc: int, dp: int, dtype: torch.dtype) -> Plan:
+    """The core's tiling for head dims (dc, dp, dc): 128 query rows a block,
+    key tiles of [k_c | ipe_k] and v_c, as many stages as fit.  Each part of
+    a q / k row is one 64-byte chunk where it is 64 bytes or narrower (bf16
+    dp = 16 runs in dp = 32's build), else 128-byte chunks.  bf16 32³: 64
+    keys a tile, two blocks an SM; the other bf16 builds 128 keys; float32
+    64."""
     f32 = dtype == torch.float32
-    cw = 32 if f32 else 64  # values in a 128-byte chunk row
-    return loader.hopper_layout(False, 64 if f32 else 128, 128 // cw, 64 // cw, 2 * 64 // cw)
+    e = 4 if f32 else 2
+    if not f32 and dp == 16:
+        dp = 32
+    bk, blocks = (64, 2) if not f32 and (dc, dp) == (32, 32) else (64 if f32 else 128, 1)
+    part = lambda n: loader.HALF if n * e <= loader.HALF else n * e  # noqa: E731
+    out = 2 * -(-dc * e // loader.CHUNK) * 64 * loader.CHUNK  # both consumers' O, staged for the TMA store
+    return Plan(bk, blocks, loader.hopper_layout(False, bk, part(dc) + part(dp), part(dc), out, blocks))
 
 
 def oaca_attention_plain(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float, ipe_k=None) -> torch.Tensor:
@@ -136,9 +163,9 @@ def _check(q_c, ipe, k_c, k_l, v_c, v_l, scale: float, ipe_k) -> None:
         raise ValueError("oaca_attention kernel needs a contiguous last dimension")
     if L2 > _MAX_L2 or B * H > 65535:
         raise ValueError(f"oaca_attention kernel takes L2 <= {_MAX_L2} and B*heads <= 65535")
-    if (dc, dp, dv) == _HOPPER_DIMS and not all(map(loader.tma_addressable, ops)):
+    if not all(loader.tma_addressable(t) for t in ops):
         raise ValueError("oaca_attention kernel's TMA route takes rows < 2^31 and strides < 2^40 bytes")
-    if (dc, dp, dv) == _HOPPER_DIMS and Lk != Lq:
+    if (dc, dp, dv) == _SQUARE_64 and Lk != Lq:
         raise ValueError(f"oaca_attention kernel's (64, 64, 64) route takes image keys of the queries' own "
                          f"length, got Lk={Lk} for Lq={Lq} (head dims 32 take any Lk)")
     if not scale > 0:
@@ -152,10 +179,13 @@ def _out_like(q_c: torch.Tensor, dv: int) -> torch.Tensor:
     return q_c.new_empty_strided((B, H, Lq, dv), (Lq * H * dv, dv, H * dv, 1))
 
 
-def launch(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float, ipe_k=None) -> torch.Tensor:
+def launch(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float, ipe_k=None, on: str | None = None) -> torch.Tensor:
     """One launch of the kernel on plain operands (no autograd, no
     tangent); checks them, their alignment (which reads their pointers)
-    included.  ``ipe_k`` is ``ipe`` when None."""
+    included.  ``ipe_k`` is ``ipe`` when None.  The route is :func:`route`'s,
+    or with ``on`` ("core" or "mma") that one: the two side by side on the
+    same operands, for the kernel table (``chip_smoke.py``,
+    ``scripts/kernel_pace.py``)."""
     ipe_k = ipe if ipe_k is None else ipe_k
     _check(q_c, ipe, k_c, k_l, v_c, v_l, scale, ipe_k)
     B, H, Lq, dc = q_c.shape
@@ -169,10 +199,13 @@ def launch(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float, ipe_k=None) -> torch.T
         B, H, Lq, L2, float(scale) ** 2,
         ipe_k.data_ptr(), (ctypes.c_int64 * 3)(*_strides(ipe_k)), Lk,
     )
-    err = loader.library("oaca").oaca_forward(
-        args, _DTYPE_CODES[q_c.dtype], dc, dp, dv,
-        torch.cuda.current_stream(q_c.device).cuda_stream,
-    )
+    lib, stream = loader.library("oaca"), torch.cuda.current_stream(q_c.device).cuda_stream
+    if on is None:
+        err = lib.oaca_forward(args, _DTYPE_CODES[q_c.dtype], dc, dp, dv, stream)
+    elif on == "mma" and dc != 32:
+        raise ValueError("oaca_attention's mma.sync loader takes head dims (32, 16 | 32 | 64, 32)")
+    else:
+        err = lib.oaca_forward_on(args, _DTYPE_CODES[q_c.dtype], dc, dp, dv, ("core", "mma").index(on), stream)
     loader.check(err, "oaca_forward")
     launches.n += 1
     if Lk != Lq:
@@ -241,10 +274,10 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float, ipe_k=None) ->
     ``ValueError``).
     Any strides are taken as long as the last dimension is contiguous and
     the pointers and strides are whole 16-byte pieces (else ``ValueError``).
-    The kernel runs its products on the tensor cores (:func:`route`): at
-    (64, 64, 64) on the warp-specialised TMA core, bf16 on ``wgmma`` and
-    float32 on 3xTF32 ``mma.sync``; at the other head dims on ``mma.sync``
-    (bf16, or 3xTF32 for float32) fed by ``cp.async``.  Returns (B, heads,
+    The kernel runs its products on the tensor cores (:func:`route`): on
+    the warp-specialised TMA core, bf16 on ``wgmma`` and float32 on 3xTF32
+    ``mma.sync``, except float32 at the 32-wide head dims, on the cp.async
+    + mma.sync loader.  Returns (B, heads,
     Lq, dv) in the operands' dtype; on the card its memory is laid out (B, Lq, heads, dv), so that merging
     the heads back into channels is free.  At (64, 64, 64) the card takes
     Lk = Lq only (else ``ValueError``).  With grad enabled and an operand

@@ -19,7 +19,7 @@ import math
 import pytest
 import torch
 
-from lidarcrafter_tpu_torch.kernels import attention, groupnorm, oaca
+from lidarcrafter_tpu_torch.kernels import attention, groupnorm, loader, oaca
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -1613,3 +1613,90 @@ def test_oaca_hopper_route_refuses_gathered_keys(gen):
     ops = (r(1, 2, 64, 64), r(1, 2, 64, 64), r(1, 2, 128, 64), r(1, 2, 13, 128), r(1, 2, 128, 64), r(1, 2, 13, 64))
     with pytest.raises(ValueError, match="Lk"):
         oaca.oaca_attention(*ops, scale=0.3, ipe_k=r(1, 2, 128, 64))
+
+
+# ------------------------------------------------ both routes at head dims <= 128
+#
+# Head dims up to 128 (attention) and OACA's 32-wide builds have two routes:
+# the Hopper core (TMA + wgmma / 3xTF32 mma.sync from swizzled tiles, a
+# bf16 head of 32 in 64-byte chunks) and the cp.async + mma.sync loader;
+# ``route`` picks one by a fixed rule, ``launch(on=...)`` forces either.
+# Each against the plain version at the edges of the core's tiling.
+
+ROUTES = ["core", "mma"]
+
+
+@pytest.mark.parametrize("on", ROUTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,Lq,Lkv,kv_len,dqk,dv,enc",
+    [(2, 2, 128, 128, 77, 64, 64, 0), (2, 2, 128, 128, 9, 64, 64, 0),  # masked tail / masked head
+     (2, 3, 128, 128, 9, 32, 32, 0), (1, 2, 300, 300, None, 32, 32, 0), (2, 2, 300, 300, None, 64, 64, 0),
+     (1, 2, 1000, 1000, None, 64, 64, 0), (1, 2, 300, 200, 130, 128, 128, 0),  # ragged L 300 / 1000, d = 128
+     (1, 2, 100, 150, None, 16, 128, 0), (1, 2, 130, 70, None, 64, 32, 0), (1, 2, 77, 77, None, 32, 8, 0),
+     (2, 2, 300, 300, None, 32, 32, 13), (1, 3, 130, 130, None, 64, 64, 13)],  # GLIDE: Lkv = 13 + L
+)
+def test_attention_routes_match_plain_at_the_edges(gen, on, dtype, B, H, Lq, Lkv, kv_len, dqk, dv, enc):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = r(B, H, Lq, dqk), r(B, H, Lkv, dqk), r(B, H, Lkv, dv)
+    if enc:  # the encoder's tokens' K/V in front of the image's, as GLIDEAttentionBlock concatenates them
+        k, v = torch.cat([r(B, H, enc, dqk), k], dim=2), torch.cat([r(B, H, enc, dv), v], dim=2)
+    n = k.shape[2] if kv_len is None else kv_len
+    scale = 1 / math.sqrt(dqk)
+    got = attention.launch(q, k, v, scale=scale, kv_len=n, on=on)
+    torch.cuda.synchronize()
+    want = attention.attention_plain(q, k, v, scale=scale, kv_len=n)
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("on", ROUTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,Lq,Lk,L2,dp",
+    [(2, 3, 300, 300, 13, 32), (1, 2, 1000, 1000, 13, 32), (2, 2, 300, 300, 0, 32), (1, 1, 1, 1, 1, 32),
+     (2, 2, 191, 191, 64, 32), (2, 2, 300, 300, 13, 16), (1, 2, 130, 130, 0, 16), (2, 2, 300, 300, 13, 64),
+     (1, 2, 129, 129, 0, 64), (2, 2, 300, 600, 13, 32), (1, 2, 512, 1024, 0, 16), (1, 2, 100, 200, 13, 64)],
+)
+def test_oaca_routes_match_plain_at_the_edges(gen, on, dtype, B, H, Lq, Lk, L2, dp):
+    """Head dims (32, dp, 32): ragged strips, the layout strip absent, of 13
+    tokens and full, positional widths 16 (zero-filled in the 32 build) and
+    64, gathered keys (Lk = 2·Lq with their own positional rows ``ipe_k``);
+    queries as per-head views of one fused projection."""
+    C = H * 32
+    heads = lambda t, L: t.reshape(B, L, H, -1).transpose(1, 2)  # noqa: E731
+    q_c = heads(torch.randn(B, Lq, 3 * C, generator=gen, device="cuda").to(dtype)[..., :C], Lq)
+    k_c, v_c = (heads(t, Lk) for t in torch.randn(B, Lk, 2 * C, generator=gen, device="cuda").to(dtype).chunk(2, -1))
+    ipe = heads(torch.randn(B, Lq, H * dp, generator=gen, device="cuda").to(dtype), Lq)
+    ipe_k = None if Lk == Lq else heads(torch.randn(B, Lk, H * dp, generator=gen, device="cuda").to(dtype), Lk)
+    k_l = torch.randn(B, H, L2, 32 + dp, generator=gen, device="cuda").to(dtype)
+    v_l = torch.randn(B, H, L2, 32, generator=gen, device="cuda").to(dtype)
+    ops = (q_c, ipe, k_c, k_l, v_c, v_l)
+    scale = 1 / math.sqrt(math.sqrt(32 + dp))
+    got = oaca.launch(*ops, scale=scale, ipe_k=ipe_k, on=on)
+    torch.cuda.synchronize()
+    want = oaca.oaca_attention_plain(*ops, scale=scale, ipe_k=ipe_k)
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dispatch_takes_the_route_it_names(gen, dtype):
+    """The wrapper's call is bit for bit the launch of the route ``route``
+    names, at attention head dims 32, 64, 128 and OACA (32, 16 | 32 | 64, 32)."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    for d in (32, 64, 128):
+        q, k, v = r(2, 2, 200, d), r(2, 2, 200, d), r(2, 2, 200, d)
+        on = "core" if attention.route(d, d, dtype) == loader.CORE_ROUTES[dtype] else "mma"
+        got = attention.attention(q, k, v, scale=d**-0.5)
+        torch.testing.assert_close(got, attention.launch(q, k, v, scale=d**-0.5, kv_len=200, on=on), rtol=0, atol=0)
+    for dp in (16, 32, 64):
+        ops = (r(2, 2, 200, 32), r(2, 2, 200, dp), r(2, 2, 200, 32), r(2, 2, 13, 32 + dp), r(2, 2, 200, 32),
+               r(2, 2, 13, 32))
+        on = "core" if oaca.route(32, dp, 32, dtype) == loader.CORE_ROUTES[dtype] else "mma"
+        got = oaca.oaca_attention(*ops, scale=0.3)
+        torch.testing.assert_close(got, oaca.launch(*ops, scale=0.3, on=on), rtol=0, atol=0)
