@@ -302,23 +302,43 @@ Phases, each printing one JSON line:
 
 18. the azimuth axis ("sp"; ``parallel/mesh.py``): two ranks share card 0
    (``torchrun --nproc-per-node 2`` of this script as ``chip_smoke.py
-   sp-rank DIR CONFIG``, one pair of ranks a config, both pairs at once;
-   each rank joins its group on card 0 over gloo: NCCL takes one rank a
-   card) on a (1, 2) mesh.  For ``nuscenes-unet-uncond`` and ``nuscenes-auto-reg-v2``
-   at full width, B=2, seeded weights: one forward and a DDIM@2 sample in
+   sp-rank DIR NAME...``; each rank joins its group on card 0 over gloo:
+   NCCL takes one rank a card) on a (1, 2) mesh, one pair of ranks for each
+   of uncond, auto-reg-v2, v0 and HDiT, one for GLIDE v6, ``OpenAIUNet``
+   and the discrete engine in turn and one for the two branches, every
+   pair at once, beside two processes (``chip_smoke.py sp-one``) running
+   the one-process paths and train CLIs in turn.  At full width, B=2, seeded weights:
+   ``nuscenes-unet-uncond``, ``nuscenes-auto-reg-v2``,
+   ``nuscenes-box-layout`` (v0: zero-padded convs, OACA 64³ over gathered
+   keys) and ``nuscenes-hdit-uncond`` one forward and a DDIM@2 sample in
    float32 and served in bfloat16, each rank on its 512 columns, gathered,
    against the same in this process (forwards to 1e-3 / 5e-2 of the
-   largest; the samples as ``SP_SAMPLE_SHARE`` says), with exact launches
-   on each rank (a norm of image activations two GroupNorm launches,
-   ``partials`` and ``apply``; OACA's token norms one; every OACA over
-   gathered keys; 2 attention a uncond call); then ``train.py --sp 2``'s
-   ``main`` on the ranks' group and the train CLI in one process, 2 float32
-   steps each from a synthetic nuScenes tree with ``--deterministic``:
-   losses to 1e-5, the parameters and Adam's first moments after the steps
-   to 1e-4 relative L2, exact launches; step seconds (all runs share the
-   card at once: not a speed comparison).  Phase 2 holds the two GroupNorm
-   launches at rank 0's half of the uncond level-0 AdaGN and OACA over
-   gathered keys at the ds4 shard (Lq 1,024, Lk 2,048).
+   largest; the float32 samples: 99.9% of the values within 1e-3 of the
+   largest, or the share of one process's batch against its rows one at a
+   time where that is lower; bfloat16 as ``SP_BF16_SAMPLE_FACTOR`` says); GLIDE v6,
+   ``OpenAIUNet`` (phase 14's, GLIDE blocks of one head of 256 / 512) and
+   the discrete engine over the uncond stack one forward in each dtype;
+   exact launches on each rank (a norm of image activations two GroupNorm
+   launches, ``partials`` and ``apply``; OACA's token norms one; every OACA
+   over gathered keys; the attention blocks one each; HDiT none); then
+   ``train.py --sp 2``'s ``main`` on the ranks' group against the train CLI
+   in one process, 2 float32 steps each from a synthetic nuScenes tree with
+   ``--deterministic``, for
+   the four stacks and for ``nuscenes-layout`` and
+   ``nuscenes-object`` (whose ranks replicate): losses to 1e-5, the
+   parameters and Adam's first moments after the steps to 1e-4 relative
+   L2, exact launches; step seconds (all runs share the card at once: not a
+   speed comparison).  Phase 2 holds the two GroupNorm launches at rank 0's
+   half of the uncond level-0 AdaGN, and the ds4 shards (Lq 1,024) of OACA
+   over gathered keys at 32³ and 64³ (Lk 2,048, and a ragged Lq 1,000 /
+   Lk 2,000 at 64³), GLIDE v6's attention (13 + 2,048 keys) and
+   ``OpenAIUNet``'s (one head of 256 over 2,048 keys).
+
+The phases run in the order of their numbers, but for 14, 13, 15, 16 and
+11, which run after 10; phases 17 and 18 then run in processes of their own
+(``chip_smoke.py export-lane`` and the processes of phase 18, the latter at
+nice 10) beside phase 12, which times host-bound conversions, and their
+lines follow phase 12's.
 
 Phase 4 also serves ``viewer.py`` on the card (full width, float32): one
 ``POST /api/sample`` of each of its four configs over HTTP (DDIM@2,
@@ -351,10 +371,12 @@ import json
 import math
 import os
 import pickle
+import signal
 import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -704,7 +726,8 @@ def check_oaca_gathered(label, B, H, Lq, sp, dtype, gen, d=32):
     mesh runs it: its Lq queries (per-head views of its fused projection)
     with their positional rows, over the Lk = sp·Lq keys and values of every
     rank (gathered, contiguous) with the whole positional strip, and the
-    13-token layout strip."""
+    13-token layout strip; head dims d³ (32 for the v1-v6 stacks, both
+    routes by name; 64 for v0, on the Hopper core alone)."""
     import torch
     import torch.nn.functional as F
 
@@ -737,11 +760,11 @@ def check_oaca_gathered(label, B, H, Lq, sp, dtype, gen, d=32):
     route = oaca.route(d, d, d, dtype)
     bound, by = bound_ms(nbytes, flops, route)
     ms = time_ms(lambda: oaca.oaca_attention(*ops, scale=scale, ipe_k=ipe_k))
+    routes = {} if d != 32 else both_routes("oaca_gathered", label, dname, ms, errors, route,
+                                           lambda on: oaca.launch(*ops, scale=scale, ipe_k=ipe_k, on=on), want, bound)
     return {
         "kernel": "oaca_gathered", "shape": label, "dtype": dname, "head_dims": [d, d, d], "route": route,
-        "Lq": Lq, "Lk": Lk, **errors, "ms": ms,
-        **both_routes("oaca_gathered", label, dname, ms, errors, route,
-                      lambda on: oaca.launch(*ops, scale=scale, ipe_k=ipe_k, on=on), want, bound),
+        "Lq": Lq, "Lk": Lk, **errors, "ms": ms, **routes,
         "plain_ms": time_ms(lambda: oaca.oaca_attention_plain(*ops, scale=scale, ipe_k=ipe_k), iters=5),
         "library_ms": library, "library": "F.scaled_dot_product_attention on the concatenated strips (Lq, Lk + 13)",
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
@@ -866,19 +889,28 @@ def check_attention(label, B, H, Lq, Lkv, d, dtype, gen, kv_len=None):
     return attention_row(label, q, k, v, dtype, kv_len)
 
 
-def check_attention_glide(label, B, H, L, d, dtype, gen, L_enc=13):
+def check_attention_glide(label, B, H, L, d, dtype, gen, L_enc=13, sp=1):
     """The operands as ``GLIDEAttentionBlock`` hands them: q, k and v
     per-head views of one (B, L, heads·3d) projection packed per head as
     [q|k|v], and the encoder's ``L_enc`` tokens' K/V (one (B, L_enc, 2C)
-    projection) concatenated in front of the image's."""
+    projection) concatenated in front of the image's (none with ``L_enc``
+    0: ``OpenAIUNet``'s blocks).  With ``sp`` > 1 as a rank of the mesh
+    hands them: q its L / sp tokens' views, k and v views of every rank's
+    [k|v], gathered (B, L, heads, 2d)."""
     import torch
 
     C = H * d
-    qkv = torch.randn(B, L, 3 * C, generator=gen, device=DEVICE).to(dtype).view(B, L, H, 3 * d)
+    Lq = L // sp
+    qkv = torch.randn(B, Lq, 3 * C, generator=gen, device=DEVICE).to(dtype).view(B, Lq, H, 3 * d)
     q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
-    ekv = torch.randn(B, L_enc, 2 * C, generator=gen, device=DEVICE).to(dtype).view(B, L_enc, H, 2 * d)
-    ek, ev = (t.transpose(1, 2) for t in ekv.split(d, dim=-1))
-    return attention_row(label, q, torch.cat([ek, k], dim=2), torch.cat([ev, v], dim=2), dtype)
+    if sp > 1:
+        kv = torch.randn(B, L, 2 * C, generator=gen, device=DEVICE).to(dtype).view(B, L, H, 2 * d)
+        k, v = (t.transpose(1, 2) for t in kv.split(d, dim=-1))
+    if L_enc:
+        ekv = torch.randn(B, L_enc, 2 * C, generator=gen, device=DEVICE).to(dtype).view(B, L_enc, H, 2 * d)
+        ek, ev = (t.transpose(1, 2) for t in ekv.split(d, dim=-1))
+        k, v = torch.cat([ek, k], dim=2), torch.cat([ev, v], dim=2)
+    return attention_row(label, q, k, v, dtype)
 
 
 def both_routes(kernel: str, label: str, dname: str, ms: float, errors: dict, route: str, launch, plain,
@@ -996,6 +1028,17 @@ def phase_kernels():
                                           (BATCH, 32, 1024, 64), SP, dtype, True, True, gen))
         rows.append(check_oaca_gathered(f"ds4 shard 1/{SP} B=8 h=8 Lq={2048 // SP} Lk=2048", BATCH, 8, 2048 // SP,
                                         SP, dtype, gen))
+        # the sp = 2 shards of phase 18's other stacks: v0's OACA at 64³
+        # (and a ragged Lk of no whole key tile), GLIDE v6 at ds4 and
+        # OpenAIUNet's one head of 256 at ds4, over every rank's keys
+        rows.append(check_oaca_gathered(f"v0 ds4 shard 1/{SP} B=8 h=8 Lq={2048 // SP} Lk=2048 d=64", BATCH, 8,
+                                        2048 // SP, SP, dtype, gen, d=64) | {"sub": "head_dims_64"})
+        rows.append(check_oaca_gathered(f"v0 ragged shard 1/{SP} B=8 h=8 Lq=1000 Lk={1000 * SP} d=64", BATCH, 8,
+                                        1000, SP, dtype, gen, d=64) | {"sub": "head_dims_64"})
+        rows.append(check_attention_glide(f"glide ds4 shard 1/{SP} B=8 h=8 Lq={2048 // SP} Lkv=13+2048 d=32", BATCH,
+                                          8, 2048, 32, dtype, gen, sp=SP) | {"sub": "glide"})
+        rows.append(check_attention_glide(f"openai_unet ds4 shard 1/{SP} B=8 h=1 Lq={2048 // SP} Lkv=2048 d=256",
+                                          BATCH, 1, 2048, 256, dtype, gen, L_enc=0, sp=SP) | {"sub": "wide_heads"})
         # the GLIDE block's shapes (the v6 stack's ds 4 and ds 8, 13 encoder
         # tokens in front) and OACA at positional head dims 16 and 64 on the
         # ds 4 v6 shape (channels_scale_for_positional_embedding 0.5 and 2)
@@ -3262,7 +3305,7 @@ def phase_data(smi: str) -> dict:
                                        "--num-steps", str(SAVE_COND_STEPS), "--mode", "ddim", "-o", str(out_dir)])
         seconds = time.perf_counter() - t0
         launches = {k: c.n for k, c in counters.items()}
-        check_launches("sample_and_save_cond", launches, EXPORT_PER_CALL["nuscenes-auto-reg-v2"],
+        check_launches("sample_and_save_cond", launches, PER_CALL["nuscenes-auto-reg-v2"],
                        SAVE_COND_BATCHES * SAVE_COND_STEPS)
         dumps = sorted(out_dir.glob("samples_*.pth"))
         check([d.name for d in dumps] == [f"samples_{i:07d}_synthetic{i}.pth" for i in range(n_frames)],
@@ -4149,10 +4192,11 @@ EXPORT_CONFIGS = {  # config → the solver of its artifacts, B = 8
 # solver steps of an artifact: tracing, saving and loading take seconds per
 # denoiser call unrolled into the graph (~1,700 nodes each)
 EXPORT_STEPS = {"float32": 2, "bfloat16": 1}
-EXPORT_PER_CALL = {
+PER_CALL = {  # kernel launches a denoiser call of the stacks that phases 13, 17 and the viewer serve
     "nuscenes-box-layout-v6": {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD},
     "nuscenes-unet-uncond": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
     "nuscenes-auto-reg-v2": {"oaca": OACA_PER_FORWARD, "groupnorm": GN_PER_FORWARD},
+    "meanflow-nusc": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET},
 }
 # an artifact's frames against the eager generator's for the same seed and
 # dtype, of the largest |eager| value: the same operators on the same draws
@@ -4178,7 +4222,7 @@ def export_replay(name: str, gen, dname: str, steps: int, art_dir: Path, batch=N
     B = 8, condition ``batch``) on the device its weights lie on, save it
     under ``art_dir``, load it onto the card and replay it once after a
     warm-up, with the launch counters set to 0 just before and read just
-    after (exactly ``EXPORT_PER_CALL[name]`` a denoiser call); returns the
+    after (exactly ``PER_CALL[name]`` a denoiser call); returns the
     replay's frames and the seconds, sizes and launches."""
     import torch
 
@@ -4190,7 +4234,7 @@ def export_replay(name: str, gen, dname: str, steps: int, art_dir: Path, batch=N
                               condition_example=batch)
     export_s = time.perf_counter() - t0
     ops = sum(str(n.target).startswith("lidarcrafter_torch.") for n in exported.graph.nodes)
-    per_call = EXPORT_PER_CALL[name]
+    per_call = PER_CALL[name]
     check(ops == sum(per_call.values()) * steps, f"export {name} {dname}: {ops} operator nodes")
     t0 = time.perf_counter()
     art = save_artifact(art_dir, exported, {
@@ -4301,7 +4345,6 @@ def phase_viewer(smi: str) -> dict:
 
     from lidarcrafter_tpu_torch import viewer
 
-    per_call = {**EXPORT_PER_CALL, "meanflow-nusc": {"attention": ATTN_PER_UNET, "groupnorm": GN_PER_UNET}}
     boxes = [[10, 3, -0.5, 4.5, 2, 1.7, 0.3, 1], [18, -6, -0.4, 4.2, 1.9, 1.6, -1.2, 2]]
     httpd = viewer.serve(port=0, device=DEVICE)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -4324,7 +4367,7 @@ def phase_viewer(smi: str) -> dict:
             seconds = time.perf_counter() - t0
             launches = {k: c.n for k, c in counters.items()}
             calls = 1 if name == "meanflow-nusc" else VIEWER_REQUEST_STEPS
-            check_launches(f"viewer {name}", launches, per_call[name], calls)
+            check_launches(f"viewer {name}", launches, PER_CALL[name], calls)
             depth = np.asarray(frame["depth"])
             check(depth.shape == (32, 1024) and bool(np.isfinite(depth).all()), f"viewer {name}: depth {depth.shape}")
             out[name] = {"seconds": seconds, "points": len(frame["points"]), "launches": launches}
@@ -4342,8 +4385,17 @@ def phase_viewer(smi: str) -> dict:
 
 
 SP = 2  # ranks that split the azimuth in phase 18, on the one card
-SP_CONFIGS = ("nuscenes-unet-uncond", "nuscenes-auto-reg-v2")
+# phase 18's runs: the full paths (a forward and a DDIM@2 sample in float32
+# and bfloat16, then train.py --sp 2 against one process), one forward in
+# each dtype of the other sp-aware denoisers, and the two branches under
+# train.py --sp 2 (their ranks replicate); one pair of ranks a tuple of
+# SP_PAIRS, every pair at once
+SP_CONFIGS = ("nuscenes-unet-uncond", "nuscenes-auto-reg-v2", "nuscenes-box-layout", "nuscenes-hdit-uncond")
+SP_FORWARD = ("nuscenes-box-layout-v6 glide", "openai_unet", "discrete")
+SP_BRANCHES = ("nuscenes-layout", "nuscenes-object")
+SP_PAIRS = tuple((name,) for name in SP_CONFIGS) + (SP_FORWARD, SP_BRANCHES)
 SP_BATCH, SP_STEPS, SP_TRAIN_STEPS = 2, 2, 2  # images; DDIM steps of the sample; train steps
+SP_DISCRETE_STEPS = 1000  # the discrete engine's table (the registry leaves it unset)
 SP_POINTS = 8000  # points a cloud of the phase's synthetic tree (only B=2 x 2 steps read it)
 SP_FRAME_RTOL = {"float32": FORWARD_RTOL, "bfloat16": BF16_FORWARD_RTOL}  # sp vs one process, of max |one|
 # The DDIM@2 sample is an ill-conditioned function of the denoiser's output:
@@ -4356,39 +4408,66 @@ SP_FRAME_RTOL = {"float32": FORWARD_RTOL, "bfloat16": BF16_FORWARD_RTOL}  # sp v
 # float32: at least 99.9% of the values within SP_FRAME_RTOL, and the norm
 # of the difference within SP_FRAME_RTOL of the sample's; bfloat16: the
 # sample on the mesh at most 1.5 times as far from the float32 sample (in
-# norm) as the one-process bfloat16 sample is
+# norm) as the one-process bfloat16 sample is.  cuBLAS picks a product's
+# kernel, and with it the order of its sums, by the product's shape, so a
+# shard's rows and the whole map round apart as a batch of 2 and its rows
+# one at a time do in one process (HDiT's linears and neighbourhood
+# products: up to 1.3e-5 apart, and its float32 sample at B=2 against its
+# rows one at a time 99.71% within the limit): the float32 share is
+# SP_SAMPLE_SHARE, or the one-process batch-against-rows share where that
+# is lower (the mesh may round no further from one process than a batch's
+# shape already does)
 SP_SAMPLE_SHARE, SP_BF16_SAMPLE_FACTOR = 0.999, 1.5
 SP_LOSS_RTOL, SP_PARAM_RTOL = 1e-5, 1e-4
+SP_NICE = 10  # the phase's processes run beside phases 12 and 17, which keep their priority
 
 
-def sp_paths(cfg_name: str, device, mesh=None) -> tuple[dict, dict, dict]:
-    """One forward (the engine's ``denoise`` at log-SNR (-3, 5)) and a DDIM@2
-    sample of ``cfg_name`` at full width, B=2, seeded weights and inputs, in
-    float32 and then served in bfloat16, on ``device``; on ``mesh`` each rank takes its
-    share (rows over ``dp``, columns over ``sp``) and the results are
-    gathered.  Returns the outputs (on the CPU), each path's launches
-    (counters set to 0 just before it, read just after) and those a
-    denoiser call makes at sp > 1 (:func:`sp_per_call`)."""
-    import torch
-
+def sp_build(name: str, device):
+    """The modules (seeded weights), engine and config of a phase-18 run: a
+    registry config, ``nuscenes-box-layout-v6 glide`` (GLIDE blocks),
+    ``discrete`` (the uncond stack under ``DiscreteDiffusion``) or
+    ``openai_unet`` (phase 14's ``OpenAIUNet``: no engine, no config)."""
     from lidarcrafter_tpu_torch.configs import get_config
-    from lidarcrafter_tpu_torch.diffusion.conditional import AZIMUTH_KEYS
-    from lidarcrafter_tpu_torch.parallel.mesh import batch_sharding
-    from lidarcrafter_tpu_torch.precision import to_serving_dtype_
+    from lidarcrafter_tpu_torch.models import build_model
     from lidarcrafter_tpu_torch.training.factory import build_diffusion_training
     from lidarcrafter_tpu_torch.weights import init_random_
 
-    cfg = get_config(cfg_name)
+    if name == "openai_unet":
+        return {"model": init_random_(build_model("openai_unet", **OPENAI_UNET), 30).eval().to(device)}, None, None
+    cfg = glide_cfg() if name.endswith(" glide") else get_config("nuscenes-unet-uncond" if name == "discrete" else name)
+    if name == "discrete":
+        cfg.diffusion.timestep_type, cfg.diffusion.num_training_steps = "discrete", SP_DISCRETE_STEPS
     models, engine, _ = build_diffusion_training(cfg, device)
     mods = models if isinstance(models, dict) else {"model": models}
     for i, k in enumerate(sorted(mods)):
         init_random_(mods[k], 30 + i)
-    H, W = cfg.data.resolution
+    return mods, engine, cfg
+
+
+def sp_paths(name: str, device, mesh=None) -> tuple[dict, dict, dict]:
+    """One forward (the engine's ``denoise`` at log-SNR (-3, 5), the
+    discrete engine's at steps (10, 900), ``OpenAIUNet`` on times (-3, 5))
+    and, for ``SP_CONFIGS``, a DDIM@2 sample of ``name`` at full width, B=2,
+    seeded weights and inputs, in float32 and then served in bfloat16, on
+    ``device``; on ``mesh`` each rank takes its share (rows over ``dp``,
+    columns over ``sp``) and the results are gathered; in one process the
+    float32 sample again with the batch's rows one at a time.  Returns the outputs
+    (on the CPU), each path's launches (counters set to 0 just before it,
+    read just after) and those a denoiser call makes at sp > 1
+    (:func:`sp_per_call`)."""
+    import torch
+
+    from lidarcrafter_tpu_torch.diffusion.conditional import AZIMUTH_KEYS
+    from lidarcrafter_tpu_torch.parallel.mesh import batch_sharding
+    from lidarcrafter_tpu_torch.precision import to_serving_dtype_
+
+    mods, engine, cfg = sp_build(name, device)
+    H, W = OPENAI_UNET["resolution"] if cfg is None else cfg.data.resolution
     gen = torch.Generator(device=device).manual_seed(31)
     x = torch.randn(SP_BATCH, H, W, 2, generator=gen, device=device)
     x_T = torch.randn(SP_BATCH, H, W, 2, generator=gen, device=device)
-    t = torch.tensor([-3.0, 5.0], device=device)
-    batch = None if cfg.condition_model is None else condition_batch(cfg, SP_BATCH, gen, device)
+    t = torch.tensor([10, 900], device=device) if name == "discrete" else torch.tensor([-3.0, 5.0], device=device)
+    batch = None if cfg is None or cfg.condition_model is None else condition_batch(cfg, SP_BATCH, gen, device)
     sharding = batch_sharding(mesh, 4, sp_axis=2) if mesh is not None else None
     outs, launches = {}, {}
 
@@ -4402,16 +4481,19 @@ def sp_paths(cfg_name: str, device, mesh=None) -> tuple[dict, dict, dict]:
         launches[what] = {k: c.n for k, c in counters.items()}
         launches[what]["seconds"] = time.perf_counter() - t0
 
-    def forward(eng):
-        with torch.inference_mode():
-            if mesh is None:
-                cond = None if batch is None else eng.get_network_condition(batch)
-                return eng.denoise(x, t, cond)
-            local = None if batch is None else mesh.cut_batch(batch, AZIMUTH_KEYS)
-            with mesh.active():
-                cond = None if local is None else eng.get_network_condition(local)
-                out = eng.denoise(sharding.cut(x), batch_sharding(mesh, 1).cut(t), cond)
-            return sharding.gather(out)
+    def forward(eng, dtype):
+        xs, ts, b = x, t, batch
+        if mesh is not None:
+            xs, ts = sharding.cut(x), batch_sharding(mesh, 1).cut(t)
+            b = None if batch is None else mesh.cut_batch(batch, AZIMUTH_KEYS)
+        with torch.inference_mode(), contextlib.nullcontext() if mesh is None else mesh.active():
+            if eng is None:
+                out = mods["model"](xs.to(dtype), {"time_condition": ts}).float()
+            elif name == "discrete":
+                out = eng.denoise(xs, ts)
+            else:
+                out = eng.denoise(xs, ts, None if b is None else eng.get_network_condition(b))
+        return out if mesh is None else sharding.gather(out)
 
     def sample(eng):
         args = () if batch is None else ((batch if mesh is None else mesh.cut_batch(batch, AZIMUTH_KEYS)),)
@@ -4420,66 +4502,103 @@ def sp_paths(cfg_name: str, device, mesh=None) -> tuple[dict, dict, dict]:
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         if dtype == torch.bfloat16:
             to_serving_dtype_(mods["model"], dtype, cond_model=mods.get("cond"))
-            engine = dataclasses.replace(engine, dtype=dtype)
-        run(f"forward {dname}", lambda: forward(engine))
-        run(f"ddim@{SP_STEPS} {dname}", lambda: sample(engine))
+            engine = None if engine is None else dataclasses.replace(engine, dtype=dtype)
+        run(f"forward {dname}", lambda: forward(engine, dtype))
+        if name in SP_CONFIGS:
+            run(f"ddim@{SP_STEPS} {dname}", lambda: sample(engine))
+        if name in SP_CONFIGS and mesh is None and dtype == torch.float32:  # the batch's rows one at a time
+            run(f"ddim@{SP_STEPS} {dname} rows", lambda: torch.cat([engine.sample(
+                *(() if batch is None else ({k: v[i:i + 1] for k, v in batch.items()},)), 1, SP_STEPS,
+                mode="ddim", x_T=x_T[i:i + 1]) for i in range(SP_BATCH)]))
     per_call = sp_per_call(mods["model"])
-    del models, mods, engine
+    del mods, engine
     torch.cuda.empty_cache()
     return outs, launches, per_call
 
 
-def sp_train_args(cfg_name: str, files: list, out_dir: Path, sp: int) -> list:
-    """``train.py`` for ``SP_TRAIN_STEPS`` float32 steps at B=2 from files,
-    deterministic, checkpointing the last step; ``--sp`` with ``sp`` > 1."""
-    args = ["-c", cfg_name, "-b", str(SP_BATCH), "--num-steps", str(SP_TRAIN_STEPS), "--workers", "2",
+def sp_train_args(name: str, tree: dict, out_dir: Path, sp: int) -> list:
+    """``train.py`` for ``SP_TRAIN_STEPS`` float32 steps at B=2 from the
+    synthetic tree (the layout branch with its CLIP cache, the object
+    branch on the GT database), deterministic, checkpointing the last step;
+    ``--sp`` with ``sp`` > 1."""
+    data = ["--set", f'data.data_root="{tree["data_root"]}"', "--set",
+            f'data.pkl_path="{tree["db_path" if name == "nuscenes-object" else "pkl_path"]}"']
+    if name == "nuscenes-layout":
+        data += ["--set", f'data.clip_cache_dir="{tree["clip_cache_dir"]}"']
+    args = ["-c", name, "-b", str(SP_BATCH), "--num-steps", str(SP_TRAIN_STEPS), "--workers", "2",
             "--log-every", "1", "--checkpoint-every", str(SP_TRAIN_STEPS), "--deterministic",
-            "--set", 'training.mixed_precision="no"', "--set", "training.steps_save_image=0", *files,
+            "--set", 'training.mixed_precision="no"', "--set", "training.steps_save_image=0", *data,
             "--output-dir", str(out_dir)]
     if sp > 1:
         args += ["--sp", str(sp)]
     return args
 
 
-def sp_rank_main(out_dir: Path, name: str) -> int:
-    """A rank of phase 18 (``chip_smoke.py sp-rank DIR CONFIG`` under
-    ``torchrun --nproc-per-node 2``): both ranks on card 0, a gloo group on
-    an (1, SP) mesh; :func:`sp_paths` of the config, then ``train.main``
-    with ``--sp`` on the same group (stdout captured); each rank writes its
-    outputs and launches to ``DIR/sp_rank{r}-CONFIG.pt``."""
+def sp_train(name: str, tree: dict, out_dir: Path, sp: int, parallel=None) -> dict:
+    """``train.main`` of :func:`sp_train_args` in this process (in the
+    group ``parallel``): the step records it printed, its seconds and its
+    launches (counters set to 0 just before it)."""
     import ast
 
     import torch
 
-    sys.path.insert(0, str(REPO))
     from lidarcrafter_tpu_torch import train as train_cli
-    from lidarcrafter_tpu_torch.kernels import loader
+
+    text = io.StringIO()
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        train_cli.main(sp_train_args(name, tree, out_dir / name, sp), parallel=parallel)
+    torch.cuda.synchronize()
+    return {"records": [ast.literal_eval(ln) for ln in text.getvalue().splitlines() if ln.startswith("{'step'")],
+            "seconds": time.perf_counter() - t0, "launches": {k: c.n for k, c in counters.items()}}
+
+
+def sp_file(out_dir: Path, side: str, name: str) -> Path:
+    return out_dir / f"{side}-{name.replace(' ', '_')}.pt"
+
+
+def sp_rank_main(out_dir: Path, names: list) -> int:
+    """A rank of phase 18 (``chip_smoke.py sp-rank DIR NAME...`` under
+    ``torchrun --nproc-per-node 2``): both ranks on card 0, a gloo group on
+    an (1, SP) mesh; for each name in turn :func:`sp_paths` and / or
+    ``train.main`` with ``--sp`` on the same group; each rank writes its
+    results to ``DIR/sp_rank{r}-NAME.pt``."""
+    import torch
+
+    lane_setup()
     from lidarcrafter_tpu_torch.parallel.ddp import DataParallel
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    loader.load_kernels()
     # every rank on card 0 (``DataParallel.from_env`` would take card
     # LOCAL_RANK), over gloo: NCCL takes one rank a card
     torch.cuda.set_device(0)
     group = DataParallel.join(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), "cuda:0", "env://",
                               backend="gloo", sp=SP)
-    files = json.loads((out_dir / "files.json").read_text())
-    result = {"rank": group.rank, "device": str(group.device)}
+    tree = json.loads((out_dir / "tree.json").read_text())
     try:
-        result["paths"] = sp_paths(name, group.device, group.mesh)
-        text = io.StringIO()
-        counters = reset_counters()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(text):
-            train_cli.main(sp_train_args(name, files, out_dir / "sp" / name, SP), parallel=group)
-        torch.cuda.synchronize()
-        records = [ast.literal_eval(ln) for ln in text.getvalue().splitlines() if ln.startswith("{'step'")]
-        result["train"] = {"records": records, "seconds": time.perf_counter() - t0,
-                           "launches": {k: c.n for k, c in counters.items()}}
-        torch.save(result, out_dir / f"sp_rank{group.rank}-{name}.pt")
+        for name in names:
+            result = {"rank": group.rank, "device": str(group.device)}
+            if name not in SP_BRANCHES:
+                result["paths"] = sp_paths(name, group.device, group.mesh)
+            if name not in SP_FORWARD:
+                result["train"] = sp_train(name, tree, out_dir / "sp", SP, parallel=group)
+            torch.save(result, sp_file(out_dir, f"sp_rank{group.rank}", name))
     finally:
         group.leave()
+    return 0
+
+
+def sp_one_main(out_dir: Path, what: str, names: list) -> int:
+    """Phase 18 in one process (``chip_smoke.py sp-one DIR paths|train
+    NAME...``): :func:`sp_paths` or the train CLI of each name in turn on
+    card 0, each written to ``DIR/one-{what}-NAME.pt``."""
+    import torch
+
+    lane_setup()
+    tree = json.loads((out_dir / "tree.json").read_text())
+    for name in names:
+        result = sp_paths(name, DEVICE) if what == "paths" else sp_train(name, tree, out_dir / "one", 1)
+        torch.save(result, sp_file(out_dir, f"one-{what}", name))
     return 0
 
 
@@ -4488,152 +4607,256 @@ def sp_per_call(model) -> dict:
     GroupNorm launches (partials, apply) a norm of image activations, one
     a norm of the tokens every rank holds whole (OACA's layout and
     positional strips); every OACA over gathered keys; the attention
-    blocks as in one process."""
-    from lidarcrafter_tpu_torch.models.layout_unet import ObjectAwareCrossAttention
-    from lidarcrafter_tpu_torch.models.ops import FusedGN, SelfAttention2d
+    blocks (over gathered keys) as in one process."""
+    from lidarcrafter_tpu_torch.models.ops import FusedGN
 
-    norms = [m for m in model.modules() if isinstance(m, FusedGN)]
-    oaca = sum(isinstance(m, ObjectAwareCrossAttention) for m in model.modules())
-    spatial = sum(m.spatial for m in norms)
-    return {"oaca": oaca, "oaca_gathered": oaca, "groupnorm": len(norms) - spatial, "groupnorm_partials": spatial,
-            "groupnorm_apply": spatial, "attention": sum(isinstance(m, SelfAttention2d) for m in model.modules())}
+    per_call = kernel_modules(model)
+    spatial = sum(m.spatial for m in model.modules() if isinstance(m, FusedGN))
+    return {"oaca": per_call["oaca"], "oaca_gathered": per_call["oaca"], "groupnorm": per_call["groupnorm"] - spatial,
+            "groupnorm_partials": spatial, "groupnorm_apply": spatial, "attention": per_call["attention"]}
 
 
-def phase_sp(smi: str) -> dict:
-    """Phase 18 ("sp"): the azimuth axis on the card.  Two ranks share card 0
-    over gloo (NCCL takes one rank a card) on an (1, 2) mesh: for ``nuscenes-unet-uncond`` and
-    ``nuscenes-auto-reg-v2`` at full width (32x1024, B=2, seeded weights) one
-    forward and a DDIM@2 sample in float32 and served in bfloat16, gathered,
-    against the same in this process (frames to ``SP_FRAME_RTOL`` of the
-    largest), with exact launches; then ``train.py --sp 2`` for 2 float32
-    steps from a synthetic nuScenes tree with ``--deterministic`` against
-    the same command in one process (all of them at once, beside this
-    process's forwards): losses to 1e-5, the parameters after the steps and
-    Adam's first moments to 1e-4 relative L2, exact launches (each
-    rank's)."""
-    import ast
-
+def sp_check_paths(name: str, ranks: list, want: dict, one_launches: dict, by_path: dict) -> dict:
+    """Phase 18's paths of ``name``: each rank's launches exact, the
+    gathered forwards and samples against one process's."""
     import torch
 
+    outs, launches, per_call = ranks[0]["paths"]
+    lines = {}
+    for what in (w for w in want if not w.endswith(" rows")):
+        dname = what.split()[-1]
+        calls = SP_STEPS if what.startswith("ddim") else 1
+        for r in ranks:
+            got_launches = r["paths"][1][what]
+            for k in per_call:
+                check(got_launches[k] == per_call[k] * calls,
+                      f"sp {name} {what} rank {r['rank']}: {k} launches {got_launches[k]} != {per_call[k]} x {calls}")
+        got = outs[what]
+        scale = float(want[what].abs().max())
+        diff = (got - want[what]).abs()
+        err, norm_rel = float(diff.max()), float(diff.norm() / want[what].norm())
+        within = float((diff <= SP_FRAME_RTOL[dname] * scale).float().mean())
+        extra = {}
+        check(bool(torch.isfinite(got).all()) and got.shape == want[what].shape, f"sp {name} {what}: shape")
+        if what.startswith("forward"):
+            check(err <= SP_FRAME_RTOL[dname] * scale,
+                  f"sp {name} {what}: max |sp - one| {err:.3g} > {SP_FRAME_RTOL[dname]} x {scale:.3g}")
+        elif dname == "float32":
+            rows = want[f"{what} rows"]  # one process, the batch's rows one at a time
+            rows_within = float(((rows - want[what]).abs() <= SP_FRAME_RTOL[dname] * scale).float().mean())
+            share = min(SP_SAMPLE_SHARE, rows_within)
+            extra = {"one_process_rows_share_within_tol": rows_within, "share_limit": share,
+                     "one_process_rows_max_abs_err": float((rows - want[what]).abs().max()),
+                     "seconds_one_rows": one_launches[f"{what} rows"]["seconds"]}
+            check(within >= share and norm_rel <= SP_FRAME_RTOL[dname],
+                  f"sp {name} {what}: {within:.5f} of the values within {SP_FRAME_RTOL[dname]} of the "
+                  f"largest (limit {share:.5f}), norm-relative difference {norm_rel:.3g}")
+        else:
+            f32 = f"ddim@{SP_STEPS} float32"
+            spread = float((want[what] - want[f32]).norm())
+            extra = {"norm_rel_to_float32_sample": float((got - want[f32]).norm() / want[f32].norm()),
+                     "one_process_norm_rel_to_float32_sample": spread / float(want[f32].norm())}
+            check(float((got - want[f32]).norm()) <= SP_BF16_SAMPLE_FACTOR * spread,
+                  f"sp {name} {what}: farther from the float32 sample than {SP_BF16_SAMPLE_FACTOR} x the "
+                  f"one-process bfloat16 sample")
+        lines[what] = {"max_abs_err": err, "scale": scale, "rel_err": err / scale,
+                       "tol": SP_FRAME_RTOL[dname], "share_within_tol": within,
+                       "norm_rel_err": norm_rel, **extra,
+                       "seconds_sp": launches[what]["seconds"], "seconds_one": one_launches[what]["seconds"],
+                       "launches_sp_per_rank": {k: v for k, v in launches[what].items() if k != "seconds"},
+                       "launches_one": {k: v for k, v in one_launches[what].items() if k != "seconds"}}
+        by_path[f"sp={SP} {name} {what}"] = {k: v * SP for k, v in launches[what].items() if k != "seconds" and v}
+    return {"per_call_sp": per_call, "paths": lines}
+
+
+def sp_check_train(name: str, tmp: Path, ranks: list, one: dict, per_step: dict, by_path: dict) -> dict:
+    """Phase 18's train runs of ``name``: the losses, the parameters and
+    Adam's first moments after the steps against one process's, and each
+    rank's launches exact (``per_step``: the forward of each step; the
+    backward launches nothing)."""
+    import torch
+
+    sp_records = ranks[0]["train"]["records"]
+    losses, one_losses = [r["loss"] for r in sp_records], [r["loss"] for r in one["records"]]
+    check(len(losses) == len(one_losses) == SP_TRAIN_STEPS, f"sp {name}: losses {losses} / {one_losses}")
+    for a, b in zip(losses, one_losses):
+        check(abs(a - b) <= SP_LOSS_RTOL * max(1.0, abs(b)), f"sp {name}: loss {a} != {b}")
+    ckpt = f"ckpt_{SP_TRAIN_STEPS:010d}"
+    sp_state, one_state = (torch.load(tmp / side / name / ckpt / "state.pt", weights_only=True, mmap=True)
+                           for side in ("sp", "one"))
+    param_err = flat_rel(sp_state["models"], one_state["models"])
+    mu_err = flat_rel(sp_state["opt_state"]["mu"], one_state["opt_state"]["mu"])
+    check(param_err <= SP_PARAM_RTOL, f"sp {name}: parameters after the steps {param_err:.3g} rel L2")
+    check(mu_err <= SP_PARAM_RTOL, f"sp {name}: Adam's first moments {mu_err:.3g} rel L2")
+    train_launches = [r["train"]["launches"] for r in ranks]
+    for r, got in zip(ranks, train_launches):
+        check(got == with_zeros({k: n * SP_TRAIN_STEPS for k, n in per_step.items()}, got),
+              f"sp {name} train rank {r['rank']}: launches {got} != {per_step} x {SP_TRAIN_STEPS}")
+    if any(train_launches[0].values()):
+        by_path[f"sp={SP} {name} train"] = {k: v * SP for k, v in train_launches[0].items() if v}
+    # one process: a sharded norm's two launches are one, OACA's keys its own
+    one_step = {k: n for k, n in per_step.items() if k not in ("oaca_gathered", "groupnorm_partials",
+                                                               "groupnorm_apply")}
+    one_step["groupnorm"] = per_step.get("groupnorm", 0) + per_step.get("groupnorm_partials", 0)
+    got = one["launches"]
+    check(got == with_zeros({k: n * SP_TRAIN_STEPS for k, n in one_step.items()}, got),
+          f"sp {name} train one process: launches {got} != {one_step} x {SP_TRAIN_STEPS}")
+    if any(got.values()):
+        by_path[f"sp {name} train one process"] = {k: v for k, v in got.items() if v}
+    return {"losses_sp": losses, "losses_one": one_losses, "param_rel_l2": param_err, "first_moment_rel_l2": mu_err,
+            "step_seconds_sp_ranks": step_seconds(sp_records), "step_seconds_one_process": step_seconds(one["records"]),
+            "seconds_sp_run": ranks[0]["train"]["seconds"], "seconds_one_run": one["seconds"],
+            "launches_per_rank": train_launches[0]}
+
+
+class Background:
+    """Processes that run beside the main sequence of phases (phases 17 and
+    18 beside 12), each in a session of its own: :meth:`start` one (a
+    thread notes its seconds from the first start to its end), :meth:`wait`
+    for some (a non-zero exit fails with the tail of its log), :meth:`stop`
+    kills whatever still runs, so that a failed check leaves no process
+    behind."""
+
+    def __init__(self, tmp: Path):
+        self.tmp, self.procs, self.logs, self.ends = tmp, {}, {}, {}
+        self.t0 = time.perf_counter()
+
+    def start(self, key: str, args: list, nice: int = 0) -> None:
+        self.logs[key] = self.tmp / f"log-{len(self.logs)}.txt"
+        with open(self.logs[key], "w") as log:
+            self.procs[key] = subprocess.Popen(
+                ["nice", "-n", str(nice), sys.executable, *args], env=dict(os.environ, PYTHONPATH=str(REPO)),
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        threading.Thread(target=self._watch, args=(key,), daemon=True).start()
+
+    def _watch(self, key: str) -> None:
+        self.procs[key].wait()
+        self.ends[key] = time.perf_counter() - self.t0
+
+    def wait(self, keys: list, limit: float) -> dict:
+        while True:
+            for key in keys:
+                if key in self.ends:
+                    code = self.procs[key].returncode
+                    check(code == 0, f"{key}: exit {code}\n{self.logs[key].read_text()[-6000:]}")
+            if all(key in self.ends for key in keys):
+                return {key: self.ends[key] for key in keys}
+            check(time.perf_counter() - self.t0 < limit,
+                  f"not done in {limit} s: {[key for key in keys if key not in self.ends]}")
+            time.sleep(0.5)
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:  # the session: torchrun's ranks with it
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def lane_setup() -> None:
+    """A process of phases 17 and 18 beside the main one: float32 without
+    TF32, as the main process runs it; the kernels loaded."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from lidarcrafter_tpu_torch.kernels import loader
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    loader.load_kernels()
+
+
+def export_lane_main(out_dir: Path) -> int:
+    """Phase 17 in a process of its own (``chip_smoke.py export-lane
+    DIR``): :func:`phase_export`, its launch counts by path written to
+    ``DIR/export.json``."""
+    lane_setup()
+    by_path = phase_export(nvidia_smi_line())
+    (out_dir / "export.json").write_text(json.dumps(by_path))
+    return 0
+
+
+def export_start(bg: Background) -> str:
+    bg.start("export", [str(REPO / "chip_smoke.py"), "export-lane", str(bg.tmp)])
+    return "export"
+
+
+def export_finish(bg: Background, key: str) -> dict:
+    """Waits for phase 17's process, prints its lines and returns its
+    launch counts by path."""
+    ends = bg.wait([key], 1000)
+    for line in bg.logs[key].read_text().splitlines():
+        if line.startswith('{"phase": "export"'):
+            print(line, flush=True)
+    emit({"phase": "export", "check": "process", "seconds_to_the_end": ends[key]})
+    return json.loads((bg.tmp / "export.json").read_text())
+
+
+def sp_start(bg: Background) -> list:
+    """Phase 18's processes, started in ``bg`` at nice ``SP_NICE``: a
+    synthetic nuScenes tree, then a pair of ranks for each tuple of
+    ``SP_PAIRS`` (``torchrun --nproc-per-node 2`` of ``chip_smoke.py
+    sp-rank``) and the one-process paths and train CLIs (``sp-one``), every
+    one at once; returns their keys."""
     from lidarcrafter_tpu_torch.utils.synthetic import write_nuscenes_tree
 
-    t_phase = time.perf_counter()
-    by_path = {}
-    env = dict(os.environ, PYTHONPATH=str(REPO), NVIDIA_TF32_OVERRIDE="0")
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        tree = write_nuscenes_tree(tmp / "nusc", num_points=SP_POINTS, seed=18)
-        files = ["--set", f'data.data_root="{tree["data_root"]}"', "--set", f'data.pkl_path="{tree["pkl_path"]}"']
-        (tmp / "files.json").write_text(json.dumps(files))
-        # each config's two ranks and the one-process train CLIs, all at
-        # once, beside this process's one-process forwards and samples
-        # (every run on card 0; the seconds are not a speed comparison)
-        t0 = time.perf_counter()
-        ranks_procs = {}
-        for name in SP_CONFIGS:
-            with socket.socket() as sock:
-                sock.bind(("localhost", 0))
-                port = sock.getsockname()[1]
-            ranks_procs[name] = subprocess.Popen(
-                [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(SP), "--master-addr",
-                 "localhost", "--master-port", str(port), str(REPO / "chip_smoke.py"), "sp-rank", str(tmp), name],
-                env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        one_train = {name: subprocess.Popen(
-            [sys.executable, "-m", "lidarcrafter_tpu_torch.train", *sp_train_args(name, files, tmp / "one" / name, 1)],
-            env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for name in SP_CONFIGS}
-        try:
-            one = {name: sp_paths(name, DEVICE) for name in SP_CONFIGS}
-            one_records = {}
-            for name, proc in one_train.items():
-                stdout, stderr = proc.communicate(timeout=600)
-                check(proc.returncode == 0, f"sp: one-process train {name}: exit {proc.returncode}\n{stderr[-3000:]}")
-                one_records[name] = [ast.literal_eval(ln) for ln in stdout.splitlines() if ln.startswith("{'step'")]
-            ranks_s = {}
-            for name, proc in ranks_procs.items():
-                stdout, stderr = proc.communicate(timeout=900)
-                ranks_s[name] = time.perf_counter() - t0
-                check(proc.returncode == 0, f"sp: the {SP} ranks of {name}: exit {proc.returncode}\n"
-                                            f"{stdout[-3000:]}\n{stderr[-5000:]}")
-        finally:  # a failed check leaves no process behind
-            for proc in (*ranks_procs.values(), *one_train.values()):
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+    tmp = bg.tmp / "sp"
+    tmp.mkdir()
+    tree = write_nuscenes_tree(tmp / "nusc", num_points=SP_POINTS, seed=18)
+    (tmp / "tree.json").write_text(json.dumps(tree))
+    keys = []
+    for names in SP_PAIRS:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        keys.append(f"ranks: {', '.join(names)}")
+        bg.start(keys[-1], ["-m", "torch.distributed.run", "--nproc-per-node", str(SP), "--master-addr",
+                            "localhost", "--master-port", str(port), str(REPO / "chip_smoke.py"), "sp-rank",
+                            str(tmp), *names], nice=SP_NICE)
+    for what, names in (("paths", SP_CONFIGS + SP_FORWARD), ("train", SP_CONFIGS + SP_BRANCHES)):
+        keys.append(f"one process {what}")
+        bg.start(keys[-1], [str(REPO / "chip_smoke.py"), "sp-one", str(tmp), what, *names], nice=SP_NICE)
+    return keys
 
-        for name in SP_CONFIGS:
-            ranks = [torch.load(tmp / f"sp_rank{r}-{name}.pt", weights_only=False) for r in range(SP)]
-            outs, launches, per_call = ranks[0]["paths"]
-            want, one_launches, _ = one[name]
-            lines = {}
-            for what in want:
-                dname = what.split()[-1]
-                calls = SP_STEPS if what.startswith("ddim") else 1
-                for r in ranks:
-                    got_launches = r["paths"][1][what]
-                    for k in per_call:
-                        check(got_launches[k] == per_call[k] * calls,
-                              f"sp {name} {what} rank {r['rank']}: {k} launches {got_launches[k]} != "
-                              f"{per_call[k]} x {calls}")
-                got = outs[what]
-                scale = float(want[what].abs().max())
-                diff = (got - want[what]).abs()
-                err, norm_rel = float(diff.max()), float(diff.norm() / want[what].norm())
-                within = float((diff <= SP_FRAME_RTOL[dname] * scale).float().mean())
-                extra = {}
-                check(bool(torch.isfinite(got).all()) and got.shape == want[what].shape, f"sp {name} {what}: shape")
-                if what.startswith("forward"):
-                    check(err <= SP_FRAME_RTOL[dname] * scale,
-                          f"sp {name} {what}: max |sp - one| {err:.3g} > {SP_FRAME_RTOL[dname]} x {scale:.3g}")
-                elif dname == "float32":
-                    check(within >= SP_SAMPLE_SHARE and norm_rel <= SP_FRAME_RTOL[dname],
-                          f"sp {name} {what}: {within:.5f} of the values within {SP_FRAME_RTOL[dname]} of the "
-                          f"largest, norm-relative difference {norm_rel:.3g}")
-                else:
-                    f32 = f"ddim@{SP_STEPS} float32"
-                    spread = float((want[what] - want[f32]).norm())
-                    extra = {"norm_rel_to_float32_sample": float((got - want[f32]).norm() / want[f32].norm()),
-                             "one_process_norm_rel_to_float32_sample": spread / float(want[f32].norm())}
-                    check(float((got - want[f32]).norm()) <= SP_BF16_SAMPLE_FACTOR * spread,
-                          f"sp {name} {what}: farther from the float32 sample than {SP_BF16_SAMPLE_FACTOR} x the "
-                          f"one-process bfloat16 sample")
-                lines[what] = {"max_abs_err": err, "scale": scale, "rel_err": err / scale,
-                               "tol": SP_FRAME_RTOL[dname], "share_within_tol": within,
-                               "norm_rel_err": norm_rel, **extra,
-                               "seconds_sp": launches[what]["seconds"], "seconds_one": one_launches[what]["seconds"],
-                               "launches_sp_per_rank": {k: v for k, v in launches[what].items() if k != "seconds"},
-                               "launches_one": {k: v for k, v in one_launches[what].items() if k != "seconds"}}
-                by_path[f"sp={SP} {name} {what}"] = {k: v * SP for k, v in launches[what].items()
-                                                     if k != "seconds" and v}
-            # training: losses, parameters and first moments after the steps
-            sp_records = ranks[0]["train"]["records"]
-            losses, one_losses = [r["loss"] for r in sp_records], [r["loss"] for r in one_records[name]]
-            check(len(losses) == len(one_losses) == SP_TRAIN_STEPS, f"sp {name}: losses {losses} / {one_losses}")
-            for a, b in zip(losses, one_losses):
-                check(abs(a - b) <= SP_LOSS_RTOL * max(1.0, abs(b)), f"sp {name}: loss {a} != {b}")
-            ckpt = f"ckpt_{SP_TRAIN_STEPS:010d}"
-            sp_state, one_state = (torch.load(tmp / side / name / ckpt / "state.pt", weights_only=True)
-                                   for side in ("sp", "one"))
-            param_err = flat_rel(sp_state["models"], one_state["models"])
-            mu_err = flat_rel(sp_state["opt_state"]["mu"], one_state["opt_state"]["mu"])
-            check(param_err <= SP_PARAM_RTOL, f"sp {name}: parameters after the steps {param_err:.3g} rel L2")
-            check(mu_err <= SP_PARAM_RTOL, f"sp {name}: Adam's first moments {mu_err:.3g} rel L2")
-            train_launches = [r["train"]["launches"] for r in ranks]
-            for r, got_launches in zip(ranks, train_launches):
-                for k in per_call:  # the forward of each step; the backward launches nothing
-                    check(got_launches[k] == per_call[k] * SP_TRAIN_STEPS,
-                          f"sp {name} train rank {r['rank']}: {k} launches {got_launches[k]} != "
-                          f"{per_call[k]} x {SP_TRAIN_STEPS}")
-            by_path[f"sp={SP} {name} train"] = {k: v * SP for k, v in train_launches[0].items() if v}
-            emit({"phase": "sp", "config": name, "card": smi, "sp": SP, "ranks_on_one_card": SP, "backend": "gloo",
-                  "batch": SP_BATCH, "per_call_sp": per_call, "paths": lines,
-                  "train": {"losses_sp": losses, "losses_one": one_losses, "param_rel_l2": param_err,
-                            "first_moment_rel_l2": mu_err,
-                            "step_seconds_sp_ranks": step_seconds(sp_records),
-                            "step_seconds_one_process": step_seconds(one_records[name]),
-                            "seconds_sp_run": ranks[0]["train"]["seconds"],
-                            "launches_per_rank": train_launches[0]}})
-            emit({"phase": "sp", "check": "ranks", "config": name, "card": smi,
-                  "seconds_to_the_ranks_end": ranks_s[name], "devices": [r["device"] for r in ranks]})
+
+def phase_sp(smi: str, bg: Background, keys: list) -> dict:
+    """Phase 18 ("sp"): the azimuth axis on the card.  Two ranks share card 0
+    over gloo (NCCL takes one rank a card) on an (1, 2) mesh, one pair for
+    each tuple of ``SP_PAIRS``, every pair at once, beside two processes
+    running the one-process paths and train CLIs in turn (all on card 0,
+    started by :func:`sp_start` beside phases 12 and 17; the seconds are no
+    speed comparison).  At full width, B=2, seeded weights: ``SP_CONFIGS``
+    (uncond, auto-reg-v2, v0, HDiT) one forward and a DDIM@2 sample in
+    float32 and served in bfloat16, gathered, against the same in one
+    process, then ``train.py --sp 2 --deterministic`` for 2 float32 steps
+    from a synthetic nuScenes tree against the same command in one process;
+    ``SP_FORWARD`` (GLIDE v6, ``OpenAIUNet``, the discrete engine) one
+    forward in each dtype; ``SP_BRANCHES`` (layout, object) the train runs
+    alone, their ranks replicating.  Forwards to ``SP_FRAME_RTOL`` of the
+    largest, samples as ``SP_SAMPLE_SHARE`` says, losses to 1e-5, the
+    parameters after the steps and Adam's first moments to 1e-4 relative
+    L2, exact launches on each rank."""
+    import torch
+
+    t_phase = time.perf_counter()
+    ends = bg.wait(keys, 1000)
+    tmp, by_path = bg.tmp / "sp", {}
+
+    def load(side, name):
+        return torch.load(sp_file(tmp, side, name), weights_only=False)
+
+    for name in SP_CONFIGS + SP_FORWARD + SP_BRANCHES:
+        line = {"phase": "sp", "config": name, "card": smi, "sp": SP, "ranks_on_one_card": SP,
+                "backend": "gloo", "batch": SP_BATCH}
+        ranks, per_call = [load(f"sp_rank{r}", name) for r in range(SP)], None
+        if name not in SP_BRANCHES:
+            want, one_launches, per_call = load("one-paths", name)
+            line |= sp_check_paths(name, ranks, want, one_launches, by_path)
+        if name not in SP_FORWARD:
+            per_step = BRANCH_PER_STEP[name] if name in SP_BRANCHES else per_call
+            line["train"] = sp_check_train(name, tmp, ranks, load("one-train", name), per_step, by_path)
+        emit(line)
+    emit({"phase": "sp", "check": "runs", "card": smi, "nice": SP_NICE, "beside": ["ingest", "export"],
+          "devices": [r["device"] for r in ranks], "seconds_to_the_end": ends})
     emit({"phase": "sp", "check": "phase seconds", "card": smi, "seconds": time.perf_counter() - t_phase})
     return by_path
 
@@ -4750,23 +4973,32 @@ def main() -> int:
     phase_done("branch_train")
     phase_evaluate(rollout_frames, smi)
     phase_done("evaluate")
-    by_path.update(phase_zoo(smi))
-    phase_done("zoo")
-    by_path.update(phase_ingest(smi))
-    phase_done("ingest")
-    by_path.update(phase_data(smi))
-    phase_done("data")
+    # the phases that time kernels, steps or calls first; then phases 17 and
+    # 18 in processes of their own beside phase 12 (host-bound conversions)
     registry_rows, registry_paths = phase_registry(smi)
     by_path.update(registry_paths)
     phase_done("registry")
+    by_path.update(phase_data(smi))
+    phase_done("data")
     detections = phase_sparse(rollout_frames, smi)
     phase_done("sparse")
     phase_objects(rollout_frames, detections, smi)
     phase_done("objects")
-    by_path.update(phase_export(smi))
-    phase_done("export")
-    by_path.update(phase_sp(smi))
-    phase_done("sp")
+    by_path.update(phase_zoo(smi))
+    phase_done("zoo")
+    with tempfile.TemporaryDirectory() as bg_dir:
+        bg = Background(Path(bg_dir))
+        try:
+            export_key, sp_keys = export_start(bg), sp_start(bg)
+            phase_done("start export and sp")
+            by_path.update(phase_ingest(smi))
+            phase_done("ingest")
+            by_path.update(export_finish(bg, export_key))
+            phase_done("export")
+            by_path.update(phase_sp(smi, bg, sp_keys))
+            phase_done("sp")
+        finally:
+            bg.stop()
     emit({"phase": "script", "check": "seconds by phase", "seconds": marks, "total_seconds": time.perf_counter() - t0})
 
     # each kernel at its largest main-path shape, float32 (the default serving
@@ -4838,6 +5070,9 @@ def main() -> int:
             "dtype": "float32", "core_route": first["route"],
             "bf16": {key: bf16[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                 "max_abs_err", "tol", "norm_rel_err", "route")},
+            # OACA's 64³ rows over gathered keys (v0's shard), float32 and bfloat16
+            **{sub: [{key: r[key] for key in sub_keys} for r in rows if r["kernel"] == k and r.get("sub") == sub]
+               for sub in {r["sub"] for r in rows if r["kernel"] == k and "sub" in r}},
         })
     # the probe: launched once per process, when the kernels load (this
     # process's load; the train CLI processes of phase 13 load their own)
@@ -4858,5 +5093,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["sp-rank"]:
-        sys.exit(sp_rank_main(Path(sys.argv[2]), sys.argv[3]))
+        sys.exit(sp_rank_main(Path(sys.argv[2]), sys.argv[3:]))
+    if sys.argv[1:2] == ["sp-one"]:
+        sys.exit(sp_one_main(Path(sys.argv[2]), sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:2] == ["export-lane"]:
+        sys.exit(export_lane_main(Path(sys.argv[2])))
     sys.exit(main())

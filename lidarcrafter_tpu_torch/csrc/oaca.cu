@@ -14,8 +14,10 @@
 // ipe_k is ipe.  Under the azimuth axis (parallel/mesh.py, sp > 1) a rank's
 // queries are its columns of the image, and its keys k_c, v_c are every
 // rank's columns gathered in the global token order, with the whole
-// positional strip as ipe_k (Lk = sp * Lq).  Every route takes any Lk but
-// (64, 64, 64), which takes Lk = Lq only.
+// positional strip as ipe_k (Lk = sp * Lq: the v1-v6 stacks at 32^3, the v0
+// LayoutUnet at 64^3).  Every route and instantiation takes any Lk: the
+// image key tiles run over Lk rows, the last one masked past Lk (n_full
+// counts the whole tiles of Lk).
 //
 // The TPU kernel kept the whole K/V strip in VMEM and took one plain
 // softmax.  On Hopper the strip does not fit a block's shared memory (at
@@ -372,15 +374,15 @@ int launch_dims(const OacaArgs& a, int dc, int dp, int dv, cudaStream_t s, bool 
     if constexpr (is_f32<T>()) return launch_core<Oaca<T, 32, 16>>(a, dp, s);
     return launch_core<Oaca32<T>>(a, dp, s);
   }
-  if (dc == 64 && dp == 64 && dv == 64 && a.Lk == a.Lq) return launch_core<Oaca<T, 64, 64>>(a, dp, s);
+  if (dc == 64 && dp == 64 && dv == 64) return launch_core<Oaca<T, 64, 64>>(a, dp, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns a cudaError_t code; cudaErrorInvalidValue for head dims other than
-// (32, 16, 32), (32, 32, 32), (32, 64, 32) and (64, 64, 64) (Lk = Lq only), a
-// layout length this build does not cover, or a scale that is not positive.
+// (32, 16, 32), (32, 32, 32), (32, 64, 32) and (64, 64, 64), a layout length
+// this build does not cover, or a scale that is not positive.
 static int check_args(const OacaArgs& a, int dtype) {
   if (a.L2 < 0 || a.L2 > BK || a.Lq <= 0 || a.Lk <= 0 || a.B <= 0 || a.H <= 0 || a.B * a.H > 65535 ||
       !(a.scale2 > 0) || (dtype != kFloat32 && dtype != kBFloat16))

@@ -9,6 +9,12 @@ denoiser receives as they are.  ``p_loss`` / ``p_step`` take their noise as
 an optional input and otherwise draw it from a ``torch.Generator``, so a
 caller can inject the JAX key chain's draws.  ``dtype`` is the serving
 precision of the denoiser call, as in :class:`ContinuousDiffusion`.
+
+Data parallelism and the mesh's ``sp`` axis as in the continuous engine: the
+loss draws its timesteps and noise at the global batch's size and keeps this
+rank's ``rows`` (and columns), its per-sample sums span the ``sp`` ranks
+before the division, and ``sample(..., mesh=)`` runs the reverse loop on
+this rank's share of x_T and of each step's draws, gathering x_0 at the end.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..draws import Rows
+from ..parallel.mesh import Mesh, azimuth, batch_sharding
 from . import schedules
 from .continuous import _bcast
 
@@ -137,8 +145,11 @@ class DiscreteDiffusion:
         x_t, noise = self.q_step_from_x_0(x_0, steps, noise, generator)
         loss = self.criterion(self.denoise(x_t, steps), self.get_target(x_0, steps, noise))
         axes = tuple(range(1, x_0.ndim))
-        loss = torch.sum(loss * loss_mask, dim=axes) / (torch.sum(loss_mask, dim=axes) + 1e-8)
-        return torch.mean(loss * self.get_loss_weight(steps))
+        total, count = torch.sum(loss * loss_mask, dim=axes), torch.sum(loss_mask, dim=axes)
+        mesh = azimuth()
+        if mesh is not None:  # the sample's sums over every rank's columns
+            total, count = mesh.sum_sp(torch.stack([total, count])).unbind(0)
+        return torch.mean(total / (count + 1e-8) * self.get_loss_weight(steps))
 
     def loss(
         self,
@@ -147,12 +158,16 @@ class DiscreteDiffusion:
         loss_mask: torch.Tensor | None = None,
         steps: torch.Tensor | None = None,
         noise: torch.Tensor | None = None,
+        rows: Rows | None = None,
     ) -> torch.Tensor:
         """Training loss at uniform integer timesteps in [0, T): ``steps``,
-        then the noise, drawn from ``generator`` unless given."""
+        then the noise, drawn from ``generator`` unless given, at the global
+        batch's size with this rank's ``rows`` kept (all rows by default)."""
+        rows = rows or Rows.whole(x_0.shape[0])
         if steps is None:
-            steps = torch.randint(0, self.num_training_steps, (x_0.shape[0],), generator=generator,
-                                  device=x_0.device)
+            steps = rows.randint(self.num_training_steps, generator, x_0.device)
+        if noise is None:
+            noise = rows.randn(generator, x_0.device, x_0.shape[1:], x_0.dtype)
         return self.p_loss(x_0, steps, noise, loss_mask, generator)
 
     def p_step(
@@ -163,10 +178,12 @@ class DiscreteDiffusion:
         eta: float = 0.0,
         generator: torch.Generator | None = None,
         noise: torch.Tensor | None = None,
+        rows: Rows | None = None,
     ) -> torch.Tensor:
         """One reverse step from integer ``steps`` to the step before; no
         noise at step 0.  The noise is drawn from ``generator`` unless given
-        (DDIM with eta 0 draws none)."""
+        (DDIM with eta 0 draws none; at the whole batch's size, cut to
+        ``rows``, when given)."""
         n = x_t.ndim
         beta = self._at(0, steps, n)
         alpha = 1 - beta
@@ -184,8 +201,8 @@ class DiscreteDiffusion:
             x_0 = torch.clamp(x_0, -self.clip_sample_range, self.clip_sample_range)
 
         def draw():
-            z = noise if noise is not None else torch.randn(
-                x_t.shape, generator=generator, device=x_t.device, dtype=x_t.dtype)
+            rows_ = rows or Rows.whole(x_t.shape[0])
+            z = noise if noise is not None else rows_.randn(generator, x_t.device, x_t.shape[1:], x_t.dtype)
             return z * (1 - _bcast((steps == 0).to(x_t.dtype), n))
 
         if mode == "ddpm":
@@ -201,6 +218,16 @@ class DiscreteDiffusion:
             return x_s + std * draw() if eta > 0 else x_s
         raise ValueError(mode)
 
+    def reverse(self, x: torch.Tensor, num_steps: int, mode: Literal["ddpm", "ddim"],
+                generator: torch.Generator | None = None, rows: Rows | None = None) -> torch.Tensor:
+        """x_T → x_0 through the integer steps num_steps - 1, ..., 0; each
+        step's noise from ``generator`` (this rank's ``rows`` of the whole
+        draw, when given)."""
+        for i in range(num_steps):
+            steps = torch.full((x.shape[0],), num_steps - 1 - i, dtype=torch.int64, device=x.device)
+            x = self.p_step(x, steps, mode=mode, generator=generator, rows=rows)
+        return x
+
     @torch.inference_mode()
     def sample(
         self,
@@ -209,15 +236,21 @@ class DiscreteDiffusion:
         mode: Literal["ddpm", "ddim"] = "ddpm",
         x_T: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        mesh: Mesh | None = None,
     ) -> torch.Tensor:
         """From ``x_T`` (drawn from ``generator`` when not given) through the
-        integer steps num_steps - 1, ..., 0; returns x_0 (B, *sampling_shape)."""
+        integer steps num_steps - 1, ..., 0; returns x_0 (B, *sampling_shape).
+        On a ``mesh`` each rank denoises its rows and columns of x_T (and of
+        each step's draws) with the layers sharded over ``sp``, and every
+        rank returns the whole x_0."""
         device = next(self.model.parameters()).device
         if x_T is None:
             x = torch.randn((batch_size, *self.sampling_shape), generator=generator, device=device)
         else:
             x = x_T.to(device=device, dtype=torch.float32)
-        for i in range(num_steps):
-            steps = torch.full((batch_size,), num_steps - 1 - i, dtype=torch.int64, device=device)
-            x = self.p_step(x, steps, mode=mode, generator=generator)
-        return x
+        if mesh is None:
+            return self.reverse(x, num_steps, mode, generator)
+        sharding = batch_sharding(mesh, x.ndim, sp_axis=2)
+        with mesh.active():
+            x_0 = self.reverse(sharding.cut(x), num_steps, mode, generator, sharding.rows(x.shape[0], x.shape[2]))
+        return sharding.gather(x_0)

@@ -82,6 +82,11 @@ class Rows:
                           dtype=dtype)
         return self.cut(self._cut_columns(draw))
 
+    def randint(self, high: int, generator: torch.Generator | None, device) -> torch.Tensor:
+        """Integer draws uniform in [0, ``high``), one a row (``total``),
+        cut (the discrete engine's timesteps)."""
+        return self.cut(torch.randint(0, high, (self.total,), generator=generator, device=device))
+
     def randn(self, generator: torch.Generator | None, device, trailing: tuple = (),
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Standard normal draws of shape (total, *trailing), cut; under a

@@ -49,14 +49,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (content, positional, value) head dims the kernel runs: 32^3 for the
 # v1-v6 and auto-reg stacks, 64^3 for the v0 LayoutUnet, and positional
 # strips of half and twice the content width on 32-channel heads
-# (channels_scale_for_positional_embedding 0.5 and 2)
+# (channels_scale_for_positional_embedding 0.5 and 2); each takes image keys
+# of any length Lk (gathered under the azimuth axis)
 HEAD_DIMS = ((32, 32, 32), (64, 64, 64), (32, 16, 32), (32, 64, 32))
 _MAX_L2 = 64  # layout tokens: one shared-memory key tile
 # every head dims' instantiation runs on the warp-specialised TMA core
 # (csrc/oaca.cu, Oaca), except where ``route`` keeps the 32-wide ones'
 # cp.async + mma.sync loader, which ``launch(on=...)`` also times beside it
-# on the same operands.  (64, 64, 64) takes Lk = Lq only.
-_SQUARE_64 = (64, 64, 64)
+# on the same operands.
 
 
 def takes_mma(dc: int, dp: int, dv: int, dtype: torch.dtype) -> bool:
@@ -165,9 +165,6 @@ def _check(q_c, ipe, k_c, k_l, v_c, v_l, scale: float, ipe_k) -> None:
         raise ValueError(f"oaca_attention kernel takes L2 <= {_MAX_L2} and B*heads <= 65535")
     if not all(loader.tma_addressable(t) for t in ops):
         raise ValueError("oaca_attention kernel's TMA route takes rows < 2^31 and strides < 2^40 bytes")
-    if (dc, dp, dv) == _SQUARE_64 and Lk != Lq:
-        raise ValueError(f"oaca_attention kernel's (64, 64, 64) route takes image keys of the queries' own "
-                         f"length, got Lk={Lk} for Lq={Lq} (head dims 32 take any Lk)")
     if not scale > 0:
         raise ValueError(f"oaca_attention kernel takes a positive scale, got {scale}")
 
@@ -279,8 +276,7 @@ def oaca_attention(q_c, ipe, k_c, k_l, v_c, v_l, *, scale: float, ipe_k=None) ->
     ``mma.sync``, except float32 at the 32-wide head dims, on the cp.async
     + mma.sync loader.  Returns (B, heads,
     Lq, dv) in the operands' dtype; on the card its memory is laid out (B, Lq, heads, dv), so that merging
-    the heads back into channels is free.  At (64, 64, 64) the card takes
-    Lk = Lq only (else ``ValueError``).  With grad enabled and an operand
+    the heads back into channels is free.  With grad enabled and an operand
     that requires grad, the result carries :class:`OacaAttention`'s
     backward (on the CPU: autograd of the plain version); otherwise the
     kernel is launched directly, or, while ``torch.export`` traces the

@@ -31,6 +31,18 @@ return to the stream's dtype before the RoPE.  The stream turns float32 at
 the first attention output (its float32 logits promote the values), as in
 the JAX model, so a bf16 call computes in float32 from there on.
 
+Under the mesh's ``sp`` axis (``parallel/mesh.py``) each rank holds some
+token columns of every level: the patch conv, the mapping networks, the
+feed-forwards and the patch merging and expanding are local on shards that
+stay even to the global level (``train.py::check_sp``); the learnable
+``spatial_pe``, the absolute embedding's coordinates and the RoPE tables are
+cut to the rank's columns; a neighbourhood attention takes a ring halo of
+``kw // 2`` token columns of its (rotated) keys and values from the
+neighbouring ranks and indexes the shard plus its halo
+(:func:`halo_neighborhood_indices`; the H clamp unchanged); the global
+level's attention gathers every rank's keys and values in the global token
+order.
+
 Submodules carry the JAX package's names, so a flax parameter path maps onto
 a ``state_dict`` key one to one (``weights.py``): the norms' ``scale`` is
 ``weight``; the attention's per-head log scale keeps the name ``scale``
@@ -50,6 +62,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import azimuth
 from . import encoding as enc
 from .ops import softmax_f32_math
 
@@ -135,6 +148,18 @@ def neighborhood_indices(H: int, W: int, kh: int, kw: int, circular_w: bool = Tr
     return hh.reshape(H, W, kh * kw), ww.reshape(H, W, kh * kw)
 
 
+def halo_neighborhood_indices(H: int, W: int, kh: int, kw: int) -> np.ndarray:
+    """(H, W, kh·kw) flat indices of each token's neighbours in an
+    (H, W + 2·(kw // 2)) map: a shard of W columns with a halo of kw // 2
+    columns on each side.  Rows are clamped as :func:`neighborhood_indices`
+    clamps them; the window of column w is columns w … w + kw − 1 of the
+    map, centred on w, whose wrap the halo carries."""
+    hh, _ = neighborhood_indices(H, W, kh, kw)
+    ww = np.arange(W)[:, None] + np.arange(kw)[None]
+    ww = np.broadcast_to(ww[None, :, None, :], (H, W, kh, kw)).reshape(H, W, kh * kw)
+    return hh * (W + 2 * (kw // 2)) + ww
+
+
 class SelfAttention(nn.Module):
     """Global (``kernel_size`` None) or circular-neighbourhood cosine
     attention with axial RoPE over the tokens of one level.
@@ -166,6 +191,7 @@ class SelfAttention(nn.Module):
         self.register_buffer("rope_cos", torch.cos(theta), persistent=False)
         self.register_buffer("rope_sin", torch.sin(theta), persistent=False)
         self.kernel_size = kernel_size
+        self._halo_cache = {}
         if kernel_size is not None:
             H, W = coords.shape[:2]
             hh, ww = neighborhood_indices(H, W, *kernel_size, circular_w=True)
@@ -184,20 +210,44 @@ class SelfAttention(nn.Module):
             t32 = t32 / torch.clamp(torch.linalg.vector_norm(t32, dim=-1, keepdim=True), min=self.eps)
             return (t32 * scale).to(t.dtype)
 
-        q = rope_rotate(normalize(q), self.rope_cos, self.rope_sin)
-        k = rope_rotate(normalize(k), self.rope_cos, self.rope_sin)
+        cos, sin = self.rope_cos, self.rope_sin
+        mesh = azimuth()
+        if mesh is not None:  # this rank's columns of the level's angles
+            cols = mesh.columns(cos.shape[1])
+            cos, sin = cos[:, cols], sin[:, cols]
+        q = rope_rotate(normalize(q), cos, sin)
+        k = rope_rotate(normalize(k), cos, sin)
+        neighbors = self.neighbors if self.kernel_size is not None else None
+        Wk = W  # the key map's columns: under the mesh, the shard's and its halo
+        if mesh is not None and self.kernel_size is None:  # every rank's keys and values, in the global order
+            k, v = mesh.gather_w(torch.cat([k, v], dim=-1)).chunk(2, dim=-1)
+        elif mesh is not None:  # the shard with a halo of the neighbours' columns
+            pad = self.kernel_size[1] // 2
+            left, right = mesh.halo(torch.cat([k, v], dim=-1), pad, pad)
+            k, v = torch.cat([left, torch.cat([k, v], dim=-1), right], dim=2).chunk(2, dim=-1)
+            neighbors, Wk = self._halo_neighbors(H, W, x.device), W + 2 * pad
         v = v.float()
         if self.kernel_size is None:
-            qf, kf, vf = (t.reshape(B, H * W, nh, dh).transpose(1, 2) for t in (q, k, v))
+            qf = q.reshape(B, H * W, nh, dh).transpose(1, 2)
+            kf, vf = (t.reshape(B, -1, nh, dh).transpose(1, 2) for t in (k, v))
             w = softmax_f32_math(torch.einsum("bhtd,bhsd->bhts", qf, kf))
             out = torch.einsum("bhts,bhsd->bhtd", w, vf).transpose(1, 2).reshape(B, H, W, C)
         else:
-            K = self.neighbors.numel() // (H * W)
-            k_n = k.reshape(B, H * W, nh, dh)[:, self.neighbors].reshape(B, H, W, K, nh, dh)
-            v_n = v.reshape(B, H * W, nh, dh)[:, self.neighbors].reshape(B, H, W, K, nh, dh)
+            K = neighbors.numel() // (H * W)
+            k_n = k.reshape(B, H * Wk, nh, dh)[:, neighbors].reshape(B, H, W, K, nh, dh)
+            v_n = v.reshape(B, H * Wk, nh, dh)[:, neighbors].reshape(B, H, W, K, nh, dh)
             w = softmax_f32_math(torch.einsum("bhwnd,bhwknd->bhwnk", q, k_n))
             out = torch.einsum("bhwnk,bhwknd->bhwnd", w, v_n).reshape(B, H, W, C)
         return x + dense(self.out_proj, out)
+
+    def _halo_neighbors(self, H: int, W: int, device) -> torch.Tensor:
+        """:func:`halo_neighborhood_indices` for a shard of W columns, made
+        once per shape and device."""
+        key = (H, W, str(device))
+        if key not in self._halo_cache:
+            idx = halo_neighborhood_indices(H, W, *self.kernel_size)
+            self._halo_cache[key] = torch.as_tensor(idx.reshape(-1), device=device)
+        return self._halo_cache[key]
 
 
 class GEGLU(nn.Module):
@@ -370,16 +420,18 @@ class HDiT(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         B = x.shape[0]
         t = t.expand(B) if t.ndim == 0 else t
-        H, W = self.resolution
         ph, pw = self.patch_size
-        th, tw = H // ph, W // pw
         emb = self.time_embedding(t)
 
         h = self.tokenizer(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        th, tw = h.shape[1:3]  # this rank's token columns under the azimuth axis
+        mesh = azimuth()
         if self.spatial_pe is not None:
-            h = h + self.spatial_pe
+            pe = self.spatial_pe
+            h = h + (pe if mesh is None else pe[:, :, mesh.columns(pe.shape[2])])
         elif self.pos_encoding is not None:
-            pemb = dense(self.ape_linear, self.pos_encoding.to(h.dtype))
+            pos = self.pos_encoding if mesh is None else self.pos_encoding[:, mesh.columns(self.pos_encoding.shape[1])]
+            pemb = dense(self.ape_linear, pos.to(h.dtype))
             h = h + self.spatial_mapping(pemb)[None]
         skips = []
         for i in range(self.levels):
@@ -402,4 +454,4 @@ class HDiT(nn.Module):
                 h = self.get_submodule(f"up_{i}_{j}")(h, emb)
 
         h = dense(self.detok_linear, self.detok_norm(h)).reshape(B, th, tw, ph, pw, self.out_channels)
-        return h.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, self.out_channels)
+        return h.permute(0, 1, 3, 2, 4, 5).reshape(B, th * ph, tw * pw, self.out_channels)

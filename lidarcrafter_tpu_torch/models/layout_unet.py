@@ -10,14 +10,16 @@ resampling.  Submodules carry the JAX package's names, so a flax parameter
 path maps onto a ``state_dict`` key one to one (``weights.py``).  Tokens
 flatten row-major (h·W + w).
 
-``LayoutUnetV1`` with OACA runs under the mesh's ``sp`` axis
-(``parallel/mesh.py``): the ring convs, FIR resampling and GroupNorms as
-``ops.py`` says, the coordinate encoding and the queries' positional rows
-cut to this rank's columns, and OACA attending from this rank's queries
-over every rank's image keys (gathered in the global token order, with the
-whole positional strip) and the layout strip every rank holds.  Average
-pooling and nearest up-sampling are local on even shards.  The v0 stack
-(zero-padded convs) and GLIDE's block are not sp-aware.
+Both stacks run under the mesh's ``sp`` axis (``parallel/mesh.py``): the
+ring and zero-padded convs, FIR resampling and GroupNorms as ``ops.py``
+says, the coordinate encoding and the queries' positional rows cut to this
+rank's columns, and OACA attending from this rank's queries over every
+rank's image keys (gathered in the global token order, with the whole
+positional strip) and the layout strip every rank holds; GLIDE's block
+attends from this rank's queries over every rank's image keys and values,
+gathered in the global token order, behind the encoder's tokens.  Average
+pooling, nearest up-sampling and the stride-2 convs are local on even
+shards (each starts on an even global column).
 """
 
 from __future__ import annotations
@@ -150,13 +152,15 @@ class GLIDEAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: dict | None = None) -> torch.Tensor:
         B, H, W, C = x.shape
-        if azimuth() is not None:
-            raise NotImplementedError("GLIDE's attention block is not sp-aware")
         nh = self.num_heads
         dh = C // nh
         tokens = x.reshape(B, H * W, C)
-        qkv = self.qkv(self.norm(tokens)).view(B, H * W, nh, 3 * dh)
-        q, k, v = (t.transpose(1, 2) for t in qkv.split(dh, dim=-1))
+        qkv = self.qkv(self.norm(x)).view(B, H, W, nh, 3 * dh)
+        q, k, v = (t.reshape(B, H * W, nh, dh).transpose(1, 2) for t in qkv.split(dh, dim=-1))
+        mesh = azimuth()
+        if mesh is not None:  # this rank's queries over every rank's keys and values, in the global order
+            kv = mesh.gather_w(qkv[..., dh:]).reshape(B, -1, nh, 2 * dh)
+            k, v = (t.transpose(1, 2) for t in kv.split(dh, dim=-1))
         if cond is not None and self.encoder_kv is not None:
             ekv = self.encoder_kv(cond["xf_out"])
             ek, ev = (t.transpose(1, 2) for t in ekv.view(B, -1, nh, 2 * dh).split(dh, dim=-1))

@@ -21,6 +21,12 @@ Submodules carry the JAX package's names, so a flax parameter path maps
 onto a ``state_dict`` key one to one (``weights.py``).  The constructor
 takes the JAX model's fields and nothing else; like the JAX package, no
 config of the registry builds it and no factory route reaches it.
+
+Under the mesh's ``sp`` axis (``parallel/mesh.py``) the trunk runs as the
+layout UNet's does (``layout_unet.py``), the coordinate encodings cut to
+this rank's columns; the transformers' self-attention attends from this
+rank's tokens over every rank's keys and values, gathered in the global
+token order, and their cross-attention over the context every rank holds.
 """
 
 from __future__ import annotations
@@ -33,7 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import azimuth
 from . import encoding as enc
+from .efficient_unet import coords_of
 from .layout_unet import Downsample, GLIDEAttentionBlock, ResBlockADM, Upsample
 from .ops import GroupNorm32, RingConv
 
@@ -64,9 +72,11 @@ class GEGLU(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Multi-head attention of ``x`` over ``context`` (``x`` itself when
-    None); bias-free q / k / v projections, softmax of the logits over
-    √head_dim."""
+    """Multi-head attention of the tokens ``x`` (B, ..., dim) over
+    ``context`` (B, L, context_dim; ``x`` itself when None); bias-free q /
+    k / v projections, softmax of the logits over √head_dim.  Under the
+    azimuth axis a self-attention's ``x`` is the rank's columns of an NHWC
+    token map, whose keys and values it gathers from every rank."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int | None = None):
         super().__init__()
@@ -78,14 +88,19 @@ class CrossAttention(nn.Module):
         self.to_out = nn.Linear(inner, dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
+        B, nh, hd = x.shape[0], self.num_heads, self.head_dim
+        q = self.to_q(x).reshape(B, -1, nh, hd)
         ctx = x if context is None else context
-        B, L, _ = x.shape
-        q = self.to_q(x).view(B, L, self.num_heads, self.head_dim)
-        k = self.to_k(ctx).view(B, ctx.shape[1], self.num_heads, self.head_dim)
-        v = self.to_v(ctx).view(B, ctx.shape[1], self.num_heads, self.head_dim)
-        attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(self.head_dim)
+        k, v = self.to_k(ctx), self.to_v(ctx)
+        mesh = azimuth() if context is None else None
+        if mesh is not None:  # this rank's tokens over every rank's keys and values
+            if x.ndim != 4:
+                raise ValueError("a self-attention under the azimuth axis takes an NHWC token map")
+            k, v = mesh.gather_w(torch.cat([k, v], dim=-1)).chunk(2, dim=-1)
+        k, v = k.reshape(B, -1, nh, hd), v.reshape(B, -1, nh, hd)
+        attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
         out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(attn, dim=-1), v)
-        return self.to_out(out.reshape(B, L, -1))
+        return self.to_out(out.reshape(*x.shape[:-1], -1))
 
 
 class BasicTransformerBlock(nn.Module):
@@ -110,7 +125,8 @@ class BasicTransformerBlock(nn.Module):
 
 class SpatialTransformer(nn.Module):
     """GroupNorm (32 groups, eps 1e-6) → Linear in → ``depth`` transformer
-    blocks over the H·W tokens → zero-initialised Linear out, plus the skip."""
+    blocks over the H·W tokens (kept as an NHWC map, token order h·W + w)
+    → zero-initialised Linear out, plus the skip."""
 
     def __init__(self, channels: int, num_heads: int, head_dim: int, depth: int = 1,
                  context_dim: int | None = None):
@@ -124,11 +140,10 @@ class SpatialTransformer(nn.Module):
         self.proj_out = nn.Linear(inner, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
-        B, H, W, C = x.shape
-        h = self.proj_in(self.norm(x)).reshape(B, H * W, -1)
+        h = self.proj_in(self.norm(x))
         for d in range(self.depth):
             h = self.get_submodule(f"block{d}")(h, context)
-        return x + self.proj_out(h.reshape(B, H, W, -1))
+        return x + self.proj_out(h)
 
 
 class OpenAIUNet(nn.Module):
@@ -271,7 +286,7 @@ class OpenAIUNet(nn.Module):
 
         h = x
         if self.coords is not None:
-            h = torch.cat([h, self.coords.to(h.dtype)[None].expand(B, -1, -1, -1)], dim=-1)
+            h = torch.cat([h, coords_of(self.coords, h)], dim=-1)
         h = self.in_conv(h)
         hs = [h]
         ds = 1

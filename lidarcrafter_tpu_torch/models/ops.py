@@ -12,7 +12,8 @@ azimuth axis (W) is periodic, so horizontal padding is circular ("ring").
 Under the mesh's ``sp`` axis (``parallel/mesh.py``) each rank holds some
 columns of every activation.  Inside ``Mesh.active`` the ring pad, the ring
 convs and the FIR resampling take their W halo from the neighbouring ranks
-(:func:`ring_wrap`), the GroupNorms of image activations merge their
+(:func:`ring_wrap`; zero-padded ones, ``ring=False``, take zeros past the
+global ends instead of the wrap), the GroupNorms of image activations merge their
 statistics over the ranks, and the self-attention keeps its queries and
 attends over every rank's keys and values, gathered in the global token
 order.  Shards are even at every level, so the resampling's crops and
@@ -35,15 +36,18 @@ from ..parallel.mesh import azimuth
 _RSQRT2 = 1.0 / math.sqrt(2.0)  # the residual blocks' output scale
 
 
-def ring_wrap(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
-    """NHWC ``x`` with ``left`` and ``right`` columns of the periodic W
-    around it: its own far edges in one process, the neighbouring ranks'
-    edges under the azimuth axis."""
+def ring_wrap(x: torch.Tensor, left: int, right: int, ring: bool = True) -> torch.Tensor:
+    """NHWC ``x`` with ``left`` and ``right`` columns of W around it: of the
+    periodic W when ``ring`` (its own far edges in one process), zeros
+    otherwise; under the azimuth axis the neighbouring ranks' edges, and
+    past the global ends the wrap or zeros."""
     mesh = azimuth()
-    if mesh is None:
-        return torch.cat([x[:, :, x.shape[2] - left:], x, x[:, :, :right]], dim=2)
-    halo_left, halo_right = mesh.ring_halo(x, left, right)
-    return torch.cat([halo_left, x, halo_right], dim=2)
+    if mesh is not None:
+        halo_left, halo_right = mesh.halo(x, left, right, wrap=ring)
+        return torch.cat([halo_left, x, halo_right], dim=2)
+    if not ring:
+        return F.pad(x, (0, 0, left, right))
+    return torch.cat([x[:, :, x.shape[2] - left:], x, x[:, :, :right]], dim=2)
 
 
 def ring_pad(x: torch.Tensor, pad: int | tuple[int, int, int, int], ring: bool = True) -> torch.Tensor:
@@ -52,13 +56,7 @@ def ring_pad(x: torch.Tensor, pad: int | tuple[int, int, int, int], ring: bool =
     ``pad`` is (left, right, top, bottom) or a single int for all sides.
     """
     left, right, top, bottom = (pad,) * 4 if isinstance(pad, int) else pad
-    if ring:
-        x = ring_wrap(x, left, right)
-    elif azimuth() is not None:
-        raise NotImplementedError("zero W padding of an azimuth-sharded tensor (ring=False) is not sp-aware")
-    else:
-        x = F.pad(x, (0, 0, left, right))
-    return F.pad(x, (0, 0, 0, 0, top, bottom))
+    return F.pad(ring_wrap(x, left, right, ring), (0, 0, 0, 0, top, bottom))
 
 
 def sinusoidal_embedding(x: torch.Tensor, channels: int, max_period: int = 10_000) -> torch.Tensor:
@@ -130,8 +128,10 @@ class RingConv(nn.Module):
         p = self.padding
         if p and self.ring:
             x = ring_wrap(x, p, p)
-        elif p and azimuth() is not None:
-            raise NotImplementedError("a zero-padded conv over an azimuth-sharded tensor (ring=False) is not sp-aware")
+        elif p and azimuth() is not None:  # the W zeros of the ends, the neighbours' columns between
+            conv = self.conv_0
+            x = to_nchw(ring_wrap(x, p, p, ring=False))
+            return to_nhwc(F.conv2d(x, conv.weight, conv.bias, conv.stride, (p, 0)))
         return to_nhwc(self.conv_0(to_nchw(x)))
 
 

@@ -15,11 +15,15 @@ neighbour ``collective-permute``s.  The port has no partitioner, so the
 layers exchange what they need through the mesh themselves, inside
 :meth:`Mesh.active` (:func:`azimuth` names the mesh there):
 
-- :meth:`Mesh.ring_halo`: the neighbours' edge columns of an NHWC tensor,
+- :meth:`Mesh.halo`: the neighbours' edge columns of an NHWC tensor,
   periodic over the ring of ``sp`` ranks (``models/ops.py``: the ring
-  convs and the FIR resampling);
+  convs and the FIR resampling; HDiT's neighbourhood attention), or with
+  zeros past the global ends (``wrap=False``: the zero-padded convs of v0's
+  ``LayoutUnet``);
 - :meth:`Mesh.gather_w`: a tensor's columns from every ``sp`` rank, in the
-  global column order (the attention blocks' keys and values);
+  global column order (the attention blocks' keys and values: OACA,
+  ``SelfAttention2d``, GLIDE's block, the ``SpatialTransformer``'s
+  self-attention, HDiT's global level);
 - :meth:`Mesh.gather_sp`: one tensor from every ``sp`` rank, stacked in rank
   order (the GroupNorm partials, ``kernels/groupnorm.py``);
 - :meth:`Mesh.sum_sp`: a sum over the ``sp`` ranks (the loss's per-sample
@@ -147,18 +151,26 @@ class Mesh:
         by default) from every ``sp`` rank, in the global order."""
         return torch.cat(self.gather_sp(x).unbind(0), dim=dim)
 
-    def ring_halo(self, x: torch.Tensor, left: int, right: int) -> tuple[torch.Tensor, torch.Tensor]:
+    def halo(self, x: torch.Tensor, left: int, right: int, wrap: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
         """The ``left`` columns before ``x``'s first (the last of the rank on
-        the left, the last rank's for rank 0) and the ``right`` columns after
-        its last (the first of the rank on the right, rank 0's for the last
-        rank) of an NHWC shard; differentiable, each halo's gradient added
-        to its owner's columns."""
+        the left) and the ``right`` columns after its last (the first of the
+        rank on the right) of an NHWC shard (axis 2; any trailing axes).
+        Past the global ends the ring wraps (rank 0's left halo is the last
+        rank's columns, the last rank's right halo rank 0's), or with
+        ``wrap=False`` the halo there is zeros, as a zero-padded axis has.
+        Differentiable: each halo's gradient is added to its owner's
+        columns (a zero halo sends none)."""
         W = x.shape[2]
         if left > W or right > W:
             raise ValueError(f"a halo of ({left}, {right}) columns reaches past the neighbours' {W} columns")
         edges = self.gather_sp(torch.cat([x[:, :, :right], x[:, :, W - left:]], dim=2))
         i = self.sp_index
-        return edges[(i - 1) % self.sp][:, :, right:], edges[(i + 1) % self.sp][:, :, :right]
+        halo_left, halo_right = edges[(i - 1) % self.sp][:, :, right:], edges[(i + 1) % self.sp][:, :, :right]
+        if not wrap and i == 0:
+            halo_left = torch.zeros_like(halo_left)
+        if not wrap and i == self.sp - 1:
+            halo_right = torch.zeros_like(halo_right)
+        return halo_left, halo_right
 
     def sp_only(self) -> "Mesh":
         """This rank's ``sp`` group as a mesh of its own (dp = 1)."""

@@ -36,11 +36,14 @@ Under ``torchrun --nproc-per-node N`` the run is data-parallel
 each process trains on its rows of it, and rank 0 logs and checkpoints.
 ``--sp S`` makes the group a (N / S, S) mesh (``parallel/mesh.py``): the S
 ranks of one ``dp`` index share its rows and each takes its columns of the
-range images (the JAX CLI's ``--sp``).  Only the stacks whose layers are
-sp-aware take it (:data:`SP_ARCHITECTURES`: ``EfficientUNet`` and
-``LayoutUnetV1`` with ``ObjectAwareCrossAttention``); the others are
-refused by name, and W must split into S shards that stay even down to
-the deepest level.
+range images (the JAX CLI's ``--sp``), for every denoiser of
+:data:`SP_ARCHITECTURES` (``EfficientUNet``, ``LayoutUnetV1`` with OACA or
+GLIDE's block, v0's ``LayoutUnet``, ``OpenAIUNet``, HDiT) under either
+engine; W must split into S shards that stay even down to the deepest
+level.  The layout and object branches replicate over the S ranks, as the
+JAX trainer does.  MeanFlow is refused by name: the ``torch.func.jvp`` of
+its loss would cross the halos and exchanges, which have no forward-mode
+rule.
 
 Usage::
 
@@ -49,6 +52,7 @@ Usage::
       --num-steps 1000 --output-dir runs/ar --log-dir runs/ar/log [--resume]
   torchrun --nproc-per-node 4 -m lidarcrafter_tpu_torch.train -c nuscenes-box-layout-v6 -b 8 ...
   torchrun --nproc-per-node 4 -m lidarcrafter_tpu_torch.train -c nuscenes-auto-reg-v2 --sp 2 -b 4 ...
+  torchrun --nproc-per-node 2 -m lidarcrafter_tpu_torch.train -c nuscenes-hdit-uncond --sp 2 -b 2 ...
   python -m lidarcrafter_tpu_torch.train -c nuscenes-box-layout-v6 --synthetic-data --num-steps 1000
 """
 
@@ -171,20 +175,20 @@ def build_trainer(cfg, seed: int, device: str | torch.device = "cuda", text_feat
     return cls(cfg, data, device=device, **kw)
 
 
-# the denoisers whose layers are sp-aware (ring halos, merged GroupNorm
-# statistics, gathered attention keys), and the only attention block of
-# LayoutUnetV1 that is
-SP_ARCHITECTURES = ("efficient_unet", "layout_unet_v1")
-SP_ATTENTION = "ObjectAwareCrossAttention"
+# the denoisers whose layers are sp-aware (ring and zero-padded halos,
+# merged GroupNorm statistics, gathered attention keys)
+SP_ARCHITECTURES = ("efficient_unet", "layout_unet_v1", "layout_unet", "openai_unet", "hdit")
 
 
 def check_sp(cfg, sp: int) -> None:
-    """Raise ``ValueError`` unless ``cfg`` trains split over ``sp`` ranks of
-    the azimuth: an sp-aware denoiser (not HDiT, ``OpenAIUNet``, v0's
-    ``LayoutUnet``, GLIDE's attention block in ``LayoutUnetV1`` nor
-    MeanFlow, whose jvp would cross the halos) trained by the continuous
-    engine, and a width W such that W / sp is a multiple of 2^levels: each
-    shard even at every level, the deepest included."""
+    """Raise ``ValueError`` unless ``cfg`` trains on ``sp`` ranks of the
+    azimuth: a branch that replicates over them (layout, object), or an
+    sp-aware denoiser (:data:`SP_ARCHITECTURES`, either engine) on a width W
+    whose shards stay even at every level: W / sp a multiple of 2^levels
+    for the UNets and, for HDiT, of the patch width × 2^(levels − 1) with
+    the deepest local level's shard at least as wide as the neighbourhood's
+    halo.  MeanFlow is refused: the jvp of its loss would cross the halos
+    and exchanges, which have no forward-mode rule."""
     if sp == 1:
         return
     arch = cfg.model.architecture
@@ -192,17 +196,20 @@ def check_sp(cfg, sp: int) -> None:
     if getattr(cfg, "flow", None) is not None:
         raise ValueError(f"--sp: MeanFlow ({arch}) is not sp-aware (its jvp would cross the halos)")
     if trainer_class(cfg) is not Trainer:
-        raise ValueError(f"--sp: the {cfg.data.task} branch ({arch}) trains no range images")
+        return  # the branch replicates over the sp ranks
     if arch not in SP_ARCHITECTURES:
-        raise ValueError(f"--sp: {arch} is not sp-aware (sp-aware: {', '.join(SP_ARCHITECTURES)} "
-                         f"with {SP_ATTENTION})")
-    block = mp.get("attention_block_type", SP_ATTENTION)
-    if arch == "layout_unet_v1" and block != SP_ATTENTION:
-        raise ValueError(f"--sp: layout_unet_v1 with {block} (GLIDE's attention block) is not sp-aware")
-    if cfg.diffusion.timestep_type == "discrete":
-        raise ValueError("--sp: the discrete engine is not sp-aware")
-    levels = len(mp.get("channel_multiplier" if arch == "efficient_unet" else "channel_mult", (1, 2, 4, 8)))
+        raise ValueError(f"--sp: {arch} is not sp-aware (sp-aware: {', '.join(SP_ARCHITECTURES)})")
     H, W = cfg.data.resolution
+    if arch == "hdit":
+        pw, kw = mp.get("patch_size", (1, 4))[1], mp.get("window_size", (3, 9))[1]
+        levels = len(mp.get("depths", (2, 2, 2, 2)))
+        unit = pw * 2 ** (levels - 1)
+        if W % (sp * unit) or W // sp // (unit // 2) < kw // 2:
+            raise ValueError(f"--sp {sp}: W={W} does not split into {sp} shards that stay even down to the deepest "
+                             f"of {levels} levels with a halo of {kw // 2} token columns there (W / sp must be a "
+                             f"multiple of {unit} and at least {unit // 2 * (kw // 2)})")
+        return
+    levels = len(mp.get("channel_multiplier" if arch == "efficient_unet" else "channel_mult", (1, 2, 4, 8)))
     if W % (sp * 2**levels):
         raise ValueError(f"--sp {sp}: W={W} does not split into {sp} shards that stay even down to the deepest of "
                          f"{levels} levels (W / sp must be a multiple of 2^{levels} = {2**levels})")

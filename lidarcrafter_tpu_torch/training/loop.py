@@ -19,12 +19,15 @@ EMA weights and log its renders (a preview that fails logs
 (``parallel``, ``parallel/ddp.py``) each rank trains on its rows of the
 global batch, the engine's loss keeps its rows of the global batch's draws
 (:meth:`Trainer.rank_rows`), and rank 0 alone logs, previews, profiles and
-writes checkpoints.  On a mesh with an ``sp`` axis (``Trainer`` only) the
-ranks of one ``dp`` index share its rows, each keeps its columns of the
-range-image maps (:meth:`Trainer.shard_columns`) and of the loss's draws,
-and the step runs with the layers sharded over ``sp``; the ranks of
-``dp`` index 0 sample the preview together and rank 0 logs the gathered
-frames.
+writes checkpoints.  On a mesh with an ``sp`` axis the ranks of one ``dp``
+index share its rows.  The image trainers split the azimuth: each rank
+keeps its columns of the range-image maps (:meth:`Trainer.shard_columns`)
+and of the loss's draws, and the step runs with the layers sharded over
+``sp``; the ranks of ``dp`` index 0 sample the preview together and rank 0
+logs the gathered frames.  The layout and object branches train no range
+images: their ``sp`` ranks replicate, as the JAX trainer's ``_shard_batch``
+replicates over ``sp``, each taking the same rows and the same draws, so
+that a step equals the step on the ``dp`` ranks alone.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ class Trainer:
     """
 
     loss_has_aux = False  # engine.loss returns (loss, aux) instead of loss
+    splits_azimuth = True  # the step splits the range images over the mesh's sp ranks (the branches replicate)
 
     def __init__(
         self,
@@ -145,7 +149,7 @@ class Trainer:
     @property
     def sharded(self) -> bool:
         """Whether the run splits the azimuth over an ``sp`` axis."""
-        return self.mesh is not None and self.mesh.sp > 1
+        return self.splits_azimuth and self.mesh is not None and self.mesh.sp > 1
 
     def shard_columns(self, prepared):
         """This rank's columns of the prepared batch's range-image maps."""
@@ -160,7 +164,7 @@ class Trainer:
         batch (and columns of its images), whose draws the engine makes
         whole and cuts to them."""
         x_0 = prepared["x_0"] if self.is_cond else prepared
-        return {"rows": self.parallel.rows(x_0.shape[0], x_0.shape[2] * self.mesh.sp)}
+        return {"rows": self.parallel.rows(x_0.shape[0], x_0.shape[2] * self.mesh.sp if self.sharded else None)}
 
     def ema_engine(self, state: TrainState):
         """The engine on the EMA copies of the trained modules."""
@@ -305,6 +309,8 @@ class ObjectTrainer(Trainer):
     ``text_features`` is the (num_class, 512) CLIP class-text table, held
     on the device and fed with every batch."""
 
+    splits_azimuth = False
+
     def __init__(self, cfg, data_iter, text_features, **kw):
         super().__init__(cfg, data_iter, **kw)
         self.text_features = torch.as_tensor(np.asarray(text_features), dtype=torch.float32, device=self.device)
@@ -394,15 +400,17 @@ class LayoutTrainer(Trainer):
     logged) instead of failing.  Both GCNs run on their running statistics,
     which train as parameters (:func:`train_running_statistics_`).
 
-    Under data parallelism each rank pads its scenes to its share of the
-    global budgets, so that the loss, a mean over the padded node budget,
+    Under data parallelism each ``dp`` rank pads its scenes to its share of
+    the global budgets, so that the loss, a mean over the padded node budget,
     averages over the ranks to the one-process loss; a rank's noise rows
     are those of its nodes in the global batch's draws, its padded rows
-    zeros."""
+    zeros.  The ``sp`` ranks of one ``dp`` index replicate its share."""
+
+    splits_azimuth = False
 
     def __init__(self, cfg, data_iter, max_nodes: int | None = None, max_edges: int | None = None, **kw):
         B = cfg.training.batch_size_train
-        world = 1 if kw.get("parallel") is None else kw["parallel"].world
+        world = 1 if kw.get("parallel") is None else kw["parallel"].mesh.dp
         nodes = max_nodes or _round8(B * (MAX_OBJECTS_PER_SCENE + 1))
         edges = max_edges or _round8(B * EDGES_PER_SCENE)
         if B % world or nodes % world or edges % world:
@@ -430,10 +438,10 @@ class LayoutTrainer(Trainer):
         the global node budget, padded to its share of it."""
         if self.real_nodes is None:
             raise ValueError("data-parallel layout training needs collated, unpadded scene-graph batches")
-        P = self.parallel
-        counts = P.gather_int(self.real_nodes)
-        nodes = Rows(sum(counts[:P.rank]), counts[P.rank], self.max_nodes * P.world, self.max_nodes)
-        return {"scene_rows": P.rows(self.cfg.training.batch_size_train // P.world), "node_rows": nodes}
+        P, m = self.parallel, self.mesh
+        counts = P.gather_int(self.real_nodes)[::m.sp]  # one rank a dp index: its sp ranks hold the same scenes
+        nodes = Rows(sum(counts[:m.dp_index]), counts[m.dp_index], self.max_nodes * m.dp, self.max_nodes)
+        return {"scene_rows": P.rows(self.cfg.training.batch_size_train // m.dp), "node_rows": nodes}
 
     def prepare_batch(self, batch: dict) -> dict:
         self.real_nodes = None

@@ -62,6 +62,12 @@ def synthetic_scene_graphs(num_scenes: int, objs_per_scene: int, seed: int = 0) 
     sides alike, no edits.  In every second scene the last object has no
     triple, as a node the converter left unrelated, so the pooling sees
     nodes without messages."""
+    return collate_scene_graphs(synthetic_scene_graph_items(num_scenes, objs_per_scene, seed))
+
+
+def synthetic_scene_graph_items(num_scenes: int, objs_per_scene: int, seed: int = 0) -> list:
+    """The scene items of :func:`synthetic_scene_graphs`, uncollated (a
+    data-parallel rank collates its own scenes)."""
     rng = np.random.default_rng([seed, 1])  # trajectories and text features
     items = []
     for scene, (boxes, classes) in enumerate(_scene_boxes(num_scenes, objs_per_scene, seed)):
@@ -86,7 +92,7 @@ def synthetic_scene_graphs(num_scenes: int, objs_per_scene: int, seed: int = 0) 
             "rel_feats": list(_unit_rows(rng, len(triples))),
         }
         items.append({"encoder": graph, "decoder": graph, "manipulate": {"type": "none"}})
-    return collate_scene_graphs(items)
+    return items
 
 
 def synthetic_object_boxes(num_scenes: int, objs_per_scene: int, seed: int = 0) -> dict:

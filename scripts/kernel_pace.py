@@ -11,7 +11,8 @@ block (8 heads of 32, 13 encoder tokens in front of 2,048), and
 layout strip: head dims 32³ at ds4 (8 heads over 2,048 tokens, the main
 path), ds8 (16 heads over 512) and a ragged 1,000, (32, 64, 32) at ds4, the
 ``sp`` = 2 shard (1,024 queries over 2,048 gathered keys), and the v0
-stack's 64³ at ds4 and ragged 1,000.  B = 8 everywhere; operands laid out as
+stack's 64³ at ds4, ragged 1,000 and its ``sp`` = 2 shard (a checkout whose
+64³ route takes no gathered keys prints that row as ``refused``).  B = 8 everywhere; operands laid out as
 the blocks hand them (per-head views of one fused projection), each timed as
 ``chip_smoke.py`` times a kernel row (CUDA events over 20 calls after 3
 warm-ups, queued behind a ~30 ms sleep).
@@ -44,7 +45,7 @@ ATTENTION = (("d_block4", 8, 512, 512, None, 64, 0), ("u_block4", 8, 512, 512, N
 OACA = (("ds4 32^3", 8, 2048, 2048, (32, 32)), ("ds8 32^3", 16, 512, 512, (32, 32)),
         ("ragged 32^3", 8, 1000, 1000, (32, 32)), ("ds4 (32, 64, 32)", 8, 2048, 2048, (32, 64)),
         ("sp shard 32^3", 8, 1024, 2048, (32, 32)), ("v0 ds4 64^3", 8, 2048, 2048, (64, 64)),
-        ("v0 ragged 64^3", 8, 1000, 1000, (64, 64)))
+        ("v0 ragged 64^3", 8, 1000, 1000, (64, 64)), ("v0 sp shard 64^3", 8, 1024, 2048, (64, 64)))
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -143,8 +144,11 @@ def main() -> int:
             kw = {} if ipe_k is None else {"ipe_k": ipe_k}
             scale = 1 / math.sqrt(math.sqrt(dc + dp))
             row = {"tag": args.tag, "kernel": "oaca", "shape": label, "dtype": dname,
-                   "route": route(oaca, dc, dp, dc, dtype),
-                   "ms": time_ms(lambda: oaca.oaca_attention(*ops, scale=scale, **kw))}
+                   "route": route(oaca, dc, dp, dc, dtype)}
+            try:
+                row["ms"] = time_ms(lambda: oaca.oaca_attention(*ops, scale=scale, **kw))
+            except ValueError as e:  # an older checkout's wrapper refusing the shape
+                row["refused"] = str(e)
             if not args.no_library:
                 q_c, ipe, k_c, k_l, v_c, v_l = ops
                 q_img = torch.cat([q_c, ipe], -1)

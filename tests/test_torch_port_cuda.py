@@ -1606,13 +1606,74 @@ def test_oaca_kernel_at_equal_lengths_is_the_one_process_launch(gen, dtype):
     assert oaca.gathered_launches.n == n_gathered
 
 
-def test_oaca_hopper_route_refuses_gathered_keys(gen):
-    def r(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,Lq,Lk,L2",
+    [(8, 8, 1024, 2048, 13), (2, 3, 1000, 2000, 13), (1, 2, 300, 1200, 0), (2, 1, 77, 154, 64), (1, 2, 64, 128, 13)],
+)
+def test_oaca_hopper_route_takes_gathered_keys(gen, dtype, B, H, Lq, Lk, L2):
+    """OACA at head dims 64³ (v0's ``LayoutUnet``) over gathered image keys
+    with their own positional rows: the ds4 shard of v0 at sp = 2 (Lq 1,024,
+    Lk 2,048), and Lk of no whole key tile (2,000 and 1,200: 128 keys a tile
+    in bfloat16, 64 in float32; 154), one launch of the Hopper core against
+    the plain version."""
+    C = H * 64
+    heads = lambda t, L: t.reshape(B, L, H, -1).transpose(1, 2)  # noqa: E731
+    q_c = heads(torch.randn(B, Lq, 3 * C, generator=gen, device="cuda").to(dtype)[..., :C], Lq)
+    k_c, v_c = (heads(t, Lk) for t in torch.randn(B, Lk, 2 * C, generator=gen, device="cuda").to(dtype).chunk(2, -1))
+    ipe = heads(torch.randn(B, Lq, C, generator=gen, device="cuda").to(dtype), Lq)
+    ipe_k = heads(torch.randn(B, Lk, C, generator=gen, device="cuda").to(dtype), Lk)
+    ops = (q_c, ipe, k_c, torch.randn(B, H, L2, 128, generator=gen, device="cuda").to(dtype), v_c,
+           torch.randn(B, H, L2, 64, generator=gen, device="cuda").to(dtype))
+    scale = 1 / math.sqrt(math.sqrt(128))
+    n, n_gathered = oaca.launches.n, oaca.gathered_launches.n
+    got = oaca.oaca_attention(*ops, scale=scale, ipe_k=ipe_k)
+    torch.cuda.synchronize()
+    assert oaca.launches.n == n + 1 and oaca.gathered_launches.n == n_gathered + 1
+    assert oaca.route(64, 64, 64, dtype) in loader.CORE_ROUTES.values()
+    want = oaca.oaca_attention_plain(*ops, scale=scale, ipe_k=ipe_k)
+    assert got.shape == want.shape == (B, H, Lq, 64) and got.dtype == dtype
+    _assert_close(got, want, dtype)
 
-    ops = (r(1, 2, 64, 64), r(1, 2, 64, 64), r(1, 2, 128, 64), r(1, 2, 13, 128), r(1, 2, 128, 64), r(1, 2, 13, 64))
-    with pytest.raises(ValueError, match="Lk"):
-        oaca.oaca_attention(*ops, scale=0.3, ipe_k=r(1, 2, 128, 64))
+
+# the attention blocks over gathered keys at the sp = 2 shard of the full
+# width: GLIDE v6 (8 heads of 32 at ds4, 16 at ds8, the encoder's 13 tokens
+# in front of every rank's image keys) on the <= 128 routes, OpenAIUNet's
+# one head (256 at ds4, 512 at ds8 and the middle) on the wide route
+SHARD_ATTENTION = {
+    "glide ds4": (2, 8, 1024, 2048, 32, 13),
+    "glide ds8": (2, 16, 256, 512, 32, 13),
+    "openai_unet ds4": (2, 1, 1024, 2048, 256, 0),
+    "openai_unet ds8": (2, 1, 256, 512, 512, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(SHARD_ATTENTION))
+def test_attention_over_gathered_keys_matches_plain(gen, dtype, case):
+    """A rank's queries (per-head views of its packed [q|k|v] projection)
+    over every rank's keys and values (views of the gathered projection,
+    with the encoder's K/V concatenated in front), through the wrapper and,
+    at head dims <= 128, through both routes by name."""
+    B, H, Lq, L, d, enc = SHARD_ATTENTION[case]
+    qkv = torch.randn(B, Lq, H, 3 * d, generator=gen, device="cuda").to(dtype)
+    q = qkv[..., :d].transpose(1, 2)
+    kv = torch.randn(B, L, H, 2 * d, generator=gen, device="cuda").to(dtype)
+    k, v = (t.transpose(1, 2) for t in kv.split(d, dim=-1))
+    if enc:
+        ekv = torch.randn(B, enc, H, 2 * d, generator=gen, device="cuda").to(dtype)
+        ek, ev = (t.transpose(1, 2) for t in ekv.split(d, dim=-1))
+        k, v = torch.cat([ek, k], dim=2), torch.cat([ev, v], dim=2)
+    scale = d**-0.5
+    want = attention.attention_plain(q, k, v, scale=scale)
+    n = attention.launches.n
+    got = attention.attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert attention.launches.n == n + 1
+    assert got.shape == want.shape == (B, H, Lq, d) and got.dtype == dtype
+    _assert_close(got, want, dtype)
+    for on in (ROUTES if d <= 128 else []):
+        _assert_close(attention.launch(q, k, v, scale=scale, kv_len=k.shape[2], on=on), want, dtype)
 
 
 # ------------------------------------------------ both routes at head dims <= 128

@@ -5,31 +5,47 @@
     slices that the port's mesh gives rank r.
 (b) Four gloo ranks (``torch_port_sp_ranks.py``, started once for the
     module) run every sharded case on a (2, 2) and a (1, 4) mesh:
-    ``ring_pad``, ``RingConv``, ``Resample`` up and down, ``FusedGN``,
-    ``AdaGN`` and ``SelfAttention2d`` at sp = 2 and 4, gathered, equal the
-    layer in one process to 1e-6 of max(1, max |out|), and so do the
-    input's gradient and each parameter's (summed over the ranks; 1e-6
-    relative L2).  The small ``nuscenes-unet-uncond`` and
-    ``nuscenes-auto-reg-v2`` stacks (``torch_port_harness``'s ``UncondPair``
-    / ``Pair`` weights) at sp = 2 equal the JAX forward to 1e-4 and the
-    port's one-process forward to 1e-5.  A DDIM@2 sample on the mesh equals
-    the one-process sample bit for bit when the sharded GroupNorms take
-    their statistics from the gathered activations (the control: every
-    other op of the sharded path is exact); with the merged partials it
-    agrees to 2e-2, the JAX package's own limit for its ``sp`` sample
-    (``__graft_entry__.py``): DDIM's first step divides by α(t = 1) ≈ 5.5e-4,
-    which turns the merge's float32 rounding (~1e-6 of the denoiser's
-    output) into ~1e-3 on the few pixels it leaves unclipped.  One train step
-    on the (2, 2) mesh with a loss mask whose shards hold different counts
-    equals one process: loss 1e-5, gradients 1e-4 relative L2.
+    ``ring_pad`` and ``RingConv`` (ring and zero-padded), ``Resample`` up and
+    down, v0's zero-padded ``Downsample`` / ``Upsample``, ``FusedGN``,
+    ``AdaGN``, ``SelfAttention2d``, ``GLIDEAttentionBlock`` (13 encoder
+    tokens in front), ``SpatialTransformer`` (over a context, and over
+    itself twice) and HDiT's neighbourhood and global ``SelfAttention`` at
+    sp = 2 and 4, gathered, equal the layer in one process to 1e-6 of
+    max(1, max |out|), and so do the input's gradient and each parameter's
+    (summed over the ranks; 1e-6 relative L2).  The small stacks at sp = 2
+    (``torch_port_harness``'s ``UncondPair`` / ``Pair`` weights: uncond,
+    auto-reg-v2, v0 with one head of 64 so that OACA runs at 64³, GLIDE v6;
+    HDiT; ``OpenAIUNet`` with GLIDE blocks and with transformers) equal the
+    JAX forward of the whole image to 1e-4 and the port's one-process
+    forward to 1e-5; HDiT with an absolute (spherical-harmonics) embedding,
+    which the JAX package cannot trace (ROADMAP Queue 3 item 18), equals the
+    one-process forward to 1e-5 on seeded weights (``weights.init_random_``).
+    A DDIM@2 sample of uncond and auto-reg-v2 on the mesh equals the
+    one-process sample bit for bit when the sharded GroupNorms take their
+    statistics from the gathered activations (the control: every other op
+    of the sharded path is exact), HDiT's (no statistics to merge) as it
+    is; with the merged partials it agrees to 2e-2, the JAX package's own limit for its ``sp`` sample
+    (``__graft_entry__.py``): DDIM's first step divides by α(t = 1) ≈
+    5.5e-4, which turns the merge's float32 rounding (~1e-6 of the
+    denoiser's output) into ~1e-3 on the few pixels it leaves unclipped.
+    One train step of auto-reg-v2 and of v0, and the discrete engine's loss
+    over the uncond stack, on the (2, 2) mesh with a loss mask whose shards
+    hold different counts equal one process: loss 1e-5, gradients 1e-4
+    relative L2.  One step of ``LayoutTrainer`` and ``ObjectTrainer`` on a
+    (2, 2) group, whose ``sp`` ranks replicate, equals the step in one
+    process on the whole batch (loss 1e-5, gradients 1e-4).
 (c) The plain GroupNorm split, ``partials`` → merge → ``apply``, equals
-    ``group_norm_plain``; the plain OACA with image keys of their own length
-    and positional rows equals the JAX ``oaca_attention``'s XLA path on the
-    gathered operands, a shard of queries at a time.
-(d) ``train.py --sp`` refuses, by name, the architectures that are not
-    sp-aware, and widths that do not split into even shards.
+    ``group_norm_plain``; the plain OACA at head dims 32³ and 64³ with image
+    keys of their own length and positional rows equals the JAX
+    ``oaca_attention``'s XLA path on the gathered operands, a shard of
+    queries at a time.
+(d) ``train.py --sp`` takes every registry config but MeanFlow (and the
+    GLIDE, ``OpenAIUNet`` and discrete variants), refuses MeanFlow by name,
+    and refuses widths that do not split into even shards.
 (e) ``draws.Rows`` with a ``Columns`` window: the ranks' cuts tile the
     one-process draw.
+
+One torch thread in each process (the test's and the ranks').
 """
 
 import os
@@ -43,11 +59,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_layout import small as layout_small
+from test_torch_port_object import small as object_small
+from test_torch_port_openai_unet import NetPair
+from test_torch_port_zoo import UncondZooPair, zoo_cfgs
+from test_torch_port_zoo_rest import GLIDE
 from torch_port_harness import Pair, UncondPair, condition_batch, one_torch_thread  # noqa: F401 (autouse)
 
 from lidarcrafter_tpu.ops.pallas_attention import _oaca_unfused
 from lidarcrafter_tpu.parallel import batch_sharding as jax_batch_sharding
 from lidarcrafter_tpu.parallel import make_mesh as jax_make_mesh
+from lidarcrafter_tpu_torch import configs as tcfgs
 from lidarcrafter_tpu_torch import train as train_cli
 from lidarcrafter_tpu_torch.kernels.groupnorm import (
     group_norm_apply_plain,
@@ -59,9 +81,17 @@ from lidarcrafter_tpu_torch.parallel.mesh import batch_sharding, make_mesh
 
 REPO = Path(__file__).resolve().parent.parent
 WORLD = 4
-LAYERS = ("ring_pad", "RingConv", "Resample up", "Resample down", "FusedGN", "AdaGN", "SelfAttention2d")
-STACKS = ("nuscenes-unet-uncond", "nuscenes-auto-reg-v2")
+LAYERS = ("ring_pad", "RingConv", "Resample up", "Resample down", "FusedGN", "AdaGN", "SelfAttention2d",
+          "ring_pad zeros", "RingConv zeros", "Downsample zeros", "Upsample zeros", "GLIDEAttentionBlock",
+          "SpatialTransformer", "SpatialTransformer self", "HDiT neighbourhood", "HDiT global")
+SAMPLED = ("nuscenes-unet-uncond", "nuscenes-auto-reg-v2", "nuscenes-hdit-uncond")  # also sampled with DDIM@2
+STACKS = SAMPLED + ("nuscenes-box-layout", "nuscenes-box-layout-v6 glide", "openai_unet glide",
+                    "openai_unet transformer")
+HDIT_ABSOLUTE = "nuscenes-hdit-uncond spherical_harmonics"  # no JAX forward (ROADMAP Queue 3 item 18)
+TRAINED = ("nuscenes-auto-reg-v2", "nuscenes-box-layout", "discrete")
+BRANCHES = ("nuscenes-layout", "nuscenes-object")
 SAMPLE_LIMIT = 2e-2  # the JAX package's own limit for its sp sample (__graft_entry__.py)
+V0_EDITS = dict(model={"num_head_channels": 64})  # 64 channels at ds4: one head, OACA dims 64^3
 
 
 # ------------------------------------------------------------------ (a)
@@ -91,37 +121,85 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _jax_cond_forward(pair, x, t) -> np.ndarray:
+    jbatch = {k: jnp.asarray(v) for k, v in pair.batch.items()}
+    jlayout = jax.jit(pair.jmodels["cond"].apply)(pair.params["cond"], jbatch)
+    return np.asarray(jax.jit(pair.jmodels["model"].apply)(
+        pair.params["model"], jnp.asarray(x), {"time_condition": jnp.asarray(t), "other_condition": jlayout}))
+
+
+def _train_batch(jcfg, rnd, with_condition: bool = True):
+    """A (4, H, W, 2) x_0 (with a condition batch) and a loss mask whose
+    ones thin out along W, so that the shards hold different counts."""
+    H, W = jcfg.data.resolution
+    x_0 = torch.as_tensor(rnd.uniform(-1, 1, (4, H, W, 2)).astype(np.float32))
+    mask = (rnd.uniform(size=(4, H, W, 1)) < np.linspace(0.2, 0.9, W)[None, None, :, None]).astype(np.float32)
+    mask = torch.as_tensor(np.broadcast_to(mask, (4, H, W, 2)).copy())
+    if not with_condition:
+        return x_0, mask
+    batch = {k: torch.as_tensor(v) for k, v in condition_batch(jcfg, 4, seed=3).items()}
+    return dict(batch, x_0=x_0), mask
+
+
 def _prepare(out: Path) -> dict:
-    """Both small stacks with the harness's shared weights, their inputs,
+    """The small stacks with the harness's shared weights, their inputs,
     the JAX forwards; the port's share written to ``out/inputs.pt``."""
     rnd = np.random.RandomState(7)
-    inputs, jax_out = {}, {}
-    uncond = UncondPair("nuscenes-unet-uncond")
-    H, W = uncond.jcfg.data.resolution
-    x = rnd.standard_normal((2, H, W, 2)).astype(np.float32)
     t = np.array([-3.0, 5.0], np.float32)
-    jax_out["nuscenes-unet-uncond"] = np.asarray(jax.jit(uncond.jmodel.apply)(uncond.params, jnp.asarray(x),
-                                                                             jnp.asarray(t)))
-    inputs["nuscenes-unet-uncond"] = {
-        "cfg": uncond.tcfg, "state": {"model": uncond.tmodel.state_dict()}, "x": torch.as_tensor(x),
-        "t": torch.as_tensor(t), "x_T": torch.as_tensor(rnd.standard_normal((2, H, W, 2)).astype(np.float32))}
+    inputs, jax_out = {}, {}
 
+    def x_like(jcfg):
+        H, W = jcfg.data.resolution
+        return rnd.standard_normal((2, H, W, 2)).astype(np.float32)
+
+    def uncond_case(name, pair, sampled=False):
+        x = x_like(pair.jcfg)
+        jax_out[name] = np.asarray(jax.jit(pair.jmodel.apply)(pair.params, jnp.asarray(x), jnp.asarray(t)))
+        inputs[name] = {"kind": "uncond", "cfg": pair.tcfg, "state": {"model": pair.tmodel.state_dict()},
+                        "x": torch.as_tensor(x), "t": torch.as_tensor(t)}
+        if sampled:
+            inputs[name]["x_T"] = torch.as_tensor(x_like(pair.jcfg))
+
+    def cond_case(name, pair, sampled=False):
+        x = x_like(pair.jcfg)
+        jax_out[name] = _jax_cond_forward(pair, x, t)
+        inputs[name] = {"kind": "cond", "cfg": pair.tcfg, "state": {k: m.state_dict() for k, m in pair.tmodels.items()},
+                        "x": torch.as_tensor(x), "t": torch.as_tensor(t),
+                        "batch": {k: torch.as_tensor(v) for k, v in pair.batch.items()}}
+        if sampled:
+            inputs[name]["x_T"] = torch.as_tensor(x_like(pair.jcfg))
+        return inputs[name]
+
+    uncond_case("nuscenes-unet-uncond", UncondPair("nuscenes-unet-uncond"), sampled=True)
     ar = Pair("nuscenes-auto-reg-v2", small=True)
-    H, W = ar.jcfg.data.resolution
-    jbatch = {k: jnp.asarray(v) for k, v in ar.batch.items()}
-    jlayout = jax.jit(ar.jmodels["cond"].apply)(ar.params["cond"], jbatch)
-    x = rnd.standard_normal((2, H, W, 2)).astype(np.float32)
-    jax_out["nuscenes-auto-reg-v2"] = np.asarray(jax.jit(ar.jmodels["model"].apply)(
-        ar.params["model"], jnp.asarray(x), {"time_condition": jnp.asarray(t), "other_condition": jlayout}))
-    batch = {k: torch.as_tensor(v) for k, v in ar.batch.items()}
-    train_batch = {k: torch.as_tensor(v) for k, v in condition_batch(ar.jcfg, 4, seed=3).items()}
-    train_batch["x_0"] = torch.as_tensor(rnd.uniform(-1, 1, (4, H, W, 2)).astype(np.float32))
-    mask = (rnd.uniform(size=(4, H, W, 1)) < np.linspace(0.2, 0.9, W)[None, None, :, None]).astype(np.float32)
-    inputs["nuscenes-auto-reg-v2"] = {
-        "cfg": ar.tcfg, "state": {k: m.state_dict() for k, m in ar.tmodels.items()}, "x": torch.as_tensor(x),
-        "t": torch.as_tensor(t), "batch": batch,
-        "x_T": torch.as_tensor(rnd.standard_normal((2, H, W, 2)).astype(np.float32)),
-        "train_batch": train_batch, "loss_mask": torch.as_tensor(np.broadcast_to(mask, (4, H, W, 2)).copy())}
+    cond_case("nuscenes-auto-reg-v2", ar, sampled=True)
+    inputs["nuscenes-auto-reg-v2"]["train_batch"], inputs["nuscenes-auto-reg-v2"]["loss_mask"] = _train_batch(ar.jcfg, rnd)
+    v0 = Pair("nuscenes-box-layout", small=True, cfgs=zoo_cfgs("nuscenes-box-layout", **V0_EDITS))
+    cond_case("nuscenes-box-layout", v0)
+    inputs["nuscenes-box-layout"]["train_batch"], inputs["nuscenes-box-layout"]["loss_mask"] = _train_batch(v0.jcfg, rnd)
+    glide = Pair("nuscenes-box-layout-v6", small=True, cfgs=zoo_cfgs(
+        "nuscenes-box-layout-v6", resolution=(16, 64), model=GLIDE, cond={"resolution_to_attention": (2,)}))
+    cond_case("nuscenes-box-layout-v6 glide", glide)
+    uncond_case("nuscenes-hdit-uncond", UncondZooPair("nuscenes-hdit-uncond"), sampled=True)
+    for kind in ("glide", "transformer"):
+        net = NetPair(kind)
+        jax_out[f"openai_unet {kind}"] = net.want
+        inputs[f"openai_unet {kind}"] = {
+            "kind": "openai", "kw": net.kw, "state": {"model": net.tmodel.state_dict()},
+            "x": torch.as_tensor(net.x), "t": torch.as_tensor(net.t),
+            "y": None if net.y is None else torch.as_tensor(net.y, dtype=torch.int64),
+            "ctx": None if net.ctx is None else torch.as_tensor(net.ctx)}
+    _, tcfg = zoo_cfgs("nuscenes-hdit-uncond", model={"positional_embedding": "spherical_harmonics"})
+    inputs[HDIT_ABSOLUTE] = {"kind": "uncond", "cfg": tcfg, "x": torch.as_tensor(x_like(tcfg)),
+                             "t": torch.as_tensor(t)}
+    jcfg, tcfg = zoo_cfgs("nuscenes-unet-uncond", timestep_type="discrete", num_training_steps=100)
+    x_0, mask = _train_batch(jcfg, rnd, with_condition=False)
+    inputs["discrete"] = {"kind": "uncond", "cfg": tcfg, "train_batch": x_0, "loss_mask": mask}
+    for name, small in (("nuscenes-layout", layout_small), ("nuscenes-object", object_small)):
+        cfg = small(tcfgs)
+        cfg.training.batch_size_train, cfg.training.mixed_precision = 4, "no"
+        inputs[name] = {"cfg": cfg}
+    inputs.update(stacks=STACKS + (HDIT_ABSOLUTE,), train=TRAINED, branches=BRANCHES)
     torch.save(inputs, out / "inputs.pt")
     return jax_out
 
@@ -167,7 +245,14 @@ def test_stack_forward_at_sp2_equals_jax(ranks, name):
     np.testing.assert_allclose(got, one, rtol=0, atol=1e-5 * max(1.0, np.abs(one).max()))
 
 
-@pytest.mark.parametrize("name", STACKS)
+def test_hdit_with_an_absolute_embedding_at_sp2_equals_one_process(ranks):
+    r = ranks[0][HDIT_ABSOLUTE]
+    got, one = r["forward"], r["forward_one"]
+    assert got.shape == one.shape and float(one.abs().max()) > 1e-2
+    torch.testing.assert_close(got, one, rtol=0, atol=1e-5 * max(1.0, float(one.abs().max())))
+
+
+@pytest.mark.parametrize("name", SAMPLED)
 def test_ddim_sample_on_the_mesh(ranks, name):
     r = ranks[0][name]
     one = r["sample_one"]
@@ -176,9 +261,33 @@ def test_ddim_sample_on_the_mesh(ranks, name):
     assert float((r["sample"] - one).abs().max()) <= SAMPLE_LIMIT
 
 
+def test_hdit_sample_on_the_mesh_is_the_one_process_sample_bit_for_bit(ranks):
+    """HDiT merges no statistics across the ranks: its halos and gathers
+    move values, so on the CPU its sample on the sp ranks (the whole batch
+    on each, as one process has it) is one process's, bit for bit."""
+    r = ranks[0]["nuscenes-hdit-uncond"]
+    assert torch.equal(r["sample"], r["sample_one"])
+
+
 def test_train_step_on_a_dp2_sp2_mesh_equals_one_process(ranks):
-    r = ranks[0]["train"]
+    r = ranks[0]["train nuscenes-auto-reg-v2"]
     assert len(set(r["mask_counts"])) == len(r["mask_counts"])  # the shards' masks differ
+    assert abs(r["loss"] - r["loss_one"]) <= 1e-5 * max(1.0, abs(r["loss_one"]))
+    assert r["grad_rel_l2"] <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["nuscenes-box-layout", "discrete"])
+def test_v0_step_and_discrete_loss_on_a_dp2_sp2_mesh_equal_one_process(ranks, name):
+    r = ranks[0][f"train {name}"]
+    assert len(set(r["mask_counts"])) == len(r["mask_counts"])
+    assert abs(r["loss"] - r["loss_one"]) <= 1e-5 * max(1.0, abs(r["loss_one"]))
+    assert r["grad_rel_l2"] <= 1e-4
+
+
+@pytest.mark.parametrize("name", BRANCHES)
+def test_branch_step_replicated_over_sp_equals_one_process(ranks, name):
+    r = ranks[0][f"branch {name}"]
+    assert r["mesh"] == (2, 2) and not r["sharded"]
     assert abs(r["loss"] - r["loss_one"]) <= 1e-5 * max(1.0, abs(r["loss_one"]))
     assert r["grad_rel_l2"] <= 1e-4
 
@@ -202,10 +311,10 @@ def test_group_norm_split_equals_plain(shards, affine):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("sp", [2, 4])
-def test_oaca_plain_with_gathered_keys_equals_jax(sp):
+@pytest.mark.parametrize("sp,d", [(2, 32), (4, 32), (2, 64)])
+def test_oaca_plain_with_gathered_keys_equals_jax(sp, d):
     rnd = np.random.RandomState(sp)
-    B, nh, h, W, L2, d = 2, 2, 4, 32, 13, 32
+    B, nh, h, W, L2 = 2, 2, 4, 32, 13
     L = h * W
 
     def r(*shape):
@@ -227,27 +336,36 @@ def test_oaca_plain_with_gathered_keys_equals_jax(sp):
 # ------------------------------------------------------------------ (d)
 
 
-REFUSED = {
-    "nuscenes-hdit-uncond": ["--sp", "2"],
-    "nuscenes-box-layout": ["--sp", "2"],  # v0's LayoutUnet, zero-padded convs
-    "meanflow-nusc": ["--sp", "2"],
-    "nuscenes-box-layout-v6 glide": ["--sp", "2", "--set", 'model.params.attention_block_type="GLIDE"'],
-    "openai_unet": ["--sp", "2", "--set", 'model.architecture="openai_unet"'],
-    "nuscenes-layout": ["--sp", "2"],
+VARIANTS = {  # registry configs with a model or engine option set
+    "nuscenes-box-layout-v6 glide": ("nuscenes-box-layout-v6", "--set", 'model.params.attention_block_type="GLIDE"'),
+    "openai_unet": ("nuscenes-unet-uncond", "--set", 'model.architecture="openai_unet"'),
+    "discrete": ("nuscenes-unet-uncond", "--set", 'diffusion.timestep_type="discrete"',
+                 "--set", "diffusion.num_training_steps=1000"),
 }
+ACCEPTED = sorted(set(tcfgs.__all__) - {"meanflow-nusc"}) + sorted(VARIANTS)
 
 
-@pytest.mark.parametrize("case", list(REFUSED))
+@pytest.mark.parametrize("case", ["meanflow-nusc"])
 def test_train_cli_refuses_what_is_not_sp_aware(case):
-    name = {"nuscenes-box-layout-v6 glide": "nuscenes-box-layout-v6", "openai_unet": "nuscenes-unet-uncond"}.get(
-        case, case)
     with pytest.raises(SystemExit) as e:
-        train_cli.main(["-c", name, "--device", "cpu", *REFUSED[case]])
-    args = train_cli.build_parser().parse_args(["-c", name, *REFUSED[case]])
-    cfg = train_cli.config_from_args(args)
+        train_cli.main(["-c", case, "--device", "cpu", "--sp", "2"])
+    cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(["-c", case, "--sp", "2"]))
     said = str(e.value)
-    assert "not sp-aware" in said or "trains no range images" in said, said
+    assert "MeanFlow" in said and "not sp-aware" in said and "jvp" in said, said
     assert cfg.model.architecture in said, said
+
+
+@pytest.mark.parametrize("case", ACCEPTED)
+def test_train_cli_takes_every_sp_aware_config(case):
+    """``check_sp`` passes at --sp 2, and the CLI then stops only because
+    no torchrun group is there to split the azimuth over."""
+    name, *extra = VARIANTS.get(case, (case,))
+    args = train_cli.build_parser().parse_args(["-c", name, "--sp", "2", *extra])
+    cfg = train_cli.config_from_args(args)
+    train_cli.check_sp(cfg, 2)
+    with pytest.raises(SystemExit) as e:
+        train_cli.main(["-c", name, "--device", "cpu", "--sp", "2", *extra])
+    assert "torchrun" in str(e.value), str(e.value)
 
 
 @pytest.mark.parametrize("sp,resolution", [(16, "128"), (3, "1024")])
@@ -256,6 +374,17 @@ def test_train_cli_refuses_widths_that_do_not_split_evenly(sp, resolution):
         train_cli.main(["-c", "nuscenes-unet-uncond", "--device", "cpu", "--resolution", "32", resolution,
                         "--sp", str(sp)])
     assert "even down to the deepest" in str(e.value), str(e.value)
+
+
+def test_train_cli_refuses_hdit_shards_narrower_than_the_halo():
+    """W / sp = 32 keeps HDiT's shards even to the global level, but leaves
+    2 token columns a rank at the deepest local level, less than the 3×9
+    window's halo of 4."""
+    train_cli.check_sp(train_cli.config_from_args(train_cli.build_parser().parse_args(
+        ["-c", "nuscenes-hdit-uncond"])), 16)
+    with pytest.raises(SystemExit) as e:
+        train_cli.main(["-c", "nuscenes-hdit-uncond", "--device", "cpu", "--sp", "32"])
+    assert "even down to the deepest" in str(e.value) and "halo of 4" in str(e.value), str(e.value)
 
 
 def test_train_cli_sp_needs_torchrun():

@@ -11,11 +11,16 @@ rank's share of a global input made from a seed, gathers the result, and
 records it beside the same computation in one process (in this process,
 without a mesh): outputs, the input's gradient (gathered) and the
 parameters' gradients (summed over the ``sp`` ranks) of ``sum(out · R)``
-for a random global R.  Imports torch and the port only.
+for a random global R.  The train steps (the auto-reg-v2 and v0 stacks, the
+discrete engine's loss) run on the (2, 2) mesh with a loss mask whose
+shards hold different counts; the layout and object trainers run one step
+on a (2, 2) ``DataParallel`` group, where the ``sp`` ranks replicate, beside
+the same step in one process.  Imports torch and the port only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import sys
 from pathlib import Path
@@ -26,34 +31,62 @@ import torch.distributed as dist
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from lidarcrafter_tpu_torch.models import ops  # noqa: E402
+from lidarcrafter_tpu_torch.diffusion.conditional import AZIMUTH_KEYS  # noqa: E402
+from lidarcrafter_tpu_torch.models import build_model, ops  # noqa: E402
+from lidarcrafter_tpu_torch.models import encoding as enc  # noqa: E402
+from lidarcrafter_tpu_torch.models import hdit, layout_unet, openai_unet  # noqa: E402
+from lidarcrafter_tpu_torch.parallel.ddp import DataParallel  # noqa: E402
 from lidarcrafter_tpu_torch.parallel.mesh import batch_sharding, make_mesh  # noqa: E402
 from lidarcrafter_tpu_torch.training.factory import build_diffusion_training  # noqa: E402
+from lidarcrafter_tpu_torch.training.loop import LayoutTrainer, ObjectTrainer  # noqa: E402
 from lidarcrafter_tpu_torch.training.optim import make_optimizer  # noqa: E402
 from lidarcrafter_tpu_torch.training.state import TrainState  # noqa: E402
-from lidarcrafter_tpu_torch.training.train_step import make_train_step  # noqa: E402
+from lidarcrafter_tpu_torch.training.train_step import loss_and_grads, make_train_step, step_generator  # noqa: E402
+from lidarcrafter_tpu_torch.utils.synthetic import synthetic_object_points, synthetic_scene_graph_items  # noqa: E402
+from lidarcrafter_tpu_torch.datasets.scene_graph import collate_scene_graphs  # noqa: E402
+from lidarcrafter_tpu_torch.weights import init_random_  # noqa: E402
 
-LAYER_SHAPE = (2, 8, 32, 16)  # B, H, W, C: W / 4 = 8 columns a rank at sp = 4
-LAYER_DIMS = {
-    "ring_pad": LAYER_SHAPE,
-    "RingConv": LAYER_SHAPE,
-    "Resample up": LAYER_SHAPE,
-    "Resample down": LAYER_SHAPE,
-    "FusedGN": LAYER_SHAPE,
-    "AdaGN": LAYER_SHAPE,
-    "SelfAttention2d": LAYER_SHAPE,
-}
+LAYER_SHAPE = (2, 8, 32, 32)  # B, H, W, C: W / 4 = 8 columns a rank at sp = 4; 32 channels for GroupNorm32
+LAYERS = ("ring_pad", "RingConv", "Resample up", "Resample down", "FusedGN", "AdaGN", "SelfAttention2d",
+          "ring_pad zeros", "RingConv zeros", "Downsample zeros", "Upsample zeros", "GLIDEAttentionBlock",
+          "SpatialTransformer", "SpatialTransformer self", "HDiT neighbourhood", "HDiT global")
+WINDOWS = ("ring_pad", "ring_pad zeros")  # a rank's output is a window of the whole padded tensor
+# Upsample's conv runs at twice the input's H and W: its input is half as
+# high and wide, so that its output, and the sums of its parameters'
+# gradients (float32, summed over the shards in another order), are as large
+# as the other cases'.  HDiT's global attention runs at its middle level
+# only, the coarsest (W / 32 tokens): a (4, 8) level of tokens, as
+# test_torch_port_hdit.py holds it
+INPUT_SHAPE = {"Upsample zeros": (2, 4, 16, 32), "HDiT global": (2, 4, 8, 32)}
 
 
 def layer(name: str) -> tuple[torch.nn.Module, callable]:
     """A seeded module and how to call it on NHWC ``x``."""
     torch.manual_seed(11)
-    C = LAYER_SHAPE[-1]
-    if name == "ring_pad":
-        return torch.nn.Identity(), lambda m, x: ops.ring_pad(x, (2, 1, 1, 0))
-    if name == "RingConv":
-        m = ops.RingConv(C, 8, ring=True)
+    B, H, W, C = INPUT_SHAPE.get(name, LAYER_SHAPE)
+    if name in WINDOWS:
+        return torch.nn.Identity(), lambda m, x: ops.ring_pad(x, (2, 1, 1, 0), ring=name == "ring_pad")
+    if name in ("RingConv", "RingConv zeros"):
+        m = ops.RingConv(C, 8, ring=name == "RingConv")
         return m, lambda m, x: m(x)
+    if name == "Downsample zeros":  # v0's down step: a stride-2 conv, zero-padded
+        return layout_unet.Downsample(C, ring=False), lambda m, x: m(x)
+    if name == "Upsample zeros":
+        return layout_unet.Upsample(C, ring=False), lambda m, x: m(x)
+    if name == "GLIDEAttentionBlock":  # 2 heads of 16, the encoder's 13 tokens in front
+        m = layout_unet.GLIDEAttentionBlock(C, 2, encoder_channels=12)
+        cond = {"xf_out": torch.randn(B, 13, 12)}
+        return m, lambda m, x: m(x, cond)
+    if name.startswith("SpatialTransformer"):  # self-attention, then over a context or (self) itself again
+        context = None if name.endswith("self") else torch.randn(B, 5, 12)
+        m = openai_unet.SpatialTransformer(C, 2, 8, 1, None if context is None else 12)
+        return m, lambda m, x: m(x, context)
+    if name.startswith("HDiT"):  # 2 heads of 16 over a level of token coordinates
+        coords = hdit._pool2(torch.as_tensor(enc.generate_polar_coords(H, 4 * W), dtype=torch.float32), 1, 4)
+        kernel = (3, 9) if name.endswith("neighbourhood") else None
+        m = hdit.SelfAttention(C, 12, 2, coords, (4, 16), kernel)
+        emb = torch.randn(B, 12)
+        return m, lambda m, x: m(x, emb)
     if name == "Resample up":
         return ops.Resample(up=2), lambda m, x: m(x)
     if name == "Resample down":
@@ -90,12 +123,12 @@ def run_layer(name: str, mesh) -> dict:
     weights its window with its own R."""
     module, call = layer(name)
     gen = torch.Generator().manual_seed(3)
-    x = torch.randn(LAYER_SHAPE, generator=gen)
+    x = torch.randn(INPUT_SHAPE.get(name, LAYER_SHAPE), generator=gen)
     cols = mesh.columns(x.shape[2])
     xs = x[:, :, cols].clone().requires_grad_()
     with mesh.active():
         y = call(module, xs)
-    window = name == "ring_pad"
+    window = name in WINDOWS
     if window:
         r = torch.randn((mesh.sp, *y.shape), generator=gen)
         (y * r[mesh.sp_index]).sum().backward()
@@ -125,41 +158,62 @@ def run_layer(name: str, mesh) -> dict:
             "shape": list(want.shape)}
 
 
-def build(cfg, state: dict):
-    models, engine, _ = build_diffusion_training(cfg, "cpu")
-    mods = models if isinstance(models, dict) else {"model": models}
-    for k, m in mods.items():
-        m.load_state_dict(state[k])
+def build(case: dict) -> tuple[dict, object]:
+    """The case's modules with its weights (``state``; seeded random ones
+    through ``weights.init_random_`` where it has none) and its engine
+    (None for a bare ``OpenAIUNet``)."""
+    if case["kind"] == "openai":
+        mods, engine = {"model": build_model("openai_unet", **case["kw"]).eval()}, None
+    else:
+        models, engine, _ = build_diffusion_training(case["cfg"], "cpu")
+        mods = models if isinstance(models, dict) else {"model": models}
+    for i, (k, m) in enumerate(sorted(mods.items())):
+        if "state" in case:
+            m.load_state_dict(case["state"][k])
+        else:
+            init_random_(m, 5 + i)
     return mods, engine
 
 
+def forward(case: dict, mods: dict, mesh=None) -> torch.Tensor:
+    """The case's denoiser on its whole input, or with a ``mesh`` on this
+    rank's rows and columns of it (the condition's rows; the columns of its
+    maps), gathered."""
+    x, t, kind = case["x"], case["t"], case["kind"]
+    sharding = None if mesh is None else batch_sharding(mesh, 4, sp_axis=2)
+
+    def rows(v):
+        return v if mesh is None or v is None else batch_sharding(mesh, v.ndim).cut(v)
+
+    with torch.no_grad(), contextlib.nullcontext() if mesh is None else mesh.active():
+        xs = x if mesh is None else sharding.cut(x)
+        if kind == "uncond":
+            out = mods["model"](xs, rows(t))
+        elif kind == "cond":
+            batch = case["batch"] if mesh is None else mesh.cut_batch(case["batch"], AZIMUTH_KEYS)
+            out = mods["model"](xs, {"time_condition": rows(t), "other_condition": mods["cond"](batch)})
+        else:
+            cd = {"time_condition": rows(t)}
+            if case.get("ctx") is not None:
+                cd["other_condition"] = rows(case["ctx"])
+            out = mods["model"](xs, cd, y=rows(case.get("y")))
+    return out if mesh is None else sharding.gather(out)
+
+
 def stack_case(name: str, inputs: dict, mesh, out: dict) -> None:
-    """The small stack's forward, its DDIM@2 sample and (with the GroupNorm
+    """The small stack's forward on the mesh and in one process; for the
+    stacks with an ``x_T``, a DDIM@2 sample and (with the GroupNorm
     statistics taken from the gathered activations: every op but the
     statistics exactly as in one process) the same sample again."""
     case = inputs[name]
-    mods, engine = build(case["cfg"], case["state"])
-    x, t = case["x"], case["t"]
-    sharding = batch_sharding(mesh, 4, sp_axis=2)
-    cond = case.get("batch")
-    from lidarcrafter_tpu_torch.diffusion.conditional import AZIMUTH_KEYS
-
-    t_local = batch_sharding(mesh, 1).cut(t)
-    with torch.no_grad():
-        if cond is None:
-            with mesh.active():
-                got = engine.model(sharding.cut(x), t_local)
-            want = engine.model(x, t)
-        else:
-            local = mesh.cut_batch(cond, AZIMUTH_KEYS)
-            with mesh.active():
-                layout = engine.cond_model(local)
-                got = engine.model(sharding.cut(x), {"time_condition": t_local, "other_condition": layout})
-            want = engine.model(x, {"time_condition": t, "other_condition": engine.cond_model(cond)})
-    got = sharding.gather(got)
+    mods, engine = build(case)
+    out[name] = {"forward": forward(case, mods, mesh), "forward_one": forward(case, mods)}
+    if "x_T" not in case:
+        return
     # the samples on this rank's sp group alone, the whole batch on each:
     # the control is bit for bit only where every op sees one process's
     # batch (a convolution of one row and of two may round apart)
+    cond = case.get("batch")
     x_T, sp_mesh = case["x_T"], mesh.sp_only()
     args = () if cond is None else (cond,)
     local_args = () if cond is None else (sp_mesh.cut_batch(cond, AZIMUTH_KEYS),)
@@ -167,8 +221,7 @@ def stack_case(name: str, inputs: dict, mesh, out: dict) -> None:
     sample_one = engine.sample(*args, x_T.shape[0], 2, mode="ddim", x_T=x_T)
     with whole_statistics():
         sample_whole_stats = engine.sample(*local_args, x_T.shape[0], 2, mode="ddim", x_T=x_T, mesh=sp_mesh)
-    out[name] = {"forward": got, "forward_one": want, "sample": sample, "sample_one": sample_one,
-                 "sample_whole_stats": sample_whole_stats}
+    out[name].update(sample=sample, sample_one=sample_one, sample_whole_stats=sample_whole_stats)
 
 
 class whole_statistics:
@@ -196,15 +249,16 @@ class whole_statistics:
         ops.group_norm = self.saved
 
 
-def train_case(inputs: dict, mesh, out: dict) -> None:
-    """One train step of the small auto-reg-v2 stack on the (2, 2) mesh with
-    a loss mask, against the same step in one process."""
-    case = inputs["nuscenes-auto-reg-v2"]
+def train_case(name: str, inputs: dict, mesh, out: dict) -> None:
+    """One train step of the small stack (``train_batch``: x_0 and the
+    conditions; the uncond discrete stack's x_0 alone) on the (2, 2) mesh
+    with a loss mask, against the same step in one process: the loss (the
+    mean of the ranks') and the gradients (their mean over the ranks)."""
+    case = inputs[name]
     batch, mask = case["train_batch"], case["loss_mask"]
-    from lidarcrafter_tpu_torch.diffusion.conditional import AZIMUTH_KEYS
 
     def step(on_mesh: bool):
-        mods, engine = build(case["cfg"], case["state"])
+        mods, engine = build(case)
         opt = make_optimizer(lr=1e-3, warmup_steps=1, num_steps=10)
         captured = []
 
@@ -221,7 +275,7 @@ def train_case(inputs: dict, mesh, out: dict) -> None:
         if not on_mesh:
             _, loss = train_step(state, batch, 0, loss_mask=mask)
             return float(loss), captured
-        local = mesh.cut_batch(batch, AZIMUTH_KEYS)
+        local = mesh.cut_batch(batch, AZIMUTH_KEYS) if isinstance(batch, dict) else sharding.cut(batch)
         rows = sharding.rows(mask.shape[0], mask.shape[2])
         with mesh.active():
             _, loss = train_step(state, local, 0, loss_mask=sharding.cut(mask), rows=rows)
@@ -233,15 +287,58 @@ def train_case(inputs: dict, mesh, out: dict) -> None:
     loss_one, grads_one = step(False)
     flat = torch.cat([g.flatten() for g in grads])
     flat_one = torch.cat([g.flatten() for g in grads_one])
-    out["train"] = {"loss": loss, "loss_one": loss_one,
-                    "grad_rel_l2": float((flat - flat_one).norm() / flat_one.norm()),
-                    "mask_counts": [int(c) for c in mask_counts(mask, mesh)]}
+    out[f"train {name}"] = {"loss": loss, "loss_one": loss_one,
+                            "grad_rel_l2": float((flat - flat_one).norm() / flat_one.norm()),
+                            "mask_counts": [int(c) for c in mask_counts(mask, mesh)]}
 
 
 def mask_counts(mask: torch.Tensor, mesh) -> list:
     """The loss mask's ones in each sp shard of sample 0."""
     W = mask.shape[2]
     return [mask[0, :, j * W // mesh.sp:(j + 1) * W // mesh.sp].sum() for j in range(mesh.sp)]
+
+
+class CapturingParallel(DataParallel):
+    """A ``DataParallel`` rank that keeps the averaged gradients of its last
+    step."""
+
+    def average_(self, tensors):
+        super().average_(tensors)
+        self.grads = [t.clone() for t in tensors]
+
+
+def branch_case(name: str, inputs: dict, rank: int, world: int, out: dict) -> None:
+    """One step of the branch's trainer on a (2, 2) group (each ``dp`` index
+    on its scenes or objects, its ``sp`` ranks replicating them), against
+    the step's loss and gradients in one process on the whole batch."""
+    case = inputs[name]
+    cls, cfg, seed = (LayoutTrainer if name == "nuscenes-layout" else ObjectTrainer), case["cfg"], 0
+    P = CapturingParallel(rank, world, torch.device("cpu"), sp=2)
+    dp = P.mesh.dp
+    if cls is LayoutTrainer:
+        items = synthetic_scene_graph_items(cfg.training.batch_size_train, 3, seed=6)
+        n = len(items) // dp
+        whole, mine = collate_scene_graphs(items), collate_scene_graphs(items[P.mesh.dp_index * n:][:n])
+        kw = dict(max_nodes=32, max_edges=128)
+    else:
+        whole = synthetic_object_points(2, cfg.training.batch_size_train // 2, cfg.data.num_samples, seed=6)
+        text = whole.pop("fg_text_features")
+        n = len(whole["fg_class"]) // dp
+        mine = {k: v[P.mesh.dp_index * n:][:n] for k, v in whole.items()}
+        kw = dict(text_features=text)
+    logs = []
+    trainer = cls(cfg, iter([mine]), log_fn=logs.append, device="cpu", parallel=P, **kw)
+    trainer.train(num_steps=1, seed=seed, log_every=1)
+    one = cls(cfg, iter(()), log_fn=None, device="cpu", **kw)
+    state = one.init_state(seed)
+    prepared = one.prepare_batch(whole)
+    loss_one, grads_one = loss_and_grads(one.engine, state.params(), prepared, generator=step_generator(seed, 0, "cpu"),
+                                         **one._loss_kwargs())
+    flat, flat_one = (torch.cat([g.flatten() for g in gs]) for gs in (P.grads, grads_one))
+    losses = [r["loss"] for r in logs if "loss" in r]
+    out[f"branch {name}"] = {"loss": losses[0] if losses else None, "loss_one": float(loss_one),
+                             "grad_rel_l2": float((flat - flat_one).norm() / flat_one.norm()),
+                             "sharded": trainer.sharded, "mesh": (P.mesh.dp, P.mesh.sp)}
 
 
 def main(rank: int, world: int, port: int, out_dir: Path) -> None:
@@ -251,11 +348,14 @@ def main(rank: int, world: int, port: int, out_dir: Path) -> None:
     inputs = torch.load(out_dir / "inputs.pt", weights_only=False)
     out = {"layers": {}}
     for sp, mesh in meshes.items():
-        for name in LAYER_DIMS:
+        for name in LAYERS:
             out["layers"][f"{name} sp={sp}"] = run_layer(name, mesh)
-    for name in ("nuscenes-unet-uncond", "nuscenes-auto-reg-v2"):
+    for name in inputs["stacks"]:
         stack_case(name, inputs, meshes[2], out)
-    train_case(inputs, meshes[2], out)
+    for name in inputs["train"]:
+        train_case(name, inputs, meshes[2], out)
+    for name in inputs["branches"]:
+        branch_case(name, inputs, rank, world, out)
     if rank == 0:
         torch.save(copy.deepcopy(out), out_dir / "results.pt")
     dist.barrier()
