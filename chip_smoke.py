@@ -304,9 +304,9 @@ Phases, each printing one JSON line:
    (``torchrun --nproc-per-node 2`` of this script as ``chip_smoke.py
    sp-rank DIR NAME...``; each rank joins its group on card 0 over gloo:
    NCCL takes one rank a card) on a (1, 2) mesh, one pair of ranks for each
-   of uncond, auto-reg-v2, v0 and HDiT, one for GLIDE v6, ``OpenAIUNet``
-   and the discrete engine in turn and one for the two branches, every
-   pair at once, beside two processes (``chip_smoke.py sp-one``) running
+   of uncond, auto-reg-v2, v0 and HDiT, one for GLIDE v6, ``OpenAIUNet``,
+   the discrete engine and MeanFlow in turn and one for the two branches,
+   every pair at once, beside two processes (``chip_smoke.py sp-one``) running
    the one-process paths and train CLIs in turn.  At full width, B=2, seeded weights:
    ``nuscenes-unet-uncond``, ``nuscenes-auto-reg-v2``,
    ``nuscenes-box-layout`` (v0: zero-padded convs, OACA 64³ over gathered
@@ -318,13 +318,17 @@ Phases, each printing one JSON line:
    time where that is lower; bfloat16 as ``SP_BF16_SAMPLE_FACTOR`` says); GLIDE v6,
    ``OpenAIUNet`` (phase 14's, GLIDE blocks of one head of 256 / 512) and
    the discrete engine over the uncond stack one forward in each dtype;
+   ``meanflow-nusc`` one forward in each dtype, the tangent du/dt along
+   (v, 1, 0) of its loss in float32 (to the forwards' limit) and its
+   one-step sample in each dtype (as the DDIM@2 samples are held), each
+   path's exchanges a call on its line;
    exact launches on each rank (a norm of image activations two GroupNorm
    launches, ``partials`` and ``apply``; OACA's token norms one; every OACA
    over gathered keys; the attention blocks one each; HDiT none); then
    ``train.py --sp 2``'s ``main`` on the ranks' group against the train CLI
    in one process, 2 float32 steps each from a synthetic nuScenes tree with
    ``--deterministic``, for
-   the four stacks and for ``nuscenes-layout`` and
+   the four stacks, MeanFlow and ``nuscenes-layout`` and
    ``nuscenes-object`` (whose ranks replicate): losses to 1e-5, the
    parameters and Adam's first moments after the steps to 1e-4 relative
    L2, exact launches; step seconds (all runs share the card at once: not a
@@ -332,7 +336,10 @@ Phases, each printing one JSON line:
    half of the uncond level-0 AdaGN, and the ds4 shards (Lq 1,024) of OACA
    over gathered keys at 32³ and 64³ (Lk 2,048, and a ragged Lq 1,000 /
    Lk 2,000 at 64³), GLIDE v6's attention (13 + 2,048 keys) and
-   ``OpenAIUNet``'s (one head of 256 over 2,048 keys).
+   ``OpenAIUNet``'s (one head of 256 over 2,048 keys), and the MeanFlow
+   loss's tangents there: the split norm under ``torch.func.jvp`` (one
+   ``gn_partials`` and one ``gn_apply`` launch) and ``attention_jvp`` at
+   d_block4's shard (Lq 256 over 512 gathered keys).
 
 The phases run in the order of their numbers, but for 14, 13, 15, 16 and
 11, which run after 10; phases 17 and 18 then run in processes of their own
@@ -434,10 +441,12 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 3  # steps of the B=8 training runs
 # the loss gates' steps (nuscenes-auto-reg-v2 on banded range images at B=2):
 # 30 (in a 40-step run the losses at step 31 lay 38%, 65% and 11% below the
 # mean of the first 10 on auto-reg-v2, layout and MeanFlow, at step 21 4%,
-# 45% and 7%); the object branch, whose loss falls by ~10% in 100 steps of
-# ~13 ms each, keeps 100
+# 45% and 7%); the layout and MeanFlow branches, past the 4% of auto-reg-v2's
+# warm-up at step 21, take 20 (the script's time goes to phase 18's MeanFlow
+# pair); the object branch, whose loss falls by ~10% in 100 steps of ~13 ms
+# each, keeps 100
 GATE_STEPS, GATE_BATCH = 30, 2
-GATE_STEPS_BY_CONFIG = {"nuscenes-object": 100}
+GATE_STEPS_BY_CONFIG = {"nuscenes-object": 100, "nuscenes-layout": 20, "meanflow-nusc": 20}
 # the layout and object branches: 8 scenes of ego + 12 objects (13 nodes, the
 # frame stack's layout_length; N = 104), and the 96 objects of those scenes
 LAYOUT_SCENES, LAYOUT_OBJECTS = 8, 12
@@ -807,12 +816,14 @@ def check_groupnorm_split(label, shape, sp, dtype, scale_shift, silu, gen, group
     elt = torch.finfo(dtype).bits // 8
     rows = []
     x_nchw = x.reshape(B, -1, 1, C).permute(0, 3, 1, 2)
+    x_groups = x.view(B, -1, groups, C // groups)
     for kernel, route, err, n_bytes, ops_per, ms, plain_ms, library in (
         ("groupnorm_partials", GN_PARTIALS_ROUTE, kernel_errors(f"groupnorm_partials {label}", dname,
                                                                  mean_var(parts[0]), mean_var(plain_parts[0])),
          elt * x.numel() + 4 * 3 * B * groups, 4.0,
          time_ms(lambda: groupnorm.launch_partials(x, groups)),
-         time_ms(lambda: groupnorm.group_norm_partials_plain(x, groups)), None),
+         time_ms(lambda: groupnorm.group_norm_partials_plain(x, groups)),
+         time_ms(lambda: torch.var_mean(x_groups, dim=(1, 3), correction=0))),
         ("groupnorm_apply", GN_APPLY_ROUTE, kernel_errors(f"groupnorm_apply {label}", dname, got, want),
          elt * (2 * x.numel() + 2 * C * affine + 2 * B * C * scale_shift) + 4 * parts.numel(), 10.0,
          time_ms(lambda: groupnorm.launch_apply(x, parts, w, b, s, t, **args)),
@@ -824,10 +835,143 @@ def check_groupnorm_split(label, shape, sp, dtype, scale_shift, silu, gen, group
             "kernel": kernel, "shape": label, "dtype": dname, "route": route, "sp": sp, "groups": groups,
             "scale_shift": scale_shift, "silu": silu, "affine": affine, **err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library,
-            "library": None if library is None else "F.group_norm on the shard (its own statistics; affine only)",
+            "library": ("torch.var_mean over the shard's groups (no count, no M2)" if kernel == "groupnorm_partials"
+                        else "F.group_norm on the shard (its own statistics; affine only)"),
             "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
         })
     return rows
+
+
+def library_jvp(fn, primals, tangents) -> tuple[float | None, str]:
+    """Device ms of ``torch.func.jvp`` of one PyTorch call, or None and the
+    error where the call has no forward-mode rule on the card."""
+    import torch
+
+    try:
+        torch.func.jvp(fn, primals, tangents)
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"raises: {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return time_ms(lambda: torch.func.jvp(fn, primals, tangents), iters=5, warmup=1), "ok"
+
+
+def check_groupnorm_split_jvp(label, shape, sp, dtype, gen, groups=8, eps=1e-6):
+    """Phase 2, the MeanFlow loss's tangent through an azimuth-sharded norm:
+    rank 0's shard of ``shape`` (AdaGN's scale-shift + SiLU, the level-0
+    norms of the MeanFlow stack) under ``torch.func.jvp``: the rank's
+    ``gn_partials`` and ``gn_apply`` launches through their Functions, the
+    tangent from their forward-mode rules, the other shards' partials (the
+    kernel's) and their tangents as the exchange hands them; against
+    ``torch.func.jvp`` through the plain split, timed beside it and beside
+    ``torch.func.jvp`` of ``F.group_norm`` on the shard (NCHW, its own
+    statistics)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lidarcrafter_tpu_torch.kernels import groupnorm
+
+    def r(*size, scale=1.0):
+        return (scale * torch.randn(*size, generator=gen, device=DEVICE)).to(dtype)
+
+    B, C = shape[0], shape[-1]
+    whole, dwhole = r(*shape, scale=2.0) + 1, r(*shape)
+    shards, dshards = ([z.contiguous() for z in t.chunk(sp, dim=2)] for t in (whole, dwhole))
+    others = torch.stack([groupnorm.launch_partials(z, groups) for z in shards[1:]])
+    dothers = torch.stack([groupnorm.group_norm_partials_jvp(z, d, groups) for z, d in zip(shards[1:], dshards[1:])])
+    primals, tangents = (shards[0], r(B, 2 * C, scale=0.3), others), (dshards[0], r(B, 2 * C), dothers)
+
+    def rank(partials, apply):
+        def norm(x, proj, others):
+            s, t = proj.chunk(2, dim=-1)
+            parts = torch.cat([partials(x, groups)[None], others])
+            return apply(x, parts, None, None, num_groups=groups, eps=eps, scale=s, shift=t, silu=True)
+        return norm
+
+    call = rank(groupnorm.group_norm_partials, groupnorm.group_norm_apply)
+    plain = rank(groupnorm.group_norm_partials_plain, groupnorm.group_norm_apply_plain)
+    counters = (groupnorm.partials_launches, groupnorm.apply_launches)
+    before = [c.n for c in counters]
+    out, tan = torch.func.jvp(call, primals, tangents)
+    torch.cuda.synchronize()
+    launched = [c.n - n for c, n in zip(counters, before)]
+    dname = str(dtype).split(".")[-1]
+    check(launched == [1, 1], f"groupnorm split jvp {label} {dname}: {launched} partials / apply launches, not 1 / 1")
+    want_out, want_tan = torch.func.jvp(plain, primals, tangents)
+    kernel_errors(f"groupnorm split jvp {label} primal", dname, out, want_out)
+    errors = kernel_errors(f"groupnorm split jvp {label} tangent", dname, tan, want_tan)
+    del out, tan, want_out, want_tan
+    x, dx = primals[0], tangents[0]
+    x_nchw, dx_nchw = (t.reshape(B, -1, 1, C).permute(0, 3, 1, 2).contiguous() for t in (x, dx))
+    library, said = library_jvp(lambda z: F.group_norm(z, groups, None, None, eps), (x_nchw,), (dx_nchw,))
+    n = x.numel()
+    nbytes = torch.finfo(dtype).bits // 8 * (4 * n + 4 * B * C) + 4 * 2 * others.numel()
+    bound, by = bound_ms(nbytes, 30.0 * n, work_route("groupnorm", dname))
+    return {
+        "kernel": "groupnorm_apply", "sub": "split jvp", "pass": "jvp", "shape": label, "dtype": dname,
+        "route": JVP_ROUTE, "sp": sp, "groups": groups, "launches_per_call": {"groupnorm_partials": 1,
+                                                                               "groupnorm_apply": 1},
+        **errors,
+        "ms": time_ms(lambda: torch.func.jvp(call, primals, tangents), iters=5, warmup=1),
+        "plain_ms": time_ms(lambda: torch.func.jvp(plain, primals, tangents), iters=5, warmup=1),
+        "library_ms": library, "library": f"torch.func.jvp of F.group_norm on the shard (NCHW, its own statistics, "
+                                          f"no scale-shift): {said}",
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": 30.0 * n,
+    }
+
+
+def check_attention_jvp_gathered(label, B, H, L, d, sp, dtype, gen):
+    """Phase 2, the MeanFlow loss's tangent through its attention block on
+    the azimuth axis: a rank's L / sp queries (its normed q, pre-scaled)
+    over the L keys and values gathered from every rank (views of one
+    (B, L, 2, heads, d) tensor), under ``torch.func.jvp`` (one kernel
+    launch, the tangent from ``attention_jvp``) against ``torch.func.jvp``
+    through the plain version, timed beside it and beside ``torch.func.jvp``
+    of ``F.scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from lidarcrafter_tpu_torch.kernels import attention
+
+    def r(*size):
+        return torch.randn(*size, generator=gen, device=DEVICE).to(dtype)
+
+    Lq = L // sp
+    primals, tangents = (r(B, Lq, H, d) * d**-0.5, r(B, L, 2, H, d)), (r(B, Lq, H, d), r(B, L, 2, H, d))
+
+    def heads(q, kv):
+        k, v = kv.unbind(dim=2)
+        return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def call(q, kv):
+        return attention.attention(*heads(q, kv), scale=1.0)
+
+    def plain(q, kv):
+        return attention.attention_plain(*heads(q, kv), scale=1.0)
+
+    n = attention.launches.n
+    out, tan = torch.func.jvp(call, primals, tangents)
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    check(attention.launches.n == n + 1, f"attention jvp {label} {dname}: {attention.launches.n - n} launches, not 1")
+    want_out, want_tan = torch.func.jvp(plain, primals, tangents)
+    kernel_errors(f"attention jvp {label} primal", dname, out, want_out)
+    errors = kernel_errors(f"attention jvp {label} tangent", dname, tan, want_tan)
+    del out, tan, want_out, want_tan
+    sdpa_primals, sdpa_tangents = heads(*primals), heads(*tangents)
+    library, said = library_jvp(lambda q, k, v: F.scaled_dot_product_attention(q, k, v, scale=1.0), sdpa_primals,
+                                sdpa_tangents)
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = elt * B * H * d * 2 * (2 * Lq + 2 * L)  # q, k, v and their tangents read; out and its tangent written
+    flops = 12.0 * B * H * Lq * L * d  # the forward's 4, the tangent's 8
+    bound, by = bound_ms(nbytes, flops, work_route("attention", dname))
+    return {
+        "kernel": "attention", "sub": "jvp over gathered keys", "pass": "jvp", "shape": label, "dtype": dname,
+        "route": JVP_ROUTE, "head_dim": d, "lq": Lq, "lkv": L, "sp": sp, "launches_per_call": {"attention": 1},
+        **errors,
+        "ms": time_ms(lambda: torch.func.jvp(call, primals, tangents), iters=5, warmup=1),
+        "plain_ms": time_ms(lambda: torch.func.jvp(plain, primals, tangents), iters=5, warmup=1),
+        "library_ms": library, "library": f"torch.func.jvp of F.scaled_dot_product_attention: {said}",
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
+    }
 
 
 def check_groupnorm(label, shape, dtype, scale_shift, silu, gen, groups=32, eps=1e-5, affine=True):
@@ -1039,6 +1183,12 @@ def phase_kernels():
                                           8, 2048, 32, dtype, gen, sp=SP) | {"sub": "glide"})
         rows.append(check_attention_glide(f"openai_unet ds4 shard 1/{SP} B=8 h=1 Lq={2048 // SP} Lkv=2048 d=256",
                                           BATCH, 1, 2048, 256, dtype, gen, L_enc=0, sp=SP) | {"sub": "wide_heads"})
+        # the MeanFlow stack's tangent on the sp = 2 path: the split norm of
+        # its level-0 AdaGN and d_block4's attention over the gathered keys
+        rows.append(check_groupnorm_split_jvp(f"unet level0 shard 1/{SP} (8,32,{1024 // SP},64) AdaGN jvp", (BATCH, 32,
+                                              1024, 64), SP, dtype, gen))
+        rows.append(check_attention_jvp_gathered(f"mf d_block4 shard 1/{SP} B=8 h=8 Lq={512 // SP} Lkv=512 d=64 jvp",
+                                                 BATCH, 8, 512, 64, SP, dtype, gen))
         # the GLIDE block's shapes (the v6 stack's ds 4 and ds 8, 13 encoder
         # tokens in front) and OACA at positional head dims 16 and 64 on the
         # ds 4 v6 shape (channels_scale_for_positional_embedding 0.5 and 2)
@@ -4393,7 +4543,12 @@ SP = 2  # ranks that split the azimuth in phase 18, on the one card
 SP_CONFIGS = ("nuscenes-unet-uncond", "nuscenes-auto-reg-v2", "nuscenes-box-layout", "nuscenes-hdit-uncond")
 SP_FORWARD = ("nuscenes-box-layout-v6 glide", "openai_unet", "discrete")
 SP_BRANCHES = ("nuscenes-layout", "nuscenes-object")
-SP_PAIRS = tuple((name,) for name in SP_CONFIGS) + (SP_FORWARD, SP_BRANCHES)
+# MeanFlow: forwards, the loss's tangent du/dt along (v, 1, 0), the one-step
+# sample and train.py --sp 2, its exchanges carrying the tangent; on the
+# pair of SP_FORWARD, after its three forwards (the pair that ends first)
+SP_FLOW = "meanflow-nusc"
+SP_PAIRS = tuple((name,) for name in SP_CONFIGS) + (SP_FORWARD + (SP_FLOW,), SP_BRANCHES)
+SP_FLOW_TIMES = ((0.8, 0.1), (0.45, 0.45))  # (t, r) of the two images: a mean velocity and an r = t one
 SP_BATCH, SP_STEPS, SP_TRAIN_STEPS = 2, 2, 2  # images; DDIM steps of the sample; train steps
 SP_DISCRETE_STEPS = 1000  # the discrete engine's table (the registry leaves it unset)
 SP_POINTS = 8000  # points a cloud of the phase's synthetic tree (only B=2 x 2 steps read it)
@@ -4425,13 +4580,18 @@ SP_NICE = 10  # the phase's processes run beside phases 12 and 17, which keep th
 def sp_build(name: str, device):
     """The modules (seeded weights), engine and config of a phase-18 run: a
     registry config, ``nuscenes-box-layout-v6 glide`` (GLIDE blocks),
-    ``discrete`` (the uncond stack under ``DiscreteDiffusion``) or
-    ``openai_unet`` (phase 14's ``OpenAIUNet``: no engine, no config)."""
+    ``discrete`` (the uncond stack under ``DiscreteDiffusion``),
+    ``openai_unet`` (phase 14's ``OpenAIUNet``: no engine, no config) or
+    ``meanflow-nusc`` (``MFEfficientUNet`` under ``MeanFlow``)."""
     from lidarcrafter_tpu_torch.configs import get_config
     from lidarcrafter_tpu_torch.models import build_model
-    from lidarcrafter_tpu_torch.training.factory import build_diffusion_training
+    from lidarcrafter_tpu_torch.training.factory import build_diffusion_training, build_flow_training
     from lidarcrafter_tpu_torch.weights import init_random_
 
+    if name == SP_FLOW:
+        cfg = get_config(name)
+        model, engine, _ = build_flow_training(cfg, device)
+        return {"model": init_random_(model, 30)}, engine, cfg
     if name == "openai_unet":
         return {"model": init_random_(build_model("openai_unet", **OPENAI_UNET), 30).eval().to(device)}, None, None
     cfg = glide_cfg() if name.endswith(" glide") else get_config("nuscenes-unet-uncond" if name == "discrete" else name)
@@ -4446,15 +4606,17 @@ def sp_build(name: str, device):
 
 def sp_paths(name: str, device, mesh=None) -> tuple[dict, dict, dict]:
     """One forward (the engine's ``denoise`` at log-SNR (-3, 5), the
-    discrete engine's at steps (10, 900), ``OpenAIUNet`` on times (-3, 5))
-    and, for ``SP_CONFIGS``, a DDIM@2 sample of ``name`` at full width, B=2,
-    seeded weights and inputs, in float32 and then served in bfloat16, on
+    discrete engine's at steps (10, 900), ``OpenAIUNet`` on times (-3, 5),
+    MeanFlow's model at ``SP_FLOW_TIMES``) and, for ``SP_CONFIGS``, a DDIM@2
+    sample of ``name`` (MeanFlow: its one-step sample, and in float32 the
+    tangent du/dt along (v, 1, 0) of its loss) at full width, B=2, seeded
+    weights and inputs, in float32 and then served in bfloat16, on
     ``device``; on ``mesh`` each rank takes its share (rows over ``dp``,
     columns over ``sp``) and the results are gathered; in one process the
     float32 sample again with the batch's rows one at a time.  Returns the outputs
     (on the CPU), each path's launches (counters set to 0 just before it,
-    read just after) and those a denoiser call makes at sp > 1
-    (:func:`sp_per_call`)."""
+    read just after; on a mesh also its ``exchanges``) and those a denoiser
+    call makes at sp > 1 (:func:`sp_per_call`)."""
     import torch
 
     from lidarcrafter_tpu_torch.diffusion.conditional import AZIMUTH_KEYS
@@ -4467,27 +4629,51 @@ def sp_paths(name: str, device, mesh=None) -> tuple[dict, dict, dict]:
     x = torch.randn(SP_BATCH, H, W, 2, generator=gen, device=device)
     x_T = torch.randn(SP_BATCH, H, W, 2, generator=gen, device=device)
     t = torch.tensor([10, 900], device=device) if name == "discrete" else torch.tensor([-3.0, 5.0], device=device)
-    batch = None if cfg is None or cfg.condition_model is None else condition_batch(cfg, SP_BATCH, gen, device)
+    flow = name == SP_FLOW
+    if flow:
+        t, r = (torch.tensor(v, device=device) for v in zip(*SP_FLOW_TIMES))
+        v = torch.randn(SP_BATCH, H, W, 2, generator=gen, device=device)
+    batch = None if flow or cfg is None or cfg.condition_model is None else condition_batch(cfg, SP_BATCH, gen, device)
     sharding = batch_sharding(mesh, 4, sp_axis=2) if mesh is not None else None
     outs, launches = {}, {}
 
     def run(what, fn):
         torch.cuda.synchronize()
         counters = reset_counters()
+        exchanges = 0 if mesh is None else mesh.exchanges
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         outs[what] = out.float().cpu()
         launches[what] = {k: c.n for k, c in counters.items()}
         launches[what]["seconds"] = time.perf_counter() - t0
+        if mesh is not None:
+            launches[what]["exchanges"] = mesh.exchanges - exchanges
+
+    def shares():
+        """x, t, r and v as this rank holds them (all of them in one process)."""
+        if mesh is None:
+            return x, t, r if flow else None, v if flow else None
+        rows = batch_sharding(mesh, 1)
+        return (sharding.cut(x), rows.cut(t), rows.cut(r) if flow else None,
+                sharding.cut(v) if flow else None)
+
+    def tangent():
+        """du/dt along (v, 1, 0), the MeanFlow loss's jvp (float32)."""
+        xs, ts, rs, vs = shares()
+        with torch.no_grad(), contextlib.nullcontext() if mesh is None else mesh.active():
+            _, out = torch.func.jvp(mods["model"], (xs, ts, rs), (vs, torch.ones_like(ts), torch.zeros_like(rs)))
+        return out if mesh is None else sharding.gather(out)
 
     def forward(eng, dtype):
-        xs, ts, b = x, t, batch
+        xs, ts, rs, _ = shares()
+        b = batch
         if mesh is not None:
-            xs, ts = sharding.cut(x), batch_sharding(mesh, 1).cut(t)
             b = None if batch is None else mesh.cut_batch(batch, AZIMUTH_KEYS)
         with torch.inference_mode(), contextlib.nullcontext() if mesh is None else mesh.active():
-            if eng is None:
+            if flow:
+                out = mods["model"](xs.to(dtype), ts.to(dtype), rs.to(dtype)).float()
+            elif eng is None:
                 out = mods["model"](xs.to(dtype), {"time_condition": ts}).float()
             elif name == "discrete":
                 out = eng.denoise(xs, ts)
@@ -4496,24 +4682,41 @@ def sp_paths(name: str, device, mesh=None) -> tuple[dict, dict, dict]:
         return out if mesh is None else sharding.gather(out)
 
     def sample(eng):
+        if flow:
+            return eng.sample(z=x_T, mesh=mesh)
         args = () if batch is None else ((batch if mesh is None else mesh.cut_batch(batch, AZIMUTH_KEYS)),)
         return eng.sample(*args, SP_BATCH, SP_STEPS, mode="ddim", x_T=x_T, mesh=mesh)
 
+    def sample_rows(eng):
+        if flow:
+            return torch.cat([eng.sample(z=x_T[i:i + 1]) for i in range(SP_BATCH)])
+        return torch.cat([eng.sample(*(() if batch is None else ({k: v[i:i + 1] for k, v in batch.items()},)), 1,
+                                     SP_STEPS, mode="ddim", x_T=x_T[i:i + 1]) for i in range(SP_BATCH)])
+
+    sampled = sp_sample_path(name)
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         if dtype == torch.bfloat16:
             to_serving_dtype_(mods["model"], dtype, cond_model=mods.get("cond"))
             engine = None if engine is None else dataclasses.replace(engine, dtype=dtype)
         run(f"forward {dname}", lambda: forward(engine, dtype))
-        if name in SP_CONFIGS:
-            run(f"ddim@{SP_STEPS} {dname}", lambda: sample(engine))
-        if name in SP_CONFIGS and mesh is None and dtype == torch.float32:  # the batch's rows one at a time
-            run(f"ddim@{SP_STEPS} {dname} rows", lambda: torch.cat([engine.sample(
-                *(() if batch is None else ({k: v[i:i + 1] for k, v in batch.items()},)), 1, SP_STEPS,
-                mode="ddim", x_T=x_T[i:i + 1]) for i in range(SP_BATCH)]))
+        if flow and dtype == torch.float32:
+            run(f"tangent {dname}", tangent)
+        if sampled:
+            run(f"{sampled} {dname}", lambda: sample(engine))
+        if sampled and mesh is None and dtype == torch.float32:  # the batch's rows one at a time
+            run(f"{sampled} {dname} rows", lambda: sample_rows(engine))
     per_call = sp_per_call(mods["model"])
     del mods, engine
     torch.cuda.empty_cache()
     return outs, launches, per_call
+
+
+def sp_sample_path(name: str) -> str | None:
+    """The sample phase 18 draws of ``name``: DDIM@2, MeanFlow's one step,
+    or none (``SP_FORWARD``, the branches)."""
+    if name == SP_FLOW:
+        return "meanflow@1"
+    return f"ddim@{SP_STEPS}" if name in SP_CONFIGS else None
 
 
 def sp_train_args(name: str, tree: dict, out_dir: Path, sp: int) -> list:
@@ -4624,7 +4827,7 @@ def sp_check_paths(name: str, ranks: list, want: dict, one_launches: dict, by_pa
     outs, launches, per_call = ranks[0]["paths"]
     lines = {}
     for what in (w for w in want if not w.endswith(" rows")):
-        dname = what.split()[-1]
+        path, dname = what.rsplit(" ", 1)
         calls = SP_STEPS if what.startswith("ddim") else 1
         for r in ranks:
             got_launches = r["paths"][1][what]
@@ -4638,7 +4841,7 @@ def sp_check_paths(name: str, ranks: list, want: dict, one_launches: dict, by_pa
         within = float((diff <= SP_FRAME_RTOL[dname] * scale).float().mean())
         extra = {}
         check(bool(torch.isfinite(got).all()) and got.shape == want[what].shape, f"sp {name} {what}: shape")
-        if what.startswith("forward"):
+        if path in ("forward", "tangent"):
             check(err <= SP_FRAME_RTOL[dname] * scale,
                   f"sp {name} {what}: max |sp - one| {err:.3g} > {SP_FRAME_RTOL[dname]} x {scale:.3g}")
         elif dname == "float32":
@@ -4652,7 +4855,7 @@ def sp_check_paths(name: str, ranks: list, want: dict, one_launches: dict, by_pa
                   f"sp {name} {what}: {within:.5f} of the values within {SP_FRAME_RTOL[dname]} of the "
                   f"largest (limit {share:.5f}), norm-relative difference {norm_rel:.3g}")
         else:
-            f32 = f"ddim@{SP_STEPS} float32"
+            f32 = f"{path} float32"
             spread = float((want[what] - want[f32]).norm())
             extra = {"norm_rel_to_float32_sample": float((got - want[f32]).norm() / want[f32].norm()),
                      "one_process_norm_rel_to_float32_sample": spread / float(want[f32].norm())}
@@ -4663,9 +4866,10 @@ def sp_check_paths(name: str, ranks: list, want: dict, one_launches: dict, by_pa
                        "tol": SP_FRAME_RTOL[dname], "share_within_tol": within,
                        "norm_rel_err": norm_rel, **extra,
                        "seconds_sp": launches[what]["seconds"], "seconds_one": one_launches[what]["seconds"],
-                       "launches_sp_per_rank": {k: v for k, v in launches[what].items() if k != "seconds"},
+                       "exchanges_per_rank": launches[what]["exchanges"],
+                       "launches_sp_per_rank": {k: launches[what][k] for k in per_call},
                        "launches_one": {k: v for k, v in one_launches[what].items() if k != "seconds"}}
-        by_path[f"sp={SP} {name} {what}"] = {k: v * SP for k, v in launches[what].items() if k != "seconds" and v}
+        by_path[f"sp={SP} {name} {what}"] = {k: launches[what][k] * SP for k in per_call if launches[what][k]}
     return {"per_call_sp": per_call, "paths": lines}
 
 
@@ -4812,7 +5016,7 @@ def sp_start(bg: Background) -> list:
         bg.start(keys[-1], ["-m", "torch.distributed.run", "--nproc-per-node", str(SP), "--master-addr",
                             "localhost", "--master-port", str(port), str(REPO / "chip_smoke.py"), "sp-rank",
                             str(tmp), *names], nice=SP_NICE)
-    for what, names in (("paths", SP_CONFIGS + SP_FORWARD), ("train", SP_CONFIGS + SP_BRANCHES)):
+    for what, names in (("paths", SP_CONFIGS + (SP_FLOW,) + SP_FORWARD), ("train", SP_CONFIGS + (SP_FLOW,) + SP_BRANCHES)):
         keys.append(f"one process {what}")
         bg.start(keys[-1], [str(REPO / "chip_smoke.py"), "sp-one", str(tmp), what, *names], nice=SP_NICE)
     return keys
@@ -4844,7 +5048,7 @@ def phase_sp(smi: str, bg: Background, keys: list) -> dict:
     def load(side, name):
         return torch.load(sp_file(tmp, side, name), weights_only=False)
 
-    for name in SP_CONFIGS + SP_FORWARD + SP_BRANCHES:
+    for name in SP_CONFIGS + (SP_FLOW,) + SP_FORWARD + SP_BRANCHES:
         line = {"phase": "sp", "config": name, "card": smi, "sp": SP, "ranks_on_one_card": SP,
                 "backend": "gloo", "batch": SP_BATCH}
         ranks, per_call = [load(f"sp_rank{r}", name) for r in range(SP)], None

@@ -5,10 +5,19 @@ Port of the JAX package's ``diffusion/mean_flow.py``.  ``loss`` takes
 ``u, du/dt = jvp(model, (z, t, r), (v, 1, 0))`` with ``torch.func.jvp``,
 where the JAX package uses ``jax.jvp``; on the card the attention and
 GroupNorm kernels carry their own forward-mode rules
-(``kernels/attention.py``, ``kernels/groupnorm.py``).  The target
+(``kernels/attention.py``, ``kernels/groupnorm.py``), and under the mesh's
+``sp`` axis the exchanges carry theirs (``parallel/mesh.py``: a second
+collective for each tangent).  The target
 ``u_tgt = v − (t − r)·du/dt`` is detached, so the loss back-propagates
 through the primal ``u`` only.  Each draw comes from a ``torch.Generator``
 in the JAX order, (t, r) and then the noise, unless the caller injects it.
+
+Under the mesh's ``sp`` axis each rank holds some columns of each image:
+the draws are made whole and cut to the rank's rows and columns
+(``draws.Rows``), and each sample's mean square spans every rank's columns
+(its sums go through ``Mesh.sum_sp``), so that the adaptive weight and the
+loss are those of one process on every rank.  ``sample(..., mesh=)`` draws
+z whole, denoises each rank's share and gathers the frames.
 
 ``sample`` takes an optional ``z`` and a ``torch.Generator``, so a caller
 can hand it the same noise as the JAX sampler draws.  ``dtype`` is the
@@ -24,14 +33,28 @@ import torch
 from torch import nn
 
 from ..draws import Rows
+from ..parallel.mesh import Mesh, azimuth, batch_sharding
 
 
-def adaptive_l2_loss(error: torch.Tensor, gamma: float = 0.5, c: float = 1e-3) -> torch.Tensor:
-    """sg(w)·‖Δ‖² with w = 1 / (‖Δ‖² + c)^(1−γ), ‖Δ‖² the per-sample mean
-    square, averaged over the batch."""
-    delta_sq = error.square().mean(dim=tuple(range(1, error.ndim)))
+def mean_square(error: torch.Tensor) -> torch.Tensor:
+    """Each sample's mean square (B,) over its other axes; under the azimuth
+    axis the sums span every ``sp`` rank's columns and the count is the
+    whole image's."""
+    total = error.square().sum(dim=tuple(range(1, error.ndim)))
+    count = error[0].numel()
+    mesh = azimuth()
+    if mesh is not None:
+        total, count = mesh.sum_sp(total), count * mesh.sp
+    return total / count
+
+
+def adaptive_l2_loss(error: torch.Tensor, gamma: float = 0.5, c: float = 1e-3) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sg(w)·‖Δ‖² averaged over the batch, ‖Δ‖²) with
+    w = 1 / (‖Δ‖² + c)^(1−γ), ‖Δ‖² each sample's mean square
+    (:func:`mean_square`)."""
+    delta_sq = mean_square(error)
     w = 1.0 / (delta_sq + c) ** (1.0 - gamma)
-    return (w.detach() * delta_sq).mean()
+    return (w.detach() * delta_sq).mean(), delta_sq
 
 
 @dataclasses.dataclass
@@ -88,8 +111,8 @@ class MeanFlow:
         v = e - x
         u, dudt = torch.func.jvp(self.model, (z, t, r), (v, torch.ones_like(t), torch.zeros_like(r)))
         u_tgt = v - (t_ - r_) * dudt
-        error = u - u_tgt.detach()
-        return adaptive_l2_loss(error), error.detach().square().mean()
+        loss, delta_sq = adaptive_l2_loss(u - u_tgt.detach())
+        return loss, delta_sq.detach().mean()
 
     @torch.inference_mode()
     def sample(
@@ -97,9 +120,12 @@ class MeanFlow:
         batch_size: int = 1,
         z: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        mesh: Mesh | None = None,
     ) -> torch.Tensor:
         """One step from noise ``z`` (drawn from ``generator`` when not
-        given) at t = 1 to r = 0; returns (B, H, W, C)."""
+        given) at t = 1 to r = 0; returns (B, H, W, C).  On a ``mesh`` each
+        rank denoises its rows and columns of the whole z with the layers
+        sharded over ``sp``, and every rank returns the whole frames."""
         device = next(self.model.parameters()).device
         if z is None:
             z = torch.randn(
@@ -108,6 +134,14 @@ class MeanFlow:
             )
         else:
             z = z.to(device=device, dtype=torch.float32)
-        t = torch.ones(z.shape[0], device=device, dtype=self.dtype)
-        r = torch.zeros(z.shape[0], device=device, dtype=self.dtype)
+        if mesh is None:
+            return self._step(z)
+        sharding = batch_sharding(mesh, z.ndim, sp_axis=2)
+        with mesh.active():
+            return sharding.gather(self._step(sharding.cut(z)))
+
+    def _step(self, z: torch.Tensor) -> torch.Tensor:
+        """z − u(z, 1, 0), the model called in ``dtype``."""
+        t = torch.ones(z.shape[0], device=z.device, dtype=self.dtype)
+        r = torch.zeros(z.shape[0], device=z.device, dtype=self.dtype)
         return z - self.model(z.to(self.dtype), t, r).float()

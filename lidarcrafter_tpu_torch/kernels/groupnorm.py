@@ -38,7 +38,15 @@ of every rank.  The plain versions split alike
 card each launch is differentiable through its own Function, whose
 backward is autograd of its plain version recomputed in float32, so that
 the gradients of the statistics flow back through ``exchange`` to every
-shard.
+shard.  Their forward-mode rules are the sharded form of
+:func:`group_norm_jvp`: :func:`group_norm_partials_jvp` gives the tangent of
+a shard's partials, (0, mean(dx), 2·Σ(x − mean)·dx) over the shard's own
+deviations from its mean (no Σx·dx − mean·Σdx, which loses float32 digits
+where |mean| ≫ σ), which travels through ``exchange`` as the values do, and
+:func:`group_norm_apply_jvp` merges the shards' tangents as Chan's merge
+merges their values, then the closed form of the norm's tangent; both in
+float32, as :func:`group_norm_jvp` is.  On the CPU the plain split carries
+the tangent by forward-mode autograd.
 
 While ``torch.export`` traces it with grad off and no tangent, the wrapper
 calls the operator ``torch.ops.lidarcrafter_torch.group_norm``
@@ -247,16 +255,29 @@ def group_norm_jvp(saved, tangents, *, num_groups: int, eps: float, silu: bool =
     dβ = db(1+s) + b·ds + dt, and dy = dx̂·γ + x̂·dγ + dβ, times SiLU's
     derivative at y.  Closed form rather than a nested ``torch.func.jvp``:
     forward-mode AD does not nest inside a ``forward_ad`` rule."""
-    x, weight, bias, scale, shift = saved
-    dx, dweight, dbias, dscale, dshift = tangents
-    B, C = x.shape[0], x.shape[-1]
+    x, dx = saved[0], tangents[0]
     xhat, rstd = _normalized(x, num_groups, eps)
-    gamma, beta = _fold(weight, bias, scale, shift, C, x.device)
-    dy = xhat.new_zeros((B, xhat.shape[1], C))
+    dxhat = None
     if dx is not None:
         dg = dx.reshape(xhat.shape).float()
         dg = dg - dg.mean(dim=(1, 3), keepdim=True)
         dxhat = (dg - xhat * (xhat * dg).mean(dim=(1, 3), keepdim=True)) * rstd
+    return _affine_jvp(x, xhat, dxhat, saved[1:], tangents[1:], silu)
+
+
+def _affine_jvp(x: torch.Tensor, xhat: torch.Tensor, dxhat: torch.Tensor | None, affine, daffine,
+                silu: bool) -> torch.Tensor:
+    """The tangent dy = dx̂·γ + x̂·dγ + dβ (times SiLU's derivative at y) of
+    the affine that follows the norm, from the normalised ``xhat`` and its
+    tangent ``dxhat`` (None: zero), both (B, L, G, C/G) float32;
+    ``affine`` = (weight, bias, scale, shift) and ``daffine`` their
+    tangents.  Cast to x's dtype and shaped as x."""
+    weight, bias, scale, shift = affine
+    dweight, dbias, dscale, dshift = daffine
+    B, C = x.shape[0], x.shape[-1]
+    gamma, beta = _fold(weight, bias, scale, shift, C, x.device)
+    dy = xhat.new_zeros((B, xhat.shape[1], C))
+    if dxhat is not None:
         dy += dxhat.reshape(dy.shape) * gamma[:, None, :]
     zero = torch.zeros(1, C, device=x.device)
     dgamma = zero if dweight is None else _rows(dweight, C)
@@ -276,6 +297,51 @@ def group_norm_jvp(saved, tangents, *, num_groups: int, eps: float, silu: bool =
         sig = torch.sigmoid(z)
         dy = dy * sig * (1.0 + z * (1.0 - sig))
     return dy.to(x.dtype).reshape(x.shape)
+
+
+def group_norm_partials_jvp(x: torch.Tensor, dx: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Tangent of :func:`group_norm_partials_plain` at the shard ``x`` along
+    ``dx``: (B, 3, G) float32 rows of 0 (the count), mean(dx) and
+    2·Σ(x − mean)·dx, the sum over the shard's own deviations from its mean
+    (stable where |mean| ≫ σ)."""
+    B, C = x.shape[0], x.shape[-1]
+    g = x.reshape(B, -1, num_groups, C // num_groups).float()
+    dg = dx.reshape(g.shape).float()
+    dmean = dg.mean(dim=(1, 3))
+    dm2 = 2.0 * ((g - g.mean(dim=(1, 3), keepdim=True)) * dg).sum(dim=(1, 3))
+    return torch.stack([torch.zeros_like(dmean), dmean, dm2], dim=1)
+
+
+def group_norm_apply_jvp(saved, tangents, *, num_groups: int, eps: float, silu: bool = False) -> torch.Tensor:
+    """Tangent of :func:`group_norm_apply_plain` at ``saved`` = (x, parts,
+    weight, bias, scale, shift) along ``tangents`` (the same six, None for a
+    zero tangent; the partials' from :func:`group_norm_partials_jvp` of
+    every shard, exchanged as the values are), in float32: Chan's merge
+    differentiated, dmean = Σ n_s dmean_s / n and
+    dvar = Σ (dM2_s + 2 n_s (mean_s − mean)(dmean_s − dmean)) / n, then
+    dx̂ = (dx − dmean)/σ − x̂·dvar/(2σ²) and the affine's tangent as
+    :func:`group_norm_jvp`'s."""
+    x, parts = saved[:2]
+    dx, dparts = tangents[:2]
+    B, C = x.shape[0], x.shape[-1]
+    mean, var = merge_partials(parts)
+    rstd = torch.rsqrt(var + eps)
+    g = x.reshape(B, -1, num_groups, C // num_groups).float()
+    xhat = (g - mean[:, None, :, None]) * rstd[:, None, :, None]
+    dxhat = None
+    if dx is not None or dparts is not None:
+        dg = 0.0 if dx is None else dx.reshape(g.shape).float()
+        if dparts is not None:
+            n, mean_s, _ = parts.float().unbind(2)
+            _, dmean_s, dm2_s = dparts.float().unbind(2)
+            total = n.sum(0)
+            dmean = (n * dmean_s).sum(0) / total
+            dvar = (dm2_s + 2.0 * n * (mean_s - mean) * (dmean_s - dmean)).sum(0) / total
+            dg = dg - dmean[:, None, :, None]
+            dxhat = dg * rstd[:, None, :, None] - xhat * (0.5 * rstd.square() * dvar)[:, None, :, None]
+        else:
+            dxhat = dg * rstd[:, None, :, None]
+    return _affine_jvp(x, xhat, dxhat, saved[2:], tangents[2:], silu)
 
 
 def _operand(t: torch.Tensor | None, x: torch.Tensor, B: int, C: int, what: str) -> tuple[int, int, int]:
@@ -432,28 +498,28 @@ def launch_apply(x, parts, weight, bias, scale, shift, *, num_groups: int, eps: 
     return y
 
 
-def _grad_needed(*ops) -> bool:
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ops)
+def _autograd(*ops) -> bool:
+    """Whether the split norm's launch goes through its Function: an operand
+    carries a forward-mode tangent, or grad is on and one requires grad."""
+    return loader.has_tangent(*ops) or (torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                                                        for t in ops))
 
 
-def _on_card(x: torch.Tensor, ops) -> bool:
+def _on_card(x: torch.Tensor) -> bool:
     """Whether the split norm launches its kernels (``x`` on the card) or
-    runs its plain version (on the CPU); raises on a tangent, which no sharded
-    path takes."""
+    runs its plain version (on the CPU)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"group_norm: unsupported device {x.device}")
-    if x.device.type == "cuda" and loader.has_tangent(*ops):
-        raise NotImplementedError("the sharded group_norm has no forward-mode rule")
     return x.device.type == "cuda"
 
 
 def group_norm_partials(x: torch.Tensor, num_groups: int) -> torch.Tensor:
     """This shard's (B, 3, G) partials: :func:`launch_partials` on the card
-    (through :class:`GroupNormPartials` when ``x`` requires grad), the plain
-    version on the CPU."""
-    if not _on_card(x, (x,)):
+    (through :class:`GroupNormPartials` when ``x`` requires grad or carries a
+    tangent), the plain version on the CPU."""
+    if not _on_card(x):
         return group_norm_partials_plain(x, num_groups)
-    if _grad_needed(x):
+    if _autograd(x):
         return GroupNormPartials.apply(num_groups, x)
     return launch_partials(x, num_groups)
 
@@ -462,42 +528,59 @@ def group_norm_apply(x, parts, weight, bias, *, num_groups: int, eps: float, sca
                      silu: bool = False) -> torch.Tensor:
     """The norm of the shard ``x`` from every shard's partials ``parts``:
     :func:`launch_apply` on the card (through :class:`GroupNormApply` when
-    an operand requires grad), the plain version on the CPU."""
+    an operand requires grad or carries a tangent), the plain version on the
+    CPU."""
     ops = (x, parts, weight, bias, scale, shift)
-    if not _on_card(x, ops):
+    if not _on_card(x):
         return group_norm_apply_plain(x, parts, weight, bias, num_groups=num_groups, eps=eps, scale=scale,
                                       shift=shift, silu=silu)
-    if _grad_needed(*ops):
+    if _autograd(*ops):
         return GroupNormApply.apply(num_groups, float(eps), bool(silu), *ops)
     return launch_apply(*ops, num_groups=num_groups, eps=eps, silu=silu)
 
 
 class GroupNormPartials(torch.autograd.Function):
     """:func:`launch_partials` with autograd of
-    :func:`group_norm_partials_plain` as its backward; ``apply(num_groups,
-    x)``."""
+    :func:`group_norm_partials_plain` as its backward and
+    :func:`group_norm_partials_jvp` as its forward-mode rule;
+    ``apply(num_groups, x)``.  The forward takes no ctx, so ``torch.func``
+    transforms hand it the plain operand."""
 
     @staticmethod
-    def forward(ctx, num_groups, x):
-        ctx.num_groups = num_groups
-        ctx.save_for_backward(x)
+    def forward(num_groups, x):
         return launch_partials(x, num_groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.num_groups, x = inputs
+        ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
 
     @staticmethod
     def backward(ctx, g):
         return None, *_recomputed_grads(lambda x: group_norm_partials_plain(x, ctx.num_groups), ctx.saved_tensors, g)
 
+    @staticmethod
+    def jvp(ctx, _num_groups, dx):
+        return group_norm_partials_jvp(ctx.saved_tensors[0], dx, ctx.num_groups)
+
 
 class GroupNormApply(torch.autograd.Function):
     """:func:`launch_apply` with autograd of :func:`group_norm_apply_plain`
-    as its backward; ``apply(num_groups, eps, silu, x, parts, weight, bias,
-    scale, shift)``."""
+    as its backward and :func:`group_norm_apply_jvp` as its forward-mode
+    rule; ``apply(num_groups, eps, silu, x, parts, weight, bias, scale,
+    shift)``, forward without ctx as :class:`GroupNormPartials`'s."""
 
     @staticmethod
-    def forward(ctx, num_groups, eps, silu, *ops):
+    def forward(num_groups, eps, silu, *ops):
+        return launch_apply(*ops, num_groups=num_groups, eps=eps, silu=silu)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        num_groups, eps, silu, *ops = inputs
         ctx.norm = dict(num_groups=num_groups, eps=eps, silu=silu)
         ctx.save_for_backward(*ops)
-        return launch_apply(*ops, **ctx.norm)
+        ctx.save_for_forward(*ops)
 
     @staticmethod
     def backward(ctx, g):
@@ -505,6 +588,10 @@ class GroupNormApply(torch.autograd.Function):
             return group_norm_apply_plain(x, parts, weight, bias, scale=scale, shift=shift, **ctx.norm)
 
         return None, None, None, *_recomputed_grads(plain, ctx.saved_tensors, g)
+
+    @staticmethod
+    def jvp(ctx, _num_groups, _eps, _silu, *tangents):
+        return group_norm_apply_jvp(ctx.saved_tensors, tangents, **ctx.norm)
 
 
 @torch.library.custom_op("lidarcrafter_torch::group_norm", mutates_args=(), device_types="cuda")

@@ -342,7 +342,10 @@ class MFSelfAttention2d(nn.Module):
 
     ``qkv`` splits as (3, heads, dh); the qk-norm is
     ``t / max(‖t‖, 1e-12) · √dh · g`` over the head dim, and q alone then
-    takes dh^-½, so the kernel runs with scale 1.
+    takes dh^-½, so the kernel runs with scale 1.  Under the azimuth axis the
+    norm is per token, so each rank normalises its own tokens, keeps its
+    queries and gathers every rank's normed keys and values, as
+    :class:`SelfAttention2d` does.
     """
 
     def __init__(self, channels: int, num_heads: int = 8, gn_num_groups: int = 8, gn_eps: float = 1e-6):
@@ -356,8 +359,6 @@ class MFSelfAttention2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
-        if azimuth() is not None:
-            raise NotImplementedError("the MeanFlow attention block is not sp-aware")
         nh = self.num_heads
         dh = C // nh
         h = self.groupnorm_0(x).reshape(B, H * W, C)
@@ -370,6 +371,10 @@ class MFSelfAttention2d(nn.Module):
 
         q = rms(q, self.q_norm_g) * dh**-0.5
         k = rms(k, self.k_norm_g)
+        mesh = azimuth()
+        if mesh is not None:  # this rank's queries over every rank's keys and values
+            kv = torch.cat([k.reshape(B, H, W, C), v.reshape(B, H, W, C)], dim=-1)
+            k, v = mesh.gather_w(kv).reshape(B, -1, 2, nh, dh).unbind(dim=2)
         out = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=1.0)
         out = self.proj(merge_heads(out)).reshape(B, H, W, C)
         return (x + out) * _RSQRT2

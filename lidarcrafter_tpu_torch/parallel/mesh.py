@@ -32,8 +32,15 @@ layers exchange what they need through the mesh themselves, inside
 Each is differentiable: the backward of a gather sums the gradients of
 every rank's copy and keeps this rank's part, that of the sum sums too
 (the adjoints of the collectives), so that the gradients averaged over the
-whole world are those of one process.  With ``sp`` = 1 no mesh is active
-and the layers take their own wrap and statistics: nothing new runs.
+whole world are those of one process.  Each carries a forward-mode tangent
+too (the MeanFlow loss's jvp): the tangent of a gather is the gather of the
+tangents, that of a sum the sum of the tangents.  Under ``torch.func.jvp``
+the exchange's ``jvp`` rule makes a second exchange for the tangent (the
+transform hands ``forward`` and ``jvp`` their operands apart); a
+``forward_ad`` dual is unpacked at the call and its primal and tangent
+travel stacked in one exchange.  :attr:`Mesh.exchanges` counts the
+collectives a rank has made.  With ``sp`` = 1 no mesh is active and the
+layers take their own wrap and statistics: nothing new runs.
 
 Transport (chosen from the group's backend, never by catching a failure):
 NCCL gathers with ``all_gather_into_tensor``; gloo on CPU tensors with
@@ -52,6 +59,7 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch.autograd import forward_ad
 
 from ..draws import Columns, Rows
 
@@ -79,6 +87,7 @@ class Mesh:
     sp_group: Any = None
     dp_group: Any = None
     joined: bool = False
+    exchanges: int = 0  # collectives this rank has made through the mesh
 
     @property
     def dp_index(self) -> int:
@@ -114,6 +123,7 @@ class Mesh:
         """``t`` of each of the ``n`` ranks of ``group`` (this one at
         ``index``), stacked in rank order; not differentiable."""
         t = t.detach().contiguous()
+        self.exchanges += 1
         if dist.get_backend(group) == "nccl":
             out = t.new_empty((n * t.numel(),))
             dist.all_gather_into_tensor(out, t.reshape(-1), group=group)
@@ -132,6 +142,7 @@ class Mesh:
     def _sum(self, t: torch.Tensor, group) -> torch.Tensor:
         """The sum of ``t`` over ``group``; not differentiable."""
         out = self._wide(t.detach(), group).clone(memory_format=torch.contiguous_format)
+        self.exchanges += 1
         dist.all_reduce(out, group=group)
         return out.to(t.dtype)
 
@@ -139,12 +150,21 @@ class Mesh:
 
     def gather_sp(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` of every ``sp`` rank, stacked in rank order: (sp, *t.shape);
-        differentiable."""
-        return _GatherSp.apply(t, self)
+        differentiable, and with a forward-mode tangent."""
+        primal, tangent = _unpack(t)
+        if tangent is None:
+            return _GatherSp.apply(t, self)
+        both = _GatherSp.apply(torch.stack([primal, tangent]), self)
+        return forward_ad.make_dual(both[:, 0], both[:, 1])
 
     def sum_sp(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the ``sp`` ranks; differentiable."""
-        return _SumSp.apply(t, self)
+        """The sum of ``t`` over the ``sp`` ranks; differentiable, and with
+        a forward-mode tangent."""
+        primal, tangent = _unpack(t)
+        if tangent is None:
+            return _SumSp.apply(t, self)
+        both = _SumSp.apply(torch.stack([primal, tangent]), self)
+        return forward_ad.make_dual(both[0], both[1])
 
     def gather_w(self, x: torch.Tensor, dim: int = 2) -> torch.Tensor:
         """The whole of ``x``'s axis ``dim`` (this rank's columns; W of NHWC
@@ -208,27 +228,58 @@ class Mesh:
         return t
 
 
+def _unpack(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(primal, tangent) of a ``forward_ad`` dual; ``(t, None)`` for a plain
+    tensor and for one that a ``torch.func`` transform wraps (its tangent
+    reaches the exchange's ``jvp`` rule)."""
+    if torch._C._functorch.is_functorch_wrapped_tensor(t):
+        return t, None
+    return forward_ad.unpack_dual(t)
+
+
 class _GatherSp(torch.autograd.Function):
+    """The gather over the ``sp`` ranks; ``forward`` without ctx, so that
+    ``torch.func`` transforms hand it (and ``jvp``) plain tensors, which a
+    collective can send."""
+
     @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
+    def forward(t, mesh):
         return mesh._gather(t, mesh.sp_group, mesh.sp, mesh.sp_index)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
         mesh = ctx.mesh
         return mesh._sum(g, mesh.sp_group)[mesh.sp_index], None
 
+    @staticmethod
+    def jvp(ctx, dt, _):
+        mesh = ctx.mesh
+        return mesh._gather(dt, mesh.sp_group, mesh.sp, mesh.sp_index)
+
 
 class _SumSp(torch.autograd.Function):
+    """The sum over the ``sp`` ranks, in the setup-context form of
+    :class:`_GatherSp`."""
+
     @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
+    def forward(t, mesh):
         return mesh._sum(t, mesh.sp_group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh._sum(g, ctx.mesh.sp_group), None
+
+    @staticmethod
+    def jvp(ctx, dt, _):
+        return ctx.mesh._sum(dt, ctx.mesh.sp_group)
 
 
 def make_mesh(world: int | None = None, dp: int | None = None, sp: int = 1, rank: int | None = None) -> Mesh:

@@ -38,12 +38,14 @@ each process trains on its rows of it, and rank 0 logs and checkpoints.
 ranks of one ``dp`` index share its rows and each takes its columns of the
 range images (the JAX CLI's ``--sp``), for every denoiser of
 :data:`SP_ARCHITECTURES` (``EfficientUNet``, ``LayoutUnetV1`` with OACA or
-GLIDE's block, v0's ``LayoutUnet``, ``OpenAIUNet``, HDiT) under either
-engine; W must split into S shards that stay even down to the deepest
-level.  The layout and object branches replicate over the S ranks, as the
-JAX trainer does.  MeanFlow is refused by name: the ``torch.func.jvp`` of
-its loss would cross the halos and exchanges, which have no forward-mode
-rule.
+GLIDE's block, v0's ``LayoutUnet``, ``OpenAIUNet``, HDiT, MeanFlow's
+``MFEfficientUNet``) under either diffusion engine or MeanFlow (whose
+loss's tangent crosses the exchanges through their forward-mode rules); W
+must split into S shards that stay even down to the deepest level.  The
+layout and object branches replicate over the S ranks, as the JAX trainer
+does.  Under a group ``--synthetic-data`` takes the random range images of
+the uncond and flow configs, each rank its rows of every global batch; the
+other synthetic sources run in one process.
 
 Usage::
 
@@ -53,6 +55,7 @@ Usage::
   torchrun --nproc-per-node 4 -m lidarcrafter_tpu_torch.train -c nuscenes-box-layout-v6 -b 8 ...
   torchrun --nproc-per-node 4 -m lidarcrafter_tpu_torch.train -c nuscenes-auto-reg-v2 --sp 2 -b 4 ...
   torchrun --nproc-per-node 2 -m lidarcrafter_tpu_torch.train -c nuscenes-hdit-uncond --sp 2 -b 2 ...
+  torchrun --nproc-per-node 2 -m lidarcrafter_tpu_torch.train -c meanflow-nusc --sp 2 -b 2 --synthetic-data
   python -m lidarcrafter_tpu_torch.train -c nuscenes-box-layout-v6 --synthetic-data --num-steps 1000
 """
 
@@ -71,6 +74,7 @@ from .datasets import make_dataset
 from .datasets.loader import PrefetchLoader
 from .datasets.scene_graph import collate_scene_graphs
 from .parallel.ddp import DataParallel
+from .parallel.mesh import batch_sharding
 from .training.factory import layout_condition_batch
 from .training.loop import FlowTrainer, LayoutTrainer, ObjectTrainer, Trainer
 from .training.tracker import JsonlTracker
@@ -150,6 +154,13 @@ def trainer_class(cfg):
     return Trainer
 
 
+def random_range_images(cfg) -> bool:
+    """Whether ``cfg``'s synthetic source is :func:`synthetic_batches` (the
+    uncond and flow configs)."""
+    cls = trainer_class(cfg)
+    return cls is FlowTrainer or (cls is Trainer and getattr(cfg, "condition_model", None) is None)
+
+
 def synthetic_source(cfg, seed: int, device: str | torch.device = "cpu"):
     """The branch's generated batches (``--synthetic-data``)."""
     cls = trainer_class(cfg)
@@ -157,9 +168,17 @@ def synthetic_source(cfg, seed: int, device: str | torch.device = "cpu"):
         return scene_graph_batches(cfg, seed)
     if cls is ObjectTrainer:
         return object_batches(cfg, seed)
-    if cls is FlowTrainer or getattr(cfg, "condition_model", None) is None:
+    if random_range_images(cfg):
         return synthetic_batches(cfg, seed)
     return synthetic_layout_batches(cfg, seed, device)
+
+
+def rank_rows(batches, parallel: DataParallel):
+    """This ``dp`` rank's rows of each global batch of random range images
+    (:func:`synthetic_batches`): every rank draws the whole batch from the
+    same seed and keeps its rows."""
+    for batch in batches:
+        yield {k: batch_sharding(parallel.mesh, v.ndim).cut(v) for k, v in batch.items()}
 
 
 def build_trainer(cfg, seed: int, device: str | torch.device = "cuda", text_features=None, data=None, **kw):
@@ -176,26 +195,24 @@ def build_trainer(cfg, seed: int, device: str | torch.device = "cuda", text_feat
 
 
 # the denoisers whose layers are sp-aware (ring and zero-padded halos,
-# merged GroupNorm statistics, gathered attention keys)
-SP_ARCHITECTURES = ("efficient_unet", "layout_unet_v1", "layout_unet", "openai_unet", "hdit")
+# merged GroupNorm statistics, gathered attention keys; each with a
+# forward-mode rule, for MeanFlow's jvp)
+SP_ARCHITECTURES = ("efficient_unet", "mf_efficient_unet", "layout_unet_v1", "layout_unet", "openai_unet", "hdit")
 
 
 def check_sp(cfg, sp: int) -> None:
     """Raise ``ValueError`` unless ``cfg`` trains on ``sp`` ranks of the
     azimuth: a branch that replicates over them (layout, object), or an
-    sp-aware denoiser (:data:`SP_ARCHITECTURES`, either engine) on a width W
-    whose shards stay even at every level: W / sp a multiple of 2^levels
-    for the UNets and, for HDiT, of the patch width × 2^(levels − 1) with
-    the deepest local level's shard at least as wide as the neighbourhood's
-    halo.  MeanFlow is refused: the jvp of its loss would cross the halos
-    and exchanges, which have no forward-mode rule."""
+    sp-aware denoiser (:data:`SP_ARCHITECTURES`, either diffusion engine or
+    MeanFlow) on a width W whose shards stay even at every level: W / sp a
+    multiple of 2^levels for the UNets and, for HDiT, of the patch width ×
+    2^(levels − 1) with the deepest local level's shard at least as wide as
+    the neighbourhood's halo."""
     if sp == 1:
         return
     arch = cfg.model.architecture
     mp = cfg.model.params
-    if getattr(cfg, "flow", None) is not None:
-        raise ValueError(f"--sp: MeanFlow ({arch}) is not sp-aware (its jvp would cross the halos)")
-    if trainer_class(cfg) is not Trainer:
+    if trainer_class(cfg) not in (Trainer, FlowTrainer):
         return  # the branch replicates over the sp ranks
     if arch not in SP_ARCHITECTURES:
         raise ValueError(f"--sp: {arch} is not sp-aware (sp-aware: {', '.join(SP_ARCHITECTURES)})")
@@ -209,7 +226,7 @@ def check_sp(cfg, sp: int) -> None:
                              f"of {levels} levels with a halo of {kw // 2} token columns there (W / sp must be a "
                              f"multiple of {unit} and at least {unit // 2 * (kw // 2)})")
         return
-    levels = len(mp.get("channel_multiplier" if arch == "efficient_unet" else "channel_mult", (1, 2, 4, 8)))
+    levels = len(mp.get("channel_multiplier" if arch.endswith("efficient_unet") else "channel_mult", (1, 2, 4, 8)))
     if W % (sp * 2**levels):
         raise ValueError(f"--sp {sp}: W={W} does not split into {sp} shards that stay even down to the deepest of "
                          f"{levels} levels (W / sp must be a multiple of 2^{levels} = {2**levels})")
@@ -290,14 +307,17 @@ def main(argv=None, parallel: DataParallel | None = None) -> None:
     if args.sp > 1 and parallel is None:
         raise SystemExit(f"--sp {args.sp} splits the azimuth over torchrun's processes; run it under torchrun")
     device = args.device if parallel is None else parallel.device
-    if args.synthetic_data and parallel is not None:
-        raise SystemExit("data-parallel training reads files; --synthetic-data runs in one process")
+    if args.synthetic_data and parallel is not None and not random_range_images(cfg):
+        raise SystemExit("data-parallel training of this config reads files; its --synthetic-data runs in one "
+                         "process (under a group only the uncond and flow configs' random range images)")
     text = None
     if args.text_features:
         with open(args.text_features, "rb") as f:
             text = pickle.load(f)
     data = None
-    if not args.synthetic_data:
+    if args.synthetic_data and parallel is not None:
+        data = rank_rows(synthetic_batches(cfg, seed), parallel)
+    elif not args.synthetic_data:
         encode_fn = None
         if args.clip_ckpt:
             from .models.clip_text import load_clip_text_encoder

@@ -295,9 +295,11 @@ class FlowTrainer(Trainer):
         return build_flow_training(cfg, self.device)
 
     def preview_images(self, state: TrainState, seed: int, batch=None) -> dict:
-        """The one-step MeanFlow sample on the EMA weights, rendered."""
+        """The one-step MeanFlow sample on the EMA weights, rendered; under
+        ``sp`` the ranks of ``dp`` index 0 sample it together."""
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        sample = self.ema_engine(state).sample(batch_size=self.preview_batch_size, generator=generator)
+        mesh = self.mesh.sp_only() if self.sharded else None
+        sample = self.ema_engine(state).sample(batch_size=self.preview_batch_size, generator=generator, mesh=mesh)
         return render_sample_images(sample, self.lidar_utils, train_depth=self.cfg.data.train_depth,
                                     train_reflectance=self.cfg.data.train_reflectance)
 

@@ -1491,9 +1491,11 @@ def test_artifact_replays_on_the_card(tmp_path, traced_on):
 
 # ---------------------------------------------------------------- the sp axis
 # The azimuth-sharded GroupNorm (``launch_partials`` per shard, the partials
-# stacked as the mesh's exchange stacks them, ``launch_apply`` per shard) and
-# OACA over gathered image keys (Lk != Lq, ``ipe_k``), as a rank of an
-# ``sp``-way mesh runs them (parallel/mesh.py), on synthetic shards.
+# stacked as the mesh's exchange stacks them, ``launch_apply`` per shard),
+# with its backward and, for the MeanFlow loss, its tangent; the attention's
+# tangent over gathered keys; OACA over gathered image keys (Lk != Lq,
+# ``ipe_k``), as a rank of an ``sp``-way mesh runs them (parallel/mesh.py),
+# on synthetic shards.
 
 SPLIT_CASES = {
     # (whole shape, shard axis, groups, eps, scale-shift, SiLU, affine)
@@ -1561,6 +1563,87 @@ def test_groupnorm_split_backward_matches_plain(gen):
     want = run(groupnorm.group_norm_partials_plain, groupnorm.group_norm_apply_plain)
     for a, b in zip(got, want):
         _assert_close(a, b, torch.float32)
+
+
+def _split_norm(partials, apply, shards, G, eps, affine):
+    """``partials`` of every shard → stack (the mesh's exchange) → each
+    shard's ``apply``, on whole-image operands (x, weight, bias, proj)."""
+    def norm(x, w, b, proj):
+        s, t = proj.chunk(2, dim=-1)
+        pieces = x.chunk(shards, dim=2)
+        parts = torch.stack([partials(p, G) for p in pieces])
+        return torch.cat([apply(p, parts, w if affine else None, b if affine else None, num_groups=G, eps=eps,
+                                scale=s, shift=t, silu=True) for p in pieces], dim=2)
+    return norm
+
+
+@pytest.mark.parametrize("mode", ["torch.func.jvp", "forward_ad"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shards,G,affine", [(2, 8, False), (4, 32, True)])
+def test_groupnorm_split_tangent_matches_plain(gen, mode, dtype, shards, G, affine):
+    """The MeanFlow loss's tangent through the sharded norm on the card: each
+    launch through its Function (one ``gn_partials`` a shard, one
+    ``gn_apply`` a shard), the tangent from ``group_norm_partials_jvp`` →
+    merge → ``group_norm_apply_jvp``, against ``torch.func.jvp`` through the
+    plain split."""
+    from torch.autograd import forward_ad
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+
+    B, C = 2, 64
+    primals = (r(B, 8, 64, C, scale=2.0) + 1, 1 + r(C, scale=0.1), r(C, scale=0.1), r(B, 2 * C, scale=0.3))
+    tangents = tuple(r(*a.shape) for a in primals)
+    call = _split_norm(groupnorm.group_norm_partials, groupnorm.group_norm_apply, shards, G, 1e-6, affine)
+    plain = _split_norm(groupnorm.group_norm_partials_plain, groupnorm.group_norm_apply_plain, shards, G, 1e-6, affine)
+    n_parts, n_apply = groupnorm.partials_launches.n, groupnorm.apply_launches.n
+    if mode == "torch.func.jvp":
+        out, tan = torch.func.jvp(call, primals, tangents)
+    else:
+        with forward_ad.dual_level():
+            out, tan = forward_ad.unpack_dual(call(*(forward_ad.make_dual(a, t) for a, t in zip(primals, tangents))))
+    torch.cuda.synchronize()
+    assert (groupnorm.partials_launches.n - n_parts, groupnorm.apply_launches.n - n_apply) == (shards, shards)
+    want_out, want_tan = torch.func.jvp(plain, primals, tangents)
+    assert tan.dtype == dtype and tan.shape == want_tan.shape
+    _assert_close(out, want_out, dtype)
+    _assert_close(tan, want_tan, dtype)
+
+
+@pytest.mark.parametrize("mode", ["torch.func.jvp", "forward_ad"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Lq,Lk,d", [(8, 8, 256, 512, 64), (2, 8, 128, 512, 32), (1, 2, 77, 154, 64)])
+def test_attention_jvp_over_gathered_keys_matches_plain(gen, mode, dtype, B, H, Lq, Lk, d):
+    """``MFSelfAttention2d`` on a rank of the ``sp`` axis: its own queries
+    (normed, pre-scaled) over every rank's keys and values (views of one
+    gathered (B, Lk, 2, heads, d) tensor), one launch under a tangent, the
+    tangent from ``attention_jvp``; d_block4's sp = 2 shard first."""
+    from torch.autograd import forward_ad
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    primals = (r(B, Lq, H, d) * d**-0.5, r(B, Lk, 2, H, d))
+    tangents = (r(B, Lq, H, d), r(B, Lk, 2, H, d))
+
+    def heads(q, kv):
+        k, v = kv.unbind(dim=2)
+        return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    n = attention.launches.n
+    if mode == "torch.func.jvp":
+        out, tan = torch.func.jvp(lambda q, kv: attention.attention(*heads(q, kv), scale=1.0), primals, tangents)
+    else:
+        with forward_ad.dual_level():
+            duals = (forward_ad.make_dual(a, t) for a, t in zip(primals, tangents))
+            out, tan = forward_ad.unpack_dual(attention.attention(*heads(*duals), scale=1.0))
+    torch.cuda.synchronize()
+    assert attention.launches.n == n + 1
+    want_out, want_tan = torch.func.jvp(lambda q, kv: attention.attention_plain(*heads(q, kv), scale=1.0), primals,
+                                        tangents)
+    assert tan.dtype == dtype and tan.shape == (B, H, Lq, d)
+    _assert_close(out, want_out, dtype)
+    _assert_close(tan, want_tan, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

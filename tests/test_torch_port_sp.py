@@ -7,19 +7,27 @@
     module) run every sharded case on a (2, 2) and a (1, 4) mesh:
     ``ring_pad`` and ``RingConv`` (ring and zero-padded), ``Resample`` up and
     down, v0's zero-padded ``Downsample`` / ``Upsample``, ``FusedGN``,
-    ``AdaGN``, ``SelfAttention2d``, ``GLIDEAttentionBlock`` (13 encoder
-    tokens in front), ``SpatialTransformer`` (over a context, and over
-    itself twice) and HDiT's neighbourhood and global ``SelfAttention`` at
-    sp = 2 and 4, gathered, equal the layer in one process to 1e-6 of
-    max(1, max |out|), and so do the input's gradient and each parameter's
-    (summed over the ranks; 1e-6 relative L2).  The small stacks at sp = 2
+    ``AdaGN``, ``SelfAttention2d``, ``MFSelfAttention2d`` (qk-norm, keys
+    gathered after it), ``GLIDEAttentionBlock`` (13 encoder tokens in
+    front), ``SpatialTransformer`` (over a context, and over itself twice)
+    and HDiT's neighbourhood and global ``SelfAttention`` at sp = 2 and 4,
+    gathered, equal the layer in one process to 1e-6 of max(1, max |out|),
+    and so do the input's gradient and each parameter's (summed over the
+    ranks; 1e-6 relative L2).  The forward-mode cases ("... jvp": the halo
+    through ``ring_pad``, ring and zero-padded, ``gather_w``, ``sum_sp``,
+    ``gather_sp`` through the split ``FusedGN`` / ``AdaGN``, and
+    ``MFSelfAttention2d``) hold the tangent under ``torch.func.jvp`` and
+    under a ``forward_ad`` dual to the one-process jvp (1e-6 of max(1,
+    max |tangent|)), and the gradients through the dual's primal as above.
+    The small stacks at sp = 2
     (``torch_port_harness``'s ``UncondPair`` / ``Pair`` weights: uncond,
     auto-reg-v2, v0 with one head of 64 so that OACA runs at 64³, GLIDE v6;
-    HDiT; ``OpenAIUNet`` with GLIDE blocks and with transformers) equal the
-    JAX forward of the whole image to 1e-4 and the port's one-process
-    forward to 1e-5; HDiT with an absolute (spherical-harmonics) embedding,
-    which the JAX package cannot trace (ROADMAP Queue 3 item 18), equals the
-    one-process forward to 1e-5 on seeded weights (``weights.init_random_``).
+    HDiT; ``OpenAIUNet`` with GLIDE blocks and with transformers; MeanFlow)
+    equal the JAX forward of the whole image to 1e-4 and the port's
+    one-process forward to 1e-5; HDiT with an absolute (spherical-harmonics)
+    embedding, which the JAX package cannot trace (ROADMAP Queue 3 item 18),
+    equals the one-process forward to 1e-5 on seeded weights
+    (``weights.init_random_``).
     A DDIM@2 sample of uncond and auto-reg-v2 on the mesh equals the
     one-process sample bit for bit when the sharded GroupNorms take their
     statistics from the gathered activations (the control: every other op
@@ -34,14 +42,30 @@
     relative L2.  One step of ``LayoutTrainer`` and ``ObjectTrainer`` on a
     (2, 2) group, whose ``sp`` ranks replicate, equals the step in one
     process on the whole batch (loss 1e-5, gradients 1e-4).
+    MeanFlow (the reduced ``meanflow-nusc``): the tangent du/dt along
+    (v, 1, 0) on the (2, 2) mesh equals one process's (1e-5), a call's
+    exchanges under ``torch.func.jvp`` are at most twice those without a
+    tangent and a ``forward_ad`` dual's as many as without; the one-step
+    sample on the mesh equals one process's (bit for bit with the
+    statistics of the gathered activations, 1e-5 with the merged partials);
+    a step with the JAX key chain's draws injected equals one process (loss
+    1e-5, gradients 1e-4 relative L2) and the JAX ``FlowTrainer`` step on
+    an 8-virtual-device (4, 2) CPU mesh (loss 1e-5 relative, gradients as
+    ``test_torch_port_flow_train.py`` holds them); ``train.py --sp 2
+    --synthetic-data`` on the (2, 2) group logs the losses of one process.
 (c) The plain GroupNorm split, ``partials`` → merge → ``apply``, equals
-    ``group_norm_plain``; the plain OACA at head dims 32³ and 64³ with image
-    keys of their own length and positional rows equals the JAX
-    ``oaca_attention``'s XLA path on the gathered operands, a shard of
+    ``group_norm_plain``, and its tangent (forward-mode autograd of the
+    plain split, and the card Functions' closed-form rules
+    ``group_norm_partials_jvp`` → merge → ``group_norm_apply_jvp``) equals
+    ``group_norm_jvp``, and stays as close to a float64 tangent as one
+    process's where the mean is 300 σ; the plain OACA at head dims 32³ and
+    64³ with image keys of their own length and positional rows equals the
+    JAX ``oaca_attention``'s XLA path on the gathered operands, a shard of
     queries at a time.
-(d) ``train.py --sp`` takes every registry config but MeanFlow (and the
-    GLIDE, ``OpenAIUNet`` and discrete variants), refuses MeanFlow by name,
-    and refuses widths that do not split into even shards.
+(d) ``train.py --sp`` takes every registry config (and the GLIDE,
+    ``OpenAIUNet`` and discrete variants), refuses a denoiser that is not
+    sp-aware by name, and refuses widths that do not split into even
+    shards.
 (e) ``draws.Rows`` with a ``Columns`` window: the ranks' cuts tile the
     one-process draw.
 
@@ -57,11 +81,13 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from test_torch_port_layout import small as layout_small
 from test_torch_port_object import small as object_small
 from test_torch_port_openai_unet import NetPair
+from test_torch_port_train import _assert_grads, _capture, _state_dicts
 from test_torch_port_zoo import UncondZooPair, zoo_cfgs
 from test_torch_port_zoo_rest import GLIDE
 from torch_port_harness import Pair, UncondPair, condition_batch, one_torch_thread  # noqa: F401 (autouse)
@@ -69,10 +95,15 @@ from torch_port_harness import Pair, UncondPair, condition_batch, one_torch_thre
 from lidarcrafter_tpu.ops.pallas_attention import _oaca_unfused
 from lidarcrafter_tpu.parallel import batch_sharding as jax_batch_sharding
 from lidarcrafter_tpu.parallel import make_mesh as jax_make_mesh
+from lidarcrafter_tpu.training.loop import FlowTrainer as JFlowTrainer
+from lidarcrafter_tpu.training.state import TrainState as JState
 from lidarcrafter_tpu_torch import configs as tcfgs
 from lidarcrafter_tpu_torch import train as train_cli
 from lidarcrafter_tpu_torch.kernels.groupnorm import (
+    group_norm_apply_jvp,
     group_norm_apply_plain,
+    group_norm_jvp,
+    group_norm_partials_jvp,
     group_norm_partials_plain,
     group_norm_plain,
 )
@@ -83,8 +114,11 @@ REPO = Path(__file__).resolve().parent.parent
 WORLD = 4
 LAYERS = ("ring_pad", "RingConv", "Resample up", "Resample down", "FusedGN", "AdaGN", "SelfAttention2d",
           "ring_pad zeros", "RingConv zeros", "Downsample zeros", "Upsample zeros", "GLIDEAttentionBlock",
-          "SpatialTransformer", "SpatialTransformer self", "HDiT neighbourhood", "HDiT global")
+          "SpatialTransformer", "SpatialTransformer self", "HDiT neighbourhood", "HDiT global",
+          "MFSelfAttention2d", "ring_pad jvp", "ring_pad zeros jvp", "gather_w jvp", "sum_sp jvp", "FusedGN jvp",
+          "AdaGN jvp", "MFSelfAttention2d jvp")
 SAMPLED = ("nuscenes-unet-uncond", "nuscenes-auto-reg-v2", "nuscenes-hdit-uncond")  # also sampled with DDIM@2
+FLOW = "meanflow-nusc"
 STACKS = SAMPLED + ("nuscenes-box-layout", "nuscenes-box-layout-v6 glide", "openai_unet glide",
                     "openai_unet transformer")
 HDIT_ABSOLUTE = "nuscenes-hdit-uncond spherical_harmonics"  # no JAX forward (ROADMAP Queue 3 item 18)
@@ -192,6 +226,22 @@ def _prepare(out: Path) -> dict:
     _, tcfg = zoo_cfgs("nuscenes-hdit-uncond", model={"positional_embedding": "spherical_harmonics"})
     inputs[HDIT_ABSOLUTE] = {"kind": "uncond", "cfg": tcfg, "x": torch.as_tensor(x_like(tcfg)),
                              "t": torch.as_tensor(t)}
+    flow = UncondPair(FLOW, seed=0)
+    x = x_like(flow.jcfg)
+    t_flow, r_flow = np.array([0.8, 0.45], np.float32), np.array([0.1, 0.45], np.float32)
+    jax_out[FLOW] = np.asarray(jax.jit(flow.jmodel.apply)(flow.params, *map(jnp.asarray, (x, t_flow, r_flow))))
+    H, W = flow.jcfg.data.resolution
+    train_x = np.clip(0.5 * rnd.standard_normal((4, H, W, 2)), -1, 1).astype(np.float32)
+    rng_tr, rng_e = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(7), 0))  # the JAX step's draws
+    draws = dict(zip(("t", "r"), flow.jengine.sample_t_r(rng_tr, 4)), noise=jax.random.normal(rng_e, train_x.shape))
+    inputs[FLOW] = {"kind": "flow", "cfg": flow.tcfg, "state": {"model": flow.tmodel.state_dict()},
+                    "x": torch.as_tensor(x), "t": torch.as_tensor(t_flow), "r": torch.as_tensor(r_flow),
+                    "v": torch.as_tensor(x_like(flow.jcfg)), "z": torch.as_tensor(x_like(flow.jcfg)),
+                    "train_x": torch.as_tensor(train_x),
+                    "draws": {k: torch.as_tensor(np.asarray(v)) for k, v in draws.items()},
+                    "cli": ["-c", FLOW, "--synthetic-data", "--device", "cpu", "--resolution", str(H), str(W),
+                            "--model-channels", "16", "-b", "2", "--num-steps", "2", "--log-every", "1",
+                            "--set", 'training.mixed_precision="no"', "--set", "training.steps_save_image=0"]}
     jcfg, tcfg = zoo_cfgs("nuscenes-unet-uncond", timestep_type="discrete", num_training_steps=100)
     x_0, mask = _train_batch(jcfg, rnd, with_condition=False)
     inputs["discrete"] = {"kind": "uncond", "cfg": tcfg, "train_batch": x_0, "loss_mask": mask}
@@ -199,21 +249,38 @@ def _prepare(out: Path) -> dict:
         cfg = small(tcfgs)
         cfg.training.batch_size_train, cfg.training.mixed_precision = 4, "no"
         inputs[name] = {"cfg": cfg}
-    inputs.update(stacks=STACKS + (HDIT_ABSOLUTE,), train=TRAINED, branches=BRANCHES)
+    inputs.update(stacks=STACKS + (HDIT_ABSOLUTE,), train=TRAINED, branches=BRANCHES, flow=(FLOW,))
     torch.save(inputs, out / "inputs.pt")
-    return jax_out
+    return jax_out, lambda: _jax_flow_step(flow, train_x, out)
+
+
+def _jax_flow_step(pair, x, out: Path) -> dict:
+    """One step of the JAX ``FlowTrainer`` on an 8-virtual-device (4, 2)
+    mesh on the pair's weights: its loss and its gradients (read from an
+    identity transformation chained before its optimizer)."""
+    jcfg = pair.jcfg
+    jcfg.training.mixed_precision = "no"
+    logs = []
+    trainer = JFlowTrainer(jcfg, iter([{"x_0": x}]), mesh=jax_make_mesh(8, sp=2, devices=jax.devices()[:8]),
+                           output_dir=str(out / "jax_flow"), log_fn=logs.append)
+    trainer.tx = optax.chain(_capture(), trainer.tx)
+    trainer.prepare_batch = lambda batch: jnp.asarray(batch["x_0"])
+    state = trainer.train(num_steps=1, rng=jax.random.PRNGKey(7), state=JState.create(pair.params, trainer.tx),
+                          checkpoint_every=10**9, preview_every=0, log_every=1)
+    return {"loss": logs[0]["loss"], "grads": _state_dicts(state.opt_state[0], {"model": pair.tmodel})}
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("sp")
-    jax_out = _prepare(out)
+    jax_out, jax_flow_step = _prepare(out)
     port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, str(REPO / "tests" / "torch_port_sp_ranks.py"), str(r), str(WORLD),
                                str(port), str(out)], env=env, cwd=REPO, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
     try:
+        jax_out[f"train {FLOW}"] = jax_flow_step()  # while the ranks run
         logs = [p.communicate(timeout=600)[0] for p in procs]
     finally:  # a rank that failed leaves the others waiting in a collective
         for p in procs:
@@ -231,9 +298,13 @@ def test_layer_on_shards_equals_one_process(ranks, name, sp):
     assert r["out"] <= 1e-6, r
     assert r["grad_x"] <= 1e-6, r
     assert r["grad_params"] <= 1e-6, r
+    if name.endswith(" jvp"):
+        assert r["tangent_scale"] > 1e-2, r
+        assert r["tangent"] <= 1e-6, r
+        assert r["tangent_forward_ad"] <= 1e-6, r
 
 
-@pytest.mark.parametrize("name", STACKS)
+@pytest.mark.parametrize("name", STACKS + (FLOW,))
 def test_stack_forward_at_sp2_equals_jax(ranks, name):
     results, jax_out = ranks
     got, want = results[name]["forward"].numpy(), jax_out[name]
@@ -292,6 +363,52 @@ def test_branch_step_replicated_over_sp_equals_one_process(ranks, name):
     assert r["grad_rel_l2"] <= 1e-4
 
 
+def test_meanflow_tangent_on_a_dp2_sp2_mesh_equals_one_process(ranks):
+    """du/dt along (v, 1, 0), the MeanFlow loss's jvp, under
+    ``torch.func.jvp`` and as a ``forward_ad`` dual."""
+    r = ranks[0][FLOW]
+    one = r["tangent_one"]
+    scale = max(1.0, float(one.abs().max()))
+    for key in ("tangent", "tangent_forward_ad"):
+        assert r[key].shape == one.shape
+        torch.testing.assert_close(r[key], one, rtol=0, atol=1e-5 * scale)
+
+
+def test_meanflow_call_exchanges_under_a_tangent(ranks):
+    """A tangent under ``torch.func.jvp`` costs at most a second exchange
+    for each of the call's; a ``forward_ad`` dual's travels with its
+    primal."""
+    n = ranks[0][FLOW]["exchanges"]
+    assert n["no tangent"] > 0, n
+    assert n["torch.func.jvp"] <= 2 * n["no tangent"], n
+    assert n["forward_ad"] == n["no tangent"], n
+
+
+def test_meanflow_one_step_sample_on_the_mesh(ranks):
+    r = ranks[0][FLOW]
+    one = r["sample_one"]
+    assert torch.isfinite(r["sample"]).all() and r["sample"].shape == one.shape
+    assert torch.equal(r["sample_whole_stats"], one)
+    torch.testing.assert_close(r["sample"], one, rtol=0, atol=1e-5 * max(1.0, float(one.abs().max())))
+
+
+def test_meanflow_step_on_a_dp2_sp2_mesh_equals_one_process_and_jax(ranks):
+    results, jax_out = ranks
+    r, j = results[f"train {FLOW}"], jax_out[f"train {FLOW}"]
+    assert abs(r["loss"] - r["loss_one"]) <= 1e-5 * max(1.0, abs(r["loss_one"]))
+    flat, flat_one = (torch.cat([g.flatten() for g in gs.values()]) for gs in (r["grads"], r["grads_one"]))
+    assert float((flat - flat_one).norm() / flat_one.norm()) <= 1e-4
+    assert r["loss"] == pytest.approx(j["loss"], rel=1e-5)
+    _assert_grads(r["grads"], j["grads"])
+
+
+def test_train_cli_meanflow_at_sp2_logs_the_one_process_losses(ranks):
+    r = ranks[0][f"cli {FLOW}"]
+    assert r["mesh"] == (2, 2) and len(r["losses"]) == len(r["losses_one"]) == 2, r
+    for a, b in zip(r["losses"], r["losses_one"]):
+        assert abs(a - b) <= 1e-5 * max(1.0, abs(b)), r
+
+
 # ------------------------------------------------------------------ (c)
 
 
@@ -309,6 +426,70 @@ def test_group_norm_split_equals_plain(shards, affine):
     got = torch.cat([group_norm_apply_plain(p, parts, w, b, num_groups=G, eps=1e-6, scale=s, shift=t, silu=True)
                      for p in pieces], dim=2)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
+
+
+def _split_tangent_case(shards: int, affine: bool, mean: float, std: float):
+    """x (2, 4, 32, 64) in 8 groups, its affine operands and tangents for
+    all of them, float32; ``shards`` column shards."""
+    gen = torch.Generator().manual_seed(shards)
+    B, H, W, C = 2, 4, 32, 64
+    x = torch.randn(B, H, W, C, generator=gen) * std + mean
+    w, b = (torch.randn(C, generator=gen), torch.randn(C, generator=gen)) if affine else (None, None)
+    s, t = torch.randn(B, C, generator=gen) * 0.3, torch.randn(B, C, generator=gen)
+    primals = (x, w, b, s, t)
+    tangents = tuple(None if a is None else torch.randn(a.shape, generator=gen) for a in primals)
+    return primals, tangents
+
+
+def _split_rules(primals, tangents, shards: int, G: int = 8):
+    """The tangent of the split norm by the card Functions' rules: every
+    shard's partials and their tangents, stacked as the exchange gathers
+    them, then each shard's apply tangent."""
+    x, dx = primals[0], tangents[0]
+    pieces, dpieces = x.chunk(shards, dim=2), dx.chunk(shards, dim=2)
+    parts = torch.stack([group_norm_partials_plain(p, G) for p in pieces])
+    dparts = torch.stack([group_norm_partials_jvp(p, d, G) for p, d in zip(pieces, dpieces)])
+    return torch.cat([group_norm_apply_jvp((p, parts, *primals[1:]), (d, dparts, *tangents[1:]), num_groups=G,
+                                           eps=1e-6, silu=True) for p, d in zip(pieces, dpieces)], dim=2)
+
+
+@pytest.mark.parametrize("shards,affine", [(2, True), (4, False)])
+def test_group_norm_split_tangent_equals_group_norm_jvp(shards, affine):
+    primals, tangents = _split_tangent_case(shards, affine, 1.0, 3.0)
+    want = group_norm_jvp(primals, tangents, num_groups=8, eps=1e-6, silu=True)
+    tol = 1e-6 * float(want.abs().max())
+    torch.testing.assert_close(_split_rules(primals, tangents, shards), want, rtol=0, atol=tol)
+    given = [i for i, a in enumerate(primals) if a is not None]
+
+    def split(*ops):
+        full = list(primals)
+        for i, a in zip(given, ops):
+            full[i] = a
+        x, w, b, s, t = full
+        pieces = x.chunk(shards, dim=2)
+        parts = torch.stack([group_norm_partials_plain(p, 8) for p in pieces])
+        return torch.cat([group_norm_apply_plain(p, parts, w, b, num_groups=8, eps=1e-6, scale=s, shift=t, silu=True)
+                          for p in pieces], dim=2)
+
+    _, auto = torch.func.jvp(split, tuple(primals[i] for i in given), tuple(tangents[i] for i in given))
+    torch.testing.assert_close(auto, want, rtol=0, atol=tol)
+
+
+def test_group_norm_split_tangent_is_stable_where_the_mean_dwarfs_sigma():
+    """A mean of 300 σ: the rules sum over each shard's own deviations from
+    its mean, so the split tangent stays as close to a float64 tangent as
+    one process's ``group_norm_jvp`` is."""
+    primals, tangents = _split_tangent_case(4, True, 900.0, 3.0)
+    B, H, W, C = primals[0].shape
+
+    def ref(x, w, b, s, t):
+        y = torch.nn.functional.group_norm(x.permute(0, 3, 1, 2).contiguous(), 8, eps=1e-6).permute(0, 2, 3, 1)
+        return torch.nn.functional.silu(y * (w * (1 + s))[:, None, None] + (b * (1 + s) + t)[:, None, None])
+
+    _, want = torch.func.jvp(ref, tuple(a.double() for a in primals), tuple(a.double() for a in tangents))
+    err_split = float((_split_rules(primals, tangents, 4).double() - want).abs().max())
+    err_one = float((group_norm_jvp(primals, tangents, num_groups=8, eps=1e-6, silu=True).double() - want).abs().max())
+    assert err_split <= max(2.0 * err_one, 1e-6 * float(want.abs().max())), (err_split, err_one)
 
 
 @pytest.mark.parametrize("sp,d", [(2, 32), (4, 32), (2, 64)])
@@ -342,17 +523,21 @@ VARIANTS = {  # registry configs with a model or engine option set
     "discrete": ("nuscenes-unet-uncond", "--set", 'diffusion.timestep_type="discrete"',
                  "--set", "diffusion.num_training_steps=1000"),
 }
-ACCEPTED = sorted(set(tcfgs.__all__) - {"meanflow-nusc"}) + sorted(VARIANTS)
+ACCEPTED = sorted(tcfgs.__all__) + sorted(VARIANTS)
+REFUSED = {  # denoisers outside train.SP_ARCHITECTURES, set on an image config
+    "refinenet": ("nuscenes-unet-uncond", "--set", 'model.architecture="refinenet"'),
+    "easy_unet": ("nuscenes-unet-uncond", "--set", 'model.architecture="easy_unet"'),
+}
 
 
-@pytest.mark.parametrize("case", ["meanflow-nusc"])
+@pytest.mark.parametrize("case", sorted(REFUSED))
 def test_train_cli_refuses_what_is_not_sp_aware(case):
+    name, *extra = REFUSED[case]
     with pytest.raises(SystemExit) as e:
-        train_cli.main(["-c", case, "--device", "cpu", "--sp", "2"])
-    cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(["-c", case, "--sp", "2"]))
+        train_cli.main(["-c", name, "--device", "cpu", "--sp", "2", *extra])
+    cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(["-c", name, "--sp", "2", *extra]))
     said = str(e.value)
-    assert "MeanFlow" in said and "not sp-aware" in said and "jvp" in said, said
-    assert cfg.model.architecture in said, said
+    assert "not sp-aware" in said and cfg.model.architecture == case and case in said, said
 
 
 @pytest.mark.parametrize("case", ACCEPTED)

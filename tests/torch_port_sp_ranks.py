@@ -11,33 +11,46 @@ rank's share of a global input made from a seed, gathers the result, and
 records it beside the same computation in one process (in this process,
 without a mesh): outputs, the input's gradient (gathered) and the
 parameters' gradients (summed over the ``sp`` ranks) of ``sum(out · R)``
-for a random global R.  The train steps (the auto-reg-v2 and v0 stacks, the
-discrete engine's loss) run on the (2, 2) mesh with a loss mask whose
-shards hold different counts; the layout and object trainers run one step
-on a (2, 2) ``DataParallel`` group, where the ``sp`` ranks replicate, beside
-the same step in one process.  Imports torch and the port only.
+for a random global R; the cases named "... jvp" also the tangent along a
+random global direction, under ``torch.func.jvp`` and under a
+``forward_ad`` dual (whose exchanges carry primal and tangent together;
+its primal is the one back-propagated).  The train steps (the auto-reg-v2
+and v0 stacks, the discrete engine's loss) run on the (2, 2) mesh with a
+loss mask whose shards hold different counts; the layout and object
+trainers run one step on a (2, 2) ``DataParallel`` group, where the ``sp``
+ranks replicate, beside the same step in one process.  MeanFlow
+(``meanflow-nusc``): the stack's forward, its tangent du/dt along
+(v, 1, 0), the exchanges of one call with and without a tangent and the
+one-step sample; the loss and gradients of one step on the (2, 2) mesh with
+the JAX key chain's draws injected; ``train.main --sp 2 --synthetic-data``
+on the (2, 2) group beside the same command in one process.  Imports torch
+and the port only.
 """
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import copy
+import io
 import sys
 from pathlib import Path
 
 import torch
 import torch.distributed as dist
+from torch.autograd import forward_ad
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
+from lidarcrafter_tpu_torch import train as train_cli  # noqa: E402
 from lidarcrafter_tpu_torch.diffusion.conditional import AZIMUTH_KEYS  # noqa: E402
 from lidarcrafter_tpu_torch.models import build_model, ops  # noqa: E402
 from lidarcrafter_tpu_torch.models import encoding as enc  # noqa: E402
 from lidarcrafter_tpu_torch.models import hdit, layout_unet, openai_unet  # noqa: E402
 from lidarcrafter_tpu_torch.parallel.ddp import DataParallel  # noqa: E402
-from lidarcrafter_tpu_torch.parallel.mesh import batch_sharding, make_mesh  # noqa: E402
-from lidarcrafter_tpu_torch.training.factory import build_diffusion_training  # noqa: E402
+from lidarcrafter_tpu_torch.parallel.mesh import azimuth, batch_sharding, make_mesh  # noqa: E402
+from lidarcrafter_tpu_torch.training.factory import build_diffusion_training, build_flow_training  # noqa: E402
 from lidarcrafter_tpu_torch.training.loop import LayoutTrainer, ObjectTrainer  # noqa: E402
 from lidarcrafter_tpu_torch.training.optim import make_optimizer  # noqa: E402
 from lidarcrafter_tpu_torch.training.state import TrainState  # noqa: E402
@@ -49,8 +62,11 @@ from lidarcrafter_tpu_torch.weights import init_random_  # noqa: E402
 LAYER_SHAPE = (2, 8, 32, 32)  # B, H, W, C: W / 4 = 8 columns a rank at sp = 4; 32 channels for GroupNorm32
 LAYERS = ("ring_pad", "RingConv", "Resample up", "Resample down", "FusedGN", "AdaGN", "SelfAttention2d",
           "ring_pad zeros", "RingConv zeros", "Downsample zeros", "Upsample zeros", "GLIDEAttentionBlock",
-          "SpatialTransformer", "SpatialTransformer self", "HDiT neighbourhood", "HDiT global")
+          "SpatialTransformer", "SpatialTransformer self", "HDiT neighbourhood", "HDiT global",
+          "MFSelfAttention2d", "ring_pad jvp", "ring_pad zeros jvp", "gather_w jvp", "sum_sp jvp", "FusedGN jvp",
+          "AdaGN jvp", "MFSelfAttention2d jvp")
 WINDOWS = ("ring_pad", "ring_pad zeros")  # a rank's output is a window of the whole padded tensor
+REPLICATED = ("gather_w", "sum_sp")  # every rank's output is the whole one-process output
 # Upsample's conv runs at twice the input's H and W: its input is half as
 # high and wide, so that its output, and the sums of its parameters'
 # gradients (float32, summed over the shards in another order), are as large
@@ -104,6 +120,23 @@ def layer(name: str) -> tuple[torch.nn.Module, callable]:
     if name == "SelfAttention2d":
         m = ops.SelfAttention2d(C, num_heads=2, gn_num_groups=4)
         return m, lambda m, x: m(x)
+    if name == "MFSelfAttention2d":  # 2 heads of 16, qk-norm gains off 1
+        m = ops.MFSelfAttention2d(C, num_heads=2, gn_num_groups=4)
+        with torch.no_grad():
+            m.q_norm_g.fill_(1.3)
+            m.k_norm_g.fill_(0.8)
+        # the scalar gains' gradients sum every logit's, which cancel over
+        # each query's keys: a shard's order of the sums and one process's
+        # round them up to ~5e-6 of their size apart in float32; they are
+        # held, with every other gradient, in MeanFlow's train step (1e-4)
+        m.q_norm_g.requires_grad_(False)
+        m.k_norm_g.requires_grad_(False)
+        return m, lambda m, x: m(x)
+    if name == "gather_w":  # the whole W on every rank
+        return torch.nn.Identity(), lambda m, x: x if azimuth() is None else azimuth().gather_w(x)
+    if name == "sum_sp":  # the column sum of the whole W on every rank
+        return torch.nn.Identity(), lambda m, x: (x.sum(dim=2, keepdim=True) if azimuth() is None
+                                                  else azimuth().sum_sp(x.sum(dim=2, keepdim=True)))
     raise KeyError(name)
 
 
@@ -119,24 +152,37 @@ def rel(a: torch.Tensor, b: torch.Tensor) -> float:
 def run_layer(name: str, mesh) -> dict:
     """The layer on this rank's columns against the layer on the whole.
     A rank's ``ring_pad`` is a window of the whole padded tensor (its
-    columns and their halos), which the ranks' windows overlap: each rank
-    weights its window with its own R."""
-    module, call = layer(name)
+    columns and their halos), which the ranks' windows overlap, and a
+    gather's or a sum's output is the whole one on every rank: each rank
+    weights its output with its own R.  A case named "NAME jvp" runs NAME
+    with a tangent: under ``torch.func.jvp`` (``tangent``) and as a
+    ``forward_ad`` dual (``tangent_forward_ad``, whose primal is the one
+    back-propagated)."""
+    jvp = name.endswith(" jvp")
+    base = name.removesuffix(" jvp")
+    module, call = layer(base)
     gen = torch.Generator().manual_seed(3)
-    x = torch.randn(INPUT_SHAPE.get(name, LAYER_SHAPE), generator=gen)
+    x = torch.randn(INPUT_SHAPE.get(base, LAYER_SHAPE), generator=gen)
+    dx = torch.randn(x.shape, generator=gen)
     cols = mesh.columns(x.shape[2])
-    xs = x[:, :, cols].clone().requires_grad_()
+    xs, dxs = x[:, :, cols].clone().requires_grad_(), dx[:, :, cols].clone()
+    tangents = {}
     with mesh.active():
-        y = call(module, xs)
-    window = name in WINDOWS
-    if window:
+        if jvp:
+            _, tangents["tangent"] = torch.func.jvp(lambda a: call(module, a), (xs.detach(),), (dxs,))
+            with forward_ad.dual_level():
+                y, tangents["tangent_forward_ad"] = forward_ad.unpack_dual(call(module, forward_ad.make_dual(xs, dxs)))
+        else:
+            y = call(module, xs)
+    whole = base in WINDOWS or base in REPLICATED  # a rank's output is not its columns of the whole one
+    if whole:
         r = torch.randn((mesh.sp, *y.shape), generator=gen)
         (y * r[mesh.sp_index]).sum().backward()
-        y = mesh.gather_sp(y.detach())
+        y, tangents = mesh.gather_sp(y.detach()), {k: mesh.gather_sp(t.detach()) for k, t in tangents.items()}
     else:
         r = torch.randn((*y.shape[:2], y.shape[2] * mesh.sp, y.shape[3]), generator=gen)
         (y * r[:, :, mesh.columns(r.shape[2])]).sum().backward()
-        y = mesh.gather_w(y.detach())
+        y, tangents = mesh.gather_w(y.detach()), {k: mesh.gather_w(t.detach()) for k, t in tangents.items()}
     gx = mesh.gather_w(xs.grad)
     gp = grads_of(module)
     for g in gp:
@@ -144,9 +190,18 @@ def run_layer(name: str, mesh) -> dict:
     module.zero_grad()
     xw = x.clone().requires_grad_()
     want = call(module, xw)
-    if window:
-        n = x.shape[2] // mesh.sp
-        want = torch.stack([want[:, :, j * n: j * n + y.shape[3]] for j in range(mesh.sp)])
+    _, want_t = torch.func.jvp(lambda a: call(module, a), (x,), (dx,)) if jvp else (None, None)
+
+    def as_ranks(t):
+        """The one-process output as the ranks hold it."""
+        if base in REPLICATED:
+            return torch.stack([t] * mesh.sp)
+        if base in WINDOWS:
+            n = x.shape[2] // mesh.sp
+            return torch.stack([t[:, :, j * n: j * n + y.shape[3]] for j in range(mesh.sp)])
+        return t
+
+    want = as_ranks(want)
     (want * r).sum().backward()
     wp = grads_of(module)
     total = float(torch.cat([w.flatten() for w in wp]).norm()) if wp else 0.0
@@ -154,8 +209,12 @@ def run_layer(name: str, mesh) -> dict:
     # attention key bias has none: a shift of every key's logit cancels)
     p_err = max((float((a - b).norm()) / float(b.norm()) for a, b in zip(gp, wp) if float(b.norm()) > 1e-6 * total),
                 default=0.0)
-    return {"out": rel(y, want.detach()), "grad_x": rel(gx, xw.grad), "grad_params": p_err,
-            "shape": list(want.shape)}
+    out = {"out": rel(y, want.detach()), "grad_x": rel(gx, xw.grad), "grad_params": p_err,
+           "shape": list(want.shape)}
+    if jvp:
+        want_t = as_ranks(want_t)
+        out.update({k: rel(t, want_t) for k, t in tangents.items()}, tangent_scale=float(want_t.abs().max()))
+    return out
 
 
 def build(case: dict) -> tuple[dict, object]:
@@ -164,6 +223,9 @@ def build(case: dict) -> tuple[dict, object]:
     (None for a bare ``OpenAIUNet``)."""
     if case["kind"] == "openai":
         mods, engine = {"model": build_model("openai_unet", **case["kw"]).eval()}, None
+    elif case["kind"] == "flow":
+        model, engine, _ = build_flow_training(case["cfg"], "cpu")
+        mods = {"model": model}
     else:
         models, engine, _ = build_diffusion_training(case["cfg"], "cpu")
         mods = models if isinstance(models, dict) else {"model": models}
@@ -189,6 +251,8 @@ def forward(case: dict, mods: dict, mesh=None) -> torch.Tensor:
         xs = x if mesh is None else sharding.cut(x)
         if kind == "uncond":
             out = mods["model"](xs, rows(t))
+        elif kind == "flow":
+            out = mods["model"](xs, rows(t), rows(case["r"]))
         elif kind == "cond":
             batch = case["batch"] if mesh is None else mesh.cut_batch(case["batch"], AZIMUTH_KEYS)
             out = mods["model"](xs, {"time_condition": rows(t), "other_condition": mods["cond"](batch)})
@@ -222,6 +286,42 @@ def stack_case(name: str, inputs: dict, mesh, out: dict) -> None:
     with whole_statistics():
         sample_whole_stats = engine.sample(*local_args, x_T.shape[0], 2, mode="ddim", x_T=x_T, mesh=sp_mesh)
     out[name].update(sample=sample, sample_one=sample_one, sample_whole_stats=sample_whole_stats)
+
+
+def flow_case(name: str, inputs: dict, mesh, out: dict) -> None:
+    """MeanFlow's stack on the (2, 2) mesh beside one process: the forward,
+    the tangent du/dt along (v, 1, 0) (the loss's
+    jvp), the exchanges of one call without a tangent, under
+    ``torch.func.jvp`` and as a ``forward_ad`` dual, and the one-step
+    sample on the rank's sp group (with merged and with whole statistics)."""
+    case = inputs[name]
+    mods, engine = build(case)
+    model = mods["model"]
+    out[name] = {"forward": forward(case, mods, mesh), "forward_one": forward(case, mods)}
+    x, v, t, r = case["x"], case["v"], case["t"], case["r"]
+    sharding, rows = batch_sharding(mesh, 4, sp_axis=2), batch_sharding(mesh, 1)
+    xs, vs, ts, rs = sharding.cut(x), sharding.cut(v), rows.cut(t), rows.cut(r)
+    counts = {}
+    with torch.no_grad(), mesh.active():
+        e0 = mesh.exchanges
+        model(xs, ts, rs)
+        counts["no tangent"] = mesh.exchanges - e0
+        e0 = mesh.exchanges
+        _, tangent = torch.func.jvp(model, (xs, ts, rs), (vs, torch.ones_like(ts), torch.zeros_like(rs)))
+        counts["torch.func.jvp"] = mesh.exchanges - e0
+        e0 = mesh.exchanges
+        with forward_ad.dual_level():
+            dual = forward_ad.unpack_dual(model(forward_ad.make_dual(xs, vs), forward_ad.make_dual(ts, torch.ones_like(ts)),
+                                                rs)).tangent
+        counts["forward_ad"] = mesh.exchanges - e0
+    with torch.no_grad():
+        _, tangent_one = torch.func.jvp(model, (x, t, r), (v, torch.ones_like(t), torch.zeros_like(r)))
+    sp_mesh = mesh.sp_only()
+    out[name].update(tangent=sharding.gather(tangent), tangent_forward_ad=sharding.gather(dual), tangent_one=tangent_one,
+                     exchanges=counts, sample=engine.sample(z=case["z"], mesh=sp_mesh),
+                     sample_one=engine.sample(z=case["z"]))
+    with whole_statistics():
+        out[name]["sample_whole_stats"] = engine.sample(z=case["z"], mesh=sp_mesh)
 
 
 class whole_statistics:
@@ -298,6 +398,65 @@ def mask_counts(mask: torch.Tensor, mesh) -> list:
     return [mask[0, :, j * W // mesh.sp:(j + 1) * W // mesh.sp].sum() for j in range(mesh.sp)]
 
 
+def flow_train_case(name: str, inputs: dict, mesh, out: dict) -> None:
+    """One MeanFlow train step on the (2, 2) mesh with the JAX key chain's
+    t, r and noise injected (each rank its rows and columns) against the
+    same step in one process: the loss (the mean of the ranks') and the
+    gradients (their mean over the ranks)."""
+    case = inputs[name]
+    x, draws = case["train_x"], case["draws"]
+
+    def step(on_mesh: bool):
+        mods, engine = build(case)
+        opt = make_optimizer(lr=1e-3, warmup_steps=1, num_steps=10)
+        captured = []
+
+        def reduce(grads):
+            if on_mesh:
+                for g in grads:
+                    dist.all_reduce(g)
+                    g /= mesh.world
+            captured.extend(g.clone() for g in grads)
+
+        train_step = make_train_step(engine, opt, reduce_grads=reduce, loss_has_aux=True)
+        state = TrainState.create(mods, opt)
+        if not on_mesh:
+            _, loss = train_step(state, x, 0, **draws)
+            return float(loss), captured
+        sharding, rows = batch_sharding(mesh, 4, sp_axis=2), batch_sharding(mesh, 1)
+        local = {"t": rows.cut(draws["t"]), "r": rows.cut(draws["r"]), "noise": sharding.cut(draws["noise"])}
+        with mesh.active():
+            _, loss = train_step(state, sharding.cut(x), 0, **local)
+        loss = loss.clone()
+        dist.all_reduce(loss)
+        return float(loss) / mesh.world, captured
+
+    loss, grads = step(True)
+    loss_one, grads_one = step(False)
+    names = [f"model.{n}" for n, _ in build(case)[0]["model"].named_parameters()]
+    out[f"train {name}"] = {"loss": loss, "loss_one": loss_one, "grads": dict(zip(names, grads)),
+                            "grads_one": dict(zip(names, grads_one))}
+
+
+def cli_losses(args: list, parallel=None) -> list:
+    """The losses that ``train.main(args)`` logged (rank 0 logs under a
+    group: the mean over the ranks)."""
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        train_cli.main(args, parallel=parallel)
+    return [ast.literal_eval(ln)["loss"] for ln in text.getvalue().splitlines() if ln.startswith("{'step'")]
+
+
+def flow_cli_case(name: str, inputs: dict, rank: int, world: int, out_dir: Path, out: dict) -> None:
+    """``train.main --sp 2 --synthetic-data`` on a (2, 2) group, and on rank
+    0 the same command in one process: the losses each logged."""
+    args = inputs[name]["cli"]
+    P = DataParallel(rank, world, torch.device("cpu"), sp=2)
+    losses = cli_losses([*args, "--sp", "2", "--output-dir", str(out_dir / "cli_sp")], P)
+    one = cli_losses([*args, "--output-dir", str(out_dir / "cli_one")]) if rank == 0 else None
+    out[f"cli {name}"] = {"losses": losses, "losses_one": one, "mesh": (P.mesh.dp, P.mesh.sp)}
+
+
 class CapturingParallel(DataParallel):
     """A ``DataParallel`` rank that keeps the averaged gradients of its last
     step."""
@@ -356,6 +515,10 @@ def main(rank: int, world: int, port: int, out_dir: Path) -> None:
         train_case(name, inputs, meshes[2], out)
     for name in inputs["branches"]:
         branch_case(name, inputs, rank, world, out)
+    for name in inputs["flow"]:
+        flow_case(name, inputs, meshes[2], out)
+        flow_train_case(name, inputs, meshes[2], out)
+        flow_cli_case(name, inputs, rank, world, out_dir, out)
     if rank == 0:
         torch.save(copy.deepcopy(out), out_dir / "results.pt")
     dist.barrier()
